@@ -10,19 +10,24 @@ a batch of 32 seeded 1920x1080-class images, and checks it:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the native entropy library and the CUDA kernel (set-up, timed);
-3. kernel phase: ``fused_dequant_idct`` against its plain twin
-   ``idct_kron`` on the card at the main path's largest launch shape
-   (B=32, N=65,536 blocks: the luma plane of one 1080p 4:2:0 pow-2 bucket),
-   max |diff| <= 1 (the Kronecker form's rounding bound against the JAX
-   reference); both timed with CUDA events, median of 50 runs in two
-   alternating rounds after warm-up;
+3. kernel phase, at the main path's largest launch shape (B=32, N=65,536
+   blocks: the luma plane of one 1080p 4:2:0 pow-2 bucket):
+   ``fused_dequant_idct`` on DC-only blocks, whose samples are exactly
+   dc*q/8, must equal round-half-to-even of that everywhere; on random
+   blocks it must agree with its plain twin ``idct_kron`` within +-1 (the
+   Kronecker form's rounding bound against the JAX reference) on at least
+   99.99% of the samples exactly; both timed with CUDA events, median of
+   50 runs in two alternating rounds after warm-up;
 4. slice phase: decodes the batch on the card with the kernel's launch
    count set to 0 just before and read just after; checks every item, the
-   launch count, two images against the port's CPU decode (plain twins,
-   max |diff| <= 2: a +-1 IDCT rounding difference can reach the colour
-   transform x1.402) and PSNR >= 30 dB against the source pixels; prints
-   end-to-end MP/s (best of 3 after warm-up) and per-stage times;
-5. prints the kernel table as one JSON line, then as the last line
+   launch count, one image of each group against the port's CPU decode
+   (plain twins: max |diff| <= 2, since a +-1 IDCT rounding difference can
+   reach the colour transform x1.402, and >= 99.99% of samples equal) and
+   PSNR >= 30 dB against the source pixels; prints end-to-end MP/s (best
+   of 3 after warm-up) and per-stage times;
+5. a torch.profiler breakdown of the device pixel stage and of one whole
+   decode, and host entropy against the host thread pool's size;
+6. prints the kernel table as one JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
@@ -32,6 +37,7 @@ line.  Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -42,7 +48,12 @@ import numpy as np
 SEED = 1234
 TOL_KERNEL = 1      # Kronecker IDCT vs its twin: +-1 rounding
 TOL_SLICE = 2       # +-1 IDCT rounding through the x1.402 colour transform
+# Kernel and twin compute the same float32 dots in other summation orders,
+# which flips a rounding only where a sum lies within an ulp of a half.  A
+# rounding fault (truncation, an off-by-one) changes far more samples.
+MIN_EQUAL = 0.9999
 MIN_PSNR_DB = 30.0
+CPU_CHECKED = (0, 6, 7)   # one image of each geometry group
 
 
 def _image(rng, h: int, w: int) -> np.ndarray:
@@ -79,6 +90,66 @@ def _cuda_ms(fn, n: int, warmup: int = 3) -> list[float]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def _profile(bd, batch: list[bytes], dev) -> None:
+    """Breakdown of the smoke batch, after the checked run.
+
+    Window 1 is the device pixel stage of one batch (every group, inputs
+    already on the card); window 2 is one whole ``decode``.  For each it
+    prints the sum of device kernel time, the wall time of the window under
+    the profiler and their ratio (one stream, so kernels do not overlap),
+    then the ops by device time.  Last, host entropy against the size of
+    the host thread pool."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jpeg_decoder_tpu_torch import BatchDecoder
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    groups = bd.group(bd.host_stage(batch))
+    tensors = [bd.to_device(g) for g in groups]
+    windows = {
+        f"device pixel stage, {len(groups)} groups":
+            lambda: [bd.pixels(g, t) for g, t in zip(groups, tensors)],
+        "whole decode": lambda: bd.decode(batch),
+    }
+    for name, fn in windows.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        avgs = prof.key_averages()
+        kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"profile [{name}]: {dev_ms:.3f} ms of device kernel time in "
+              f"{wall_ms:.3f} ms of wall under the profiler (busy share "
+              f"{dev_ms / wall_ms:.3f})")
+        ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+        ours = [e for e in kernels if "fused_dequant_idct" in e.key]
+        for e in ops[:12] + ours:
+            ms = e.self_device_time_total / 1e3
+            print(f"  {e.key[:60]:<60} x{e.count:<5} {ms:9.3f} ms "
+                  f"{100 * ms / dev_ms:5.1f}%")
+    for k in (1, 2, 4, 8):
+        with BatchDecoder(device=dev, host_threads=k) as pool_bd:
+            pool_bd.host_stage(batch)
+            best = min(_wall(lambda: pool_bd.host_stage(batch))
+                       for _ in range(3))
+        print(f"profile [host entropy, {k} pool threads]: best of 3 "
+              f"{best * 1e3:.1f} ms")
+
+
+def _wall(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def main() -> int:
@@ -119,19 +190,36 @@ def main() -> int:
 
     # ---- kernel phase ---------------------------------------------------
     B, N = 32, 256 * 256
-    blocks = torch.from_numpy(
-        rng.integers(-256, 256, size=(B, N, 64), dtype=np.int32)).to(dev)
     qt = torch.from_numpy(
         np.tile(qtable(90).astype(np.int32), (B, 1))).to(dev)
+    # Ties: DC-only blocks.  KRON[:, 0] is exactly 1/8 in float32, so every
+    # sample is exactly dc*q/8 and a quarter of them are halves; they must
+    # equal round-half-to-even of that, computed apart from both versions.
+    dc = torch.from_numpy(
+        rng.integers(-1024, 1024, size=(B, N), dtype=np.int32)).to(dev)
+    blocks = torch.zeros((B, N, 64), dtype=torch.int32, device=dev)
+    blocks[:, :, 0] = dc
+    exact = torch.round((dc * qt[:, :1]).double() / 8).to(torch.int32)
+    got = idct_cuda.fused_dequant_idct(blocks, qt)
+    tie_diff = int((got != exact[:, :, None]).sum().item())
+    tie_err = int((got - exact[:, :, None]).abs().max().item())
+    print(f"kernel phase: B={B} N={N} DC-only ties: {tie_diff} of "
+          f"{got.numel()} samples differ from round-half-to-even of dc*q/8")
+    if tie_diff:
+        raise AssertionError(f"kernel rounds ties wrongly: {tie_diff}")
+    del dc, exact, got
+    blocks = torch.from_numpy(
+        rng.integers(-256, 256, size=(B, N, 64), dtype=np.int32)).to(dev)
     got = idct_cuda.fused_dequant_idct(blocks, qt)
     ref = idct_cuda.idct_kron(blocks, qt)
     torch.cuda.synchronize()
-    kern_err = int((got - ref).abs().max().item())
+    kern_err = max(tie_err, int((got - ref).abs().max().item()))
     n_diff = int((got != ref).sum().item())
-    print(f"kernel phase: B={B} N={N}: max |kernel - twin| = {kern_err}, "
-          f"{n_diff} of {got.numel()} samples differ")
-    if kern_err > TOL_KERNEL:
-        raise AssertionError(f"kernel disagrees with twin: {kern_err}")
+    print(f"kernel phase: B={B} N={N} random: max |kernel - twin| = "
+          f"{kern_err}, {n_diff} of {got.numel()} samples differ")
+    if kern_err > TOL_KERNEL or n_diff > (1 - MIN_EQUAL) * got.numel():
+        raise AssertionError(f"kernel disagrees with twin: max {kern_err}, "
+                             f"{n_diff} samples differ")
     del got, ref
     ms_plain, ms_kern = [], []
     for _ in range(2):  # plain, kernel, plain, kernel
@@ -202,15 +290,20 @@ def main() -> int:
         if min(psnrs) < MIN_PSNR_DB:
             raise AssertionError(f"PSNR {min(psnrs):.2f} < {MIN_PSNR_DB}")
 
-        # Two images against the port's own CPU decode (plain twins).
+        # One image of each group against the port's own CPU decode (plain
+        # twins): 1080p 4:2:0, 1080p 4:4:4 DRI 8, 1000x750 4:2:0 (edge).
         with BatchDecoder(device="cpu") as cpu_bd:
-            cpu_items = cpu_bd.decode([blobs[0], blobs[6]])
-        for k, ci in zip((0, 6), cpu_items):
+            cpu_items = cpu_bd.decode([blobs[k] for k in CPU_CHECKED])
+        for k, ci in zip(CPU_CHECKED, cpu_items):
             gpu = items[k].rgb.cpu().to(torch.int32)
-            d = int((gpu - ci.rgb.to(torch.int32)).abs().max().item())
-            print(f"slice: image {k} GPU vs CPU twin max |diff| = {d}")
-            if d > TOL_SLICE:
-                raise AssertionError(f"image {k}: GPU vs CPU diff {d}")
+            diff = gpu - ci.rgb.to(torch.int32)
+            d = int(diff.abs().max().item())
+            n_diff = int((diff != 0).sum().item())
+            print(f"slice: image {k} GPU vs CPU twin max |diff| = {d}, "
+                  f"{n_diff} of {diff.numel()} samples differ")
+            if d > TOL_SLICE or n_diff > (1 - MIN_EQUAL) * diff.numel():
+                raise AssertionError(f"image {k}: GPU vs CPU max {d}, "
+                                     f"{n_diff} samples differ")
         del items
 
         # End to end: best of 3 after the warm-up above.
@@ -253,7 +346,10 @@ def main() -> int:
               f"{min(copy_s) * 1e3:.1f} ms ({wire_mb:.1f} MB), device pixel "
               f"{min(pix_ms):.1f} ms ({mp / min(pix_ms) * 1e3:.1f} MP/s), "
               f"peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"host pool of {bd.host_threads} threads on "
+              f"{os.cpu_count()} host cores")
+        _profile(bd, batch, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_dequant_idct",

@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from .._build import shared_lib
 from ..huffman import build_ac_lut32, build_lut
 from ..layout import scan_layout
 from ..types import FrameHeader, JPEGError, ScanHeader
@@ -29,8 +29,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SRC = os.path.join(_REPO, "jpeg_decoder_tpu", "entropy", "native_src",
                     "jpeg_entropy.cpp")
-_CACHE = os.path.join(_REPO, ".cache", "torch", "native")
-_LIB_PATH = os.path.join(_CACHE, "libjpeg_entropy.so")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 _ABI = 22
 
 _lib = None
@@ -43,38 +42,21 @@ class BuildFailure(RuntimeError):
     """The native entropy library could not be built or loaded."""
 
 
-def _compile() -> str:
-    os.makedirs(_CACHE, exist_ok=True)
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return _LIB_PATH
-    tmp = _LIB_PATH + f".tmp{os.getpid()}"
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-std=c++17",
-             "-o", tmp, _SRC],
-            check=True, capture_output=True, text=True,
-        )
-    except FileNotFoundError as e:
-        raise BuildFailure(f"g++ not found: {e}") from e
-    except subprocess.CalledProcessError as e:
-        raise BuildFailure(f"g++ failed on {_SRC}:\n{e.stderr}") from e
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
-
-
 def _load():
-    """Build (first use) and load the library; raises BuildFailure."""
+    """Build (first use, into ``.cache/torch/native/``, keyed by a hash of
+    the source and flags) and load the library; raises BuildFailure."""
     global _lib
     if _lib is not None:
         return _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
+        path, _ = shared_lib("g++", GXX_FLAGS, _SRC, "native",
+                             "jpeg_entropy", BuildFailure)
         try:
-            lib = ctypes.CDLL(_compile())
+            lib = ctypes.CDLL(path)
         except OSError as e:
-            raise BuildFailure(f"cannot load {_LIB_PATH}: {e}") from e
+            raise BuildFailure(f"cannot load {path}: {e}") from e
         lib.jd_abi_version.restype = ctypes.c_int32
         if lib.jd_abi_version() != _ABI:
             raise BuildFailure(

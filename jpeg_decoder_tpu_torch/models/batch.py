@@ -19,7 +19,6 @@ image's own :class:`JPEGError`, without failing the batch.
 from __future__ import annotations
 
 import dataclasses
-import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -253,7 +252,9 @@ class BatchDecoder:
     ``device`` is required and never auto-detected.  On a CUDA device the
     dequant+IDCT step is the hand-written kernel; on the CPU it is its
     plain twin.  Only ``entropy="native"`` and ``wire="nibble"`` are ported.
-    A failed build of the native entropy library raises here.
+    Host entropy runs on a pool of ``host_threads`` threads (2 by default,
+    as in the JAX package).  A failed build of the native entropy library
+    raises here.
     """
 
     def __init__(self, *, device, entropy: str = "native",
@@ -271,7 +272,8 @@ class BatchDecoder:
         self.idct = idct
         self.upsample = upsample
         native._load()
-        self._pool = ThreadPoolExecutor(host_threads or os.cpu_count() or 1)
+        self.host_threads = host_threads or 2
+        self._pool = ThreadPoolExecutor(self.host_threads)
 
     def close(self) -> None:
         self._pool.shutdown()

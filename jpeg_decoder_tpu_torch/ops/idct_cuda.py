@@ -23,15 +23,14 @@ qtables, one launch per component for a whole geometry group.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
+from .._build import shared_lib
 from .pixel import IDCT_M
 
 #: (64, 64) Kronecker IDCT basis: KRON[p*8+q, u*8+v] = M[p,u] * M[q,v].
@@ -39,7 +38,6 @@ IDCT_KRON = np.kron(IDCT_M, IDCT_M).astype(np.float32)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "idct.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".cache", "torch", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -65,30 +63,18 @@ def _nvcc() -> str:
 
 
 def build():
-    """Compile ``csrc/idct.cu`` (once per source and flag set) and load it.
-
-    The library name carries a hash of the source and flags, so an edited
-    kernel is never served from a stale build."""
+    """Compile ``csrc/idct.cu`` (once per source and flag set, into
+    ``.cache/torch/kernels/``) and load it."""
     global _lib, build_log
     if _lib is not None:
         return _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        path = os.path.join(_BUILD_DIR, f"libjd_idct_{tag[:16]}.so")
-        if not os.path.exists(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.tmp{os.getpid()}"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                                  capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelBuildFailure(
-                    f"nvcc failed on {_SRC}:\n{build_log}")
-            os.replace(tmp, path)
+        path, log = shared_lib(_nvcc(), NVCC_FLAGS, _SRC, "kernels",
+                               "jd_idct", KernelBuildFailure)
+        if log is not None:
+            build_log = log
         lib = ctypes.CDLL(path)
         lib.jd_fused_dequant_idct.restype = ctypes.c_int
         lib.jd_fused_dequant_idct.argtypes = [

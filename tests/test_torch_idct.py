@@ -69,6 +69,31 @@ def test_idct_kron_matches_pallas_interpret():
     assert (got == ref).mean() >= MIN_EQUAL
 
 
+@pytest.mark.parametrize("ref", ["exact", "jax_kron", "pallas_interpret"])
+def test_dc_ties_round_half_to_even(ref):
+    """DC-only blocks: IDCT_KRON[:, 0] is exactly 1/8 in float32, so every
+    sample is exactly dc*q/8; halves must round to even (``jnp.round``)
+    in the twin as in the JAX kernel, with no sample differing."""
+    assert (idct_cuda.IDCT_KRON[:, 0] == np.float32(0.125)).all()
+    rng = np.random.default_rng(9)
+    dc = rng.integers(-1024, 1024, size=(1, 600)).astype(np.int32)
+    q = rng.integers(1, 40, size=(1, 64)).astype(np.int32)
+    blocks = np.zeros((1, 600, 64), np.int32)
+    blocks[:, :, 0] = dc
+    assert (dc * q[:, :1] % 8 == 4).any()
+    got = idct_cuda.idct_kron(torch.from_numpy(blocks),
+                              torch.from_numpy(q))[0].numpy()
+    if ref == "exact":
+        want = np.broadcast_to(np.rint(dc[0] * q[0, 0] / 8.0)[:, None],
+                               got.shape)
+    elif ref == "jax_kron":
+        want = jidct.idct_kron(jnp.asarray(blocks[0]), jnp.asarray(q[0]))
+    else:
+        want = jidct.fused_dequant_idct(jnp.asarray(blocks[0]),
+                                        jnp.asarray(q[0]), interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def test_batched_twin_is_per_image():
     """One qtable per image: row b uses qtable b only."""
     blocks, q = _inputs(3, 3, 50)
