@@ -3,31 +3,55 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``jpeg_decoder_tpu_torch.BatchDecoder`` (native
-entropy to the nibble wire, pow-2 geometry groups, unpack, plane gather,
-the hand-written dequant+IDCT kernel, fancy upsample, YCbCr->RGB), once on
-a batch of 32 seeded 1920x1080-class images, and checks it:
+Drives both entry points of the port once on the card and holds every
+kernel against its plain version:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
-2. builds the native entropy library and the CUDA kernel (set-up, timed);
-3. kernel phase, at the main path's largest launch shape (B=32, N=65,536
-   blocks: the luma plane of one 1080p 4:2:0 pow-2 bucket):
-   ``fused_dequant_idct`` on DC-only blocks, whose samples are exactly
-   dc*q/8, must equal round-half-to-even of that everywhere; on random
-   blocks it must agree with its plain twin ``idct_kron`` within +-1 (the
-   Kronecker form's rounding bound against the JAX reference) on at least
-   99.99% of the samples exactly; both timed with CUDA events, median of
-   50 runs in two alternating rounds after warm-up;
-4. slice phase: decodes the batch on the card with the kernel's launch
-   count set to 0 just before and read just after; checks every item, the
-   launch count, one image of each group against the port's CPU decode
-   (plain twins: max |diff| <= 2, since a +-1 IDCT rounding difference can
-   reach the colour transform x1.402, and >= 99.99% of samples equal) and
-   PSNR >= 30 dB against the source pixels; prints end-to-end MP/s (best
-   of 3 after warm-up) and per-stage times;
-5. a torch.profiler breakdown of the device pixel stage and of one whole
-   decode, and host entropy against the host thread pool's size;
-6. prints the kernel table as one JSON line, then as the last line
+2. builds the native entropy library and the three CUDA sources, all at
+   once (set-up, timed);
+3. IDCT kernel phase (K1, ``csrc/idct.cu``), at the batch path's largest
+   launch shape (B=32, N=65,536 blocks: the luma plane of one 1080p 4:2:0
+   pow-2 bucket): ``fused_dequant_idct`` on DC-only blocks, whose samples
+   are exactly dc*q/8, must equal round-half-to-even of that everywhere; on
+   random blocks it must agree with its plain twin ``idct_kron`` within +-1
+   (the Kronecker form's rounding bound against the JAX reference) on at
+   least 99.99% of the samples exactly; both timed with CUDA events, median
+   of 50 runs in two alternating rounds after warm-up, beside
+   ``torch.matmul`` of the dequantised blocks by the basis (product only);
+4. batch path (``BatchDecoder``: native entropy to the nibble wire, pow-2
+   geometry groups, unpack, plane gather, K1, fancy upsample, YCbCr->RGB) on
+   32 seeded 1920x1080-class images, with every kernel count set to 0 just
+   before and read just after; checks every item, K1's launches, one image
+   of each group against the port's CPU decode (plain twins: max |diff| <=
+   2, since a +-1 IDCT rounding difference can reach the colour transform
+   x1.402, and >= 99.99% of samples equal) and PSNR >= 30 dB against the
+   source pixels; prints end-to-end MP/s (best of 3 after warm-up) and
+   per-stage times;
+5. entropy kernel phase (K2, ``csrc/entropy.cu``) on three images:
+   (a) 3840x2160 4:2:0 q90 with DRI = one MCU row (135 segments of 240
+   MCUs, the hardware-camera pattern), (b) 1920x1080 4:4:4 q95 DRI 8 (4,050
+   segments; the batch's restart image) and (c) 1920x1080 4:2:0 q90 DRI 0
+   (one lane).  ``decode_segments`` must equal the native host decoder on
+   every coefficient of each, and its twin ``decode_segments_torch`` on
+   (b); on a corrupt copy of (b) it must flag exactly the twin's segments.
+   Kernel timed with CUDA events (median of 20 runs, 3 on (c)), the twin on
+   (b), and the native host decoder at 1 thread and at all threads as the
+   host comparison (no single PyTorch call computes a Huffman decode);
+6. single-image path (``decode(entropy="pallas", idct="pallas",
+   upsample="fancy")``) on (a), (b) and (c), with every kernel count set to
+   0 just before and read just after: K2 once and K1 three times per image,
+   RGB on the card, PSNR >= 30 dB, and the CPU decode (``entropy="native"``,
+   plain twins) within the batch path's tolerance; prints end-to-end ms and
+   MP/s (best of 3 after warm-up) and the stages (parse, scan prep, copy,
+   K2, pixel pipeline);
+7. probe phase (K3/K4, ``csrc/lut_probe.cu``): the dependent probe chain
+   must equal the value tools/pallas_mosaic_repro.py expects and the
+   per-lane gather must equal ``lut[idx]``; timed beside their twins and
+   ``torch.take``;
+8. a torch.profiler breakdown of the batch path's device pixel stage, one
+   whole batch decode and one ``decode()`` of each image, and host entropy
+   against the host thread pool's size;
+9. prints the kernel table as one JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
@@ -36,12 +60,14 @@ line.  Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -54,6 +80,8 @@ TOL_SLICE = 2       # +-1 IDCT rounding through the x1.402 colour transform
 MIN_EQUAL = 0.9999
 MIN_PSNR_DB = 30.0
 CPU_CHECKED = (0, 6, 7)   # one image of each geometry group
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 
 
 def _image(rng, h: int, w: int) -> np.ndarray:
@@ -92,103 +120,83 @@ def _cuda_ms(fn, n: int, warmup: int = 3) -> list[float]:
     return times
 
 
-def _profile(bd, batch: list[bytes], dev) -> None:
-    """Breakdown of the smoke batch, after the checked run.
-
-    Window 1 is the device pixel stage of one batch (every group, inputs
-    already on the card); window 2 is one whole ``decode``.  For each it
-    prints the sum of device kernel time, the wall time of the window under
-    the profiler and their ratio (one stream, so kernels do not overlap),
-    then the ops by device time.  Last, host entropy against the size of
-    the host thread pool."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from jpeg_decoder_tpu_torch import BatchDecoder
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    groups = bd.group(bd.host_stage(batch))
-    tensors = [bd.to_device(g) for g in groups]
-    windows = {
-        f"device pixel stage, {len(groups)} groups":
-            lambda: [bd.pixels(g, t) for g, t in zip(groups, tensors)],
-        "whole decode": lambda: bd.decode(batch),
-    }
-    for name, fn in windows.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        avgs = prof.key_averages()
-        kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"profile [{name}]: {dev_ms:.3f} ms of device kernel time in "
-              f"{wall_ms:.3f} ms of wall under the profiler (busy share "
-              f"{dev_ms / wall_ms:.3f})")
-        ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
-                      and e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-        ours = [e for e in kernels if "fused_dequant_idct" in e.key]
-        for e in ops[:12] + ours:
-            ms = e.self_device_time_total / 1e3
-            print(f"  {e.key[:60]:<60} x{e.count:<5} {ms:9.3f} ms "
-                  f"{100 * ms / dev_ms:5.1f}%")
-    for k in (1, 2, 4, 8):
-        with BatchDecoder(device=dev, host_threads=k) as pool_bd:
-            pool_bd.host_stage(batch)
-            best = min(_wall(lambda: pool_bd.host_stage(batch))
-                       for _ in range(3))
-        print(f"profile [host entropy, {k} pool threads]: best of 3 "
-              f"{best * 1e3:.1f} ms")
-
-
 def _wall(fn) -> float:
     t0 = time.perf_counter()
     fn()
     return time.perf_counter() - t0
 
 
-def main() -> int:
+def _psnr(rgb, src: np.ndarray) -> float:
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
-        return 2
-    from jpeg_decoder_tpu_torch import BatchDecoder
+    diff = rgb.float() - torch.from_numpy(src).to(rgb.device).float()
+    mse = float((diff * diff).mean().item())
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def _close_to_cpu(what: str, gpu, cpu) -> None:
+    """GPU RGB against the port's CPU decode: TOL_SLICE and MIN_EQUAL."""
+    import torch
+
+    diff = gpu.cpu().to(torch.int32) - cpu.to(torch.int32)
+    d = int(diff.abs().max().item())
+    n_diff = int((diff != 0).sum().item())
+    print(f"{what}: GPU vs CPU twin max |diff| = {d}, {n_diff} of "
+          f"{diff.numel()} samples differ")
+    if d > TOL_SLICE or n_diff > (1 - MIN_EQUAL) * diff.numel():
+        raise AssertionError(f"{what}: GPU vs CPU max {d}, {n_diff} "
+                             "samples differ")
+
+
+def _zero_counts() -> None:
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+    from jpeg_decoder_tpu_torch.probes import lut_probe
+
+    for fn in (idct_cuda.fused_dequant_idct, entropy_cuda.decode_segments,
+               lut_probe.lut_chain_probe, lut_probe.lut_gather):
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+    from jpeg_decoder_tpu_torch.probes import lut_probe
+
+    return {"K1": idct_cuda.fused_dequant_idct.launches,
+            "K2": entropy_cuda.decode_segments.launches,
+            "K3": lut_probe.lut_chain_probe.launches,
+            "K4": lut_probe.lut_gather.launches}
+
+
+def _build_all() -> None:
+    """Build the native library and every CUDA source at once (one
+    compiler process each); prints the times and ptxas's resource lines."""
     from jpeg_decoder_tpu_torch.entropy import native
-    from jpeg_decoder_tpu_torch.ops import idct_cuda
-    from jpeg_decoder_tpu_torch.testing.encoder import encode, qtable
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+    from jpeg_decoder_tpu_torch.probes import lut_probe
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    print(smi.splitlines()[0])  # the card's name and power limit
-    print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    # ---- build (set-up) -------------------------------------------------
+    jobs = {"native entropy (g++)": native._load,
+            "idct.cu": idct_cuda.build, "entropy.cu": entropy_cuda.build,
+            "lut_probe.cu": lut_probe.build}
     t0 = time.perf_counter()
-    native._load()
-    t1 = time.perf_counter()
-    idct_cuda.build()
-    t2 = time.perf_counter()
-    print(f"build: native entropy {t1 - t0:.2f} s, idct.cu (nvcc sm_90a) "
-          f"{t2 - t1:.2f} s")
-    for line in idct_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {name: pool.submit(_wall, fn) for name, fn in jobs.items()}
+        secs = {name: f.result() for name, f in futs.items()}
+    print(f"build: {time.perf_counter() - t0:.2f} s in all ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + "; nvcc for sm_90a)")
+    for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB):
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {os.path.basename(lib.src)}: {line.strip()}")
 
-    rng = np.random.default_rng(SEED)
 
-    # ---- kernel phase ---------------------------------------------------
+def _idct_phase(dev, rng) -> dict:
+    """K1 at the batch path's largest launch (see the module docstring)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.ops import idct_cuda
+    from jpeg_decoder_tpu_torch.testing.encoder import qtable
+
     B, N = 32, 256 * 256
     qt = torch.from_numpy(
         np.tile(qtable(90).astype(np.int32), (B, 1))).to(dev)
@@ -226,19 +234,42 @@ def main() -> int:
         ms_plain += _cuda_ms(lambda: idct_cuda.idct_kron(blocks, qt), 25)
         ms_kern += _cuda_ms(
             lambda: idct_cuda.fused_dequant_idct(blocks, qt), 25)
+    # Library yardstick: the product alone, on blocks dequantised outside
+    # the timing (no dequant, no rounding).
+    deq = (blocks * qt[:, None, :]).to(torch.float32).view(-1, 64)
+    basis = idct_cuda._basis_t(dev)
+    ms_lib = _cuda_ms(lambda: torch.matmul(deq, basis), 25)
+    del deq
     ms_kern_med = statistics.median(ms_kern)
     ms_plain_med = statistics.median(ms_plain)
-    gbytes = blocks.numel() * 8 / 1e9
+    nbytes = blocks.numel() * 8
+    flops = blocks.numel() * 128
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
     print(f"kernel phase: fused_dequant_idct median {ms_kern_med:.4f} ms "
           f"(min {min(ms_kern):.4f}, max {max(ms_kern):.4f}; "
-          f"{gbytes / ms_kern_med * 1e3:.0f} GB/s of 4 B in + 4 B out per "
-          f"coefficient), idct_kron median {ms_plain_med:.4f} ms "
+          f"{nbytes / 1e9 / ms_kern_med * 1e3:.0f} GB/s of 4 B in + 4 B out "
+          f"per coefficient), idct_kron median {ms_plain_med:.4f} ms "
           f"(min {min(ms_plain):.4f}, max {max(ms_plain):.4f}); "
-          "50 runs each in two alternating rounds")
-    del blocks, qt
-    torch.cuda.empty_cache()
+          "50 runs each in two alternating rounds; torch.matmul of the "
+          f"dequantised blocks by the basis (product only) median "
+          f"{statistics.median(ms_lib):.4f} ms; bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e9:.2f} GB at 3.35 TB/s)")
+    return {"name": "fused_dequant_idct", "route": "cuda",
+            "source": "jpeg_decoder_tpu_torch/csrc/idct.cu",
+            "replaces": "jpeg_decoder_tpu/ops/idct_pallas.py:55",
+            "max_abs_err": kern_err, "ms": ms_kern_med,
+            "plain_ms": ms_plain_med, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": statistics.median(ms_lib)}
 
-    # ---- slice phase: inputs ------------------------------------------
+
+def _batch_phase(dev, rng) -> tuple[int, list, list]:
+    """The batch path (see the module docstring).  Returns K1's launches in
+    the checked run and the blobs and sources of the batch's 8 images."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder
+    from jpeg_decoder_tpu_torch.testing.encoder import encode
+
     t0 = time.perf_counter()
     specs = ([dict(h=1080, w=1920, samplings=((2, 2), (1, 1), (1, 1)),
                    quality=90, restart_interval=0)] * 6
@@ -260,31 +291,29 @@ def main() -> int:
           f"{sum(map(len, batch)) / 1e6:.2f} MB of JPEG; encoded in "
           f"{time.perf_counter() - t0:.1f} s (set-up)")
 
-    # ---- slice phase: the checked run on the card ----------------------
     torch.cuda.reset_peak_memory_stats()
     with BatchDecoder(device=dev) as bd:
-        idct_cuda.fused_dequant_idct.launches = 0
+        _zero_counts()
         items = bd.decode(batch)
         torch.cuda.synchronize()
-        launches = idct_cuda.fused_dequant_idct.launches
+        counts = _counts()
+        launches = counts["K1"]
         bad = [(it.index, it.error) for it in items if not it.ok]
         if bad:
             raise AssertionError(f"items failed: {bad}")
         n_groups = len({id(it.rgb_batch) for it in items})
-        print(f"slice: {n_groups} groups, fused_dequant_idct launched "
-              f"{launches} times in the run")
+        print(f"slice: {n_groups} groups, kernel launches in the run "
+              f"{counts}")
         if launches < 3 * n_groups:
             raise AssertionError(
                 f"kernel launched {launches} < {3 * n_groups} times")
         psnrs = []
         for it, src in zip(items, batch_src):
             rgb = it.rgb
-            if rgb.device.type != "cuda" or tuple(rgb.shape) != src.shape:
+            if rgb.device != dev or tuple(rgb.shape) != src.shape:
                 raise AssertionError(
                     f"item {it.index}: {rgb.device} {tuple(rgb.shape)}")
-            diff = rgb.float() - torch.from_numpy(src).to(dev).float()
-            mse = float((diff * diff).mean().item())
-            psnrs.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+            psnrs.append(_psnr(rgb, src))
         print(f"slice: PSNR vs source min {min(psnrs):.2f} dB, "
               f"max {max(psnrs):.2f} dB")
         if min(psnrs) < MIN_PSNR_DB:
@@ -295,15 +324,7 @@ def main() -> int:
         with BatchDecoder(device="cpu") as cpu_bd:
             cpu_items = cpu_bd.decode([blobs[k] for k in CPU_CHECKED])
         for k, ci in zip(CPU_CHECKED, cpu_items):
-            gpu = items[k].rgb.cpu().to(torch.int32)
-            diff = gpu - ci.rgb.to(torch.int32)
-            d = int(diff.abs().max().item())
-            n_diff = int((diff != 0).sum().item())
-            print(f"slice: image {k} GPU vs CPU twin max |diff| = {d}, "
-                  f"{n_diff} of {diff.numel()} samples differ")
-            if d > TOL_SLICE or n_diff > (1 - MIN_EQUAL) * diff.numel():
-                raise AssertionError(f"image {k}: GPU vs CPU max {d}, "
-                                     f"{n_diff} samples differ")
+            _close_to_cpu(f"slice: image {k}", items[k].rgb, ci.rgb)
         del items
 
         # End to end: best of 3 after the warm-up above.
@@ -349,18 +370,404 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"host pool of {bd.host_threads} threads on "
               f"{os.cpu_count()} host cores")
-        _profile(bd, batch, dev)
+        _profile_batch(bd, batch, dev)
+    return launches, blobs, sources
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_dequant_idct",
-        "route": "cuda",
-        "source": "jpeg_decoder_tpu_torch/csrc/idct.cu",
-        "replaces": "jpeg_decoder_tpu/ops/idct_pallas.py:55",
-        "launches": launches,
-        "max_abs_err": kern_err,
-        "ms": ms_kern_med,
-        "plain_ms": ms_plain_med,
-    }]}))
+
+def _scan_inputs(blob, dev):
+    """Host parse and scan prep of ``blob``, the kernel's inputs on
+    ``dev``."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, scan_prep
+
+    hdr = parser.parse(blob)
+    scan = hdr.scans[0]
+    words, nm, block_comp, max_mcus, lay = scan_prep.prepare_scan(hdr, scan)
+    kw = dict(block_comp=block_comp, n_comps=len(hdr.components),
+              max_mcus=max_mcus)
+    args = (torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(dev),
+            entropy_cuda._device_luts(hdr, scan, dev))
+    return hdr, scan, lay, args, kw
+
+
+def _lane_symbols(blocks: np.ndarray, blocks_per_lane: int) -> np.ndarray:
+    """Huffman symbols each lane decodes, counted from its (n, 64)
+    natural-order blocks: per block one DC, one per non-zero AC term, one
+    ZRL per 16 zeros skipped before a term, and an EOB unless the last term
+    sits at index 63."""
+    from jpeg_decoder_tpu_torch.types import ZIGZAG
+
+    ac = blocks[:, ZIGZAG[1:]] != 0
+    flat = np.flatnonzero(ac)
+    blk, pos = flat // 63, flat % 63 + 1
+    first = np.r_[True, blk[1:] != blk[:-1]]
+    prev = np.where(first, 0, np.r_[0, pos[:-1]])
+    per_block = 1 + ac.sum(1)
+    np.add.at(per_block, blk, (pos - prev - 1) // 16)
+    last = np.zeros(len(blocks), np.int64)
+    last[blk] = pos
+    per_block += last < 63
+    n_lanes = -(-len(blocks) // blocks_per_lane)
+    return np.bincount(np.arange(len(blocks)) // blocks_per_lane,
+                       weights=per_block, minlength=n_lanes).astype(np.int64)
+
+
+def _entropy_phase(dev, images: dict) -> dict:
+    """K2 on images (a), (b), (c) (see the module docstring)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, scan_prep
+
+    max_err, by_image = 0, {}
+    for tag, (blob, _) in images.items():
+        hdr, scan, lay, args, kw = _scan_inputs(blob, dev)
+        n_seg, n_words = args[0].shape
+        n_blocks = lay.n_mcus * len(kw["block_comp"])
+        out, err = entropy_cuda.decode_segments(*args, **kw)
+        ref = torch.from_numpy(native.decode_scan_baseline(hdr, scan))
+        got = out.view(-1, 64)[:n_blocks].cpu()
+        n_diff = int((got != ref).sum())
+        max_err = max(max_err, int((got - ref).abs().max()))
+        n_flag = int(err.sum())
+        print(f"entropy ({tag}): {n_seg} segments x {n_words} words, "
+              f"{n_blocks} blocks; kernel vs native decoder: {n_diff} of "
+              f"{ref.numel()} coefficients differ, {n_flag} segments "
+              "flagged")
+        if n_diff or n_flag:
+            raise AssertionError(f"entropy ({tag}): {n_diff} coefficients "
+                                 f"differ, {n_flag} flags")
+        reps = 20 if n_seg > 1 else 3
+        ms = _cuda_ms(lambda: entropy_cuda.decode_segments(*args, **kw),
+                      reps, warmup=1)
+        nbytes = n_words * n_seg * 4 + n_seg * 4 + n_blocks * 256
+        host = {}
+        for threads in (1, os.cpu_count()):
+            native.decode_scan_baseline(hdr, scan, n_threads=threads)
+            host[threads] = min(_wall(lambda: native.decode_scan_baseline(
+                hdr, scan, n_threads=threads)) for _ in range(3)) * 1e3
+        rec = {"ms": statistics.median(ms), "bound_ms":
+               nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        syms = _lane_symbols(ref.numpy(), kw["max_mcus"] * len(
+            kw["block_comp"]))
+        print(f"entropy ({tag}): {int(syms.sum())} symbols, longest lane "
+              f"{int(syms.max())}: {rec['ms'] * 1e6 / syms.max():.1f} ns per "
+              "symbol of the longest lane at the median time")
+        print(f"entropy ({tag}): decode_segments median {rec['ms']:.4f} ms "
+              f"(min {min(ms):.4f}, max {max(ms):.4f}, {reps} runs); bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB of "
+              "words in and blocks out at 3.35 TB/s); host comparison, "
+              f"native decoder best of 3: 1 thread {host[1]:.2f} ms, "
+              f"{os.cpu_count()} threads {host[os.cpu_count()]:.2f} ms")
+        if tag == "b":
+            twin, twin_err = entropy_cuda.decode_segments_torch(*args, **kw)
+            n_twin = int((twin != out).sum())
+            print(f"entropy ({tag}): kernel vs twin: {n_twin} of "
+                  f"{out.numel()} coefficients differ")
+            if n_twin or int(twin_err.sum()):
+                raise AssertionError(f"kernel vs twin: {n_twin} differ")
+            plain = _cuda_ms(lambda: entropy_cuda.decode_segments_torch(
+                *args, **kw), 3, warmup=1)
+            rec["plain_ms"] = statistics.median(plain)
+            print(f"entropy ({tag}): decode_segments_torch median "
+                  f"{rec['plain_ms']:.1f} ms (3 runs)")
+            # Corrupt copy: bytes inverted at 12 places in the middle half
+            # of the scan, and one segment of all ones (a window no
+            # standard code takes).
+            bad_scan = copy.copy(scan)
+            data = scan.data.copy()
+            n = len(data)
+            for p in np.linspace(n // 4, 3 * n // 4, 12).astype(int):
+                data[p:p + 16] ^= 0xFF
+            bad_seg = n_seg // 2
+            lo, hi = scan.seg_offsets[bad_seg:bad_seg + 2]
+            data[lo:hi] = 0xFF
+            bad_scan.data = data
+            words, nm, _, _, _ = scan_prep.prepare_scan(hdr, bad_scan)
+            bad_args = (torch.from_numpy(words).to(dev), args[1], args[2])
+            _, k_err = entropy_cuda.decode_segments(*bad_args, **kw)
+            _, t_err = entropy_cuda.decode_segments_torch(*bad_args, **kw)
+            flagged = torch.nonzero(k_err).flatten().tolist()
+            same = torch.equal(k_err, t_err)
+            print(f"entropy ({tag}) corrupt copy: kernel flags {len(flagged)}"
+                  f" segments {flagged[:12]}, twin flags "
+                  f"{int(t_err.sum())}; equal: {same}")
+            if not same or bad_seg not in flagged:
+                raise AssertionError("corrupt stream: flags differ")
+        by_image[tag] = rec
+    b = by_image["b"]
+    return {"name": "decode_segments", "route": "cuda",
+            "source": "jpeg_decoder_tpu_torch/csrc/entropy.cu",
+            "replaces": "jpeg_decoder_tpu/ops/entropy_pallas.py:178",
+            "max_abs_err": max_err, "ms": b["ms"], "plain_ms": b["plain_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
+def _decode_phase(dev, images: dict) -> dict:
+    """The single-image path on (a), (b), (c) (see the module docstring).
+    Returns the kernel counts of the checked run."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, pixel, scan_prep
+
+    kw = dict(entropy="pallas", idct="pallas", upsample="fancy", device=dev)
+    _zero_counts()
+    results, per_image = {}, {}
+    for tag, (blob, _) in images.items():
+        before = _counts()
+        results[tag] = decode(blob, **kw)
+        torch.cuda.synchronize()
+        per_image[tag] = {k: v - before[k] for k, v in _counts().items()}
+    counts = _counts()
+    print(f"decode(): kernel launches in the run {counts}, per image "
+          f"{per_image}")
+    for tag, c in per_image.items():
+        if c["K2"] != 1 or c["K1"] != 3:
+            raise AssertionError(f"decode() ({tag}): launches {c}")
+    for tag, (blob, src) in images.items():
+        rgb = results[tag].rgb
+        if rgb.device != dev or tuple(rgb.shape) != src.shape:
+            raise AssertionError(f"decode() ({tag}): {rgb.device} "
+                                 f"{tuple(rgb.shape)}")
+        psnr = _psnr(rgb, src)
+        print(f"decode() ({tag}): PSNR vs source {psnr:.2f} dB")
+        if psnr < MIN_PSNR_DB:
+            raise AssertionError(f"PSNR {psnr:.2f} < {MIN_PSNR_DB}")
+        cpu = decode(blob, entropy="native", idct="pallas",
+                     upsample="fancy", device="cpu")
+        _close_to_cpu(f"decode() ({tag})", rgb, cpu.rgb)
+    del results
+
+    for tag, (blob, src) in images.items():
+        mp = src.shape[0] * src.shape[1] / 1e6
+        e2e = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = decode(blob, **kw)
+            torch.cuda.synchronize()
+            e2e.append(time.perf_counter() - t0)
+            del out
+        # Stages, best of 3: the same calls decode() makes, one by one.
+        st = {"parse": [], "scan prep": [], "copy": [], "K2": [],
+              "pixel": []}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            hdr = parser.parse(blob)
+            t1 = time.perf_counter()
+            words, nm, bc, mm, lay = scan_prep.prepare_scan(hdr, hdr.scans[0])
+            t2 = time.perf_counter()
+            tw = torch.from_numpy(words).to(dev)
+            tn = torch.from_numpy(nm).to(dev)
+            luts = entropy_cuda._device_luts(hdr, hdr.scans[0], dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            out, _ = entropy_cuda.decode_segments(
+                tw, tn, luts, block_comp=bc, n_comps=len(hdr.components),
+                max_mcus=mm)
+            ev[1].record()
+            rgb = pixel.pixel_pipeline_from_scan(
+                out.view(-1, 64)[: lay.n_mcus * len(bc)],
+                tuple(torch.from_numpy(hdr.quant_tables[c.tq].values
+                                       .astype(np.int32)).to(dev)
+                      for c in hdr.components),
+                dec_mod._comp_srcs(hdr, dev),
+                comp_shapes=tuple(lay.comp_shapes), height=hdr.height,
+                width=hdr.width,
+                samplings=tuple((hdr.v_max // c.v, hdr.h_max // c.h)
+                                for c in hdr.components),
+                idct="pallas", upsample="fancy", color=hdr.colorspace)
+            ev[2].record()
+            ev[2].synchronize()
+            for name, v in (("parse", t1 - t0), ("scan prep", t2 - t1),
+                            ("copy", t3 - t2)):
+                st[name].append(v * 1e3)
+            st["K2"].append(ev[0].elapsed_time(ev[1]))
+            st["pixel"].append(ev[1].elapsed_time(ev[2]))
+            del out, rgb
+        runs = [round(t * 1e3, 2) for t in e2e]
+        print(f"decode() ({tag}): end to end {runs} ms -> "
+              f"{min(e2e) * 1e3:.2f} ms, {mp / min(e2e):.1f} MP/s "
+              "(best of 3) to device-resident RGB; stages (best of 3): "
+              + ", ".join(f"{k} {min(v):.3f} ms" for k, v in st.items()))
+    return counts
+
+
+def _probe_phase(dev) -> list[dict]:
+    """K3 and K4 (see the module docstring)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.probes import lut_probe
+
+    lut = torch.arange(lut_probe.LUT_SIZE, dtype=torch.int32, device=dev)
+    idx = torch.tensor(lut_probe.CHAIN_IDX, dtype=torch.int32,
+                       device=dev).view(8, 1)
+    expected = lut_probe.chain_expected(lut_probe.CHAIN_IDX)
+    got = int(lut_probe.lut_chain_probe(lut, idx))
+    chain_err = abs(got - expected)
+    print(f"probe: lut_chain_probe {got}, expected {expected}")
+    if chain_err:
+        raise AssertionError(f"lut_chain_probe {got} != {expected}")
+    ms_k3 = _cuda_ms(lambda: lut_probe.lut_chain_probe(lut, idx), 50)
+    ms_k3_plain = _cuda_ms(lambda: lut_probe.lut_chain_torch(lut, idx), 20)
+
+    rng = np.random.default_rng(0)   # the JAX file's draw
+    gidx = torch.from_numpy(rng.integers(0, 65536, (8, 128),
+                                         np.int32)).to(dev)
+    gidx64 = gidx.to(torch.int64)
+    out = lut_probe.lut_gather(lut, gidx)
+    gather_err = int((out - lut[gidx64]).abs().max())
+    print(f"probe: lut_gather max |kernel - lut[idx]| = {gather_err}")
+    if gather_err:
+        raise AssertionError("lut_gather != lut[idx]")
+    ms_k4 = _cuda_ms(lambda: lut_probe.lut_gather(lut, gidx), 50)
+    ms_k4_plain = _cuda_ms(lambda: lut_probe.lut_gather_torch(lut, gidx), 50)
+    ms_k4_lib = _cuda_ms(lambda: torch.take(lut, gidx64), 50)
+    # Bytes this run's data needs: the indices read, the LUT entries they
+    # touch (each distinct entry once), the output written.
+    k3_bytes = 8 * 4 + len(set(lut_probe.CHAIN_IDX)) * 4 + 4
+    k4_bytes = gidx.numel() * 8 + int(torch.unique(gidx).numel()) * 4
+    med = statistics.median
+    print(f"probe: lut_chain_probe median {med(ms_k3):.4f} ms (twin "
+          f"{med(ms_k3_plain):.4f} ms); lut_gather median {med(ms_k4):.4f} "
+          f"ms (twin {med(ms_k4_plain):.4f} ms, torch.take "
+          f"{med(ms_k4_lib):.4f} ms); CUDA events, 50 runs (twin of the "
+          "chain 20)")
+    return [
+        {"name": "lut_chain_probe", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/lut_probe.cu",
+         "replaces": "tools/pallas_mosaic_repro.py:45",
+         "max_abs_err": chain_err, "ms": med(ms_k3),
+         "plain_ms": med(ms_k3_plain),
+         "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "lut_gather", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/lut_probe.cu",
+         "replaces": "tools/pallas_mosaic_repro.py:104",
+         "max_abs_err": gather_err, "ms": med(ms_k4),
+         "plain_ms": med(ms_k4_plain),
+         "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": med(ms_k4_lib)},
+    ]
+
+
+def _profile(windows: dict, ours: tuple) -> None:
+    """For each window: the sum of device kernel time, the wall time of the
+    window under the profiler and their ratio (one stream, so kernels do
+    not overlap), then the ops by device time and the port's kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for name, fn in windows.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        avgs = prof.key_averages()
+        kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"profile [{name}]: {dev_ms:.3f} ms of device kernel time in "
+              f"{wall_ms:.3f} ms of wall under the profiler (busy share "
+              f"{dev_ms / wall_ms:.3f})")
+        ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+        mine = [e for e in kernels if any(k in e.key for k in ours)]
+        for e in ops[:12] + mine:
+            ms = e.self_device_time_total / 1e3
+            print(f"  {e.key[:60]:<60} x{e.count:<5} {ms:9.3f} ms "
+                  f"{100 * ms / dev_ms:5.1f}%")
+
+
+def _profile_batch(bd, batch: list[bytes], dev) -> None:
+    """Breakdown of the smoke batch, after the checked run: window 1 is the
+    device pixel stage of one batch (every group, inputs already on the
+    card), window 2 one whole ``decode``.  Last, host entropy against the
+    size of the host thread pool."""
+    from jpeg_decoder_tpu_torch import BatchDecoder
+
+    groups = bd.group(bd.host_stage(batch))
+    tensors = [bd.to_device(g) for g in groups]
+    _profile({
+        f"device pixel stage, {len(groups)} groups":
+            lambda: [bd.pixels(g, t) for g, t in zip(groups, tensors)],
+        "whole decode": lambda: bd.decode(batch),
+    }, ("fused_dequant_idct",))
+    for k in (1, 2, 4, 8):
+        with BatchDecoder(device=dev, host_threads=k) as pool_bd:
+            pool_bd.host_stage(batch)
+            best = min(_wall(lambda: pool_bd.host_stage(batch))
+                       for _ in range(3))
+        print(f"profile [host entropy, {k} pool threads]: best of 3 "
+              f"{best * 1e3:.1f} ms")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from jpeg_decoder_tpu_torch import decode
+    from jpeg_decoder_tpu_torch.testing.encoder import encode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(smi.splitlines()[0])  # the card's name and power limit
+    print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    _build_all()
+    rng = np.random.default_rng(SEED)
+    k1 = _idct_phase(dev, rng)
+    torch.cuda.empty_cache()
+    k1_batch, blobs, sources = _batch_phase(dev, rng)
+
+    # Images of the entropy and single-image phases: (a) is new, (b) and
+    # (c) are the batch's 4:4:4 DRI 8 and 4:2:0 DRI 0 images.
+    t0 = time.perf_counter()
+    img_a = _image(rng, 2160, 3840)
+    blob_a, _ = encode(img_a, samplings=((2, 2), (1, 1), (1, 1)),
+                       quality=90, restart_interval=240)
+    images = {"a": (blob_a, img_a), "b": (blobs[6], sources[6]),
+              "c": (blobs[0], sources[0])}
+    print(f"entropy inputs: (a) 3840x2160 4:2:0 q90 DRI 240, "
+          f"{len(blob_a) / 1e6:.2f} MB, encoded in "
+          f"{time.perf_counter() - t0:.1f} s (set-up); (b) 1920x1080 4:4:4 "
+          f"q95 DRI 8, {len(blobs[6]) / 1e6:.2f} MB; (c) 1920x1080 4:2:0 "
+          f"q90 DRI 0, {len(blobs[0]) / 1e6:.2f} MB")
+    k2 = _entropy_phase(dev, images)
+    counts = _decode_phase(dev, images)
+    probes = _probe_phase(dev)
+    kw = dict(entropy="pallas", idct="pallas", upsample="fancy", device=dev)
+    _profile({f"decode() ({tag})": (lambda b=blob: decode(b, **kw))
+              for tag, (blob, _) in images.items()},
+             ("fused_dequant_idct", "decode_segments"))
+
+    k1["launches"] = k1_batch + counts["K1"]
+    k1["launches_by_path"] = {"BatchDecoder": k1_batch,
+                              "decode": counts["K1"]}
+    k2["launches"] = counts["K2"]
+    for rec, key in zip(probes, ("K3", "K4")):
+        rec["launches"] = counts[key]   # on no path: 0
+    print(json.dumps({"kernels": [k1, k2, *probes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

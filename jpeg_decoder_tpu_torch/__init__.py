@@ -1,9 +1,14 @@
 """jpeg_decoder_tpu_torch — the PyTorch/CUDA port of jpeg_decoder_tpu.
 
-The batched serving path (host parse, native entropy decode to the nibble
-wire, pow-2 geometry grouping, then unpack, plane gather, dequant+IDCT,
-fancy upsample and YCbCr->RGB on the device), with the dequant+IDCT step as
-a hand-written CUDA kernel for Hopper (``csrc/idct.cu``).  The package
+Two entry points: the batched serving path :class:`BatchDecoder` (host
+parse, native entropy decode to the nibble wire, pow-2 geometry grouping,
+then unpack, plane gather, dequant+IDCT, fancy upsample and YCbCr->RGB on
+the device) and the single-image :func:`decode` (host parse and scan prep,
+then Huffman decode, plane gather, dequant+IDCT, upsample and colour on the
+device).  Their device kernels are hand-written CUDA for Hopper: the
+dequant+IDCT (``csrc/idct.cu``) and the Huffman decoder
+(``csrc/entropy.cu``); ``csrc/lut_probe.cu`` holds the LUT-probe kernels
+(``probes/lut_probe.py``).  The package
 imports torch and numpy, never jax or ``jpeg_decoder_tpu``; importing it
 builds nothing (the native library and the kernel are built at first use
 under ``.cache/torch/``).
@@ -11,6 +16,8 @@ under ``.cache/torch/``).
 
 from .io.parser import parse
 from .models.batch import BatchDecoder, BatchItem, decode_batch
+from .models.decoder import DecodeResult, decode
 from .types import JPEGError
 
-__all__ = ["BatchDecoder", "BatchItem", "JPEGError", "decode_batch", "parse"]
+__all__ = ["BatchDecoder", "BatchItem", "DecodeResult", "JPEGError", "decode",
+           "decode_batch", "parse"]

@@ -3,9 +3,11 @@
 The port builds the JAX package's own source file,
 ``jpeg_decoder_tpu/entropy/native_src/jpeg_entropy.cpp``, read by path (the
 port never imports ``jpeg_decoder_tpu``), into ``.cache/torch/native/`` at
-first use.  Only the entry points the batched serving path calls are bound:
-the unstuffer and the nibble-wire emitter.  A failed build raises
-:class:`BuildFailure`; nothing falls back silently.
+first use.  Bound: the unstuffer and the nibble-wire emitter (the batched
+serving path), and the scan decoders :func:`decode_scan_baseline` and
+:func:`decode_scan_resilient` (the ``native``/``auto`` backends of
+``models/decoder.py``, with the signatures of the JAX package's).  A failed
+build raises :class:`BuildFailure`; nothing falls back silently.
 
 The C calls release the GIL, so a Python thread pool gives image-level
 parallelism on top of the in-call restart-segment parallelism.
@@ -85,6 +87,28 @@ def _load():
             ctypes.c_int64, ctypes.c_void_p,    # esc_cap, esc_count
             ctypes.c_int32,                     # n_threads
         ]
+        lib.jd_decode_scan.restype = ctypes.c_int64
+        lib.jd_decode_scan.argtypes = [
+            ctypes.c_void_p,                    # data
+            ctypes.c_void_p, ctypes.c_int32,    # seg_offsets, n_segments
+            ctypes.c_int32,                     # n_comps
+            ctypes.c_void_p, ctypes.c_void_p,   # h, v
+            ctypes.c_void_p, ctypes.c_void_p,   # dc_luts, ac_luts
+            ctypes.c_int64, ctypes.c_int64,     # n_mcus, restart_interval
+            ctypes.c_void_p, ctypes.c_int32,    # out, n_threads
+            ctypes.c_int32,                     # precision
+        ]
+        lib.jd_decode_scan_resilient.restype = ctypes.c_int64
+        lib.jd_decode_scan_resilient.argtypes = [
+            ctypes.c_void_p,                    # data
+            ctypes.c_void_p, ctypes.c_int32,    # seg_offsets, n_segments
+            ctypes.c_int32,                     # n_comps
+            ctypes.c_void_p, ctypes.c_void_p,   # h, v
+            ctypes.c_void_p, ctypes.c_void_p,   # dc_luts, ac_luts
+            ctypes.c_int64, ctypes.c_int64,     # n_mcus, restart_interval
+            ctypes.c_void_p, ctypes.c_void_p,   # out, seg_err
+            ctypes.c_int32, ctypes.c_int32,     # n_threads, precision
+        ]
         _lib = lib
     return _lib
 
@@ -127,6 +151,16 @@ def _lut32ac(spec) -> np.ndarray:
     return lut
 
 
+def available() -> bool:
+    """True when the library builds and loads here (the ``auto`` backend's
+    test)."""
+    try:
+        _load()
+    except BuildFailure:
+        return False
+    return True
+
+
 def _padded(scan) -> np.ndarray:
     """Entropy bytes with the 256-byte zero tail the decoders require.
 
@@ -147,8 +181,11 @@ class _ScanCall:
     validated segment table, sampling arrays, and LUT pointer arrays (the
     LUT ndarrays are kept alive on the instance for the ctypes call)."""
 
-    def __init__(self, hdr: FrameHeader, scan: ScanHeader):
-        if hdr.precision != 8:
+    def __init__(self, hdr: FrameHeader, scan: ScanHeader,
+                 allow12: bool = False):
+        # jd_decode_scan supports precision-12 frames (T.81 B.2.2 size
+        # categories 15/14); the wire-format emitter stays 8-bit.
+        if hdr.precision != 8 and not (allow12 and hdr.precision == 12):
             raise JPEGError(
                 "this native entry point decodes 8-bit frames only")
         self.lay = scan_layout(hdr)
@@ -185,6 +222,62 @@ class _ScanCall:
                 self.h.ctypes.data, self.v.ctypes.data,
                 self.dc_ptrs, self.ac_ptrs,
                 self.lay.n_mcus, self.ri)
+
+
+def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
+                         n_threads: int | None = None) -> np.ndarray:
+    """Decode a full baseline interleaved scan (native backend).
+
+    Returns (total_blocks, 64) int32 scan-order natural-layout coefficients,
+    identical to :func:`.python_ref.decode_scan_baseline`."""
+    lib = _load()
+    st = _ScanCall(hdr, scan, allow12=True)
+    out = np.zeros((st.lay.total_blocks, 64), dtype=np.int32)
+    rc = lib.jd_decode_scan(*st.head_args(), out.ctypes.data,
+                            st.threads(n_threads), hdr.precision)
+    if rc != 0:
+        raise JPEGError(
+            f"native entropy decode failed: segment {rc >> 8}, "
+            f"error code {rc & 0xFF}")
+    return out
+
+
+def decode_scan_resilient(hdr: FrameHeader, scan: ScanHeader,
+                          n_threads: int | None = None) -> np.ndarray:
+    """Best-effort decode of a scan whose restart-segment count disagrees
+    with DRI or whose segments are corrupt: the native mirror of
+    :func:`.python_ref.decode_scan_resilient`, with identical output."""
+    lib = _load()
+    if hdr.precision not in (8, 12):
+        raise JPEGError(f"unsupported precision {hdr.precision}")
+    lay = scan_layout(hdr)
+    comps = hdr.components
+    # Big zero tail: garbage decoding near a segment end may overrun by up
+    # to one MCU (~bpm * 209 bytes) before the per-MCU bound check fires;
+    # the Python reader clamps reads to zeros, so the pad makes the native
+    # reader see the same zero bits.
+    data = np.concatenate([scan.data, np.zeros(16384, np.uint8)])
+    seg_offsets = np.ascontiguousarray(scan.seg_offsets, dtype=np.int64)
+    n_segments = len(seg_offsets) - 1
+    h = np.array([c.h for c in comps], np.int32)
+    v = np.array([c.v for c in comps], np.int32)
+    dc_luts = [_lut16(scan.dc_specs[c.td]) for c in comps]
+    ac_luts = [_lut32ac(scan.ac_specs[c.ta]) for c in comps]
+    PtrArray = ctypes.c_void_p * len(comps)
+    dc_ptrs = PtrArray(*[a.ctypes.data for a in dc_luts])
+    ac_ptrs = PtrArray(*[a.ctypes.data for a in ac_luts])
+    out = np.zeros((lay.total_blocks, 64), dtype=np.int32)
+    seg_err = np.zeros(max(1, n_segments), np.uint8)
+    if n_threads is None:
+        n_threads = min(_NCPU, max(1, n_segments))
+    rc = lib.jd_decode_scan_resilient(
+        data.ctypes.data, seg_offsets.ctypes.data, n_segments,
+        len(comps), h.ctypes.data, v.ctypes.data, dc_ptrs, ac_ptrs,
+        lay.n_mcus, scan.restart_interval, out.ctypes.data,
+        seg_err.ctypes.data, n_threads, hdr.precision)
+    if rc != 0:
+        raise JPEGError(f"native resilient decode failed (code {rc})")
+    return out
 
 
 def unstuff(data: np.ndarray, start: int):

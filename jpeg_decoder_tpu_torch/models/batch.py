@@ -249,15 +249,16 @@ def _not_ported(hdr: FrameHeader) -> str | None:
 class BatchDecoder:
     """Reusable batched decoder; RGB comes back on ``device``.
 
-    ``device`` is required and never auto-detected.  On a CUDA device the
-    dequant+IDCT step is the hand-written kernel; on the CPU it is its
+    ``device`` is the CUDA card by default; without one the constructor
+    raises (pass ``device="cpu"`` to decode on the CPU).  On a CUDA device
+    the dequant+IDCT step is the hand-written kernel; on the CPU it is its
     plain twin.  Only ``entropy="native"`` and ``wire="nibble"`` are ported.
     Host entropy runs on a pool of ``host_threads`` threads (2 by default,
     as in the JAX package).  A failed build of the native entropy library
     raises here.
     """
 
-    def __init__(self, *, device, entropy: str = "native",
+    def __init__(self, *, device="cuda", entropy: str = "native",
                  idct: str = "pallas", upsample: str = "fancy",
                  wire: str = "nibble", host_threads: int | None = None):
         if entropy != "native":
@@ -268,7 +269,7 @@ class BatchDecoder:
             raise ValueError(f"idct={idct!r} is not ported")
         if upsample not in ("fancy", "nn"):
             raise ValueError(f"unknown upsample {upsample!r}")
-        self.device = torch.device(device)
+        self.device = routing.resolve_device(device)
         self.idct = idct
         self.upsample = upsample
         native._load()

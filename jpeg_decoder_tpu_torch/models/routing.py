@@ -1,14 +1,28 @@
-"""Frame-routing predicates of the batch router.
+"""Routing of a decode: which frames take the fast path, on which device.
 
-The counterparts of ``needs_scan_loop`` and ``segment_mismatch`` in
-``jpeg_decoder_tpu/models/decoder.py``.  The single-image ``decode()`` and
-the CLI of that module are not ported yet.
+``needs_scan_loop`` and ``segment_mismatch`` are the counterparts of those
+in ``jpeg_decoder_tpu/models/decoder.py``, shared by ``decode()`` and the
+batch router; :func:`resolve_device` is the port's one rule for the
+``device`` argument of both entry points.
 """
 
 from __future__ import annotations
 
+import torch
+
 from .. import layout as layout_mod
 from ..types import FrameHeader
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point decodes on: ``None`` or "cuda" is the
+    card, and a machine without one raises (it never falls back to the
+    CPU); "cpu" runs the kernels' plain twins."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to decode on the CPU")
+    return dev
 
 
 def segment_mismatch(hdr: FrameHeader, scan) -> bool:

@@ -23,68 +23,34 @@ qtables, one launch per component for a whole geometry group.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 import threading
 
 import numpy as np
 import torch
 
-from .._build import shared_lib
+from .._build import CudaLib, KernelBuildFailure, launch_check
 from .pixel import IDCT_M
+
+__all__ = ["KernelBuildFailure", "build", "fused_dequant_idct", "idct_kron"]
 
 #: (64, 64) Kronecker IDCT basis: KRON[p*8+q, u*8+v] = M[p,u] * M[q,v].
 IDCT_KRON = np.kron(IDCT_M, IDCT_M).astype(np.float32)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "idct.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LIB = CudaLib("idct.cu", "jd_idct", {"jd_fused_dequant_idct": [
+    ctypes.c_void_p, ctypes.c_void_p,   # blocks, qtable
+    ctypes.c_void_p, ctypes.c_void_p,   # kron_t, out
+    ctypes.c_int64, ctypes.c_int64,     # n_img, n_blk
+    ctypes.c_void_p,                    # stream
+]})
 
-_lib = None
-_lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 _basis_cache: dict[torch.device, torch.Tensor] = {}
-#: nvcc's output of the last build (register and shared-memory use).
-build_log = ""
-
-
-class KernelBuildFailure(RuntimeError):
-    """nvcc is missing or refused ``csrc/idct.cu``."""
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise KernelBuildFailure("nvcc not found (set CUDA_HOME)")
 
 
 def build():
     """Compile ``csrc/idct.cu`` (once per source and flag set, into
     ``.cache/torch/kernels/``) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        path, log = shared_lib(_nvcc(), NVCC_FLAGS, _SRC, "kernels",
-                               "jd_idct", KernelBuildFailure)
-        if log is not None:
-            build_log = log
-        lib = ctypes.CDLL(path)
-        lib.jd_fused_dequant_idct.restype = ctypes.c_int
-        lib.jd_fused_dequant_idct.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,   # blocks, qtable
-            ctypes.c_void_p, ctypes.c_void_p,   # kron_t, out
-            ctypes.c_int64, ctypes.c_int64,     # n_img, n_blk
-            ctypes.c_void_p,                    # stream
-        ]
-        _lib = lib
-    return _lib
+    return LIB.load()
 
 
 def _basis_t(device: torch.device) -> torch.Tensor:
@@ -158,9 +124,7 @@ def fused_dequant_idct(blocks: torch.Tensor,
         rc = lib.jd_fused_dequant_idct(
             blocks.data_ptr(), qtable.data_ptr(), basis.data_ptr(),
             out.data_ptr(), blocks.shape[0], blocks.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_dequant_idct launch failed: CUDA error "
-                           f"{rc}")
+    launch_check(rc, "fused_dequant_idct")
     with _count_lock:
         fused_dequant_idct.launches += 1
     return out

@@ -245,3 +245,28 @@ def pixel_pipeline_impl(planes, qtables, *, height: int, width: int,
         w = min(p.shape[2] for p in pix)
         rgb = ycbcr_to_rgb(*(p[:, :h, :w] for p in pix))
     return rgb[:, :height, :width]
+
+
+def pixel_pipeline_from_scan(blocks, qtables, comp_srcs, *,
+                             comp_shapes: tuple, height: int, width: int,
+                             samplings: tuple, idct: str = "pallas",
+                             upsample: str = "fancy",
+                             color: str = "auto") -> torch.Tensor:
+    """Pixel pipeline of one image from raw scan-order blocks.
+
+    ``blocks``: (N, 64) int32 scan-order blocks on the device (what the
+    entropy decoder wrote); ``comp_srcs``: per component, the (rows*cols,)
+    int64 scan index of each plane cell (``layout.scan_layout``'s
+    ``comp_src``) on the same device; ``qtables``: per component, a (64,)
+    int32 natural-order table.  Plane assembly is one device gather per
+    component, then :func:`pixel_pipeline_impl` with a batch of 1.
+
+    Returns (height, width, 3) uint8 RGB on the blocks' device.
+    """
+    planes = tuple(
+        blocks.index_select(0, src).view(1, rows, cols, 64)
+        for src, (rows, cols) in zip(comp_srcs, comp_shapes))
+    qts = tuple(q.reshape(1, 64) for q in qtables)
+    return pixel_pipeline_impl(
+        planes, qts, height=height, width=width, samplings=samplings,
+        idct=idct, upsample=upsample, color=color)[0]

@@ -1,0 +1,65 @@
+"""Host-side scan preparation shared by the on-device entropy backends.
+
+Packs unstuffed entropy bytes into per-segment big-endian uint32 word rows
+(the layout both the block-lockstep decoder in :mod:`ops.entropy_flat` and
+the Pallas kernel consume) and builds the per-component decode LUTs.
+Restart segments are independent (DC predictors reset + byte alignment at
+RSTn, jpeg.cpp:419-425), so each segment becomes one decoder lane.
+
+A numpy-only copy of ``jpeg_decoder_tpu/ops/scan_prep.py`` (see types.py for
+why the port keeps copies); here it feeds the CUDA entropy kernel
+(``ops/entropy_cuda.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..huffman import build_lut
+from ..layout import scan_layout
+from ..types import FrameHeader, JPEGError, ScanHeader
+
+
+def pack_words(data: np.ndarray) -> np.ndarray:
+    """Pack unstuffed bytes into big-endian uint32 words (host side)."""
+    n = len(data)
+    padded = np.zeros((n + 3 + 8) // 4 * 4, dtype=np.uint8)
+    padded[:n] = data
+    return padded.view(">u4").astype(np.uint32)
+
+
+def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
+    """Host prep: per-segment packed words + geometry (NumPy, cheap).
+
+    Returns (words (S, W) uint32, nm (S,) int32 MCUs per segment,
+    block_comp, max_mcus, layout)."""
+    lay = scan_layout(hdr)
+    ri = scan.restart_interval
+    n_mcus = lay.n_mcus
+    seg_offsets = scan.seg_offsets
+    n_segments = len(seg_offsets) - 1
+    expected = -(-n_mcus // ri) if ri else 1
+    if n_segments != expected:
+        raise JPEGError(
+            f"restart-segment count {n_segments} does not match DRI {ri}")
+    max_mcus = ri if ri else n_mcus
+    seg_lens = np.diff(seg_offsets)
+    seg_words = int(max(1, -(-int(seg_lens.max()) // 4) + 2))
+    words = np.zeros((n_segments, seg_words), np.uint32)
+    data = scan.data
+    for s in range(n_segments):
+        seg = data[seg_offsets[s]: seg_offsets[s + 1]]
+        words[s, : (len(seg) + 3) // 4] = pack_words(seg)[: (len(seg) + 3) // 4]
+    nm = np.full((n_segments,), max_mcus, np.int32)
+    if ri:
+        nm[-1] = n_mcus - ri * (n_segments - 1)
+    block_comp = tuple(
+        ci for ci, c in enumerate(hdr.components) for _ in range(c.v * c.h))
+    return words, nm, block_comp, max_mcus, lay
+
+
+def luts_for_scan(hdr: FrameHeader, scan: ScanHeader):
+    """Per-component (n_comps, 65536) DC/AC decode LUTs."""
+    dc = np.stack([build_lut(scan.dc_specs[c.td]) for c in hdr.components])
+    ac = np.stack([build_lut(scan.ac_specs[c.ta]) for c in hdr.components])
+    return dc, ac

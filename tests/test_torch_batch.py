@@ -184,6 +184,9 @@ def test_decoder_rejects_unported_options(kw):
         tbatch.BatchDecoder(device="cpu", **kw)
 
 
-def test_decoder_needs_a_device():
-    with pytest.raises(TypeError):
+def test_decoder_needs_a_device(monkeypatch):
+    """The default device is the card: without one the constructor raises
+    and names the CPU option; it never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tbatch.BatchDecoder()

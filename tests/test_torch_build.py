@@ -12,7 +12,12 @@ import pytest
 
 from jpeg_decoder_tpu_torch import _build
 from jpeg_decoder_tpu_torch.entropy import native
-from jpeg_decoder_tpu_torch.ops import idct_cuda
+from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+from jpeg_decoder_tpu_torch.probes import lut_probe
+
+#: The CUDA builds of the port, one per csrc/*.cu.
+CUDA_LIBS = {"idct": idct_cuda.LIB, "entropy": entropy_cuda.LIB,
+             "lut_probe": lut_probe.LIB}
 
 FLAGS = ("-O1", "-shared", "-fPIC")
 
@@ -104,3 +109,39 @@ def test_both_builds_share_the_cache():
     assert os.path.dirname(lib._name) == os.path.join(_build.CACHE, "native")
     assert lib._name == _build.lib_path(native._SRC, native.GXX_FLAGS,
                                         "native", "jpeg_entropy")
+
+
+@pytest.mark.parametrize("name", list(CUDA_LIBS))
+def test_cuda_lib_name_keys_source_and_flags(name, cache, monkeypatch):
+    """Each kernel's library is named by its own source and nvcc's flags:
+    an edited copy of the source or another flag set gets another name."""
+    lib = CUDA_LIBS[name]
+    src = cache / os.path.basename(lib.src)
+    src.write_bytes(open(lib.src, "rb").read())
+    copy = _build.CudaLib(os.path.basename(lib.src), lib.stem, {})
+    copy.src = str(src)
+    first = copy.path()
+    assert first == lib.path()      # same bytes, same flags: same name
+    assert os.path.basename(first).startswith(f"lib{lib.stem}_")
+    src.write_bytes(src.read_bytes() + b"// edited\n")
+    edited = copy.path()
+    assert edited != first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert lib.path() not in (first, edited)
+
+
+@pytest.mark.parametrize("name", list(CUDA_LIBS))
+def test_cuda_lib_without_nvcc_raises(name, cache, monkeypatch):
+    """No nvcc anywhere: loading a kernel raises KernelBuildFailure (and
+    builds nothing)."""
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists",
+                        lambda p: False if p.endswith("nvcc") else
+                        os.path.lexists(p))
+    lib = _build.CudaLib(os.path.basename(CUDA_LIBS[name].src),
+                         CUDA_LIBS[name].stem, {})
+    with pytest.raises(idct_cuda.KernelBuildFailure, match="nvcc not found"):
+        lib.load()
+    assert not os.path.exists(os.path.join(_build.CACHE, "kernels"))

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and slice on the card, held to the plain twins.
+"""The port's CUDA kernels and slices on the card, held to the plain twins.
 
 Every test here needs an NVIDIA card (``cuda`` marker) and skips without
 one.  The file imports neither jax nor PIL, so that it runs on a machine
@@ -13,8 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from jpeg_decoder_tpu_torch import JPEGError, decode
+from jpeg_decoder_tpu_torch.entropy import python_ref
+from jpeg_decoder_tpu_torch.io import parser
 from jpeg_decoder_tpu_torch.models import batch as tbatch
-from jpeg_decoder_tpu_torch.ops import idct_cuda
+from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda, scan_prep
+from jpeg_decoder_tpu_torch.probes import lut_probe
 from jpeg_decoder_tpu_torch.testing.encoder import encode
 
 pytestmark = pytest.mark.cuda
@@ -127,3 +131,149 @@ def test_slice_on_card_matches_cpu(cuda_device):
         d = (g.rgb.cpu().to(torch.int32) - r.rgb.to(torch.int32)).abs()
         assert int(d.max()) <= RGB_TOL
         assert float((d == 0).float().mean()) >= MIN_EQUAL
+
+
+# (samplings, quality, restart_interval, (h, w)) for the entropy kernel.
+ENTROPY_CASES = [
+    (((2, 2), (1, 1), (1, 1)), 90, 0, (64, 96)),
+    (((1, 1), (1, 1), (1, 1)), 95, 1, (48, 40)),
+    (((2, 2), (1, 1), (1, 1)), 75, 2, (37, 53)),
+    (((2, 1), (1, 1), (1, 1)), 85, 5, (33, 70)),
+    (((2, 2), (1, 1), (1, 1)), 90, 8, (240, 320)),
+]
+
+
+def _segments(blob, dev):
+    """The kernel's inputs for one blob's scan, on ``dev``."""
+    hdr = parser.parse(blob)
+    scan = hdr.scans[0]
+    words, nm, block_comp, max_mcus, _ = scan_prep.prepare_scan(hdr, scan)
+    luts = entropy_cuda._device_luts(hdr, scan, dev)
+    kw = dict(block_comp=block_comp, n_comps=len(hdr.components),
+              max_mcus=max_mcus)
+    return hdr, torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(
+        dev), luts, kw
+
+
+@pytest.mark.parametrize("case", range(len(ENTROPY_CASES)))
+def test_entropy_kernel_matches_twin_and_python_ref(cuda_device, case):
+    samp, q, ri, (h, w) = ENTROPY_CASES[case]
+    blob = encode(_rgb(20 + case, h, w), samplings=samp, quality=q,
+                  restart_interval=ri)[0]
+    hdr, words, nm, luts, kw = _segments(blob, cuda_device)
+    before = entropy_cuda.decode_segments.launches
+    out, err = entropy_cuda.decode_segments(words, nm, luts, **kw)
+    torch.cuda.synchronize()
+    assert entropy_cuda.decode_segments.launches == before + 1
+    ref, ref_err = entropy_cuda.decode_segments_torch(
+        words.cpu(), nm.cpu(), luts.cpu(), **kw)
+    assert not err.any() and not ref_err.any()
+    assert torch.equal(out.cpu(), ref)
+    scan_ref = python_ref.decode_scan_baseline(hdr, hdr.scans[0])
+    got = entropy_cuda.decode_scan_baseline(hdr, hdr.scans[0], cuda_device)
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), scan_ref)
+
+
+def test_entropy_kernel_flags_corrupt_segments_as_twin(cuda_device):
+    """Random words after the first in every third segment, and one
+    all-ones segment (the all-ones code is never assigned): the kernel flags
+    exactly the twin's segments and agrees on the blocks of every unflagged
+    one, garbage decodes included."""
+    blob = encode(_rgb(30, 96, 128), quality=90, restart_interval=2)[0]
+    _, words, nm, luts, kw = _segments(blob, cuda_device)
+    w = words.cpu().numpy().copy()
+    rng = np.random.default_rng(3)
+    for s in range(0, len(w), 3):
+        w[s, 1:] = rng.integers(0, 2**32, w.shape[1] - 1, dtype=np.uint64)
+    w[1, :] = 0xFFFFFFFF
+    bad = torch.from_numpy(w)
+    out, err = entropy_cuda.decode_segments(bad.to(cuda_device), nm, luts,
+                                            **kw)
+    ref, ref_err = entropy_cuda.decode_segments_torch(bad, nm.cpu(),
+                                                      luts.cpu(), **kw)
+    assert bool(ref_err[1]) and int(ref_err.sum()) >= 2
+    assert torch.equal(err.cpu(), ref_err)
+    ok = ref_err == 0
+    assert torch.equal(out.cpu()[ok], ref[ok])
+
+
+def test_entropy_kernel_decodes_at_most_max_mcus(cuda_device):
+    """MCU counts above max_mcus: the kernel stays inside each segment's
+    rows and agrees with the twin, which clamps the same way."""
+    blob = encode(_rgb(32, 37, 53), quality=75, restart_interval=1)[0]
+    _, words, nm, luts, kw = _segments(blob, cuda_device)
+    out, err = entropy_cuda.decode_segments(words, nm + 3, luts, **kw)
+    ref, ref_err = entropy_cuda.decode_segments_torch(
+        words.cpu(), nm.cpu() + 3, luts.cpu(), **kw)
+    assert torch.equal(err.cpu(), ref_err)
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_entropy_kernel_dri0_one_lane(cuda_device):
+    """A DRI=0 scan is one lane of the kernel, exact against python_ref."""
+    blob = encode(_rgb(31, 480, 640), quality=85)[0]
+    hdr = parser.parse(blob)
+    got = entropy_cuda.decode_scan_baseline(hdr, hdr.scans[0], cuda_device)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), python_ref.decode_scan_baseline(hdr,
+                                                           hdr.scans[0]))
+
+
+def test_lut_probes_match_twins(cuda_device):
+    lut = torch.arange(lut_probe.LUT_SIZE, dtype=torch.int32)
+    idx = torch.tensor(lut_probe.CHAIN_IDX, dtype=torch.int32).view(8, 1)
+    before = (lut_probe.lut_chain_probe.launches,
+              lut_probe.lut_gather.launches)
+    got = lut_probe.lut_chain_probe(lut.to(cuda_device), idx.to(cuda_device))
+    assert int(got) == lut_probe.chain_expected(lut_probe.CHAIN_IDX)
+    assert int(got) == int(lut_probe.lut_chain_torch(lut, idx))
+    rng = np.random.default_rng(0)
+    gidx = torch.from_numpy(rng.integers(0, 65536, (8, 128), np.int32))
+    gl = torch.from_numpy(rng.integers(-2**31, 2**31, 65536, np.int64)
+                          .astype(np.int32))
+    out = lut_probe.lut_gather(gl.to(cuda_device), gidx.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), lut_probe.lut_gather_torch(gl, gidx))
+    assert (lut_probe.lut_chain_probe.launches,
+            lut_probe.lut_gather.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("entropy", ["pallas", "native"])
+def test_decode_on_card_matches_cpu(cuda_device, entropy):
+    """decode() on the card (both kernels) against the CPU decode (plain
+    twins); the pallas route launches K2 once and K1 once per component."""
+    for k, (samp, q, ri, (h, w)) in enumerate(ENTROPY_CASES):
+        blob = encode(_rgb(40 + k, h, w), samplings=samp, quality=q,
+                      restart_interval=ri)[0]
+        k2 = entropy_cuda.decode_segments.launches
+        k1 = idct_cuda.fused_dequant_idct.launches
+        got = decode(blob, entropy=entropy, idct="pallas", upsample="fancy",
+                     device=cuda_device)
+        torch.cuda.synchronize()
+        assert entropy_cuda.decode_segments.launches - k2 == (
+            entropy == "pallas")
+        assert idct_cuda.fused_dequant_idct.launches - k1 == 3
+        ref = decode(blob, entropy="native", idct="pallas",
+                     upsample="fancy", device="cpu")
+        assert got.rgb.is_cuda and got.rgb.shape == (h, w, 3)
+        d = (got.rgb.cpu().to(torch.int32) - ref.rgb.to(torch.int32)).abs()
+        assert int(d.max()) <= RGB_TOL
+        assert float((d == 0).float().mean()) >= MIN_EQUAL
+
+
+def corrupt_first_segment(blob: bytes) -> bytes:
+    """Overwrite 8 bytes inside the first restart segment with stuffed
+    0xFF bytes: 64 one bits, a window no standard code takes."""
+    sos = blob.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(blob[sos + 2:sos + 4], "big")
+    assert blob.index(b"\xff\xd0", start) - start > 24
+    return blob[:start + 8] + b"\xff\x00" * 8 + blob[start + 24:]
+
+
+def test_decode_corrupt_stream_raises_on_card(cuda_device):
+    blob = corrupt_first_segment(encode(_rgb(50, 64, 64), quality=90,
+                                        restart_interval=2)[0])
+    with pytest.raises(JPEGError, match="segments \\[0\\]"):
+        decode(bytes(blob), entropy="pallas", idct="pallas",
+               device=cuda_device)

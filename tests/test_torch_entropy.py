@@ -1,0 +1,293 @@
+"""Entropy decode of the PyTorch port against the JAX package, exactly.
+
+The same blobs, made from a numpy seed by tools/encoder.py and PIL, go
+through both packages:
+
+* the K2 twin ``entropy_cuda.decode_segments_torch`` against the Pallas
+  kernel ``entropy_pallas.decode_segments_pallas`` run in interpret mode, on
+  the same words, MCU counts and LUTs: equal blocks on every valid row and
+  equal error flags (JAX leaves rows past ``nm[s]*bpm`` unspecified);
+* the port's device backend ``entropy_cuda.decode_scan_baseline`` on the
+  CPU against JAX's ``decode_scan_baseline``;
+* the host copies (``scan_prep``, ``python_ref``) against their originals,
+  and the port's native bindings against JAX's python_ref;
+* the LUT-probe twins (K3/K4) against tools/pallas_mosaic_repro.py's
+  expected values.
+
+Interpret mode compiles once per shape (seconds) and then runs fast, so the
+images stay as small as tests/test_entropy_pallas.py's.  The CUDA kernels
+are held to these twins on the card in tests/test_torch_cuda.py.
+"""
+
+import io
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import jax.numpy as jnp
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+
+from encoder import encode  # noqa: E402
+
+from jpeg_decoder_tpu.entropy import python_ref as jref  # noqa: E402
+from jpeg_decoder_tpu.io import parser as jparser  # noqa: E402
+from jpeg_decoder_tpu.ops import entropy_pallas  # noqa: E402
+from jpeg_decoder_tpu.ops import scan_prep as jprep  # noqa: E402
+
+from jpeg_decoder_tpu_torch import JPEGError  # noqa: E402
+from jpeg_decoder_tpu_torch.entropy import native as tnative  # noqa: E402
+from jpeg_decoder_tpu_torch.entropy import python_ref as tref  # noqa: E402
+from jpeg_decoder_tpu_torch.io import parser as tparser  # noqa: E402
+from jpeg_decoder_tpu_torch.ops import entropy_cuda  # noqa: E402
+from jpeg_decoder_tpu_torch.ops import scan_prep as tprep  # noqa: E402
+from jpeg_decoder_tpu_torch.probes import lut_probe  # noqa: E402
+
+
+def _rgb(seed, h, w):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([x * 255.0 / w, y * 255.0 / h,
+                     (x + y) * 127.0 / (w + h) + 60], axis=-1)
+    return np.clip(base + rng.normal(0.0, 6.0, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+# (samplings or "gray", quality, restart_interval, (h, w))
+CASES = [
+    (((2, 2), (1, 1), (1, 1)), 90, 2, (32, 48)),
+    (((2, 2), (1, 1), (1, 1)), 80, 0, (16, 32)),
+    (((1, 1), (1, 1), (1, 1)), 95, 5, (40, 48)),
+    (((2, 2), (1, 1), (1, 1)), 75, 1, (37, 53)),
+    ("gray", 85, 2, (24, 40)),
+    (((2, 1), (1, 1), (1, 1)), 60, 1, (17, 30)),
+]
+
+
+def _blob(k):
+    samp, q, ri, (h, w) = CASES[k]
+    if samp == "gray":
+        return encode(_rgb(k, h, w)[..., 0], grayscale=True, quality=q,
+                      samplings=((1, 1),), restart_interval=ri)[0]
+    return encode(_rgb(k, h, w), samplings=samp, quality=q,
+                  restart_interval=ri)[0]
+
+
+def _pil_restart_blob():
+    buf = io.BytesIO()
+    Image.fromarray(_rgb(9, 32, 48)).save(buf, "JPEG", quality=90,
+                                          restart_marker_blocks=2)
+    return buf.getvalue()
+
+
+BLOBS = [_blob(k) for k in range(len(CASES))] + [_pil_restart_blob()]
+
+
+def _drop_second_rst(blob: bytes) -> bytes:
+    """Remove the RST1 marker: one restart segment fewer than DRI says."""
+    i = blob.index(b"\xff\xd1")
+    return blob[:i] + blob[i + 2:]
+
+
+def _kernel_inputs(blob):
+    """JAX scan prep of ``blob``: words, nm, block_comp, max_mcus and the
+    interleaved (2n, 65536) LUTs the kernels read."""
+    hdr = jparser.parse(blob)
+    scan = hdr.scans[0]
+    words, nm, block_comp, max_mcus, _ = jprep.prepare_scan(hdr, scan)
+    dc, ac = jprep.luts_for_scan(hdr, scan)
+    luts = np.empty((2 * len(hdr.components), 1 << 16), np.int32)
+    luts[0::2], luts[1::2] = dc, ac
+    kw = dict(block_comp=block_comp, n_comps=len(hdr.components),
+              max_mcus=max_mcus)
+    return words, nm, luts, kw
+
+
+def _both_kernels(words, nm, luts, kw):
+    jout, jerr = entropy_pallas.decode_segments_pallas(
+        jnp.asarray(words), jnp.asarray(nm), jnp.asarray(luts),
+        interpret=True, **kw)
+    tout, terr = entropy_cuda.decode_segments_torch(
+        torch.from_numpy(words), torch.from_numpy(nm), torch.from_numpy(luts),
+        **kw)
+    return (np.asarray(jout), np.asarray(jerr)), (tout.numpy(), terr.numpy())
+
+
+def _assert_valid_rows_equal(got, ref, nm, bpm, segments):
+    for s in segments:
+        n = int(nm[s]) * bpm
+        np.testing.assert_array_equal(got[s, :n], ref[s, :n])
+        assert not got[s, n:].any()
+
+
+@pytest.mark.parametrize("k", range(len(BLOBS)))
+def test_twin_matches_pallas_kernel(k):
+    words, nm, luts, kw = _kernel_inputs(BLOBS[k])
+    (jout, jerr), (tout, terr) = _both_kernels(words, nm, luts, kw)
+    assert tout.dtype == np.int32 and terr.dtype == np.int32
+    assert tout.shape == jout.shape
+    np.testing.assert_array_equal(terr, jerr)
+    assert not terr.any()
+    _assert_valid_rows_equal(tout, jout, nm, len(kw["block_comp"]),
+                             range(len(nm)))
+
+
+def test_twin_flags_corrupt_segments_as_pallas_kernel():
+    """Random words after the first in every third segment and one all-ones
+    segment (the all-ones code is never assigned): equal flags, and equal
+    blocks in every segment neither flags (garbage decodes included)."""
+    words, nm, luts, kw = _kernel_inputs(BLOBS[0])
+    rng = np.random.default_rng(3)
+    for s in range(0, len(words), 3):
+        words[s, 1:] = rng.integers(0, 2**32, words.shape[1] - 1,
+                                    dtype=np.uint64)
+    words[1, :] = 0xFFFFFFFF
+    (jout, jerr), (tout, terr) = _both_kernels(words, nm, luts, kw)
+    np.testing.assert_array_equal(terr, jerr)
+    assert terr[1] == 1
+    _assert_valid_rows_equal(tout, jout, nm, len(kw["block_comp"]),
+                             np.flatnonzero(terr == 0))
+
+
+def test_twin_decodes_at_most_max_mcus_as_pallas_kernel():
+    """MCU counts above max_mcus decode max_mcus MCUs in both (the last
+    segment then decodes its zero padding past the end of its data)."""
+    words, nm, luts, kw = _kernel_inputs(BLOBS[3])
+    nm = nm + 3
+    (jout, jerr), (tout, terr) = _both_kernels(words, nm, luts, kw)
+    np.testing.assert_array_equal(terr, jerr)
+    _assert_valid_rows_equal(tout, jout, np.minimum(nm, kw["max_mcus"]),
+                             len(kw["block_comp"]), range(len(nm)))
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 4])
+def test_device_backend_on_cpu_matches_jax(k):
+    """entropy_cuda.decode_scan_baseline(hdr, scan, "cpu") equals JAX's
+    pallas backend (case 1 is DRI=0: one lane) and python_ref."""
+    jhdr, thdr = jparser.parse(BLOBS[k]), tparser.parse(BLOBS[k])
+    ref = entropy_pallas.decode_scan_baseline(jhdr, jhdr.scans[0],
+                                              interpret=True)
+    got = entropy_cuda.decode_scan_baseline(thdr, thdr.scans[0], "cpu")
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        ref, jref.decode_scan_baseline(jhdr, jhdr.scans[0]))
+
+
+def test_device_backend_raises_on_corrupt_stream():
+    hdr = tparser.parse(BLOBS[0])
+    scan = hdr.scans[0]
+    data = scan.data.copy()
+    data[scan.seg_offsets[1]:scan.seg_offsets[1] + 6] = 0xFF
+    scan.data = data
+    with pytest.raises(JPEGError, match="segments \\[1\\]"):
+        entropy_cuda.decode_scan_baseline(hdr, scan, "cpu")
+
+
+@pytest.mark.parametrize("k", range(len(BLOBS)))
+def test_scan_prep_matches_jax(k):
+    jhdr, thdr = jparser.parse(BLOBS[k]), tparser.parse(BLOBS[k])
+    ref = jprep.prepare_scan(jhdr, jhdr.scans[0])
+    got = tprep.prepare_scan(thdr, thdr.scans[0])
+    for a, b in zip(got[:2], ref[:2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert got[2:4] == ref[2:4]
+    for a, b in zip(tprep.luts_for_scan(thdr, thdr.scans[0]),
+                    jprep.luts_for_scan(jhdr, jhdr.scans[0])):
+        np.testing.assert_array_equal(a, b)
+    data = np.frombuffer(BLOBS[k], np.uint8)[:37]
+    np.testing.assert_array_equal(tprep.pack_words(data),
+                                  jprep.pack_words(data))
+
+
+def _mismatch_blobs():
+    return [_drop_second_rst(BLOBS[k]) for k in (0, 2, 6)]
+
+
+@pytest.mark.parametrize("k", range(len(BLOBS)))
+def test_python_ref_baseline_matches_jax(k):
+    jhdr, thdr = jparser.parse(BLOBS[k]), tparser.parse(BLOBS[k])
+    np.testing.assert_array_equal(
+        tref.decode_scan_baseline(thdr, thdr.scans[0]),
+        jref.decode_scan_baseline(jhdr, jhdr.scans[0]))
+
+
+@pytest.mark.parametrize("blob", _mismatch_blobs())
+def test_python_ref_resilient_matches_jax(blob):
+    jhdr, thdr = jparser.parse(blob), tparser.parse(blob)
+    ref = jref.decode_scan_resilient(jhdr, jhdr.scans[0])
+    np.testing.assert_array_equal(
+        tref.decode_scan_resilient(thdr, thdr.scans[0]), ref)
+    np.testing.assert_array_equal(
+        tnative.decode_scan_resilient(thdr, thdr.scans[0]), ref)
+
+
+def test_python_ref_sequential_matches_jax():
+    """A two-scan sequential frame, decoded scan by scan into planes."""
+    blob = encode(_rgb(12, 40, 48), scans=[(0,), (1, 2)],
+                  restart_interval=3)[0]
+    jhdr, thdr = jparser.parse(blob), tparser.parse(blob)
+    from jpeg_decoder_tpu import layout as jlayout
+
+    lay = jlayout.scan_layout(jhdr)
+    ref = [np.zeros((*s, 64), np.int32) for s in lay.comp_shapes]
+    got = [np.zeros((*s, 64), np.int32) for s in lay.comp_shapes]
+    for js, ts in zip(jhdr.scans, thdr.scans):
+        jref.decode_scan_sequential_into(jhdr, js, ref)
+        tref.decode_scan_sequential_into(thdr, ts, got)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_threads", [1, 2])
+@pytest.mark.parametrize("k", range(len(BLOBS)))
+def test_native_baseline_matches_jax_python_ref(k, n_threads):
+    jhdr, thdr = jparser.parse(BLOBS[k]), tparser.parse(BLOBS[k])
+    got = tnative.decode_scan_baseline(thdr, thdr.scans[0],
+                                       n_threads=n_threads)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(
+        got, jref.decode_scan_baseline(jhdr, jhdr.scans[0]))
+
+
+def test_native_baseline_12bit_matches_jax_python_ref():
+    blob = encode(_rgb(13, 24, 32), precision=12, restart_interval=2)[0]
+    jhdr, thdr = jparser.parse(blob), tparser.parse(blob)
+    assert thdr.precision == 12
+    np.testing.assert_array_equal(
+        tnative.decode_scan_baseline(thdr, thdr.scans[0]),
+        jref.decode_scan_baseline(jhdr, jhdr.scans[0]))
+
+
+def test_native_available():
+    assert tnative.available()
+
+
+def test_lut_chain_twin_equals_expected():
+    """tools/pallas_mosaic_repro.py:37-41: the chain over its 8 indices."""
+    idx = np.array([[17], [4093], [65535], [2], [9], [100], [7], [31]],
+                   np.int32)
+    expected = 0
+    for i in range(8):
+        expected += (int(idx[i, 0]) + expected) & 0xFFFF
+    assert tuple(idx[:, 0]) == lut_probe.CHAIN_IDX
+    assert lut_probe.chain_expected(lut_probe.CHAIN_IDX) == expected
+    lut = torch.arange(65536, dtype=torch.int32)
+    got = lut_probe.lut_chain_probe(lut, torch.from_numpy(idx))
+    assert got.dtype == torch.int32 and int(got) == expected
+
+
+def test_lut_gather_twin_equals_take():
+    """tools/pallas_mosaic_repro.py:99-126: lut[idx] for (8, 128) indices
+    drawn from seed 0, the JAX file's check."""
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 65536, (8, 128), np.int32)
+    lut = np.arange(65536, dtype=np.int32)
+    got = lut_probe.lut_gather(torch.from_numpy(lut), torch.from_numpy(idx))
+    assert got.shape == (8, 128) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), lut[idx])

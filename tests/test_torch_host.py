@@ -84,8 +84,9 @@ PROGRESSIVE = len(ENCODER_CASES)        # index of the PIL progressive blob
 
 
 def test_import_leaves_out_jax():
-    """Importing every module of the port loads neither jax nor the JAX
-    package (fresh interpreter)."""
+    """Importing every module of the port, the single-image decoder, the
+    entropy kernel's wrapper and the LUT probes included, loads neither jax
+    nor the JAX package (fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import jpeg_decoder_tpu_torch as p\n"
@@ -94,7 +95,9 @@ def test_import_leaves_out_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jpeg_decoder_tpu' or m.startswith('jpeg_decoder_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert 'jpeg_decoder_tpu_torch.models.batch' in sys.modules\n"
+        "for m in ('models.batch', 'models.decoder', 'ops.entropy_cuda',\n"
+        "          'probes.lut_probe'):\n"
+        "    assert 'jpeg_decoder_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
