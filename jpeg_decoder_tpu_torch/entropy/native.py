@@ -1,10 +1,11 @@
 """ctypes wrapper for the native C++ entropy decoder (host side).
 
-The port builds the JAX package's own source file,
-``jpeg_decoder_tpu/entropy/native_src/jpeg_entropy.cpp``, read by path (the
-port never imports ``jpeg_decoder_tpu``), into ``.cache/torch/native/`` at
-first use.  Bound: the unstuffer and the nibble-wire emitter (the batched
-serving path), and the scan decoders :func:`decode_scan_baseline` and
+The port builds its own copy of the native decoder's source,
+``csrc/jpeg_entropy.cpp`` (byte-identical to the JAX package's
+``entropy/native_src/jpeg_entropy.cpp``, which the port never reads), into
+``.cache/torch/native/`` at first use.  Bound: the unstuffer and the
+nibble-wire emitter (the batched serving path), and the scan decoders
+:func:`decode_scan_baseline` and
 :func:`decode_scan_resilient` (the ``native``/``auto`` backends of
 ``models/decoder.py``, with the signatures of the JAX package's).  A failed
 build raises :class:`BuildFailure`; nothing falls back silently.
@@ -21,16 +22,13 @@ import threading
 
 import numpy as np
 
-from .._build import shared_lib
+from .._build import CSRC, shared_lib
 from ..huffman import build_ac_lut32, build_lut
 from ..layout import scan_layout
 from ..types import FrameHeader, JPEGError, ScanHeader
 
 _NCPU = os.cpu_count() or 1
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "jpeg_decoder_tpu", "entropy", "native_src",
-                    "jpeg_entropy.cpp")
+_SRC = os.path.join(CSRC, "jpeg_entropy.cpp")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 _ABI = 22
 

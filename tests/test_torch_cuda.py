@@ -76,6 +76,20 @@ def test_kernel_rounds_ties_half_to_even(cuda_device):
     np.testing.assert_array_equal(got, np.broadcast_to(exact, got.shape))
 
 
+def test_kernel_equals_separable_model(cuda_device):
+    """The kernel's arithmetic is idct_separable's (the CPU model of its
+    order, recheck included): equal on every sample but a float64-emulated
+    FMA's rare double rounding."""
+    blocks, q = _inputs(12, 3, 5000)
+    got = idct_cuda.fused_dequant_idct(
+        torch.from_numpy(blocks).to(cuda_device),
+        torch.from_numpy(q).to(cuda_device)).cpu()
+    ref = idct_cuda.idct_separable(torch.from_numpy(blocks),
+                                   torch.from_numpy(q))
+    assert int((got - ref).abs().max()) <= TOL
+    assert int((got != ref).sum()) <= 2
+
+
 def test_kernel_rejects_strided_input(cuda_device):
     blocks, q = _inputs(1, 2, 64)
     tb = torch.from_numpy(blocks).to(cuda_device)[:, ::2]
@@ -148,7 +162,7 @@ def _segments(blob, dev):
     hdr = parser.parse(blob)
     scan = hdr.scans[0]
     words, nm, block_comp, max_mcus, _ = scan_prep.prepare_scan(hdr, scan)
-    luts = entropy_cuda._device_luts(hdr, scan, dev)
+    luts = entropy_cuda.device_tables(hdr, scan, dev)[0]
     kw = dict(block_comp=block_comp, n_comps=len(hdr.components),
               max_mcus=max_mcus)
     return hdr, torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(
@@ -218,6 +232,54 @@ def test_entropy_kernel_dri0_one_lane(cuda_device):
     np.testing.assert_array_equal(
         got.cpu().numpy(), python_ref.decode_scan_baseline(hdr,
                                                            hdr.scans[0]))
+
+
+@pytest.mark.parametrize("chunk_bits", [128, 1024])
+def test_entropy_kernel_dri0_chunked_matches_twin_and_native(cuda_device,
+                                                            chunk_bits):
+    """A DRI=0 scan cut into chunks that synchronise (at 128 bits, several
+    CTAs of them): equal to the sequential twin, the chunked model and the
+    native host decoder."""
+    from jpeg_decoder_tpu_torch.entropy import native
+
+    blob = encode(_rgb(33, 160, 240), quality=90)[0]
+    hdr, words, nm, luts, kw = _segments(blob, cuda_device)
+    assert words.shape[0] == 1
+    out, err = entropy_cuda.decode_segments(words, nm, luts, **kw,
+                                            chunk_bits=chunk_bits)
+    stats = dict(zip(entropy_cuda.STATS,
+                     entropy_cuda.decode_segments.last_stats.tolist()))
+    ref, ref_err = entropy_cuda.decode_segments_torch(
+        words.cpu(), nm.cpu(), luts.cpu(), **kw)
+    assert not err.any() and not ref_err.any()
+    assert torch.equal(out.cpu(), ref)
+    model, _ = entropy_cuda.decode_segments_chunked_torch(
+        words.cpu(), nm.cpu(), luts.cpu(), **kw, chunk_bits=chunk_bits)
+    assert torch.equal(model, ref)
+    n = hdr.mcus_x * hdr.mcus_y * len(kw["block_comp"])
+    np.testing.assert_array_equal(
+        out.view(-1, 64)[:n].cpu().numpy(),
+        native.decode_scan_baseline(hdr, hdr.scans[0]))
+    assert stats["sync_decodes"] > int(entropy_cuda.seg_chunks(
+        words.cpu(), chunk_bits)[0]) - 1
+
+
+def test_entropy_first_level_kernel_matches_plain(cuda_device):
+    blob = encode(_rgb(34, 32, 32), quality=75)[0]
+    _, _, _, luts, _ = _segments(blob, cuda_device)
+    got = entropy_cuda.first_level(luts)
+    assert got.is_cuda and got.dtype == torch.int16
+    assert torch.equal(got.cpu(), entropy_cuda.first_level_torch(luts.cpu()))
+
+
+def test_entropy_kernel_rejects_bad_options(cuda_device):
+    blob = encode(_rgb(35, 32, 32), quality=75)[0]
+    _, words, nm, luts, kw = _segments(blob, cuda_device)
+    with pytest.raises(ValueError):
+        entropy_cuda.decode_segments(words, nm, luts, **kw, chunk_bits=100)
+    with pytest.raises(TypeError):
+        entropy_cuda.decode_segments(words, nm, luts, **kw,
+                                     l1=torch.zeros(3, device=cuda_device))
 
 
 def test_lut_probes_match_twins(cuda_device):

@@ -7,6 +7,11 @@ through both packages:
   kernel ``entropy_pallas.decode_segments_pallas`` run in interpret mode, on
   the same words, MCU counts and LUTs: equal blocks on every valid row and
   equal error flags (JAX leaves rows past ``nm[s]*bpm`` unspecified);
+* the model of the chunked K2 kernel,
+  ``entropy_cuda.decode_segments_chunked_torch``, against both, at chunk
+  sizes that start lanes mid-code, under every schedule of its
+  synchronisation (inside CTAs, across them, the serial seal), and its
+  phase-0 first-level tables against the JAX native decoder's;
 * the port's device backend ``entropy_cuda.decode_scan_baseline`` on the
   CPU against JAX's ``decode_scan_baseline``;
 * the host copies (``scan_prep``, ``python_ref``) against their originals,
@@ -162,6 +167,195 @@ def test_twin_decodes_at_most_max_mcus_as_pallas_kernel():
     np.testing.assert_array_equal(terr, jerr)
     _assert_valid_rows_equal(tout, jout, np.minimum(nm, kw["max_mcus"]),
                              len(kw["block_comp"]), range(len(nm)))
+
+
+CHUNKS = [32, 96, 1024]
+
+
+def _chunked(words, nm, luts, kw, chunk_bits, **extra):
+    got, err = entropy_cuda.decode_segments_chunked_torch(
+        torch.from_numpy(words), torch.from_numpy(nm), torch.from_numpy(luts),
+        chunk_bits=chunk_bits, **kw, **extra)
+    return got.numpy(), err.numpy()
+
+
+@pytest.mark.parametrize("chunk_bits", CHUNKS)
+@pytest.mark.parametrize("k", range(len(BLOBS)))
+def test_chunked_model_matches_pallas_kernel_and_twin(k, chunk_bits):
+    """The chunked kernel's model (speculative chunks that synchronise)
+    equals the sequential twin everywhere and the Pallas kernel on every
+    valid row, error flags included; 32-bit chunks start mid-code."""
+    words, nm, luts, kw = _kernel_inputs(BLOBS[k])
+    (jout, jerr), (tout, terr) = _both_kernels(words, nm, luts, kw)
+    got, err = _chunked(words, nm, luts, kw, chunk_bits)
+    assert got.dtype == np.int32 and err.dtype == np.int32
+    np.testing.assert_array_equal(got, tout)
+    np.testing.assert_array_equal(err, terr)
+    np.testing.assert_array_equal(err, jerr)
+    _assert_valid_rows_equal(got, jout, nm, len(kw["block_comp"]),
+                             range(len(nm)))
+
+
+def _dri0_inputs():
+    blob = encode(_rgb(21, 64, 96), samplings=((2, 2), (1, 1), (1, 1)),
+                  quality=90, restart_interval=0)[0]
+    return blob, _kernel_inputs(blob)
+
+
+@pytest.mark.parametrize("lanes,rounds", [(64, 1), (4, 0), (2, 3)])
+@pytest.mark.parametrize("chunk_bits", CHUNKS)
+def test_chunked_model_dri0_every_schedule(chunk_bits, lanes, rounds):
+    """A DRI=0 scan (one segment) split into chunks: exact against the
+    twin and python_ref whether the chunks settle inside CTAs, across them,
+    or only in the serial seal (no cross-CTA round, 4-chunk CTAs)."""
+    blob, (words, nm, luts, kw) = _dri0_inputs()
+    assert words.shape[0] == 1
+    st = {}
+    got, err = _chunked(words, nm, luts, kw, chunk_bits, lanes_per_cta=lanes,
+                        global_rounds=rounds, stats=st)
+    ref, ref_err = entropy_cuda.decode_segments_torch(
+        torch.from_numpy(words), torch.from_numpy(nm), torch.from_numpy(luts),
+        **kw)
+    np.testing.assert_array_equal(got, ref.numpy())
+    assert not err.any() and not ref_err.any()
+    hdr = jparser.parse(blob)
+    n = int(nm[0]) * len(kw["block_comp"])
+    np.testing.assert_array_equal(
+        got[0, :n], jref.decode_scan_baseline(hdr, hdr.scans[0]))
+    assert st["chunks"] == int(entropy_cuda.seg_chunks(
+        torch.from_numpy(words), chunk_bits)[0])
+    if chunk_bits == 32:
+        # Mid-code starts: chunks need more than one re-decode to settle,
+        # and without a cross-CTA round the seal must repair CTA heads.
+        assert st["chunks"] > 100
+        assert st["sync_decodes"] > st["chunks"]
+        if lanes == 4 and rounds == 0:
+            assert st["seal_redecodes"] > 0
+        if lanes == 64:
+            assert st["round0_iterations"] > 2
+
+
+@pytest.mark.parametrize("chunk_bits", CHUNKS)
+def test_chunked_model_flags_corrupt_segments_as_twin(chunk_bits):
+    """The corrupt stream of test_twin_flags_corrupt_segments_as_pallas_kernel:
+    the same flags as the sequential twin and the Pallas kernel, and the
+    same blocks in every unflagged segment (garbage decodes included)."""
+    words, nm, luts, kw = _kernel_inputs(BLOBS[0])
+    rng = np.random.default_rng(3)
+    for s in range(0, len(words), 3):
+        words[s, 1:] = rng.integers(0, 2**32, words.shape[1] - 1,
+                                    dtype=np.uint64)
+    words[1, :] = 0xFFFFFFFF
+    (jout, jerr), (tout, terr) = _both_kernels(words, nm, luts, kw)
+    got, err = _chunked(words, nm, luts, kw, chunk_bits)
+    np.testing.assert_array_equal(err, terr)
+    np.testing.assert_array_equal(err, jerr)
+    assert err[1] == 1
+    ok = np.flatnonzero(err == 0)
+    np.testing.assert_array_equal(got[ok], tout[ok])
+
+
+@pytest.mark.parametrize("chunk_bits", CHUNKS)
+def test_chunked_model_decodes_at_most_max_mcus(chunk_bits):
+    """MCU counts above max_mcus: max_mcus MCUs, the last segment's taken
+    from its zero padding past its data, as the twin and Pallas do."""
+    words, nm, luts, kw = _kernel_inputs(BLOBS[3])
+    nm = nm + 3
+    (jout, jerr), (tout, terr) = _both_kernels(words, nm, luts, kw)
+    got, err = _chunked(words, nm, luts, kw, chunk_bits)
+    np.testing.assert_array_equal(got, tout)
+    np.testing.assert_array_equal(err, terr)
+    _assert_valid_rows_equal(got, jout, np.minimum(nm, kw["max_mcus"]),
+                             len(kw["block_comp"]), range(len(nm)))
+
+
+def test_chunked_model_empty_and_short_segments():
+    """A segment with no MCUs writes nothing and flags nothing; one whose
+    bits end early is decoded on by its last chunk from zero words."""
+    words, nm, luts, kw = _kernel_inputs(BLOBS[2])
+    nm = nm.copy()
+    nm[0] = 0
+    words[1, 2:] = 0
+    got, err = _chunked(words, nm, luts, kw, 32)
+    ref, ref_err = entropy_cuda.decode_segments_torch(
+        torch.from_numpy(words), torch.from_numpy(nm), torch.from_numpy(luts),
+        **kw)
+    np.testing.assert_array_equal(got, ref.numpy())
+    np.testing.assert_array_equal(err, ref_err.numpy())
+    assert not got[0].any() and err[0] == 0
+
+
+def test_chunked_model_rejects_bad_chunk_size():
+    words, nm, luts, kw = _kernel_inputs(BLOBS[0])
+    with pytest.raises(ValueError):
+        _chunked(words, nm, luts, kw, 48)
+
+
+def test_seg_chunks_counts_bits_to_last_nonzero_word():
+    words = torch.zeros((3, 10), dtype=torch.uint32)
+    words[0, 9] = 1
+    words[1, 3] = 7
+    got = entropy_cuda.seg_chunks(words, 64)
+    assert got.tolist() == [5, 2, 1]
+
+
+@pytest.mark.parametrize("k", [0, 2, 4])
+def test_first_level_tables_match_jax_native(k):
+    """Phase 0's plain version equals the first-level table the JAX
+    package's native decoder appends to its int16 LUTs."""
+    from jpeg_decoder_tpu.entropy import native as jnative
+
+    hdr = jparser.parse(BLOBS[k])
+    scan = hdr.scans[0]
+    _, _, luts, _ = _kernel_inputs(BLOBS[k])
+    got = entropy_cuda.first_level(torch.from_numpy(luts))
+    assert got.dtype == torch.int16 and got.shape == (len(luts), 4096)
+    for c, comp in enumerate(hdr.components):
+        for t, spec in ((2 * c, scan.dc_specs[comp.td]),
+                        (2 * c + 1, scan.ac_specs[comp.ta])):
+            np.testing.assert_array_equal(got[t].numpy(),
+                                          jnative._lut16(spec)[65536:])
+
+
+def test_device_tables_cached_per_table_set():
+    """One upload per table set and device: a scan with the same tables
+    reuses the entry; the oldest set is dropped past the limit (the
+    encoder's quality does not change its tables, so PIL makes new ones)."""
+    entropy_cuda.clear_table_cache()
+    hdr0, hdr2 = tparser.parse(BLOBS[0]), tparser.parse(BLOBS[2])
+    luts, l1 = entropy_cuda.device_tables(hdr0, hdr0.scans[0], "cpu")
+    assert l1 is None and luts.dtype == torch.int32
+    again = entropy_cuda.device_tables(hdr0, hdr0.scans[0], "cpu")
+    assert again[0] is luts
+    _, _, ref, _ = _kernel_inputs(BLOBS[0])
+    np.testing.assert_array_equal(luts.numpy(), ref)
+    # Another image with the same (standard) tables shares the entry.
+    assert entropy_cuda.device_tables(hdr2, hdr2.scans[0], "cpu")[0] is luts
+    keys = set()
+    for q in range(entropy_cuda.TABLE_CACHE_SIZE + 1):
+        buf = io.BytesIO()
+        Image.fromarray(_rgb(q, 16, 16)).save(buf, "JPEG", quality=50 + q,
+                                              optimize=True)
+        h = tparser.parse(buf.getvalue())
+        got = entropy_cuda.device_tables(h, h.scans[0], "cpu")[0]
+        keys.add(got.numpy().tobytes())
+    assert len(keys) == entropy_cuda.TABLE_CACHE_SIZE + 1
+    assert entropy_cuda.device_tables(hdr0, hdr0.scans[0], "cpu")[0] \
+        is not luts
+    entropy_cuda.clear_table_cache()
+
+
+def test_kernel_constants_match_model():
+    """The model's CTA size and table width are the kernel's."""
+    import re
+
+    src = open(entropy_cuda.LIB.src).read()
+    assert int(re.search(r"kSyncLanes = (\d+);", src).group(1)) == \
+        entropy_cuda.SYNC_LANES
+    assert int(re.search(r"kL1Bits = (\d+);", src).group(1)) == \
+        entropy_cuda.L1_BITS
+    assert int(re.search(r"kStats = (\d+);", src).group(1)) == \
+        len(entropy_cuda.STATS)
 
 
 @pytest.mark.parametrize("k", [0, 1, 3, 4])

@@ -105,6 +105,101 @@ def test_import_leaves_out_jax():
     assert out.stdout.strip() == "clean"
 
 
+PORT = os.path.join(REPO, "jpeg_decoder_tpu_torch")
+JAX_PKG = os.path.join(REPO, "jpeg_decoder_tpu")
+
+
+def test_native_source_copy_is_byte_identical():
+    """The port builds its own copy of the C++ entropy decoder; it must stay
+    the JAX package's file, byte for byte."""
+    with open(os.path.join(PORT, "csrc", "jpeg_entropy.cpp"), "rb") as f:
+        got = f.read()
+    with open(os.path.join(JAX_PKG, "entropy", "native_src",
+                           "jpeg_entropy.cpp"), "rb") as f:
+        ref = f.read()
+    assert got == ref
+    assert os.path.dirname(tnative._SRC) == os.path.join(PORT, "csrc")
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh", ".cpp", ".h")):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+# A "file.py:line" citation of the TPU kernel a port kernel replaces.
+_CITATION = r"jpeg_decoder_tpu/[\w/]+\.py:\d+"
+
+
+def test_port_never_opens_jax_package_paths():
+    """No source of the port, nor chip_smoke.py, names a path under
+    jpeg_decoder_tpu/ in code (only file:line citations in comments and the
+    kernel table), and importing every module, building the native library
+    and locating every CUDA source opens nothing there (fresh interpreter
+    with open/os.open/subprocess recorded)."""
+    import ast
+    import re
+
+    for path in _port_sources():
+        if path.endswith(".py"):
+            with open(path, encoding="utf-8") as f:
+                tree = ast.parse(f.read())
+            docs = {id(n.value) for n in ast.walk(tree)
+                    if isinstance(n, ast.Expr)
+                    and isinstance(n.value, ast.Constant)}
+            for n in ast.walk(tree):
+                if (isinstance(n, ast.Constant) and isinstance(n.value, str)
+                        and id(n) not in docs):
+                    body = re.sub(_CITATION, "", n.value)
+                    assert body != "jpeg_decoder_tpu", (path, n.lineno)
+                    assert not re.search(r"jpeg_decoder_tpu[/\\]", body), (
+                        path, n.lineno, n.value)
+        else:
+            with open(path, encoding="utf-8") as f:
+                for n, line in enumerate(f, 1):
+                    code = line.split("//")[0]
+                    assert not re.search(r"jpeg_decoder_tpu(?!_torch)\b",
+                                         code), (path, n, line)
+    code = (
+        "import builtins, importlib, io, os, pkgutil, subprocess, sys\n"
+        "seen = []\n"
+        "def wrap(fn):\n"
+        "    def inner(file, *a, **k):\n"
+        "        seen.append(os.fspath(file) if isinstance(file, (str, bytes,"
+        " os.PathLike)) else str(file))\n"
+        "        return fn(file, *a, **k)\n"
+        "    return inner\n"
+        "builtins.open = io.open = wrap(builtins.open)\n"
+        "os.open = wrap(os.open)\n"
+        "real_popen = subprocess.Popen.__init__\n"
+        "def popen(self, args, *a, **k):\n"
+        "    seen.extend(map(str, args if isinstance(args, (list, tuple))"
+        " else [args]))\n"
+        "    return real_popen(self, args, *a, **k)\n"
+        "subprocess.Popen.__init__ = popen\n"
+        "import jpeg_decoder_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from jpeg_decoder_tpu_torch.entropy import native\n"
+        "from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda\n"
+        "from jpeg_decoder_tpu_torch.probes import lut_probe\n"
+        "native._load()\n"
+        "for lib in (entropy_cuda.LIB, idct_cuda.LIB, lut_probe.LIB):\n"
+        "    lib.path()\n"
+        "bad = [s for s in seen if os.path.abspath(s).startswith(\n"
+        f"    {JAX_PKG + os.sep!r})]\n"
+        "assert not bad, bad\n"
+        "assert any(s.endswith(os.path.join('csrc', 'jpeg_entropy.cpp'))"
+        " for s in seen), seen\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
 @pytest.mark.parametrize("case", range(len(ENCODER_CASES)))
 def test_encoder_bytes_identical(case):
     samp, q, ri, (h, w) = ENCODER_CASES[case]

@@ -5,8 +5,11 @@ the same numpy expressions, must be bit-identical.  The plain twin
 ``idct_kron`` is held to JAX's ``idct_kron`` and to the Pallas kernel run
 in interpret mode, within +-1 (the bound of the JAX package's own test,
 tests/test_entropy_pallas.py:70: the Kronecker form sums in another order
-than the separable one).  The CUDA kernel is held to the twin on the card
-in tests/test_torch_cuda.py.
+than the separable one).  ``idct_separable``, the plain version of the CUDA
+kernel's own arithmetic (separable passes, then the Kronecker order for
+samples near a half), is held to both within +-1 and equal on 99.99% of the
+samples, with DC ties exact.  The CUDA kernel is held to the twin on the
+card in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -92,6 +95,95 @@ def test_dc_ties_round_half_to_even(ref):
         want = jidct.fused_dequant_idct(jnp.asarray(blocks[0]),
                                         jnp.asarray(q[0]), interpret=True)
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+SEP_MIN_EQUAL = 0.9999   # the kernel's bar against its twin on the card
+
+
+def test_separable_basis_matches_kernel_constants():
+    """csrc/idct.cu's kS is IDCT_S bit for bit, and its column 0 is exactly
+    1.0 (which makes DC-only blocks exact)."""
+    import re
+
+    src = open(idct_cuda.LIB.src).read()
+    body = src[src.index("kS[8][8] = {"):]
+    body = body[:body.index("};")]
+    lits = re.findall(r"(-?0x1(?:\.[0-9a-f]+)?p[+-]\d+)f", body)
+    got = np.array([float.fromhex(v) for v in lits], np.float32)
+    assert got.shape == (64,)
+    assert got.tobytes() == idct_cuda.IDCT_S.reshape(-1).tobytes()
+    assert (idct_cuda.IDCT_S[:, 0] == np.float32(1.0)).all()
+    m = re.search(r"kEpsScale = 0x1p(-\d+)f", src)
+    assert 2.0 ** int(m.group(1)) == idct_cuda.EPS_SCALE
+
+
+@pytest.mark.parametrize("seed,n", [(0, 2000), (1, 20000)])
+def test_idct_separable_matches_twin_and_jax_kron(seed, n):
+    """The kernel's arithmetic against the twin and JAX's idct_kron: +-1
+    and equal on at least 99.99% of the samples."""
+    blocks, q = _inputs(seed, 1, n)
+    tb, tq = torch.from_numpy(blocks), torch.from_numpy(q)
+    got = idct_cuda.idct_separable(tb, tq)[0].numpy()
+    assert got.dtype == np.int32
+    for ref in (idct_cuda.idct_kron(tb, tq)[0].numpy(),
+                np.asarray(jidct.idct_kron(jnp.asarray(blocks[0]),
+                                           jnp.asarray(q[0])))):
+        assert np.abs(got.astype(np.int64) - ref).max() <= TOL
+        assert (got == ref).mean() >= SEP_MIN_EQUAL
+
+
+def test_idct_separable_matches_pallas_interpret():
+    blocks, q = _inputs(2, 1, 700)
+    ref = np.asarray(jidct.fused_dequant_idct(
+        jnp.asarray(blocks[0]), jnp.asarray(q[0]), interpret=True))
+    got = idct_cuda.idct_separable(torch.from_numpy(blocks),
+                                   torch.from_numpy(q))[0].numpy()
+    assert np.abs(got.astype(np.int64) - ref).max() <= TOL
+    assert (got == ref).mean() >= SEP_MIN_EQUAL
+
+
+@pytest.mark.parametrize("ref", ["exact", "jax_kron", "pallas_interpret"])
+def test_idct_separable_dc_ties_round_half_to_even(ref):
+    """DC-only blocks: S's column 0 is 1.0 and the last step an exact 1/8,
+    so every sample is exactly dc*q/8 and its halves round to even."""
+    rng = np.random.default_rng(9)
+    dc = rng.integers(-1024, 1024, size=(1, 600)).astype(np.int32)
+    q = rng.integers(1, 40, size=(1, 64)).astype(np.int32)
+    blocks = np.zeros((1, 600, 64), np.int32)
+    blocks[:, :, 0] = dc
+    assert (dc * q[:, :1] % 8 == 4).any()
+    got = idct_cuda.idct_separable(torch.from_numpy(blocks),
+                                   torch.from_numpy(q))[0].numpy()
+    if ref == "exact":
+        want = np.broadcast_to(np.rint(dc[0] * q[0, 0] / 8.0)[:, None],
+                               got.shape)
+    elif ref == "jax_kron":
+        want = jidct.idct_kron(jnp.asarray(blocks[0]), jnp.asarray(q[0]))
+    else:
+        want = jidct.fused_dequant_idct(jnp.asarray(blocks[0]),
+                                        jnp.asarray(q[0]), interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_separable_sum_needs_and_gets_the_recheck():
+    """Rounded as it is, the separable sum differs from the twin on some
+    samples; all but a rare one (the threshold sits below the largest gap,
+    for speed) lie within eps of a half, so the kernel recomputes them, and
+    the gap to the Kronecker sum stays within 2 eps."""
+    blocks, q = _inputs(1, 1, 20000)
+    tb, tq = torch.from_numpy(blocks), torch.from_numpy(q)
+    x = (tb * tq[:, None, :]).to(torch.float32)
+    o, eps = idct_cuda._separable(x)
+    kron = torch.matmul(x, idct_cuda._basis_t(x.device))
+    twin = idct_cuda.idct_kron(tb, tq)
+    flips = torch.round(o).to(torch.int32) != twin
+    assert int(flips.sum()) > 0
+    near = (o - torch.floor(o) - 0.5).abs() < eps[..., None]
+    assert int((flips & ~near).sum()) <= 2
+    assert float(((o - kron).abs() / eps[..., None]).max()) < 2.0
+    # Blocks of uniform +-512 * q<40 coefficients are the worst case (eps
+    # grows with sum|x|): still most samples keep the separable value.
+    assert float(near.float().mean()) < 0.25
 
 
 def test_batched_twin_is_per_image():
