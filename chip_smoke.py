@@ -29,7 +29,28 @@ kernel against its plain version:
    x1.402, and >= 99.99% of samples equal) and PSNR >= 30 dB against the
    source pixels; prints end-to-end MP/s (best of 3 after warm-up) and
    per-stage times;
-5. entropy kernel phase (K2, ``csrc/entropy.cu``) on four images:
+5. wires: the same 32 images through ``BatchDecoder(wire=w)`` for each of
+   ``nibble``, ``sparse``, ``packed`` and ``slots``: every wire's unpacked
+   blocks and RGB must equal the nibble wire's bit for bit, and K1 must
+   launch 9 times (3 groups x 3 components); per wire the MB copied, host
+   entropy, group+pad, copy, the device unpack (profiler), the pixel stage
+   (CUDA events) and end-to-end MP/s;
+6. the batch under ``entropy="pallas"``: K2 once per image (32), RGB
+   bit-identical to ``entropy="native"``'s; end-to-end MP/s;
+7. waves: 192 images (the batch six times), ``decode(blobs, wave=64)``
+   against three back-to-back ``decode(blobs[i:i+64])`` calls, in turns:
+   bit-identical and in input order; both MP/s, host entropy and device
+   worker ms, the busy share under the profiler, peak device memory;
+8. mixed frames: 32 frames of 1920x1080 (8 baseline DRI 0, 8 progressive
+   Huffman from the committed PIL fixtures, 4 SOF9 and 4 SOF10 arithmetic,
+   4 multi-scan, 2 restart-mismatched 4:4:4 DRI 8 with the last RSTn cut
+   out, one 12-bit, one CMYK; the arithmetic and other frames encoded in a
+   pool of spawned processes): 30 must decode, each within the batch
+   tolerance of the port's CPU ``decode()`` and at PSNR >= 30 dB against
+   its source, and the 12-bit and CMYK frames must come back as their own
+   ``NotPortedError``; host ms per frame kind; then on a 512x512 frame of
+   each kind the native planes must equal the pure-Python oracle's;
+9. entropy kernel phase (K2, ``csrc/entropy.cu``) on four images:
    (a) 3840x2160 4:2:0 q90 with DRI = one MCU row (135 segments of 240
    MCUs, the hardware-camera pattern), (b) 1920x1080 4:4:4 q95 DRI 8 (4,050
    segments; the batch's restart image), (c) 1920x1080 4:2:0 q90 DRI 0 (one
@@ -43,22 +64,22 @@ kernel against its plain version:
    per image the kernel's device time per phase (tables, sync, scan, write;
    torch.profiler), its synchronisation rounds, and a sweep of the chunk
    size C (each C must give the same output);
-6. single-image path (``decode(entropy="pallas", idct="pallas",
+10. single-image path (``decode(entropy="pallas", idct="pallas",
    upsample="fancy")``) on (a)-(d), with every kernel count set to 0 just
    before and read just after: K2 once and K1 three times per image, RGB on
    the card, PSNR >= 30 dB, and the CPU decode (``entropy="native"``, plain
    twins) within the batch path's tolerance; prints end-to-end ms and MP/s
    (best of 3 after warm-up) and the stages (parse, scan prep, copy with a
    cold and with a warm table cache, K2, pixel pipeline);
-7. probe phase (K3/K4, ``csrc/lut_probe.cu``): the dependent probe chain
+11. probe phase (K3/K4, ``csrc/lut_probe.cu``): the dependent probe chain
    must equal the value tools/pallas_mosaic_repro.py expects and the
    per-lane gather must equal ``lut[idx]``; the kernels' device time from
-   torch.profiler, and the wrappers timed beside their twins and
-   ``torch.take``;
-8. a torch.profiler breakdown of the batch path's device pixel stage, one
+   torch.profiler beside ``torch.take``'s (the same way), and the wrappers
+   timed beside their twins and ``torch.take`` by CUDA events;
+12. a torch.profiler breakdown of the batch path's device pixel stage, one
    whole batch decode and one ``decode()`` of each image, and host entropy
    against the host thread pool's size;
-9. prints the kernel table as one JSON line, then as the last line
+13. prints the kernel table as one JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
@@ -92,21 +113,11 @@ FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 
 
 def _image(rng, h: int, w: int) -> np.ndarray:
-    """Smooth random colour field (a few low-frequency cosines per
-    channel) plus Gaussian luma noise of sigma 3: (h, w, 3) uint8."""
-    y = np.linspace(0.0, 1.0, h)[:, None]
-    x = np.linspace(0.0, 1.0, w)[None, :]
-    chans = []
-    for _ in range(3):
-        acc = np.full((h, w), rng.uniform(60, 190))
-        for _ in range(4):
-            fy, fx = rng.uniform(0.3, 4.0, 2)
-            ph = rng.uniform(0, 2 * np.pi)
-            acc += rng.uniform(10, 35) * np.cos(2 * np.pi * (fy * y + fx * x)
-                                                + ph)
-        chans.append(acc)
-    img = np.stack(chans, axis=-1) + rng.normal(0.0, 3.0, (h, w, 1))
-    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+    """The seeded synthetic photo (``testing/photo.synthetic_photo``):
+    smooth random colour fields plus Gaussian luma noise of sigma 3."""
+    from jpeg_decoder_tpu_torch.testing.photo import synthetic_photo
+
+    return synthetic_photo(rng, h, w)
 
 
 def _cuda_ms(fn, n: int, warmup: int = 3) -> list[float]:
@@ -776,12 +787,17 @@ def _probe_phase(dev) -> list[dict]:
                         {"k": ("lut_chain_kernel",)})["k"]
     dev_k4 = _kernel_ms(lambda: lut_probe.lut_gather(lut, gidx), 50,
                         {"k": ("lut_gather_kernel",)})["k"]
+    # The library call's own device time, measured as K4's is (every
+    # kernel torch.take launches).
+    dev_take = _kernel_ms(lambda: torch.take(lut, gidx64), 50,
+                          {"k": ("",)})["k"]
     print(f"probe: lut_chain_probe device {dev_k3 * 1e3:.2f} us per launch "
           f"(profiler, 50 launches; wrapper median {med(ms_k3):.4f} ms by "
           f"CUDA events, twin {med(ms_k3_plain):.4f} ms); lut_gather device "
           f"{dev_k4 * 1e3:.2f} us (wrapper median {med(ms_k4):.4f} ms, twin "
           f"{med(ms_k4_plain):.4f} ms, torch.take {med(ms_k4_lib):.4f} ms); "
-          "CUDA events, 50 runs (twin of the chain 20)")
+          "CUDA events, 50 runs (twin of the chain 20); torch.take device "
+          f"{dev_take * 1e3:.2f} us (profiler, 50 calls, like lut_gather's)")
     return [
         {"name": "lut_chain_probe", "route": "cuda",
          "source": "jpeg_decoder_tpu_torch/csrc/lut_probe.cu",
@@ -796,7 +812,7 @@ def _probe_phase(dev) -> list[dict]:
          "max_abs_err": gather_err, "ms": dev_k4,
          "wrapper_ms": med(ms_k4), "plain_ms": med(ms_k4_plain),
          "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": med(ms_k4_lib)},
+         "library_ms": dev_take, "library_wrapper_ms": med(ms_k4_lib)},
     ]
 
 
@@ -856,6 +872,397 @@ def _profile_batch(bd, batch: list[bytes], dev) -> None:
               f"{best * 1e3:.1f} ms")
 
 
+WIRE_NAMES = ("nibble", "sparse", "packed", "slots")
+
+
+def _n_rgb_differ(items_a, items_b) -> int:
+    """Images whose RGB differ between two decodes of the same blobs."""
+    import torch
+
+    return sum(not torch.equal(a.rgb, b.rgb) for a, b in zip(items_a, items_b)
+               if a.ok or b.ok)
+
+
+def _e2e(bd, blobs, n: int = 3, **kw) -> list[float]:
+    """Seconds of ``n`` whole ``bd.decode(blobs)`` runs, each ending in a
+    device synchronise."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        items = bd.decode(blobs, **kw)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        del items
+    return out
+
+
+def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
+    """The 32-image batch through every wire: each wire's unpacked blocks
+    and RGB must equal the nibble wire's bit for bit and K1 must launch 9
+    times (3 groups x 3 components); per wire the wire MB copied, the host
+    stages, the device unpack (profiler), the pixel stage (CUDA events) and
+    end-to-end MP/s.  Returns the per-wire records and the nibble wire's
+    items."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder
+
+    ref_items, ref_blocks, recs = None, None, {}
+    for wire in WIRE_NAMES:
+        with BatchDecoder(device=dev, wire=wire) as bd:
+            bd.decode(batch)                      # warm-up
+            torch.cuda.synchronize()
+            _zero_counts()
+            items = bd.decode(batch)
+            torch.cuda.synchronize()
+            k1 = _counts()["K1"]
+            bad = [(it.index, it.error) for it in items if not it.ok]
+            n_groups = len({id(it.rgb_batch) for it in items})
+            if bad or n_groups != 3 or k1 != 9:
+                raise AssertionError(f"wire {wire}: failed {bad}, "
+                                     f"{n_groups} groups, K1 {k1}")
+            groups = bd.group(bd.host_stage(batch))
+            tensors = [bd.to_device(g) for g in groups]
+            blocks = [bd.unpack(g, t) for g, t in zip(groups, tensors)]
+            torch.cuda.synchronize()
+            if ref_items is None:
+                ref_items, ref_blocks = items, blocks
+                n_rgb = n_blk = 0
+            else:
+                n_rgb = _n_rgb_differ(ref_items, items)
+                n_blk = sum(not torch.equal(a, b)
+                            for a, b in zip(ref_blocks, blocks))
+            if n_rgb or n_blk:
+                raise AssertionError(f"wire {wire}: {n_rgb} images' RGB and "
+                                     f"{n_blk} groups' blocks differ from "
+                                     "the nibble wire's")
+            del items, blocks
+            wire_mb = sum(x.nbytes for g in groups for x in g.arrays) / 1e6
+            unpack_ms = _kernel_ms(
+                lambda: [bd.unpack(g, t) for g, t in zip(groups, tensors)],
+                5, {"unpack": ("",)})["unpack"]
+            st = {"host entropy": [], "group+pad": [], "copy": [],
+                  "pixel stage": []}
+            for _ in range(2):
+                t0 = time.perf_counter()
+                host_out = bd.host_stage(batch)
+                t1 = time.perf_counter()
+                gs = bd.group(host_out)
+                t2 = time.perf_counter()
+                ts = [bd.to_device(g) for g in gs]
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                rgbs = [bd.pixels(g, t) for g, t in zip(gs, ts)]
+                ev[1].record()
+                ev[1].synchronize()
+                for k, v in zip(st, ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                                     (t3 - t2) * 1e3,
+                                     ev[0].elapsed_time(ev[1]))):
+                    st[k].append(v)
+                del rgbs, ts
+            e2e = _e2e(bd, batch)
+            del groups, tensors
+        rec = {k: min(v) for k, v in st.items()}
+        rec.update({"wire_mb": wire_mb, "device_unpack_ms": unpack_ms,
+                    "mp_per_s": mp / min(e2e), "k1_launches": k1})
+        recs[wire] = rec
+        print(f"wire {wire}: {wire_mb:.2f} MB copied; host entropy "
+              f"{rec['host entropy']:.1f} ms, group+pad "
+              f"{rec['group+pad']:.1f} ms, copy {rec['copy']:.2f} ms, "
+              f"device unpack {unpack_ms:.3f} ms (profiler, mean of 5), "
+              f"pixel stage {rec['pixel stage']:.1f} ms (events; stages best "
+              f"of 2); end to end {[round(t, 4) for t in e2e]} s -> "
+              f"{rec['mp_per_s']:.1f} MP/s (best of 3); K1 launches {k1}; "
+              f"blocks and RGB equal to the nibble wire's")
+    return recs, ref_items
+
+
+def _pallas_batch_phase(dev, batch: list[bytes], ref_items, mp: float):
+    """The batch under ``entropy="pallas"``: K2 once per image (its blocks
+    come back to the host and ride the nibble wire, as in the JAX package),
+    RGB bit-identical to the native backend's.  Returns the counts."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder
+
+    with BatchDecoder(device=dev, entropy="pallas") as bd:
+        bd.decode(batch)                          # warm-up, table cache
+        torch.cuda.synchronize()
+        _zero_counts()
+        items = bd.decode(batch)
+        torch.cuda.synchronize()
+        counts = _counts()
+        n_rgb = _n_rgb_differ(ref_items, items)
+        bad = [it.index for it in items if not it.ok]
+        if bad or counts["K2"] != len(batch) or n_rgb:
+            raise AssertionError(f"entropy=pallas batch: failed {bad}, "
+                                 f"launches {counts}, {n_rgb} images differ")
+        del items
+        e2e = _e2e(bd, batch)
+        host = min(_wall(lambda: bd.host_stage(batch)) for _ in range(2))
+    print(f"batch, entropy=pallas: launches {counts}; RGB equal to "
+          f"entropy=native on all {len(batch)} images; host stage (K2 per "
+          f"image from {bd.host_threads} pool threads, blocks back to the "
+          f"host, nibble encode) {host * 1e3:.1f} ms; end to end "
+          f"{[round(t, 4) for t in e2e]} s -> {mp / min(e2e):.1f} MP/s "
+          "(best of 3)")
+    return counts
+
+
+def _encode_job(seed: int, h: int, w: int, kw: dict):
+    """Encode the synthetic photo of ``seed`` (a process-pool job: the
+    arithmetic coder is pure Python)."""
+    from jpeg_decoder_tpu_torch.testing.encoder import encode
+    from jpeg_decoder_tpu_torch.testing.photo import synthetic_photo
+
+    img = synthetic_photo(np.random.default_rng(seed), h, w)
+    kw = dict(kw)
+    if kw.pop("cmyk", False):
+        kw["raw_planes"] = [img[..., k % 3].astype(np.float64)
+                            for k in range(4)]
+        kw.update(samplings=((1, 1),) * 4, app14_transform=0)
+    return encode(img, **kw)[0], img
+
+
+def _drop_last_rst(blob: bytes) -> bytes:
+    """Cut out the last RSTn marker: one restart segment fewer than DRI
+    says (the resilient decoder then leaves the last interval zero)."""
+    i = max(blob.rfind(bytes([0xFF, 0xD0 + k])) for k in range(8))
+    return blob[:i] + blob[i + 2:]
+
+
+MIXED_JOBS = {  # kind -> (seed, h, w, encoder arguments)
+    "sof9 a": (201, 1080, 1920, dict(quality=90, arithmetic=True)),
+    "sof9 b": (202, 1080, 1920, dict(quality=90, arithmetic=True)),
+    "sof10 a": (203, 1080, 1920, dict(quality=90, arithmetic=True,
+                                      progressive=True)),
+    "sof10 b": (204, 1080, 1920, dict(quality=90, arithmetic=True,
+                                      progressive=True)),
+    "multi-scan a": (205, 1080, 1920, dict(quality=90, scans=[(0,), (1, 2)])),
+    "multi-scan b": (206, 1080, 1920, dict(quality=90, scans=[(0,), (1, 2)])),
+    "12-bit": (207, 1080, 1920, dict(quality=90, precision=12)),
+    "cmyk": (208, 1080, 1920, dict(quality=90, cmyk=True)),
+    # 512x512 of each kind for the native-against-python plane check.
+    "512 baseline": (301, 512, 512, dict(quality=90)),
+    "512 sof9": (302, 512, 512, dict(quality=90, arithmetic=True)),
+    "512 sof10": (303, 512, 512, dict(quality=90, arithmetic=True,
+                                      progressive=True)),
+    "512 multi-scan": (304, 512, 512, dict(quality=90, scans=[(0,), (1, 2)])),
+    "512 restart-mismatch": (305, 512, 512, dict(
+        quality=95, samplings=((1, 1),) * 3, restart_interval=8)),
+    "512 12-bit": (306, 512, 512, dict(quality=90, precision=12)),
+    "512 cmyk": (307, 512, 512, dict(quality=90, cmyk=True)),
+}
+
+
+def _python_planes(hdr):
+    """The pure-Python oracle's planes of a frame: ``arith``'s decoders for
+    arithmetic frames (``decode_to_planes`` takes the native ones whatever
+    the backend), else ``decode_to_planes(entropy="python")``."""
+    from jpeg_decoder_tpu_torch import layout
+    from jpeg_decoder_tpu_torch.entropy import arith
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+
+    if not hdr.arithmetic:
+        return dec_mod.decode_to_planes(hdr, entropy="python")
+    if hdr.progressive:
+        return arith._decode_progressive(hdr)
+    lay = layout.scan_layout(hdr)
+    blocks = arith.decode_scan_baseline(hdr, hdr.scans[0])
+    return [blocks[lay.comp_src[ci]].reshape(*lay.comp_shapes[ci], 64)
+            for ci in range(len(hdr.components))]
+
+
+def _mixed_phase(dev, blobs: list, sources: list) -> int:
+    """32 frames of every kind through one ``BatchDecoder`` (see the module
+    docstring).  Returns K1's launches in the checked run."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder, decode
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+    from jpeg_decoder_tpu_torch.testing import photo
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            min(6, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = {k: pool.submit(_encode_job, *v) for k, v in
+                sorted(MIXED_JOBS.items(), key=lambda kv: -kv[1][1])}
+        enc = {k: f.result() for k, f in futs.items()}
+    enc["512 restart-mismatch"] = (
+        _drop_last_rst(enc["512 restart-mismatch"][0]),
+        enc["512 restart-mismatch"][1])
+    fix = {n: photo.fixture(n) for n in photo.PROGRESSIVE_FIXTURES}
+    enc["512 progressive"] = fix["progressive_512.jpg"]
+    prog = [fix["progressive_1080p_a.jpg"], fix["progressive_1080p_b.jpg"]]
+    cut = (_drop_last_rst(blobs[6]), sources[6])
+    mixed = ([("baseline DRI 0", (blobs[k % 6], sources[k % 6]))
+              for k in range(8)]
+             + [("progressive", prog[k % 2]) for k in range(8)]
+             + [("sof9", enc[f"sof9 {'ab'[k % 2]}"]) for k in range(4)]
+             + [("sof10", enc[f"sof10 {'ab'[k % 2]}"]) for k in range(4)]
+             + [("multi-scan", enc[f"multi-scan {'ab'[k % 2]}"])
+                for k in range(4)]
+             + [("restart-mismatch", cut)] * 2
+             + [("12-bit", enc["12-bit"]), ("cmyk", enc["cmyk"])])
+    batch = [b for _, (b, _) in mixed]
+    print(f"mixed inputs: {len(batch)} frames, "
+          f"{sum(map(len, batch)) / 1e6:.2f} MB; encoded (arithmetic, "
+          "multi-scan, 12-bit, CMYK, and the 512x512 set) in "
+          f"{time.perf_counter() - t0:.1f} s in a pool of spawned processes "
+          "(set-up)")
+
+    with BatchDecoder(device=dev) as bd:
+        bd.decode(batch)                          # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        items = bd.decode(batch)
+        torch.cuda.synchronize()
+        counts = _counts()
+        ok = [it.ok for it in items]
+        last = [type(it.error).__name__ for it in items[-2:]]
+        if ok != [True] * 30 + [False] * 2 or not all(
+                isinstance(it.error, dec_mod.NotPortedError)
+                for it in items[-2:]):
+            raise AssertionError(f"mixed: ok {ok}, last two {last}")
+        print(f"mixed: 30 decoded, the 12-bit and CMYK frames each their own "
+              f"{last}; launches {counts}")
+        cpu, psnrs = {}, {}
+        for (kind, (blob, src)), it in zip(mixed[:30], items[:30]):
+            key = hash(blob)
+            if key not in cpu:
+                cpu[key] = decode(blob, entropy="native", idct="pallas",
+                                  upsample="fancy", device="cpu").rgb
+                _close_to_cpu(f"mixed ({kind})", it.rgb, cpu[key])
+            elif not torch.equal(it.rgb.cpu(), cpu[key]):
+                _close_to_cpu(f"mixed ({kind}, repeat)", it.rgb, cpu[key])
+            psnrs.setdefault(kind, []).append(_psnr(it.rgb, src))
+        print("mixed: PSNR vs source, min per kind: " + ", ".join(
+            f"{k} {min(v):.2f} dB" for k, v in psnrs.items()))
+        if min(min(v) for v in psnrs.values()) < MIN_PSNR_DB:
+            raise AssertionError(f"mixed: PSNR below {MIN_PSNR_DB}")
+        del items
+        e2e = _e2e(bd, batch, n=2)
+        mp = sum(src.shape[0] * src.shape[1] for _, (_, src) in mixed[:30])
+        host = {}
+        for kind, (blob, _) in mixed:
+            if kind not in host:
+                host[kind] = min(_wall(lambda b=blob: bd._host_one(b))
+                                 for _ in range(2)) * 1e3
+    print(f"mixed: end to end {[round(t, 4) for t in e2e]} s -> "
+          f"{mp / 1e6 / min(e2e):.1f} MP/s of the 30 decoded (best of 2); "
+          "host ms per frame by kind (one call, best of 2): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in host.items()))
+
+    # 512x512 of each kind: native planes equal the pure-Python oracle's.
+    for kind in [k for k in enc if k.startswith("512")]:
+        hdr = parser.parse(enc[kind][0])
+        t1 = time.perf_counter()
+        nat = dec_mod.decode_to_planes(hdr, entropy="native")
+        t2 = time.perf_counter()
+        ref = _python_planes(hdr)
+        t3 = time.perf_counter()
+        n_diff = sum(int((a != b).sum()) for a, b in zip(nat, ref))
+        print(f"planes ({kind}): native vs python {n_diff} coefficients "
+              f"differ (native {(t2 - t1) * 1e3:.1f} ms, python "
+              f"{t3 - t2:.1f} s)")
+        if n_diff or len(nat) != len(ref):
+            raise AssertionError(f"planes ({kind}): native != python")
+    return counts["K1"]
+
+
+def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
+    """192 images (the batch six times): ``decode(blobs, wave=64)`` against
+    three back-to-back ``decode(blobs[i:i + 64])`` calls, in turns; the
+    results bit-identical and in input order.  Returns K1's launches in
+    the checked waved run."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder
+
+    blobs = batch * 6
+    mp_all = mp * 6
+
+    def single():
+        return [it for i in range(0, len(blobs), 64)
+                for it in bd.decode(blobs[i:i + 64])]
+
+    with BatchDecoder(device=dev) as bd:
+        single()                                  # warm-up
+        bd.decode(blobs, wave=64)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ref = single()
+        _zero_counts()
+        got = bd.decode(blobs, wave=64)
+        torch.cuda.synchronize()
+        k1 = _counts()["K1"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if [it.index for it in got] != list(range(len(blobs))) or not all(
+                it.ok for it in got) or k1 != 27:
+            raise AssertionError(f"waves: order, failures or K1 {k1}")
+        n_rgb = _n_rgb_differ(ref, got)
+        if n_rgb:
+            raise AssertionError(f"waves: {n_rgb} images differ")
+        del ref, got
+        times = {"single": [], "waves": []}
+        timing = {"single": [], "waves": []}
+        for name in ("single", "waves", "waves", "single"):
+            t0 = time.perf_counter()
+            if name == "single":
+                out, host, worker = [], 0.0, 0.0
+                for i in range(0, len(blobs), 64):
+                    out.append(bd.decode(blobs[i:i + 64]))
+                    host += sum(bd.last_timing["host_s"])
+                    worker += sum(bd.last_timing["worker_s"])
+            else:
+                out = bd.decode(blobs, wave=64)
+                host = sum(bd.last_timing["host_s"])
+                worker = sum(bd.last_timing["worker_s"])
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            timing[name].append((host * 1e3, worker * 1e3))
+            del out
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = bd.decode(blobs, wave=64)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        del out
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / 1e3
+    best = {k: min(v) for k, v in times.items()}
+    print(f"waves: 192 images ({mp_all:.2f} MP) bit-identical to three "
+          f"single passes and in input order; K1 launches {k1}; "
+          f"three decode(blobs[i:i+64]) {[round(t, 4) for t in times['single']]}"
+          f" s -> {mp_all / best['single']:.1f} MP/s; decode(blobs, wave=64) "
+          f"{[round(t, 4) for t in times['waves']]} s -> "
+          f"{mp_all / best['waves']:.1f} MP/s (best of 2, in turns); "
+          f"speed-up {best['single'] / best['waves']:.3f}")
+    for name in ("single", "waves"):
+        print(f"waves ({name}): host entropy ms, device worker ms (host "
+              "clock: grouping, staging, queued copy and pixel stage), per "
+              "run: " + ", ".join(f"{h:.1f} / {w:.1f}"
+                                  for h, w in timing[name]))
+    print(f"waves: busy share of one waved decode under the profiler "
+          f"{dev_ms:.1f} ms of device time in {wall_ms:.1f} ms "
+          f"({dev_ms / wall_ms:.3f}; two streams may overlap); peak device "
+          f"memory {peak:.2f} GiB")
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -881,6 +1288,16 @@ def main() -> int:
     k1 = _idct_phase(dev, rng)
     torch.cuda.empty_cache()
     k1_batch, blobs, sources = _batch_phase(dev, rng)
+    batch = blobs * 4
+    mp = sum(im.shape[0] * im.shape[1] for im in sources * 4) / 1e6
+    wires, nibble_items = _wires_phase(dev, batch, mp)
+    pallas_counts = _pallas_batch_phase(dev, batch, nibble_items, mp)
+    del nibble_items
+    torch.cuda.empty_cache()
+    k1_waves = _waves_phase(dev, batch, mp)
+    torch.cuda.empty_cache()
+    k1_mixed = _mixed_phase(dev, blobs, sources)
+    torch.cuda.empty_cache()
 
     # Images of the entropy and single-image phases: (a) and (d) are 4K
     # frames made here, (b) and (c) the batch's 4:4:4 DRI 8 and 4:2:0 DRI 0
@@ -910,10 +1327,18 @@ def main() -> int:
              ("fused_dequant_idct",
               *(k for keys in K2_PHASES.values() for k in keys)))
 
-    k1["launches"] = k1_batch + counts["K1"]
-    k1["launches_by_path"] = {"BatchDecoder": k1_batch,
-                              "decode": counts["K1"]}
-    k2["launches"] = counts["K2"]
+    k1["launches_by_path"] = {
+        "BatchDecoder": k1_batch,
+        **{f"BatchDecoder wire={w}": r["k1_launches"]
+           for w, r in wires.items()},
+        "BatchDecoder entropy=pallas": pallas_counts["K1"],
+        "BatchDecoder mixed frames": k1_mixed,
+        "BatchDecoder wave=64": k1_waves, "decode": counts["K1"]}
+    k1["launches"] = sum(k1["launches_by_path"].values())
+    k2["launches_by_path"] = {
+        "BatchDecoder entropy=pallas": pallas_counts["K2"],
+        "decode": counts["K2"]}
+    k2["launches"] = sum(k2["launches_by_path"].values())
     for rec, key in zip(probes, ("K3", "K4")):
         rec["launches"] = counts[key]   # on no path: 0
     print(json.dumps({"kernels": [k1, k2, *probes]}))

@@ -1,11 +1,12 @@
 """jpeg_decoder_tpu_torch — the PyTorch/CUDA port of jpeg_decoder_tpu.
 
 Two entry points: the batched serving path :class:`BatchDecoder` (host
-parse, native entropy decode to the nibble wire, pow-2 geometry grouping,
-then unpack, plane gather, dequant+IDCT, fancy upsample and YCbCr->RGB on
-the device) and the single-image :func:`decode` (host parse and scan prep,
-then Huffman decode, plane gather, dequant+IDCT, upsample and colour on the
-device).  Their device kernels are hand-written CUDA for Hopper: the
+parse, entropy decode to one of four wire formats, geometry grouping, then
+unpack, plane gather, dequant+IDCT, fancy upsample and YCbCr->RGB on the
+device, in waves that overlap host and device work) and the single-image
+:func:`decode` (host parse and scan prep, then Huffman decode, plane gather,
+dequant+IDCT, upsample and colour on the device).  Progressive, arithmetic,
+multi-scan and restart-mismatched frames decode to host planes first.  Their device kernels are hand-written CUDA for Hopper: the
 dequant+IDCT (``csrc/idct.cu``) and the Huffman decoder
 (``csrc/entropy.cu``); ``csrc/lut_probe.cu`` holds the LUT-probe kernels
 (``probes/lut_probe.py``).  The package

@@ -3,12 +3,25 @@
 The port builds its own copy of the native decoder's source,
 ``csrc/jpeg_entropy.cpp`` (byte-identical to the JAX package's
 ``entropy/native_src/jpeg_entropy.cpp``, which the port never reads), into
-``.cache/torch/native/`` at first use.  Bound: the unstuffer and the
-nibble-wire emitter (the batched serving path), and the scan decoders
-:func:`decode_scan_baseline` and
-:func:`decode_scan_resilient` (the ``native``/``auto`` backends of
-``models/decoder.py``, with the signatures of the JAX package's).  A failed
-build raises :class:`BuildFailure`; nothing falls back silently.
+``.cache/torch/native/`` at first use.  Bound, with the signatures of the
+JAX package's wrappers:
+
+* the unstuffer :func:`unstuff`;
+* the full-frame scan decoders :func:`decode_scan_baseline`,
+  :func:`decode_scan_resilient` and :func:`decode_scan_speculative` (the
+  ``native``/``auto``/``speculative`` backends of ``models/decoder.py``)
+  and the component-subset decoder :func:`decode_scan_subset` (multi-scan
+  and non-interleaved frames);
+* the wire emitters of the batched path: :func:`decode_scan_nibble`,
+  :func:`decode_scan_packed`, :func:`decode_scan_sparse` and
+  :func:`decode_scan_slots`;
+* the progressive Huffman decoder :func:`decode_progressive` and the
+  arithmetic decoders :func:`decode_scan_arith` (SOF9) and
+  :func:`decode_progressive_arith` (SOF10).
+
+Every wrapper checks the sizes, dtypes and layout of the buffers it hands
+to C before the call.  A failed build raises :class:`BuildFailure`; nothing
+falls back silently.
 
 The C calls release the GIL, so a Python thread pool gives image-level
 parallelism on top of the in-call restart-segment parallelism.
@@ -19,18 +32,83 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from .._build import CSRC, shared_lib
 from ..huffman import build_ac_lut32, build_lut
-from ..layout import scan_layout
+from ..layout import comp_dims_unpadded, scan_layout
 from ..types import FrameHeader, JPEGError, ScanHeader
 
 _NCPU = os.cpu_count() or 1
 _SRC = os.path.join(CSRC, "jpeg_entropy.cpp")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 _ABI = 22
+
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+#: Leading arguments of every jd_decode_scan_* entry: data, seg_offsets,
+#: n_segments, n_comps, h, v, dc_luts, ac_luts, n_mcus, restart_interval.
+_HEAD = [_P, _P, _I32, _I32, _P, _P, _P, _P, _I64, _I64]
+_SIGNATURES = {
+    "jd_unstuff": [_P, _I64, _P, _P, _P, _I64, _P],
+    "jd_decode_scan": _HEAD + [_P, _I32, _I32],       # out, threads, prec
+    "jd_decode_scan_resilient": _HEAD + [_P, _P, _I32, _I32],
+    "jd_decode_scan_nibble": _HEAD + [
+        _P,                     # dc_out
+        _P, _I64, _P,           # entry_out, entry_cap, entry_count
+        _P, _I64, _P,           # ov_out, ov_cap, ov_count
+        _P, _P, _I64, _P,       # esc_idx, esc_val, esc_cap, esc_count
+        _I32],                  # n_threads
+    "jd_decode_scan_packed": _HEAD + [
+        _P, _P,                 # dc_out, ac_out
+        _P, _P, _I64, _P,       # esc_idx, esc_val, esc_cap, esc_count
+        _I32],
+    "jd_decode_scan_sparse": _HEAD + [
+        _P,                     # dc_out
+        _P, _P, _I64, _P,       # gap_out, val_out, sparse_cap, count
+        _P, _P, _I64, _P,       # esc_idx, esc_val, esc_cap, esc_count
+        _I32],
+    "jd_decode_scan_slots": _HEAD + [
+        _P,                     # dc_out
+        _P, _P, _I32,           # pos_out, val_out, cap
+        _P, _P, _I64, _P,       # ov_idx, ov_val, ov_cap, ov_count
+        _P, _P, _I64, _P,       # esc_idx, esc_val, esc_cap, esc_count
+        _I32],
+    "jd_decode_scan_speculative": [
+        _P, _I64,               # data, data_len
+        _I32, _P, _P,           # n_comps, h, v
+        _P, _P, _I64,           # dc_luts, ac_luts, n_mcus
+        _P, _I32, _I32],        # out, n_threads, n_chunks
+    "jd_decode_scan_arith": [
+        _P, _P, _I32, _I32,     # data, seg_offsets, n_segments, n_comps
+        _P, _P,                 # h, v
+        _P, _P, _P, _P, _P,     # dc_tid, ac_tid, dc_l, dc_u, ac_kx
+        _I64, _I64, _P, _I32],  # n_mcus, restart_interval, out, threads
+    "jd_prog_dc_scan": [
+        _P, _P, _I32,           # data, seg_offsets, n_segments
+        _I32, _I32, _I32, _I32,  # first, al, interleaved, n_scan_comps
+        _P, _P, _P, _P, _P,     # comp_h, comp_v, planes, cols, dc_luts
+        _I64, _I64, _I64, _I64,  # mcus_x, mcus_y, sc_rows, sc_cols
+        _I64, _I32],            # restart_interval, n_threads
+    "jd_prog_ac_scan": [
+        _P, _P, _I32,           # data, seg_offsets, n_segments
+        _I32, _I32, _I32, _I32,  # first, ss, se, al
+        _P, _I32, _P,           # plane, plane_cols, ac_lut
+        _I64, _I64, _I64, _I32],  # rows, cols, restart_interval, threads
+    "jd_prog_dc_scan_arith": [
+        _P, _P, _I32,           # data, seg_offsets, n_segments
+        _I32, _I32, _I32, _I32,  # first, al, interleaved, n_scan_comps
+        _P, _P, _P, _P,         # comp_h, comp_v, planes, plane_cols
+        _P, _P, _P,             # dc_tid, dc_l, dc_u
+        _I64, _I64, _I64, _I64,  # mcus_x, mcus_y, sc_rows, sc_cols
+        _I64, _I32],            # restart_interval, n_threads
+    "jd_prog_ac_scan_arith": [
+        _P, _P, _I32,           # data, seg_offsets, n_segments
+        _I32, _I32, _I32, _I32,  # ss, se, ah, al
+        _P, _I32, _I32, _I32,   # plane, plane_cols, ac_tid, kx
+        _I64, _I64, _I64, _I32],  # rows, cols, restart_interval, threads
+}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -61,52 +139,10 @@ def _load():
         if lib.jd_abi_version() != _ABI:
             raise BuildFailure(
                 f"jpeg_entropy ABI {lib.jd_abi_version()} != {_ABI}")
-        lib.jd_unstuff.restype = ctypes.c_int64
-        lib.jd_unstuff.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,    # data, len
-            ctypes.c_void_p, ctypes.c_void_p,   # out, out_len
-            ctypes.c_void_p, ctypes.c_int64,    # seg_offsets, seg_cap
-            ctypes.c_void_p,                    # n_segs
-        ]
-        lib.jd_decode_scan_nibble.restype = ctypes.c_int64
-        lib.jd_decode_scan_nibble.argtypes = [
-            ctypes.c_void_p,                    # data
-            ctypes.c_void_p, ctypes.c_int32,    # seg_offsets, n_segments
-            ctypes.c_int32,                     # n_comps
-            ctypes.c_void_p, ctypes.c_void_p,   # h, v
-            ctypes.c_void_p, ctypes.c_void_p,   # dc_luts, ac_luts
-            ctypes.c_int64, ctypes.c_int64,     # n_mcus, restart_interval
-            ctypes.c_void_p,                    # dc_out
-            ctypes.c_void_p, ctypes.c_int64,    # entry_out, entry_cap
-            ctypes.c_void_p,                    # entry_count
-            ctypes.c_void_p, ctypes.c_int64,    # ov_out, ov_cap
-            ctypes.c_void_p,                    # ov_count
-            ctypes.c_void_p, ctypes.c_void_p,   # esc_idx, esc_val
-            ctypes.c_int64, ctypes.c_void_p,    # esc_cap, esc_count
-            ctypes.c_int32,                     # n_threads
-        ]
-        lib.jd_decode_scan.restype = ctypes.c_int64
-        lib.jd_decode_scan.argtypes = [
-            ctypes.c_void_p,                    # data
-            ctypes.c_void_p, ctypes.c_int32,    # seg_offsets, n_segments
-            ctypes.c_int32,                     # n_comps
-            ctypes.c_void_p, ctypes.c_void_p,   # h, v
-            ctypes.c_void_p, ctypes.c_void_p,   # dc_luts, ac_luts
-            ctypes.c_int64, ctypes.c_int64,     # n_mcus, restart_interval
-            ctypes.c_void_p, ctypes.c_int32,    # out, n_threads
-            ctypes.c_int32,                     # precision
-        ]
-        lib.jd_decode_scan_resilient.restype = ctypes.c_int64
-        lib.jd_decode_scan_resilient.argtypes = [
-            ctypes.c_void_p,                    # data
-            ctypes.c_void_p, ctypes.c_int32,    # seg_offsets, n_segments
-            ctypes.c_int32,                     # n_comps
-            ctypes.c_void_p, ctypes.c_void_p,   # h, v
-            ctypes.c_void_p, ctypes.c_void_p,   # dc_luts, ac_luts
-            ctypes.c_int64, ctypes.c_int64,     # n_mcus, restart_interval
-            ctypes.c_void_p, ctypes.c_void_p,   # out, seg_err
-            ctypes.c_int32, ctypes.c_int32,     # n_threads, precision
-        ]
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = argtypes
         _lib = lib
     return _lib
 
@@ -174,6 +210,81 @@ def _padded(scan) -> np.ndarray:
     return np.concatenate([d, np.zeros(256, np.uint8)])
 
 
+def _segment_table(scan) -> np.ndarray:
+    """The scan's segment table as int64, after checking that its offsets
+    ascend inside the entropy bytes."""
+    seg = np.ascontiguousarray(scan.seg_offsets, dtype=np.int64)
+    if len(seg) < 2 or seg[0] < 0 or seg[-1] > len(scan.data) or (
+            np.diff(seg) < 0).any():
+        raise JPEGError(f"bad segment table of {len(seg) - 1} segments "
+                        f"over {len(scan.data)} bytes")
+    return seg
+
+
+def _segments(scan, n_units: int) -> tuple[np.ndarray, int, int]:
+    """:func:`_segment_table`, its segment count and DRI, after checking
+    that the count matches DRI over ``n_units`` MCUs."""
+    seg = _segment_table(scan)
+    n = len(seg) - 1
+    ri = scan.restart_interval
+    expected = -(-n_units // ri) if ri else 1
+    if n != expected:
+        raise JPEGError(f"restart-segment count {n} does not match DRI {ri}")
+    return seg, n, ri
+
+
+def _ptrs(arrays) -> ctypes.Array:
+    """A C array of the data pointers of ``arrays`` (kept alive by the
+    caller)."""
+    return (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
+
+
+def _check_plane(plane: np.ndarray, rows: int, cols: int) -> None:
+    """A plane the progressive decoders write: C-contiguous int32, at
+    least (rows, cols) blocks of 64."""
+    if (plane.dtype != np.int32 or plane.ndim != 3 or plane.shape[2] != 64
+            or not plane.flags.c_contiguous or plane.shape[0] < rows
+            or plane.shape[1] < cols):
+        raise ValueError(f"plane must be C-contiguous int32 of at least "
+                         f"({rows}, {cols}, 64), got {plane.dtype} "
+                         f"{plane.shape}")
+
+
+def _check_band(scan) -> None:
+    """Spectral band and point transform of a progressive scan (T.81
+    G.1.1.1.1): DC scans are Ss = Se = 0, AC scans 1 <= Ss <= Se <= 63 over
+    one component; Al <= 13."""
+    if not 0 <= scan.al <= 13:
+        raise JPEGError(f"progressive: Al {scan.al} out of range")
+    if scan.ss == 0:
+        if scan.se != 0:
+            raise JPEGError("progressive: DC scan must have Se=0")
+    elif not scan.ss <= scan.se <= 63:
+        raise JPEGError(f"progressive: bad band {scan.ss}..{scan.se}")
+    elif len(scan.comp_indices) != 1:
+        raise JPEGError("progressive: AC scans must be single-component")
+
+
+def _table_id(tid: int) -> int:
+    """An arithmetic conditioning table id (T.81 B.2.4.3: 0..3)."""
+    if not 0 <= tid <= 3:
+        raise JPEGError(f"arithmetic table id {tid} out of range")
+    return tid
+
+
+def _arith_cond(scan) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(dc_l, dc_u, ac_kx), four entries each: the scan's DAC
+    conditioning per table id, T.81 defaults 0/1/5 elsewhere."""
+    dc_l = np.zeros(4, np.int32)
+    dc_u = np.ones(4, np.int32)
+    ac_kx = np.full(4, 5, np.int32)
+    for tid, (lp, up) in (getattr(scan, "dc_cond", None) or {}).items():
+        dc_l[_table_id(tid)], dc_u[tid] = lp, up
+    for tid, kx in (getattr(scan, "ac_cond", None) or {}).items():
+        ac_kx[_table_id(tid)] = kx
+    return dc_l, dc_u, ac_kx
+
+
 class _ScanCall:
     """Native-call setup for a full-frame 8-bit scan: padded data,
     validated segment table, sampling arrays, and LUT pointer arrays (the
@@ -182,29 +293,21 @@ class _ScanCall:
     def __init__(self, hdr: FrameHeader, scan: ScanHeader,
                  allow12: bool = False):
         # jd_decode_scan supports precision-12 frames (T.81 B.2.2 size
-        # categories 15/14); the wire-format emitter stays 8-bit.
+        # categories 15/14); the wire-format emitters stay 8-bit.
         if hdr.precision != 8 and not (allow12 and hdr.precision == 12):
             raise JPEGError(
                 "this native entry point decodes 8-bit frames only")
         self.lay = scan_layout(hdr)
         comps = hdr.components
         self.data = _padded(scan)
-        self.seg_offsets = np.ascontiguousarray(scan.seg_offsets,
-                                                dtype=np.int64)
-        self.n_segments = len(self.seg_offsets) - 1
-        self.ri = scan.restart_interval
-        expected = -(-self.lay.n_mcus // self.ri) if self.ri else 1
-        if self.n_segments != expected:
-            raise JPEGError(
-                f"restart-segment count {self.n_segments} does not match "
-                f"DRI {self.ri}")
+        self.seg_offsets, self.n_segments, self.ri = _segments(
+            scan, self.lay.n_mcus)
         self.h = np.array([c.h for c in comps], np.int32)
         self.v = np.array([c.v for c in comps], np.int32)
         self.dc_luts = [_lut16(scan.dc_specs[c.td]) for c in comps]
         self.ac_luts = [_lut32ac(scan.ac_specs[c.ta]) for c in comps]
-        PtrArray = ctypes.c_void_p * len(comps)
-        self.dc_ptrs = PtrArray(*[a.ctypes.data for a in self.dc_luts])
-        self.ac_ptrs = PtrArray(*[a.ctypes.data for a in self.ac_luts])
+        self.dc_ptrs = _ptrs(self.dc_luts)
+        self.ac_ptrs = _ptrs(self.ac_luts)
         self.n_comps = len(comps)
 
     def threads(self, n_threads):
@@ -222,6 +325,11 @@ class _ScanCall:
                 self.lay.n_mcus, self.ri)
 
 
+def _failed(what: str, rc: int) -> JPEGError:
+    return JPEGError(f"native {what} decode failed: segment {rc >> 8}, "
+                     f"error code {rc & 0xFF}")
+
+
 def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
                          n_threads: int | None = None) -> np.ndarray:
     """Decode a full baseline interleaved scan (native backend).
@@ -234,9 +342,7 @@ def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
     rc = lib.jd_decode_scan(*st.head_args(), out.ctypes.data,
                             st.threads(n_threads), hdr.precision)
     if rc != 0:
-        raise JPEGError(
-            f"native entropy decode failed: segment {rc >> 8}, "
-            f"error code {rc & 0xFF}")
+        raise _failed("entropy", rc)
     return out
 
 
@@ -255,26 +361,104 @@ def decode_scan_resilient(hdr: FrameHeader, scan: ScanHeader,
     # the Python reader clamps reads to zeros, so the pad makes the native
     # reader see the same zero bits.
     data = np.concatenate([scan.data, np.zeros(16384, np.uint8)])
-    seg_offsets = np.ascontiguousarray(scan.seg_offsets, dtype=np.int64)
+    seg_offsets = _segment_table(scan)
     n_segments = len(seg_offsets) - 1
     h = np.array([c.h for c in comps], np.int32)
     v = np.array([c.v for c in comps], np.int32)
     dc_luts = [_lut16(scan.dc_specs[c.td]) for c in comps]
     ac_luts = [_lut32ac(scan.ac_specs[c.ta]) for c in comps]
-    PtrArray = ctypes.c_void_p * len(comps)
-    dc_ptrs = PtrArray(*[a.ctypes.data for a in dc_luts])
-    ac_ptrs = PtrArray(*[a.ctypes.data for a in ac_luts])
     out = np.zeros((lay.total_blocks, 64), dtype=np.int32)
     seg_err = np.zeros(max(1, n_segments), np.uint8)
     if n_threads is None:
         n_threads = min(_NCPU, max(1, n_segments))
     rc = lib.jd_decode_scan_resilient(
         data.ctypes.data, seg_offsets.ctypes.data, n_segments,
-        len(comps), h.ctypes.data, v.ctypes.data, dc_ptrs, ac_ptrs,
-        lay.n_mcus, scan.restart_interval, out.ctypes.data,
+        len(comps), h.ctypes.data, v.ctypes.data, _ptrs(dc_luts),
+        _ptrs(ac_luts), lay.n_mcus, scan.restart_interval, out.ctypes.data,
         seg_err.ctypes.data, n_threads, hdr.precision)
     if rc != 0:
         raise JPEGError(f"native resilient decode failed (code {rc})")
+    return out
+
+
+def decode_scan_speculative(hdr: FrameHeader, scan: ScanHeader,
+                            n_threads: int | None = None,
+                            n_chunks: int | None = None) -> np.ndarray:
+    """Speculative self-synchronizing parallel decode of a DRI=0 stream
+    (see jpeg_entropy.cpp for the algorithm).  Output identical to
+    :func:`decode_scan_baseline`; raises JPEGError on malformed streams."""
+    lib = _load()
+    if hdr.precision != 8:
+        raise JPEGError("speculative decode takes 8-bit frames only")
+    lay = scan_layout(hdr)
+    comps = hdr.components
+    if len(scan.seg_offsets) != 2:
+        raise JPEGError("speculative decode requires a single-segment scan")
+    data = _padded(scan)
+    h = np.array([c.h for c in comps], np.int32)
+    v = np.array([c.v for c in comps], np.int32)
+    dc_luts = [_lut16(scan.dc_specs[c.td]) for c in comps]
+    ac_luts = [_lut32ac(scan.ac_specs[c.ta]) for c in comps]
+    out = np.zeros((lay.total_blocks, 64), dtype=np.int32)
+    if n_threads is None:
+        n_threads = _NCPU
+    if n_chunks is None:
+        n_chunks = max(1, n_threads * 4)
+    if n_threads < 1 or n_chunks < 1:
+        raise ValueError("n_threads and n_chunks must be >= 1")
+    rc = lib.jd_decode_scan_speculative(
+        data.ctypes.data, len(scan.data),
+        len(comps), h.ctypes.data, v.ctypes.data,
+        _ptrs(dc_luts), _ptrs(ac_luts), lay.n_mcus,
+        out.ctypes.data, n_threads, n_chunks)
+    if rc != 0:
+        raise JPEGError(f"speculative entropy decode failed (code {rc})")
+    return out
+
+
+def decode_scan_subset(hdr: FrameHeader, scan: ScanHeader,
+                       n_threads: int | None = None) -> np.ndarray:
+    """Sequential subset scan (T.81 A.2): interleaved over the frame MCU
+    grid when the scan lists several components, non-interleaved over the
+    single component's unpadded block grid otherwise.
+
+    Returns (n_units * blocks_per_unit, 64) int32 scan-order blocks, in
+    the traversal order of python_ref.decode_scan_sequential_into."""
+    lib = _load()
+    if hdr.precision not in (8, 12):
+        raise JPEGError(f"unsupported precision {hdr.precision}")
+    sc = scan.comp_indices
+    if not sc or any(not 0 <= ci < len(hdr.components) for ci in sc):
+        raise JPEGError(f"scan components {sc} out of range")
+    comps = [hdr.components[ci] for ci in sc]
+    data = _padded(scan)
+    if len(sc) == 1:
+        # Non-interleaved: one data unit per MCU over the unpadded grid.
+        rows_u, cols_u = comp_dims_unpadded(hdr, sc[0])
+        n_units = rows_u * cols_u
+        h = np.array([1], np.int32)
+        v = np.array([1], np.int32)
+        bpu = 1
+    else:
+        n_units = hdr.mcus_x * hdr.mcus_y
+        h = np.array([c.h for c in comps], np.int32)
+        v = np.array([c.v for c in comps], np.int32)
+        bpu = int(sum(c.h * c.v for c in comps))
+    seg_offsets, n_segments, ri = _segments(scan, n_units)
+    dc_luts = [_lut16(scan.dc_specs[scan.dc_table_ids[k]])
+               for k in range(len(sc))]
+    ac_luts = [_lut32ac(scan.ac_specs[scan.ac_table_ids[k]])
+               for k in range(len(sc))]
+    out = np.zeros((n_units * bpu, 64), dtype=np.int32)
+    if n_threads is None:
+        n_threads = min(_NCPU, max(1, n_segments))
+    rc = lib.jd_decode_scan(
+        data.ctypes.data, seg_offsets.ctypes.data, n_segments,
+        len(sc), h.ctypes.data, v.ctypes.data,
+        _ptrs(dc_luts), _ptrs(ac_luts),
+        n_units, ri, out.ctypes.data, n_threads, hdr.precision)
+    if rc != 0:
+        raise _failed("subset-scan", rc)
     return out
 
 
@@ -345,9 +529,331 @@ def decode_scan_nibble(hdr: FrameHeader, scan: ScanHeader,
             esc_cap *= 4
             continue
         if rc != 0:
-            raise JPEGError(
-                f"native nibble entropy decode failed: segment {rc >> 8}, "
-                f"error code {rc & 0xFF}")
+            raise _failed("nibble entropy", rc)
         k, o, e = (int(x) for x in counts)
         return (dc16, entries[:k].copy(), ov[:o].copy(),
                 esc_idx[:e].copy(), esc_val[:e].copy())
+
+
+def decode_scan_packed(hdr: FrameHeader, scan: ScanHeader,
+                       n_threads: int | None = None):
+    """Decode straight to the packed wire format (int16 DC plane, int8 AC
+    plane, sparse escape list) — zero extra host passes.
+
+    Returns (dc16 (N,), ac8 (N, 64) int8 with [:,0]=0, esc_idx (E,) int32,
+    esc_val (E,) int16); the same as
+    models.batch.pack_blocks(decode_scan_baseline(...)).
+    """
+    lib = _load()
+    st = _ScanCall(hdr, scan)
+    n_blocks = st.lay.total_blocks
+    dc16 = np.empty((n_blocks,), np.int16)
+    ac8 = np.empty((n_blocks, 64), np.int8)
+    n_threads = st.threads(n_threads)
+
+    esc_cap = max(4096, n_blocks // 2)
+    while True:
+        esc_idx = np.empty((esc_cap,), np.int32)
+        esc_val = np.empty((esc_cap,), np.int16)
+        esc_count = np.zeros((1,), np.int64)
+        rc = lib.jd_decode_scan_packed(
+            *st.head_args(),
+            dc16.ctypes.data, ac8.ctypes.data,
+            esc_idx.ctypes.data, esc_val.ctypes.data,
+            esc_cap, esc_count.ctypes.data, n_threads,
+        )
+        if rc == -3:  # escape capacity exceeded (low-quality images)
+            esc_cap *= 4
+            continue
+        if rc != 0:
+            raise _failed("packed entropy", rc)
+        e = int(esc_count[0])
+        return dc16, ac8, esc_idx[:e].copy(), esc_val[:e].copy()
+
+
+def decode_scan_sparse(hdr: FrameHeader, scan: ScanHeader,
+                       n_threads: int | None = None):
+    """Decode straight to the sparse wire format (int16 DC plane + (gap
+    uint8, val int8) AC stream + escape list) — the run-length decode loop
+    emits nonzeros directly, never materializing a dense AC plane.
+
+    Returns (dc16 (N,), gaps (K,) uint8, vals (K,) int8, esc_idx (E,) int32,
+    esc_val (E,) int16); the same as models.batch.sparsify_ac over the
+    packed format.
+    """
+    lib = _load()
+    st = _ScanCall(hdr, scan)
+    n_blocks = st.lay.total_blocks
+    dc16 = np.empty((n_blocks,), np.int16)
+    n_threads = st.threads(n_threads)
+
+    # Start at 16 entries per block and grow geometrically (the hard upper
+    # bound is 64 per block, extenders included).
+    sparse_cap = max(4096, n_blocks * 16)
+    esc_cap = max(4096, n_blocks // 2)
+    while True:
+        gaps = np.empty((sparse_cap,), np.uint8)
+        vals = np.empty((sparse_cap,), np.int8)
+        sparse_count = np.zeros((1,), np.int64)
+        esc_idx = np.empty((esc_cap,), np.int32)
+        esc_val = np.empty((esc_cap,), np.int16)
+        esc_count = np.zeros((1,), np.int64)
+        rc = lib.jd_decode_scan_sparse(
+            *st.head_args(),
+            dc16.ctypes.data,
+            gaps.ctypes.data, vals.ctypes.data,
+            sparse_cap, sparse_count.ctypes.data,
+            esc_idx.ctypes.data, esc_val.ctypes.data,
+            esc_cap, esc_count.ctypes.data, n_threads,
+        )
+        if rc == -3:  # capacity exceeded
+            sparse_cap *= 4
+            esc_cap *= 4
+            continue
+        if rc != 0:
+            raise _failed("sparse entropy", rc)
+        k = int(sparse_count[0])
+        e = int(esc_count[0])
+        return (dc16, gaps[:k].copy(), vals[:k].copy(),
+                esc_idx[:e].copy(), esc_val[:e].copy())
+
+
+def decode_scan_slots(hdr: FrameHeader, scan: ScanHeader, cap: int = 16,
+                      n_threads: int | None = None):
+    """Decode straight to the slot wire format (int16 DC plane + (N, cap)
+    position/value slot arrays + overflow and escape lists); see
+    models.batch.slotify_ac for the format.
+
+    Returns (dc16 (N,), pos (N, cap) uint8, val (N, cap) int8,
+    ov_idx (O,) int32, ov_val (O,) int16, esc_idx (E,), esc_val (E,))."""
+    if not 1 <= cap <= 63:
+        raise ValueError(f"slot capacity must be 1..63, got {cap}")
+    lib = _load()
+    st = _ScanCall(hdr, scan)
+    n_blocks = st.lay.total_blocks
+    dc16 = np.empty((n_blocks,), np.int16)
+    pos = np.zeros((n_blocks, cap), np.uint8)
+    val = np.zeros((n_blocks, cap), np.int8)
+    n_threads = st.threads(n_threads)
+
+    ov_cap = max(4096, n_blocks * 8)
+    esc_cap = max(4096, n_blocks // 2)
+    while True:
+        ov_idx = np.empty((ov_cap,), np.int32)
+        ov_val = np.empty((ov_cap,), np.int16)
+        esc_idx = np.empty((esc_cap,), np.int32)
+        esc_val = np.empty((esc_cap,), np.int16)
+        counts = np.zeros((2,), np.int64)
+        rc = lib.jd_decode_scan_slots(
+            *st.head_args(),
+            dc16.ctypes.data,
+            pos.ctypes.data, val.ctypes.data, cap,
+            ov_idx.ctypes.data, ov_val.ctypes.data,
+            ov_cap, counts[0:].ctypes.data,
+            esc_idx.ctypes.data, esc_val.ctypes.data,
+            esc_cap, counts[1:].ctypes.data, n_threads,
+        )
+        if rc == -3:
+            ov_cap *= 4
+            esc_cap *= 4
+            continue
+        if rc != 0:
+            raise _failed("slots entropy", rc)
+        o, e = (int(x) for x in counts)
+        return (dc16, pos, val, ov_idx[:o].copy(), ov_val[:o].copy(),
+                esc_idx[:e].copy(), esc_val[:e].copy())
+
+
+def decode_scan_arith(hdr: FrameHeader, scan: ScanHeader,
+                      n_threads: int | None = None) -> np.ndarray:
+    """Decode a sequential arithmetic (SOF9) interleaved scan natively.
+
+    Returns (total_blocks, 64) int32 scan-order natural-layout
+    coefficients, identical to entropy.arith.decode_scan_baseline."""
+    lib = _load()
+    lay = scan_layout(hdr)
+    comps = hdr.components
+    data = _padded(scan)
+    seg_offsets, n_segments, ri = _segments(scan, lay.n_mcus)
+    if sorted(scan.comp_indices) != list(range(len(comps))):
+        raise JPEGError("arithmetic scan must code every component")
+    h = np.array([c.h for c in comps], np.int32)
+    v = np.array([c.v for c in comps], np.int32)
+    dc_tid = np.zeros(len(comps), np.int32)
+    ac_tid = np.zeros(len(comps), np.int32)
+    for k, ci in enumerate(scan.comp_indices):
+        dc_tid[ci] = _table_id(scan.dc_table_ids[k])
+        ac_tid[ci] = _table_id(scan.ac_table_ids[k])
+    dc_l, dc_u, ac_kx = _arith_cond(scan)
+    out = np.zeros((lay.total_blocks, 64), dtype=np.int32)
+    if n_threads is None:
+        n_threads = min(_NCPU, max(1, n_segments))
+    rc = lib.jd_decode_scan_arith(
+        data.ctypes.data, seg_offsets.ctypes.data, n_segments, len(comps),
+        h.ctypes.data, v.ctypes.data,
+        dc_tid.ctypes.data, ac_tid.ctypes.data,
+        dc_l.ctypes.data, dc_u.ctypes.data, ac_kx.ctypes.data,
+        lay.n_mcus, ri, out.ctypes.data, n_threads)
+    if rc != 0:
+        raise _failed("arithmetic", rc)
+    return out
+
+
+def _empty_planes(hdr: FrameHeader) -> list[np.ndarray]:
+    """Zero (mcus_y*v, mcus_x*h, 64) int32 planes, one per component."""
+    return [np.zeros((hdr.mcus_y * c.v, hdr.mcus_x * c.h, 64), np.int32)
+            for c in hdr.components]
+
+
+def _scan_geometry(hdr: FrameHeader, planes: list, scan):
+    """Checks one progressive scan against the frame and its planes.
+
+    Returns (padded data, segment table, n_segments, interleaved,
+    sc_rows, sc_cols): sc_* are the unpadded block grid of a
+    non-interleaved scan's component (0, 0 when interleaved).  The C
+    decoders themselves refuse missing segments and skip surplus ones."""
+    _check_band(scan)
+    sc = scan.comp_indices
+    if not sc or any(not 0 <= ci < len(planes) for ci in sc):
+        raise JPEGError(f"scan components {sc} out of range")
+    interleaved = len(sc) > 1
+    sc_rows, sc_cols = (0, 0) if interleaved else comp_dims_unpadded(
+        hdr, sc[0])
+    for ci in sc:
+        c = hdr.components[ci]
+        _check_plane(planes[ci], max(hdr.mcus_y * c.v, sc_rows),
+                     max(hdr.mcus_x * c.h, sc_cols))
+    seg = _segment_table(scan)
+    return _padded(scan), seg, len(seg) - 1, interleaved, sc_rows, sc_cols
+
+
+def _run_prog_scan(lib, hdr: FrameHeader, planes: list, scan) -> None:
+    """One progressive Huffman scan into caller-owned planes (segment-
+    threaded in the C call; restart segments are independent, T.81 G.2)."""
+    data, seg, n_segments, interleaved, sc_rows, sc_cols = _scan_geometry(
+        hdr, planes, scan)
+    ri = scan.restart_interval
+    first = 1 if scan.ah == 0 else 0
+    n_threads = min(_NCPU, max(1, n_segments))
+    sc = scan.comp_indices
+    if scan.ss == 0:
+        nsc = len(sc)
+        comps = [hdr.components[ci] for ci in sc]
+        comp_h = np.array([c.h for c in comps], np.int32)
+        comp_v = np.array([c.v for c in comps], np.int32)
+        plane_cols = np.array([planes[ci].shape[1] for ci in sc], np.int32)
+        if first:
+            luts = [_lut16(scan.dc_specs[scan.dc_table_ids[k]])
+                    for k in range(nsc)]
+        else:
+            luts = [np.zeros(1, np.int16)] * nsc  # unused
+        rc = lib.jd_prog_dc_scan(
+            data.ctypes.data, seg.ctypes.data, n_segments,
+            first, scan.al, int(interleaved), nsc,
+            comp_h.ctypes.data, comp_v.ctypes.data,
+            _ptrs([planes[ci] for ci in sc]), plane_cols.ctypes.data,
+            _ptrs(luts), hdr.mcus_x, hdr.mcus_y, sc_rows, sc_cols, ri,
+            n_threads)
+    else:
+        ci = sc[0]
+        lut = _lut16(scan.ac_specs[scan.ac_table_ids[0]])
+        rc = lib.jd_prog_ac_scan(
+            data.ctypes.data, seg.ctypes.data, n_segments,
+            first, scan.ss, scan.se, scan.al,
+            planes[ci].ctypes.data, planes[ci].shape[1],
+            lut.ctypes.data, sc_rows, sc_cols, ri, n_threads)
+    if rc != 0:
+        raise JPEGError(f"native progressive scan failed (code {rc})")
+
+
+def _run_prog_scan_arith(lib, hdr: FrameHeader, planes: list, scan) -> None:
+    """One progressive arithmetic scan into caller-owned planes."""
+    data, seg, n_segments, interleaved, sc_rows, sc_cols = _scan_geometry(
+        hdr, planes, scan)
+    ri = scan.restart_interval
+    n_threads = min(_NCPU, max(1, n_segments))
+    dc_l, dc_u, ac_kx = _arith_cond(scan)
+    sc = scan.comp_indices
+    if scan.ss == 0:
+        nsc = len(sc)
+        comps = [hdr.components[ci] for ci in sc]
+        comp_h = np.array([c.h for c in comps], np.int32)
+        comp_v = np.array([c.v for c in comps], np.int32)
+        plane_cols = np.array([planes[ci].shape[1] for ci in sc], np.int32)
+        dc_tid = np.array([_table_id(t) for t in scan.dc_table_ids[:nsc]],
+                          np.int32)
+        rc = lib.jd_prog_dc_scan_arith(
+            data.ctypes.data, seg.ctypes.data, n_segments,
+            1 if scan.ah == 0 else 0, scan.al, int(interleaved), nsc,
+            comp_h.ctypes.data, comp_v.ctypes.data,
+            _ptrs([planes[ci] for ci in sc]), plane_cols.ctypes.data,
+            dc_tid.ctypes.data, dc_l.ctypes.data, dc_u.ctypes.data,
+            hdr.mcus_x, hdr.mcus_y, sc_rows, sc_cols, ri, n_threads)
+    else:
+        ci = sc[0]
+        tid = _table_id(scan.ac_table_ids[0])
+        rc = lib.jd_prog_ac_scan_arith(
+            data.ctypes.data, seg.ctypes.data, n_segments,
+            scan.ss, scan.se, scan.ah, scan.al,
+            planes[ci].ctypes.data, planes[ci].shape[1],
+            tid, int(ac_kx[tid]), sc_rows, sc_cols, ri, n_threads)
+    if rc != 0:
+        raise JPEGError(
+            f"native arithmetic progressive scan failed (code {rc})")
+
+
+def _scan_chains(hdr: FrameHeader) -> list:
+    """Partition a progressive frame's scans into independent chains.
+
+    Scans write disjoint coefficient sets: DC scans touch only k=0, AC
+    scans a single component's k>=1 band; refinements depend only on
+    earlier scans of the SAME component/band.  So (all DC scans, in file
+    order) and (each component's AC scans, in file order) are mutually
+    independent chains — they run on parallel host threads, recovering
+    scan-level parallelism even for DRI=0 progressive streams (where
+    segment sharding has nothing to shard).  Order within a chain is
+    preserved, so output is identical to the sequential loop."""
+    chains: dict = {}
+    for scan in hdr.scans:
+        key = "dc" if scan.ss == 0 else ("ac", scan.comp_indices[0])
+        chains.setdefault(key, []).append(scan)
+    return list(chains.values())
+
+
+def _run_chains(hdr: FrameHeader, run_scan) -> list[np.ndarray]:
+    """Zero planes, then every scan chain of ``hdr`` through
+    ``run_scan(lib, hdr, planes, scan)``, chains on parallel threads."""
+    lib = _load()
+    planes = _empty_planes(hdr)
+    chains = _scan_chains(hdr)
+
+    def run_chain(scans):
+        for scan in scans:
+            run_scan(lib, hdr, planes, scan)
+
+    if len(chains) > 1 and _NCPU > 1:
+        with ThreadPoolExecutor(min(_NCPU * 2, len(chains))) as ex:
+            list(ex.map(run_chain, chains))
+    else:
+        for scans in chains:
+            run_chain(scans)
+    return planes
+
+
+def decode_progressive(hdr: FrameHeader) -> list[np.ndarray]:
+    """Native fast path for progressive Huffman frames (T.81 G.2): per-scan
+    C++ decoders mutate caller-owned per-component planes; independent
+    scan chains (DC / per-component AC) run on parallel threads and each
+    scan is additionally segment-threaded.
+
+    Output identical to entropy.progressive.decode_progressive."""
+    if hdr.precision != 8:
+        raise JPEGError("native progressive decode takes 8-bit frames only")
+    return _run_chains(hdr, _run_prog_scan)
+
+
+def decode_progressive_arith(hdr: FrameHeader) -> list[np.ndarray]:
+    """Native fast path for progressive ARITHMETIC frames (SOF10, T.81
+    G.3): per-scan C++ decoders mutate caller-owned planes.  Output
+    identical to entropy.arith._decode_progressive."""
+    return _run_chains(hdr, _run_prog_scan_arith)

@@ -10,15 +10,23 @@ Entropy backends:
   kernel (``ops/entropy_cuda.py``) writes the scan-order blocks on the card;
   only the per-segment error flags cross back.  On ``device="cpu"`` the
   kernel's plain twin runs.
-* ``native`` — the C++ host decoder; ``python`` — the pure-Python oracle;
-  ``auto`` — native when it builds here, else python.  Their blocks are
-  copied to the device.
+* ``native`` — the C++ host decoder; ``speculative`` — the same library's
+  chunk-parallel self-synchronising decoder for DRI=0 streams (segment-
+  threaded otherwise); ``python`` — the pure-Python oracle; ``auto`` —
+  native when it builds here, else python.  Their blocks are copied to the
+  device.
+
+Progressive (Huffman or arithmetic), arithmetic sequential, multi-scan and
+non-interleaved frames decode to host planes (:func:`decode_to_planes`, the
+JAX function's routing) and go through the same pixel pipeline; a
+restart-count mismatch takes the resilient decoder.
 
 What the JAX function offers beyond this is not ported yet and raises
-rather than run something else: ``idct="exact"`` (its default) and
-``strict=True``, ``colorspace="cmyk"``, CMYK/YCCK/RGB sources, progressive,
-arithmetic, 12-bit and multi-scan frames, and the ``jax``, ``hybrid`` and
-``speculative`` backends.
+:class:`NotPortedError` rather than run something else: ``idct="exact"``
+(its default) and ``strict=True``, ``colorspace="cmyk"``, 12-bit frames and
+CMYK/YCCK/RGB sources (the pixel stage takes 8-bit gray and YCbCr only),
+the ``jax`` and ``hybrid`` backends, and progressive frames under
+``pallas`` (the JAX package's device progressive lanes).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from .routing import needs_scan_loop, resolve_device, segment_mismatch
 _log = logging.getLogger(__name__)
 
 #: Backends of the JAX package that the port does not have yet.
-_NOT_PORTED_BACKENDS = ("jax", "hybrid", "speculative")
+_NOT_PORTED_BACKENDS = ("jax", "hybrid")
 _comp_src_cache: dict[tuple, tuple] = {}
 
 
@@ -71,6 +79,14 @@ def _entropy_backend(name: str, device: torch.device):
     if name == "native":
         from ..entropy import native
         return native.decode_scan_baseline
+    if name == "speculative":
+        from ..entropy import native
+
+        def spec(hdr, scan):
+            if len(scan.seg_offsets) == 2:
+                return native.decode_scan_speculative(hdr, scan)
+            return native.decode_scan_baseline(hdr, scan)
+        return spec
     if name == "pallas":
         from ..ops import entropy_cuda
 
@@ -96,10 +112,10 @@ def _decode_scan_robust(hdr: FrameHeader, scan, entropy: str,
                         device: torch.device):
     """Backend dispatch with libjpeg-style restart resynchronization: a
     restart-count/DRI mismatch decodes best-effort (marker positions are
-    ground truth) instead of raising.  That route is the native resilient
-    decoder for ``native``/``auto`` (``auto`` only when it builds here) and
-    python_ref's otherwise, as in the JAX package."""
-    backend = _entropy_backend(entropy, device)
+    ground truth) instead of raising.  As in the JAX package, that route is
+    the native resilient decoder for ``auto``/``native``/``speculative``
+    8- and 12-bit frames when the library builds here, and python_ref's
+    otherwise."""
     if segment_mismatch(hdr, scan):
         _log.warning(
             "restart-segment count %d disagrees with DRI %d; "
@@ -107,35 +123,95 @@ def _decode_scan_robust(hdr: FrameHeader, scan, entropy: str,
             len(scan.seg_offsets) - 1, scan.restart_interval)
         from ..entropy import native, python_ref
 
-        if entropy == "native" or (entropy == "auto" and native.available()):
+        if (entropy in ("auto", "native", "speculative")
+                and hdr.precision in (8, 12) and native.available()):
             return native.decode_scan_resilient(hdr, scan)
         return python_ref.decode_scan_resilient(hdr, scan)
-    return backend(hdr, scan)
+    return _entropy_backend(entropy, device)(hdr, scan)
 
 
-def _not_ported(hdr: FrameHeader) -> str | None:
-    """Why ``decode()`` cannot take this frame yet, or None."""
-    if hdr.progressive:
-        return "progressive"
-    if hdr.arithmetic:
-        return "arithmetic-coded"
+def _pixel_not_ported(hdr: FrameHeader) -> str | None:
+    """Why the port's pixel stage cannot take this frame yet, or None."""
     if hdr.precision != 8:
         return f"{hdr.precision}-bit"
-    if needs_scan_loop(hdr):
-        return "multi-scan or non-interleaved"
     if hdr.colorspace not in ("gray", "ycbcr"):
         return f"{hdr.colorspace} colour"
     return None
 
 
+def _decode_scan_loop(hdr: FrameHeader, entropy: str) -> list[np.ndarray]:
+    """T.81 sequential multi-scan / partial-scan frames (one scan per
+    component subset, non-interleaved when single-component): the native
+    subset decoder for ``auto``/``native``/``speculative`` 8-bit frames when
+    the library builds here, python_ref's otherwise."""
+    from ..entropy import native, python_ref
+
+    use_native = (entropy in ("auto", "native", "speculative")
+                  and hdr.precision == 8 and native.available())
+    lay = layout_mod.scan_layout(hdr)
+    planes = [np.zeros((*lay.comp_shapes[ci], 64), np.int32)
+              for ci in range(len(hdr.components))]
+    seen: set[int] = set()
+    for scan in hdr.scans:
+        dup = seen.intersection(scan.comp_indices)
+        if dup:
+            raise JPEGError(
+                f"sequential frame codes components {sorted(dup)} twice")
+        if use_native:
+            sc = scan.comp_indices
+            blocks = native.decode_scan_subset(hdr, scan)
+            if len(sc) == 1:
+                rows_u, cols_u = layout_mod.comp_dims_unpadded(hdr, sc[0])
+                planes[sc[0]][:rows_u, :cols_u] = blocks.reshape(
+                    rows_u, cols_u, 64)
+            else:
+                slay = layout_mod.scan_layout(hdr, comp_indices=tuple(sc))
+                for k_c, ci in enumerate(sc):
+                    rows, cols = slay.comp_shapes[k_c]
+                    planes[ci][:] = blocks[slay.comp_src[k_c]].reshape(
+                        rows, cols, 64)
+        else:
+            python_ref.decode_scan_sequential_into(hdr, scan, planes)
+        seen.update(scan.comp_indices)
+    missing = set(range(len(hdr.components))) - seen
+    if missing:
+        raise JPEGError(
+            f"sequential frame never codes components {sorted(missing)}")
+    return planes
+
+
 def decode_to_planes(hdr: FrameHeader, entropy: str = "auto",
                      device="cpu") -> list[np.ndarray]:
-    """Entropy-decode the frame's single interleaved scan to per-component
-    quantized coefficient planes (rows, cols, 64) int32, on the host.
-    ``device`` is where the ``pallas`` backend runs."""
-    why = _not_ported(hdr)
-    if why is not None:
-        raise NotPortedError(f"{why} frames are not ported yet")
+    """Run entropy decode for all scans, returning per-component quantized
+    coefficient planes (rows, cols, 64) int32 on the host — for every frame
+    the parser takes (12-bit and CMYK/YCCK included: planes do not depend
+    on colour).  The JAX function's routing: arithmetic frames by
+    ``entropy.arith``; progressive ones by the native decoder
+    (``auto``/``native``, 8-bit) or ``entropy.progressive``; multi-scan and
+    non-interleaved ones scan by scan; the rest through the chosen backend
+    (``device`` is where ``pallas`` runs) with restart resynchronization."""
+    if hdr.arithmetic:
+        from ..entropy import arith
+        return arith.decode_to_planes(hdr)
+    if hdr.progressive:
+        if entropy in ("jax", "hybrid", "pallas"):
+            raise NotPortedError(
+                f"progressive frames under entropy={entropy!r} take the "
+                "device progressive lanes (ops/entropy_prog), which are not "
+                "ported (ROADMAP queue 1 item 7)")
+        from ..entropy import native, progressive
+
+        if (entropy in ("auto", "native") and hdr.precision == 8
+                and native.available()):
+            # As in the JAX package, a stream the native decoder refuses is
+            # handed to the pure-Python decoder.
+            try:
+                return native.decode_progressive(hdr)
+            except JPEGError:
+                pass
+        return progressive.decode_progressive(hdr)
+    if needs_scan_loop(hdr):
+        return _decode_scan_loop(hdr, entropy)
     scan_coefs = _decode_scan_robust(hdr, hdr.scans[0], entropy,
                                      torch.device(device))
     if isinstance(scan_coefs, torch.Tensor):
@@ -189,7 +265,8 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
 
     Args:
       source: file path or bytes-like JPEG stream.
-      entropy: "auto" | "python" | "native" | "pallas" (device kernel).
+      entropy: "auto" | "python" | "native" | "speculative" | "pallas"
+        (device kernel; progressive frames raise under it).
       idct: "pallas" (the CUDA kernel; its plain twin on the CPU), "kron"
         (that twin) or "fast".  "exact", the JAX default, is not ported.
       upsample: "nn" (reference nearest-neighbour parity) or "fancy"
@@ -199,7 +276,8 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
         means the CUDA card, and raises without one; "cpu" runs the
         kernels' plain twins.
       strict: not ported (raises when True).
-      colorspace: "rgb"; "cmyk" is not ported.
+      colorspace: "rgb"; "cmyk" is not ported, nor are 12-bit frames and
+        CMYK/YCCK/RGB sources (they raise NotPortedError).
       orientation: "ignore" (sensor order) or "respect" (apply the EXIF
         orientation tag, like PIL.ImageOps.exif_transpose).
     """
@@ -216,7 +294,7 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
         with open(source, "rb") as f:
             source = f.read()
     hdr = parser.parse(source)
-    why = _not_ported(hdr)
+    why = _pixel_not_ported(hdr)
     if why is not None:
         raise NotPortedError(f"{why} frames are not ported yet")
 
@@ -227,7 +305,10 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
         (hdr.v_max // c.v, hdr.h_max // c.h) for c in hdr.components)
     lay = layout_mod.scan_layout(hdr)
     planes = None
-    if keep_planes:
+    if (hdr.progressive or hdr.arithmetic or needs_scan_loop(hdr)
+            or keep_planes):
+        # Host planes: every scan of the frame decoded on the host (or by
+        # K2 for ``keep_planes`` under pallas), then the pixel pipeline.
         planes = decode_to_planes(hdr, entropy=entropy, device=dev)
         rgb = pixel_ops.pixel_pipeline_impl(
             tuple(torch.from_numpy(p).to(dev)[None] for p in planes),

@@ -599,6 +599,11 @@ def device_tables(hdr: FrameHeader, scan: ScanHeader,
     luts[1::2] = ac
     t = torch.from_numpy(luts).to(dev)
     hit = (t, first_level(t) if dev.type == "cuda" else None)
+    if dev.type == "cuda":
+        # Callers on other streams (the batch path's host threads, the
+        # decoder's own stream) read the cached set: finish building it
+        # before publishing it.
+        torch.cuda.current_stream(dev).synchronize()
     with _tables_lock:
         _tables[key] = hit
         while len(_tables) > TABLE_CACHE_SIZE:

@@ -1,0 +1,75 @@
+"""Seeded synthetic photos and the committed progressive-Huffman fixtures.
+
+:func:`synthetic_photo` is the test image of ``chip_smoke.py``: smooth
+random colour fields plus Gaussian luma noise.  The port's encoder writes
+no progressive Huffman stream (nor does ``tools/encoder.py``), and the card's
+machine has no PIL, so the progressive fixtures the smoke run decodes are
+made once with PIL by::
+
+    python -m jpeg_decoder_tpu_torch.testing.photo
+
+and committed under ``fixtures/``.  :func:`fixture` returns a fixture's
+bytes with the synthetic photo it was encoded from, rebuilt from its seed.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+
+import numpy as np
+
+FIXTURES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+#: name -> (seed, height, width, PIL quality); 4:2:0, progressive Huffman.
+PROGRESSIVE_FIXTURES = {
+    "progressive_1080p_a.jpg": (101, 1080, 1920, 90),
+    "progressive_1080p_b.jpg": (102, 1080, 1920, 90),
+    "progressive_512.jpg": (103, 512, 512, 90),
+}
+
+
+def synthetic_photo(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """Smooth random colour field (a few low-frequency cosines per
+    channel) plus Gaussian luma noise of sigma 3: (h, w, 3) uint8."""
+    y = np.linspace(0.0, 1.0, h)[:, None]
+    x = np.linspace(0.0, 1.0, w)[None, :]
+    chans = []
+    for _ in range(3):
+        acc = np.full((h, w), rng.uniform(60, 190))
+        for _ in range(4):
+            fy, fx = rng.uniform(0.3, 4.0, 2)
+            ph = rng.uniform(0, 2 * np.pi)
+            acc += rng.uniform(10, 35) * np.cos(2 * np.pi * (fy * y + fx * x)
+                                                + ph)
+        chans.append(acc)
+    img = np.stack(chans, axis=-1) + rng.normal(0.0, 3.0, (h, w, 1))
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def fixture(name: str) -> tuple[bytes, np.ndarray]:
+    """A committed fixture's bytes and its (h, w, 3) uint8 source."""
+    seed, h, w, _ = PROGRESSIVE_FIXTURES[name]
+    with open(os.path.join(FIXTURES_DIR, name), "rb") as f:
+        blob = f.read()
+    return blob, synthetic_photo(np.random.default_rng(seed), h, w)
+
+
+def write_fixtures() -> None:
+    """Encode every fixture with PIL (progressive, 4:2:0) into
+    ``fixtures/``."""
+    from PIL import Image
+
+    os.makedirs(FIXTURES_DIR, exist_ok=True)
+    for name, (seed, h, w, q) in PROGRESSIVE_FIXTURES.items():
+        buf = io.BytesIO()
+        Image.fromarray(synthetic_photo(np.random.default_rng(seed), h, w)
+                        ).save(buf, "JPEG", quality=q, progressive=True,
+                               subsampling=2)
+        with open(os.path.join(FIXTURES_DIR, name), "wb") as f:
+            f.write(buf.getvalue())
+        print(f"{name}: {len(buf.getvalue())} bytes")
+
+
+if __name__ == "__main__":
+    write_fixtures()

@@ -339,3 +339,70 @@ def test_decode_corrupt_stream_raises_on_card(cuda_device):
     with pytest.raises(JPEGError, match="segments \\[0\\]"):
         decode(bytes(blob), entropy="pallas", idct="pallas",
                device=cuda_device)
+
+
+def _batch_blobs():
+    """Two 4:2:0 sizes of one bucket, 4:4:4 with DRI, arithmetic and
+    multi-scan fallback frames, a corrupt blob."""
+    return [encode(_rgb(60, 64, 96), quality=90)[0],
+            encode(_rgb(61, 48, 80), quality=85)[0],
+            encode(_rgb(62, 48, 40), samplings=((1, 1),) * 3, quality=95,
+                   restart_interval=5)[0],
+            encode(_rgb(63, 40, 56), arithmetic=True)[0],
+            encode(_rgb(64, 40, 56), scans=[(0,), (1, 2)])[0],
+            b"\xff\xd8\xff\xdb\x00\x04garbage"]
+
+
+def test_wires_identical_on_card(cuda_device):
+    """Every wire gives the nibble wire's RGB bit for bit on the card, K1
+    three times per group, and the CPU decode's RGB within RGB_TOL."""
+    blobs = _batch_blobs()
+    got = {}
+    for wire in tbatch.WIRES:
+        with tbatch.BatchDecoder(device=cuda_device, wire=wire) as bd:
+            k1 = idct_cuda.fused_dequant_idct.launches
+            got[wire] = bd.decode(blobs)
+            torch.cuda.synchronize()
+            groups = {id(it.rgb_batch) for it in got[wire] if it.ok}
+            assert idct_cuda.fused_dequant_idct.launches - k1 == \
+                3 * len(groups)
+    assert [it.ok for it in got["nibble"]] == [True] * 5 + [False]
+    for wire in tbatch.WIRES:
+        for a, b in zip(got["nibble"][:5], got[wire][:5]):
+            assert b.rgb.is_cuda and torch.equal(a.rgb, b.rgb)
+    with tbatch.BatchDecoder(device="cpu") as bd:
+        ref = bd.decode(blobs)
+    for g, r in zip(got["nibble"][:5], ref[:5]):
+        d = (g.rgb.cpu().to(torch.int32) - r.rgb.to(torch.int32)).abs()
+        assert int(d.max()) <= RGB_TOL
+        assert float((d == 0).float().mean()) >= MIN_EQUAL
+
+
+def test_waves_equal_single_pass_on_card(cuda_device):
+    """Waves of 2 (pinned staging, the decoder's own stream, a worker
+    thread) equal one pass bit for bit and in input order; the caller's
+    stream sees finished outputs."""
+    blobs = _batch_blobs() * 2
+    with tbatch.BatchDecoder(device=cuda_device) as bd:
+        one = bd.decode(blobs)
+        waved = bd.decode(blobs, wave=2)
+        again = bd.decode(blobs, wave=2)
+    for a, b, c in zip(one, waved, again):
+        assert a.ok == b.ok == c.ok
+        if a.ok:
+            assert torch.equal(a.rgb, b.rgb) and torch.equal(a.rgb, c.rgb)
+
+
+def test_batch_pallas_entropy_equals_native(cuda_device):
+    """entropy="pallas": K2 once per baseline image (fallback frames take
+    the host), RGB equal to the native backend's."""
+    blobs = _batch_blobs()
+    with tbatch.BatchDecoder(device=cuda_device, entropy="pallas") as bd:
+        k2 = entropy_cuda.decode_segments.launches
+        got = bd.decode(blobs)
+        torch.cuda.synchronize()
+        assert entropy_cuda.decode_segments.launches - k2 == 3
+    with tbatch.BatchDecoder(device=cuda_device) as bd:
+        ref = bd.decode(blobs)
+    for a, b in zip(got[:5], ref[:5]):
+        assert torch.equal(a.rgb, b.rgb)

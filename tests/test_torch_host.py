@@ -85,18 +85,25 @@ PROGRESSIVE = len(ENCODER_CASES)        # index of the PIL progressive blob
 
 def test_import_leaves_out_jax():
     """Importing every module of the port, the single-image decoder, the
-    entropy kernel's wrapper and the LUT probes included, loads neither jax
-    nor the JAX package (fresh interpreter)."""
+    entropy kernel's wrapper, the LUT probes, the progressive and
+    arithmetic decoders and the encoder (arithmetic paths included)
+    included, loads neither jax nor the JAX package (fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import jpeg_decoder_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from jpeg_decoder_tpu_torch.testing.encoder import encode\n"
+        "import numpy as np\n"
+        "x = np.zeros((16, 16, 3), np.uint8)\n"
+        "encode(x, arithmetic=True, progressive=True)\n"
+        "encode(x, arithmetic=True, scans=[(0,), (1, 2)])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jpeg_decoder_tpu' or m.startswith('jpeg_decoder_tpu.')]\n"
         "assert not bad, bad\n"
         "for m in ('models.batch', 'models.decoder', 'ops.entropy_cuda',\n"
-        "          'probes.lut_probe'):\n"
+        "          'probes.lut_probe', 'entropy.progressive',\n"
+        "          'entropy.arith', 'testing.encoder', 'testing.photo'):\n"
         "    assert 'jpeg_decoder_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -200,15 +207,48 @@ def test_port_never_opens_jax_package_paths():
     assert out.stdout.strip() == "clean"
 
 
-@pytest.mark.parametrize("case", range(len(ENCODER_CASES)))
+# (keyword arguments, (h, w), grayscale) — the encoder's other paths:
+# arithmetic SOF9 (with DAC conditioning), progressive arithmetic SOF10,
+# multi-scan and non-interleaved scripts, grayscale, 12-bit, CMYK/YCCK.
+ENCODER_EXTRA = [
+    (dict(arithmetic=True), (37, 53), False),
+    (dict(arithmetic=True, restart_interval=3, quality=75,
+          dac={"dc": {0: (1, 3)}, "ac": {1: 9}}), (40, 48), False),
+    (dict(arithmetic=True, progressive=True), (33, 41), False),
+    (dict(arithmetic=True, progressive=True, restart_interval=2,
+          samplings=((1, 1),) * 3), (24, 40), False),
+    (dict(scans=[(0,), (1, 2)], restart_interval=4), (40, 56), False),
+    (dict(scans=[(0,), (1,), (2,)], samplings=((2, 1), (1, 1), (1, 1))),
+     (37, 45), False),
+    (dict(arithmetic=True, scans=[(0,), (1, 2)]), (29, 35), False),
+    (dict(grayscale=True, samplings=((1, 1),), quality=90), (24, 40), True),
+    (dict(grayscale=True, samplings=((2, 2),), restart_interval=2),
+     (37, 45), True),
+    (dict(precision=12), (24, 32), False),
+    (dict(samplings=((1, 1),) * 4, app14_transform=2, zero_based_ids=True),
+     (24, 24), "cmyk"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(ENCODER_CASES)
+                                       + len(ENCODER_EXTRA)))
 def test_encoder_bytes_identical(case):
-    samp, q, ri, (h, w) = ENCODER_CASES[case]
-    rgb = _rgb(case, h, w)
-    ref, ref_planes = ref_encode(rgb, samplings=samp, quality=q,
-                                 restart_interval=ri)
-    got, planes = tencoder.encode(rgb, samplings=samp, quality=q,
-                                  restart_interval=ri)
+    if case < len(ENCODER_CASES):
+        samp, q, ri, (h, w) = ENCODER_CASES[case]
+        rgb = _rgb(case, h, w)
+        kw = dict(samplings=samp, quality=q, restart_interval=ri)
+    else:
+        kw, (h, w), kind = ENCODER_EXTRA[case - len(ENCODER_CASES)]
+        rgb = _rgb(case, h, w)
+        if kind == "cmyk":
+            kw = dict(kw, raw_planes=[rgb[..., k % 3].astype(float)
+                                      for k in range(4)])
+        elif kind:
+            rgb = rgb[..., 0]
+    ref, ref_planes = ref_encode(rgb, **kw)
+    got, planes = tencoder.encode(rgb, **kw)
     assert got == ref
+    assert len(planes) == len(ref_planes)
     for a, b in zip(planes, ref_planes):
         np.testing.assert_array_equal(a, b)
 
