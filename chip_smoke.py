@@ -7,7 +7,7 @@ Drives both entry points of the port once on the card and holds every
 kernel against its plain version:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
-2. builds the native entropy library and the three CUDA sources, all at
+2. builds the native entropy library and the four CUDA sources, all at
    once (set-up, timed);
 3. IDCT kernel phase (K1, ``csrc/idct.cu``), at the batch path's largest
    launch shape (B=32, N=65,536 blocks: the luma plane of one 1080p 4:2:0
@@ -45,11 +45,18 @@ kernel against its plain version:
    Huffman from the committed PIL fixtures, 4 SOF9 and 4 SOF10 arithmetic,
    4 multi-scan, 2 restart-mismatched 4:4:4 DRI 8 with the last RSTn cut
    out, one 12-bit, one CMYK; the arithmetic and other frames encoded in a
-   pool of spawned processes): 30 must decode, each within the batch
-   tolerance of the port's CPU ``decode()`` and at PSNR >= 30 dB against
-   its source, and the 12-bit and CMYK frames must come back as their own
-   ``NotPortedError``; host ms per frame kind; then on a 512x512 frame of
-   each kind the native planes must equal the pure-Python oracle's;
+   pool of spawned processes, with the YCCK, Adobe RGB and gray frames of
+   phase 12): all 32 must decode (the 12-bit one as uint16), each within
+   the batch tolerance of the port's CPU ``decode()`` and at PSNR >= 30 dB
+   against its source (a 12-bit decode at 1/16 scale; a CMYK one against
+   Pillow's cmyk2rgb of the stored planes); host ms per frame kind; then on
+   a 512x512 frame of each kind the native planes must equal the
+   pure-Python oracle's;
+8b. the 32-image batch through ``BatchDecoder(idct="exact")``: K5 (the
+   strict AAN dequant+IDCT, ``csrc/idct_exact.cu``) 9 times and K1 never,
+   one image of each group equal to the port's CPU ``decode(idct="exact",
+   upsample="fancy")`` byte for byte; MP/s beside the nibble wire's
+   ``idct="pallas"`` figure;
 9. entropy kernel phase (K2, ``csrc/entropy.cu``) on four images:
    (a) 3840x2160 4:2:0 q90 with DRI = one MCU row (135 segments of 240
    MCUs, the hardware-camera pattern), (b) 1920x1080 4:4:4 q95 DRI 8 (4,050
@@ -64,6 +71,13 @@ kernel against its plain version:
    per image the kernel's device time per phase (tables, sync, scan, write;
    torch.profiler), its synchronisation rounds, and a sweep of the chunk
    size C (each C must give the same output);
+9b. K5 phase at the batch path's largest launch (B=32, N=65,536): on
+   random blocks in the JPEG range, DC-only blocks and image (d)'s JPEG
+   coefficients, ``dequant_idct_exact`` must equal its op-by-op twin
+   ``exact_twin`` run on the card on every sample; K5 timed with CUDA
+   events (median of 50) beside K1 on the same input, the twin and
+   ``torch.matmul`` of the dequantised blocks by the Kronecker basis
+   (product only), with GB/s and the share of HBM;
 10. single-image path (``decode(entropy="pallas", idct="pallas",
    upsample="fancy")``) on (a)-(d), with every kernel count set to 0 just
    before and read just after: K2 once and K1 three times per image, RGB on
@@ -71,6 +85,23 @@ kernel against its plain version:
    twins) within the batch path's tolerance; prints end-to-end ms and MP/s
    (best of 3 after warm-up) and the stages (parse, scan prep, copy with a
    cold and with a warm table cache, K2, pixel pipeline);
+10b. strict single-image phase: ``decode(idct="exact", strict=True)`` with
+   ``upsample`` nn and fancy on (a)-(d) and on one 1920x1080 frame of each
+   kind (CMYK, YCCK, Adobe RGB, 12-bit 4:2:0, gray), every count set to 0
+   just before each decode: K5 once per component, K1 never, K2 once under
+   ``entropy="pallas"`` (the 8-bit frames; the 12-bit one takes the native
+   decoder, as K2 refuses 12-bit frames); the RGB on the card equal to the
+   port's CPU decode byte for byte; end-to-end ms and MP/s (best of 3
+   after warm-up) with the pixel stage's share; then
+   ``decode(entropy="pallas", idct="pallas")`` on the CMYK frame, whose K2
+   planes must equal the native decoder's on every coefficient;
+10c. CLI phase: ``python -m jpeg_decoder_tpu_torch`` in subprocesses on the
+   card over a temporary directory of three frames (1080p 4:2:0, CMYK,
+   12-bit) and a non-JPEG file: ``--idct exact --strict --format bmp
+   --time``, ``--batch --idct pallas --format ppm`` (both rc 1 with the bad
+   file's error line), the 12-bit frame to ``.npy`` and a ``--resume`` rerun
+   that writes nothing; every output read back equals ``decode()`` on the
+   card (12-bit BMP/PPM as the high 8 bits);
 11. probe phase (K3/K4, ``csrc/lut_probe.cu``): the dependent probe chain
    must equal the value tools/pallas_mosaic_repro.py expects and the
    per-lane gather must equal ``lut[idx]``; the kernels' device time from
@@ -178,9 +209,13 @@ def _wall(fn) -> float:
 
 
 def _psnr(rgb, src: np.ndarray) -> float:
+    """PSNR of decoded RGB against 8-bit source pixels; a 12-bit decode
+    (uint16) is compared at 1/16 scale (its encoder took the source x16)."""
     import torch
 
-    diff = rgb.float() - torch.from_numpy(src).to(rgb.device).float()
+    scale = 16.0 if rgb.dtype == torch.uint16 else 1.0
+    diff = (rgb.float() / scale
+            - torch.from_numpy(src).to(rgb.device).float())
     mse = float((diff * diff).mean().item())
     return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
 
@@ -200,34 +235,40 @@ def _close_to_cpu(what: str, gpu, cpu) -> None:
 
 
 def _zero_counts() -> None:
-    from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
+                                            idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     for fn in (idct_cuda.fused_dequant_idct, entropy_cuda.decode_segments,
-               lut_probe.lut_chain_probe, lut_probe.lut_gather):
+               lut_probe.lut_chain_probe, lut_probe.lut_gather,
+               idct_exact_cuda.dequant_idct_exact):
         fn.launches = 0
 
 
 def _counts() -> dict:
-    from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
+                                            idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     return {"K1": idct_cuda.fused_dequant_idct.launches,
             "K2": entropy_cuda.decode_segments.launches,
             "K3": lut_probe.lut_chain_probe.launches,
-            "K4": lut_probe.lut_gather.launches}
+            "K4": lut_probe.lut_gather.launches,
+            "K5": idct_exact_cuda.dequant_idct_exact.launches}
 
 
 def _build_all() -> None:
     """Build the native library and every CUDA source at once (one
     compiler process each); prints the times and ptxas's resource lines."""
     from jpeg_decoder_tpu_torch.entropy import native
-    from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
+                                            idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     jobs = {"native entropy (g++)": native._load,
             "idct.cu": idct_cuda.build, "entropy.cu": entropy_cuda.build,
-            "lut_probe.cu": lut_probe.build}
+            "lut_probe.cu": lut_probe.build,
+            "idct_exact.cu": idct_exact_cuda.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(_wall, fn) for name, fn in jobs.items()}
@@ -235,7 +276,8 @@ def _build_all() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s in all ("
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + "; nvcc for sm_90a)")
-    for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB):
+    for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB,
+                idct_exact_cuda.LIB):
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {os.path.basename(lib.src)}: {line.strip()}")
@@ -1013,18 +1055,52 @@ def _pallas_batch_phase(dev, batch: list[bytes], ref_items, mp: float):
     return counts
 
 
+def _cmyk_rgb(planes: list) -> np.ndarray:
+    """The RGB a decoder gives for these stored CMYK planes (Adobe
+    transform 0): Pillow's cmyk2rgb of the PIL-convention CMYK,
+    255 - stored.  The source pixels a CMYK frame is held to."""
+    cmyk = 255 - np.stack(planes, -1).astype(np.int32)
+    nk = 255 - cmyk[..., 3:4]
+    t = cmyk[..., :3] * nk + 128
+    return np.clip(nk - ((t + (t >> 8)) >> 8), 0, 255).astype(np.uint8)
+
+
 def _encode_job(seed: int, h: int, w: int, kw: dict):
     """Encode the synthetic photo of ``seed`` (a process-pool job: the
-    arithmetic coder is pure Python)."""
+    arithmetic coder is pure Python).  Returns the blob and the pixels a
+    decode is held to: the photo, or for ``cmyk`` (C, M, Y, K = R, G, B, R
+    stored) / ``ycck`` frames what the colour conversion makes of it."""
     from jpeg_decoder_tpu_torch.testing.encoder import encode
     from jpeg_decoder_tpu_torch.testing.photo import synthetic_photo
 
     img = synthetic_photo(np.random.default_rng(seed), h, w)
     kw = dict(kw)
     if kw.pop("cmyk", False):
-        kw["raw_planes"] = [img[..., k % 3].astype(np.float64)
-                            for k in range(4)]
+        planes = [img[..., k % 3] for k in range(4)]
+        kw["raw_planes"] = [p.astype(np.float64) for p in planes]
         kw.update(samplings=((1, 1),) * 4, app14_transform=0)
+        return encode(img, **kw)[0], _cmyk_rgb(planes)
+    if kw.pop("ycck", False):
+        # Y, Cb, Cr of the photo and K = 255 - G, 4:2:0 with a full K
+        # plane; the decode gives (R, G, B) of the photo darkened by K.
+        rgbf = img.astype(np.float64)
+        r, g, b = rgbf[..., 0], rgbf[..., 1], rgbf[..., 2]
+        ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+               -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+               0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        k_plane = 255 - img[..., 1]
+        kw["raw_planes"] = ycc + [k_plane.astype(np.float64)]
+        kw.update(samplings=((2, 2), (1, 1), (1, 1), (2, 2)),
+                  app14_transform=2)
+        # PIL-convention CMYK of a YCCK decode: (R, G, B, 255 - K stored).
+        return encode(img, **kw)[0], _cmyk_rgb(
+            [255 - img[..., c] for c in range(3)] + [k_plane])
+    if kw.pop("gray", False):
+        return (encode(img[..., 1], grayscale=True, samplings=((1, 1),),
+                       **kw)[0], np.repeat(img[..., 1:2], 3, axis=-1))
+    if kw.pop("adobe_rgb", False):
+        kw["raw_planes"] = [img[..., c].astype(np.float64) for c in range(3)]
+        kw.update(samplings=((1, 1),) * 3, app14_transform=0)
     return encode(img, **kw)[0], img
 
 
@@ -1046,6 +1122,10 @@ MIXED_JOBS = {  # kind -> (seed, h, w, encoder arguments)
     "multi-scan b": (206, 1080, 1920, dict(quality=90, scans=[(0,), (1, 2)])),
     "12-bit": (207, 1080, 1920, dict(quality=90, precision=12)),
     "cmyk": (208, 1080, 1920, dict(quality=90, cmyk=True)),
+    # 1920x1080 frames of the strict single-image phase.
+    "ycck": (209, 1080, 1920, dict(quality=90, ycck=True)),
+    "adobe rgb": (210, 1080, 1920, dict(quality=90, adobe_rgb=True)),
+    "gray": (211, 1080, 1920, dict(quality=90, gray=True)),
     # 512x512 of each kind for the native-against-python plane check.
     "512 baseline": (301, 512, 512, dict(quality=90)),
     "512 sof9": (302, 512, 512, dict(quality=90, arithmetic=True)),
@@ -1077,9 +1157,10 @@ def _python_planes(hdr):
             for ci in range(len(hdr.components))]
 
 
-def _mixed_phase(dev, blobs: list, sources: list) -> int:
+def _mixed_phase(dev, blobs: list, sources: list) -> tuple[int, dict]:
     """32 frames of every kind through one ``BatchDecoder`` (see the module
-    docstring).  Returns K1's launches in the checked run."""
+    docstring).  Returns K1's launches in the checked run and the encoded
+    frames (blob, pixels) by kind."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1127,16 +1208,16 @@ def _mixed_phase(dev, blobs: list, sources: list) -> int:
         items = bd.decode(batch)
         torch.cuda.synchronize()
         counts = _counts()
-        ok = [it.ok for it in items]
-        last = [type(it.error).__name__ for it in items[-2:]]
-        if ok != [True] * 30 + [False] * 2 or not all(
-                isinstance(it.error, dec_mod.NotPortedError)
-                for it in items[-2:]):
-            raise AssertionError(f"mixed: ok {ok}, last two {last}")
-        print(f"mixed: 30 decoded, the 12-bit and CMYK frames each their own "
-              f"{last}; launches {counts}")
+        bad = [(kind, it.error) for (kind, _), it in zip(mixed, items)
+               if not it.ok]
+        dtypes = [str(it.rgb.dtype) for it in items[-2:]]
+        if bad or dtypes != ["torch.uint16", "torch.uint8"]:
+            raise AssertionError(f"mixed: failed {bad}, 12-bit and CMYK "
+                                 f"dtypes {dtypes}")
+        print(f"mixed: all {len(items)} decoded (the 12-bit frame as "
+              f"{dtypes[0]}, CMYK as {dtypes[1]}); launches {counts}")
         cpu, psnrs = {}, {}
-        for (kind, (blob, src)), it in zip(mixed[:30], items[:30]):
+        for (kind, (blob, src)), it in zip(mixed, items):
             key = hash(blob)
             if key not in cpu:
                 cpu[key] = decode(blob, entropy="native", idct="pallas",
@@ -1151,14 +1232,14 @@ def _mixed_phase(dev, blobs: list, sources: list) -> int:
             raise AssertionError(f"mixed: PSNR below {MIN_PSNR_DB}")
         del items
         e2e = _e2e(bd, batch, n=2)
-        mp = sum(src.shape[0] * src.shape[1] for _, (_, src) in mixed[:30])
+        mp = sum(src.shape[0] * src.shape[1] for _, (_, src) in mixed)
         host = {}
         for kind, (blob, _) in mixed:
             if kind not in host:
                 host[kind] = min(_wall(lambda b=blob: bd._host_one(b))
                                  for _ in range(2)) * 1e3
     print(f"mixed: end to end {[round(t, 4) for t in e2e]} s -> "
-          f"{mp / 1e6 / min(e2e):.1f} MP/s of the 30 decoded (best of 2); "
+          f"{mp / 1e6 / min(e2e):.1f} MP/s of the 32 decoded (best of 2); "
           "host ms per frame by kind (one call, best of 2): " + ", ".join(
               f"{k} {v:.1f}" for k, v in host.items()))
 
@@ -1176,7 +1257,7 @@ def _mixed_phase(dev, blobs: list, sources: list) -> int:
               f"{t3 - t2:.1f} s)")
         if n_diff or len(nat) != len(ref):
             raise AssertionError(f"planes ({kind}): native != python")
-    return counts["K1"]
+    return counts["K1"], enc
 
 
 def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
@@ -1263,6 +1344,304 @@ def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
     return k1
 
 
+def _idct_exact_phase(dev, rng, blob_d: bytes) -> dict:
+    """K5 at the batch path's largest launch (B=32, N=65,536; see the
+    module docstring): equal to its op-by-op twin run on the card on every
+    sample of random, DC-only and JPEG blocks; timed beside K1 on the same
+    input, the twin and ``torch.matmul`` (product only)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import idct_cuda, idct_exact_cuda
+    from jpeg_decoder_tpu_torch.testing.encoder import qtable
+
+    B, N = 32, 256 * 256
+    qt = torch.from_numpy(
+        np.tile(qtable(90).astype(np.int32), (B, 1))).to(dev)
+    hdr = parser.parse(blob_d)
+    coefs = native.decode_scan_baseline(hdr, hdr.scans[0])
+    idx = (np.arange(B)[:, None] * 4099 + np.arange(N)[None, :]) % len(coefs)
+    dc_only = np.zeros((B, N, 64), np.int32)
+    dc_only[..., 0] = rng.integers(-2048, 2048, size=(B, N))
+    inputs = {
+        "random": (rng.integers(-1024, 1024, size=(B, N, 64),
+                                dtype=np.int32), qt),
+        "DC-only": (dc_only, qt),
+        "image (d)": (coefs[idx], torch.from_numpy(np.tile(
+            hdr.quant_tables[hdr.components[0].tq].values.astype(np.int32),
+            (B, 1))).to(dev)),
+    }
+    del dc_only
+    for name, (blocks_np, q) in inputs.items():
+        blocks = torch.from_numpy(blocks_np).to(dev)
+        got = idct_exact_cuda.dequant_idct_exact(blocks, q)
+        ref = idct_exact_cuda.exact_twin(blocks, q)
+        torch.cuda.synchronize()
+        n_diff = int((got != ref).sum())
+        print(f"K5 phase ({name}): B={B} N={N}: {n_diff} of {got.numel()} "
+              "samples differ from the twin run on the card")
+        if n_diff:
+            raise AssertionError(f"K5 ({name}): {n_diff} samples differ")
+        del got, ref
+    blocks = torch.from_numpy(inputs["random"][0]).to(dev)
+    ms = {"K5": [], "twin": [], "K1": []}
+    for _ in range(2):  # twin, K5, K1 in turns
+        ms["twin"] += _cuda_ms(
+            lambda: idct_exact_cuda.exact_twin(blocks, qt), 5, warmup=1)
+        ms["K5"] += _cuda_ms(
+            lambda: idct_exact_cuda.dequant_idct_exact(blocks, qt), 25)
+        ms["K1"] += _cuda_ms(
+            lambda: idct_cuda.fused_dequant_idct(blocks, qt), 25)
+    deq = (blocks * qt[:, None, :]).to(torch.float32).view(-1, 64)
+    basis = idct_cuda._basis_t(dev)
+    ms_lib = _cuda_ms(lambda: torch.matmul(deq, basis), 25)
+    del deq
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    ms_lib_med = statistics.median(ms_lib)
+    # The least work: 4 B in and 4 B out per coefficient; 43 float32 ops
+    # per 1-D pass of 8 samples, 16 passes per block.
+    nbytes = blocks.numel() * 8
+    flops = blocks.numel() // 64 * 16 * 43
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
+    gbs = nbytes / 1e9 / med["K5"] * 1e3
+    print(f"K5 phase: dequant_idct_exact median {med['K5']:.4f} ms (min "
+          f"{min(ms['K5']):.4f}, max {max(ms['K5']):.4f}; 50 runs; "
+          f"{gbs:.0f} GB/s, {gbs / 3350:.3f} of HBM's 3.35 TB/s); K1 "
+          f"fused_dequant_idct on the same input median {med['K1']:.4f} ms "
+          f"(50 runs); twin exact_twin median {med['twin']:.2f} ms (10 "
+          f"runs); torch.matmul of the dequantised blocks by the Kronecker "
+          f"basis (product only) median {ms_lib_med:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s; "
+          f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s is "
+          f"{flops / FP32_FLOP_PER_S * 1e3:.4f} ms); K5 "
+          f"{'below' if med['K5'] < ms_lib_med else 'NOT below'} the "
+          "yardstick")
+    return {"name": "dequant_idct_exact", "route": "cuda",
+            "source": "jpeg_decoder_tpu_torch/csrc/idct_exact.cu",
+            "replaces": "jpeg_decoder_tpu/ops/pixel.py:123",
+            "max_abs_err": 0, "ms": med["K5"], "plain_ms": med["twin"],
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": ms_lib_med, "k1_ms_same_input": med["K1"],
+            "gb_per_s": gbs, "hbm_share": gbs / 3350}
+
+
+def _strict_phase(dev, images: dict, frames: dict) -> dict:
+    """``decode(idct="exact", strict=True)`` on (a)-(d) and a 1920x1080
+    frame of each colour kind (see the module docstring).  Returns the
+    kernel counts of the checked runs, summed."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+    from jpeg_decoder_tpu_torch.ops import pixel
+
+    total = {}
+    cases = {**{f"({t})": v for t, v in images.items()}, **frames}
+    for name, (blob, src) in cases.items():
+        hdr = parser.parse(blob)
+        entropy = "pallas" if hdr.precision == 8 else "native"
+        n_comp = len(hdr.components)
+        for up in ("nn", "fancy"):
+            kw = dict(entropy=entropy, idct="exact", strict=True,
+                      upsample=up)
+            _zero_counts()
+            got = decode(blob, device=dev, **kw)
+            torch.cuda.synchronize()
+            c = _counts()
+            want_k2 = 1 if entropy == "pallas" else 0
+            if c["K5"] != n_comp or c["K1"] or c["K2"] != want_k2:
+                raise AssertionError(f"strict {name} {up}: launches {c}")
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+            # The CPU reference takes the native host decoder (K2 equals it
+            # on every coefficient; K2's CPU twin is one slow lane per
+            # segment) and the twin of K5.
+            cpu = decode(blob, device="cpu",
+                         **dict(kw, entropy="native")).rgb
+            if not torch.equal(got.rgb.cpu(), cpu):
+                n = int((got.rgb.cpu().to(torch.int32)
+                         != cpu.to(torch.int32)).sum())
+                raise AssertionError(f"strict {name} {up}: {n} samples "
+                                     "differ from the CPU twin")
+            psnr = _psnr(got.rgb, src)
+            if psnr < MIN_PSNR_DB:
+                raise AssertionError(f"strict {name}: PSNR {psnr:.2f}")
+        # Timing (fancy), best of 3 after the warm-up above; the pixel
+        # stage alone by CUDA events on blocks already on the card.
+        mp = hdr.height * hdr.width / 1e6
+        e2e = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = decode(blob, device=dev, **kw)
+            torch.cuda.synchronize()
+            e2e.append(time.perf_counter() - t0)
+            del out
+        blocks = dec_mod._decode_scan_robust(hdr, hdr.scans[0], entropy, dev)
+        if not isinstance(blocks, torch.Tensor):
+            blocks = torch.from_numpy(blocks).to(dev)
+        lay = dec_mod.layout_mod.scan_layout(hdr)
+        qts = tuple(torch.from_numpy(hdr.quant_tables[c.tq].values.astype(
+            np.int32)).to(dev) for c in hdr.components)
+        pix_ms = min(_cuda_ms(lambda: pixel.pixel_pipeline_from_scan(
+            blocks, qts, dec_mod._comp_srcs(hdr, dev),
+            comp_shapes=tuple(lay.comp_shapes), height=hdr.height,
+            width=hdr.width, samplings=tuple(
+                (hdr.v_max // c.v, hdr.h_max // c.h)
+                for c in hdr.components),
+            idct="exact", upsample="fancy", color=hdr.colorspace,
+            precision=hdr.precision), 3, warmup=1))
+        best = min(e2e) * 1e3
+        print(f"strict {name}: {hdr.width}x{hdr.height} {hdr.colorspace} "
+              f"{hdr.precision}-bit, entropy={entropy}: K5 x{n_comp}, K1 0, "
+              f"K2 {want_k2} per decode; RGB equal to the CPU twin's (nn and "
+              f"fancy), PSNR {psnr:.2f} dB; end to end "
+              f"{[round(t * 1e3, 2) for t in e2e]} ms -> {best:.2f} ms, "
+              f"{mp / best * 1e3:.1f} MP/s (best of 3, fancy); pixel stage "
+              f"{pix_ms:.3f} ms ({pix_ms / best:.3f} of end to end)")
+    # K2 on the CMYK frame (4 components): every coefficient equal to the
+    # native decoder's.
+    blob = frames["cmyk"][0]
+    hdr = parser.parse(blob)
+    _zero_counts()
+    got = decode(blob, entropy="pallas", idct="pallas", upsample="fancy",
+                 keep_planes=True, device=dev)
+    torch.cuda.synchronize()
+    c = _counts()
+    ref = dec_mod.decode_to_planes(hdr, entropy="native")
+    n_diff = sum(int((a != b).sum())
+                 for a, b in zip(got.quantized_planes, ref))
+    print(f"strict phase, CMYK under entropy=pallas idct=pallas: K2 vs "
+          f"native decoder {n_diff} coefficients differ; launches {c}")
+    if n_diff or c["K2"] != 1 or c["K1"] != 4:
+        raise AssertionError(f"CMYK pallas: {n_diff} differ, {c}")
+    for k, v in c.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def _batch_exact_phase(dev, batch: list[bytes], mp: float,
+                       nibble_mp_s: float) -> int:
+    """The 32-image batch through ``BatchDecoder(idct="exact")``: K5 9
+    times, one image of each group equal to the port's CPU
+    ``decode(idct="exact", upsample="fancy")`` byte for byte.  Returns K5's
+    launches."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder, decode
+
+    with BatchDecoder(device=dev, idct="exact") as bd:
+        bd.decode(batch)                          # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        items = bd.decode(batch)
+        torch.cuda.synchronize()
+        c = _counts()
+        if c["K5"] != 9 or c["K1"] or not all(it.ok for it in items):
+            raise AssertionError(f"batch exact: launches {c}")
+        for k in CPU_CHECKED:
+            cpu = decode(batch[k], idct="exact", upsample="fancy",
+                         device="cpu").rgb
+            if not torch.equal(items[k].rgb.cpu(), cpu):
+                raise AssertionError(f"batch exact: image {k} differs from "
+                                     "the CPU decode")
+        del items
+        e2e = _e2e(bd, batch)
+    print(f"batch, idct=exact: launches {c}; images {list(CPU_CHECKED)} "
+          f"equal to the CPU decode byte for byte; end to end "
+          f"{[round(t, 4) for t in e2e]} s -> {mp / min(e2e):.1f} MP/s "
+          f"(best of 3), beside idct=pallas on the nibble wire "
+          f"{nibble_mp_s:.1f} MP/s")
+    return c["K5"]
+
+
+def _cli_phase(dev, frames: dict) -> None:
+    """``python -m jpeg_decoder_tpu_torch`` in subprocesses on the card over
+    a temporary directory of three frames (1080p 4:2:0, CMYK, 12-bit) and a
+    non-JPEG file: the single path (exact, strict, BMP), the batch path
+    (pallas, PPM), a 12-bit frame to .npy and a --resume rerun; outputs
+    read back equal ``decode()`` on the card."""
+    import tempfile
+
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode
+    from jpeg_decoder_tpu_torch.io import writers
+
+    def ppm(path):
+        with open(path, "rb") as f:
+            _, dims, _, data = f.read().split(b"\n", 3)
+        w, h = map(int, dims.split())
+        return np.frombuffer(data, np.uint8).reshape(h, w, 3)
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "jpeg_decoder_tpu_torch",
+                            *argv], capture_output=True, text=True,
+                           timeout=300, cwd=os.path.dirname(
+                               os.path.abspath(__file__)))
+        return p, time.perf_counter() - t0
+
+    def as8(rgb):
+        rgb = rgb.cpu()
+        if rgb.dtype == torch.uint16:
+            rgb = (rgb.to(torch.int32) >> 4).to(torch.uint8)
+        return rgb.numpy()
+
+    with tempfile.TemporaryDirectory() as d:
+        names = {"a420": frames["c"][0], "cmyk": frames["cmyk"][0],
+                 "b12": frames["12-bit 4:2:0"][0]}
+        paths = []
+        for name, blob in names.items():
+            paths.append(os.path.join(d, f"{name}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(blob)
+        bad = os.path.join(d, "bad.jpg")
+        with open(bad, "wb") as f:
+            f.write(b"not a JPEG")
+        inputs = paths[:2] + [bad] + paths[2:]
+        out1, out2 = os.path.join(d, "single"), os.path.join(d, "batch")
+        p1, t1 = run("--idct", "exact", "--strict", "--format", "bmp",
+                     "--time", "-o", out1, *inputs)
+        p2, t2 = run("--batch", "--idct", "pallas", "--format", "ppm",
+                     "-o", out2, *inputs)
+        npy = os.path.join(d, "b12.npy")
+        p3, t3 = run("--idct", "exact", "-o", npy, paths[2])
+        p4, t4 = run("--batch", "--idct", "pallas", "--format", "ppm",
+                     "--resume", "-o", out2, *paths)
+        for p, rc in ((p1, 1), (p2, 1), (p3, 0), (p4, 0)):
+            if p.returncode != rc:
+                raise AssertionError(f"CLI rc {p.returncode} != {rc}:\n"
+                                     f"{p.stdout}\n{p.stderr}")
+        for p in (p1, p2):
+            if f"{bad}: ERROR: not a JPEG file (missing SOI)" not in p.stderr:
+                raise AssertionError(f"CLI error line missing:\n{p.stderr}")
+        if p4.stdout.count("exists, skipped") != 3 or " -> " in p4.stdout:
+            raise AssertionError(f"CLI --resume wrote:\n{p4.stdout}")
+        n_checked = 0
+        for path in paths:
+            base = os.path.splitext(os.path.basename(path))[0]
+            exact = decode(path, idct="exact", device=dev).rgb
+            pal = decode(path, idct="pallas", device=dev).rgb
+            got_bmp = writers.read_bmp(os.path.join(out1, f"{base}.bmp"))
+            got_ppm = ppm(os.path.join(out2, f"{base}.ppm"))
+            if not (np.array_equal(got_bmp, as8(exact))
+                    and np.array_equal(got_ppm, as8(pal))):
+                raise AssertionError(f"CLI outputs of {base} differ from "
+                                     "decode() on the card")
+            n_checked += 2
+        if not np.array_equal(np.load(npy), decode(
+                paths[2], idct="exact", device=dev).rgb.cpu().numpy()):
+            raise AssertionError("CLI .npy of the 12-bit frame differs")
+    timing = [ln for ln in p1.stdout.splitlines() if "MP/s" in ln]
+    print(f"CLI: single --idct exact --strict bmp rc 1 ({t1:.1f} s), batch "
+          f"--idct pallas ppm rc 1 ({t2:.1f} s), 12-bit to .npy rc 0 "
+          f"({t3:.1f} s), --resume rc 0 wrote nothing ({t4:.1f} s); the bad "
+          f"file's error line in both; {n_checked + 1} outputs read back "
+          f"equal to decode() on the card; per-image lines: {timing}")
+
+
 def main() -> int:
     import torch
 
@@ -1296,7 +1675,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_waves = _waves_phase(dev, batch, mp)
     torch.cuda.empty_cache()
-    k1_mixed = _mixed_phase(dev, blobs, sources)
+    k1_mixed, enc = _mixed_phase(dev, blobs, sources)
+    torch.cuda.empty_cache()
+    k5_batch = _batch_exact_phase(dev, batch, mp, wires["nibble"]["mp_per_s"])
     torch.cuda.empty_cache()
 
     # Images of the entropy and single-image phases: (a) and (d) are 4K
@@ -1318,8 +1699,15 @@ def main() -> int:
           f"{len(blob_d) / 1e6:.2f} MB; (a) and (d) encoded in "
           f"{time.perf_counter() - t0:.1f} s (set-up)")
     k1["on_jpeg_coefficients"] = _idct_jpeg_phase(dev, blob_d)
+    k5 = _idct_exact_phase(dev, rng, blob_d)
+    torch.cuda.empty_cache()
     k2 = _entropy_phase(dev, images)
     counts = _decode_phase(dev, images)
+    strict_frames = {"cmyk": enc["cmyk"], "ycck": enc["ycck"],
+                     "adobe rgb": enc["adobe rgb"],
+                     "12-bit 4:2:0": enc["12-bit"], "gray": enc["gray"]}
+    strict_counts = _strict_phase(dev, images, strict_frames)
+    _cli_phase(dev, {**strict_frames, "c": images["c"]})
     probes = _probe_phase(dev)
     kw = dict(entropy="pallas", idct="pallas", upsample="fancy", device=dev)
     _profile({f"decode() ({tag})": (lambda b=blob: decode(b, **kw))
@@ -1333,15 +1721,19 @@ def main() -> int:
            for w, r in wires.items()},
         "BatchDecoder entropy=pallas": pallas_counts["K1"],
         "BatchDecoder mixed frames": k1_mixed,
-        "BatchDecoder wave=64": k1_waves, "decode": counts["K1"]}
+        "BatchDecoder wave=64": k1_waves, "decode": counts["K1"],
+        "decode CMYK entropy=pallas idct=pallas": strict_counts["K1"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "BatchDecoder entropy=pallas": pallas_counts["K2"],
-        "decode": counts["K2"]}
+        "decode": counts["K2"], "decode strict": strict_counts["K2"]}
     k2["launches"] = sum(k2["launches_by_path"].values())
     for rec, key in zip(probes, ("K3", "K4")):
         rec["launches"] = counts[key]   # on no path: 0
-    print(json.dumps({"kernels": [k1, k2, *probes]}))
+    k5["launches_by_path"] = {"decode strict": strict_counts["K5"],
+                              "BatchDecoder idct=exact": k5_batch}
+    k5["launches"] = sum(k5["launches_by_path"].values())
+    print(json.dumps({"kernels": [k1, k2, *probes, k5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

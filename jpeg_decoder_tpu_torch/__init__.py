@@ -6,19 +6,24 @@ unpack, plane gather, dequant+IDCT, fancy upsample and YCbCr->RGB on the
 device, in waves that overlap host and device work) and the single-image
 :func:`decode` (host parse and scan prep, then Huffman decode, plane gather,
 dequant+IDCT, upsample and colour on the device).  Progressive, arithmetic,
-multi-scan and restart-mismatched frames decode to host planes first.  Their device kernels are hand-written CUDA for Hopper: the
-dequant+IDCT (``csrc/idct.cu``) and the Huffman decoder
-(``csrc/entropy.cu``); ``csrc/lut_probe.cu`` holds the LUT-probe kernels
+multi-scan and restart-mismatched frames (and, in the batch, 12-bit
+ones) decode to host planes first.  :func:`decode_to_file` writes the result (``io/writers.py``) and
+``python -m jpeg_decoder_tpu_torch`` is the command-line tool (``cli.py``).
+Their device kernels are hand-written CUDA for Hopper: the Kronecker
+dequant+IDCT (``csrc/idct.cu``), the strict AAN dequant+IDCT
+(``csrc/idct_exact.cu``) and the Huffman decoder (``csrc/entropy.cu``);
+``csrc/lut_probe.cu`` holds the LUT-probe kernels
 (``probes/lut_probe.py``).  The package
 imports torch and numpy, never jax or ``jpeg_decoder_tpu``; importing it
 builds nothing (the native library and the kernel are built at first use
 under ``.cache/torch/``).
 """
 
-from .io.parser import parse
+from .io.parser import parse, parse_file
 from .models.batch import BatchDecoder, BatchItem, decode_batch
-from .models.decoder import DecodeResult, decode
-from .types import JPEGError
+from .models.decoder import DecodeResult, decode, decode_to_file
+from .types import FrameHeader, JPEGError
 
-__all__ = ["BatchDecoder", "BatchItem", "DecodeResult", "JPEGError", "decode",
-           "decode_batch", "parse"]
+__all__ = ["BatchDecoder", "BatchItem", "DecodeResult", "FrameHeader",
+           "JPEGError", "decode", "decode_batch", "decode_to_file", "parse",
+           "parse_file"]

@@ -317,6 +317,11 @@ def parse(buf: bytes | np.ndarray) -> FrameHeader:
     return hdr
 
 
+def parse_file(path) -> FrameHeader:
+    with open(path, "rb") as f:
+        return parse(f.read())
+
+
 def _parse_dac(seg: np.ndarray, dc: dict, ac: dict):
     """DAC arithmetic-conditioning segment (T.81 B.2.4.3): pairs of
     (class/id byte, conditioning value).  DC value packs (U << 4) | L

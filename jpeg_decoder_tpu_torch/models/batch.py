@@ -19,10 +19,12 @@ blocks of the JAX package's):
 Every wire carries the int16 DC plane and an escape list for |AC| > 127.
 
 Frames the fast path cannot take — progressive, arithmetic, multi-scan or
-non-interleaved, restart-count-mismatched — decode to host planes through
-``models.decoder.decode_to_planes`` and then ride the chosen wire like any
-other image.  12-bit frames, CMYK/YCCK/RGB sources and progressive frames
-under ``entropy="pallas"`` come back as that image's own
+non-interleaved, restart-count-mismatched, 12-bit — decode to host planes
+through ``models.decoder.decode_to_planes`` and then ride the chosen wire
+like any other image.  Groups are keyed by geometry bucket, sampling, colour
+space and precision, so gray, YCbCr, Adobe RGB, CMYK and YCCK sources and
+12-bit frames (uint16 RGB) each get their own pixel pass.  Progressive
+frames under ``entropy="pallas"`` come back as that image's own
 :class:`~.decoder.NotPortedError`; a malformed blob as its own
 :class:`JPEGError`; neither fails the batch.
 
@@ -343,7 +345,8 @@ def planes_from_blocks_dyn(blocks, geom, *, comp_shapes, comp_hv):
 class BatchItem:
     index: int              # position in the input list
     header: FrameHeader | None
-    rgb_batch: torch.Tensor | None  # (B, H, W, 3) uint8 group output
+    # (B, H, W, 3) group output: uint8, or uint16 for 12-bit frames.
+    rgb_batch: torch.Tensor | None
     batch_index: int        # this image's row in rgb_batch
     error: Exception | None = None  # per-image failure isolation
 
@@ -375,6 +378,7 @@ class Group:
     width: int
     samplings: tuple
     color: str
+    precision: int
     # Pinned host buffer the arrays are views of (CUDA devices), handed
     # back to the decoder's pool once ``to_device`` has queued the copy.
     staging: torch.Tensor | None = None
@@ -417,10 +421,10 @@ class BatchDecoder:
 
     ``device`` is the CUDA card by default; without one the constructor
     raises (pass ``device="cpu"`` to decode on the CPU).  On a CUDA device
-    the dequant+IDCT step is the hand-written kernel K1 and, under
-    ``entropy="pallas"``, each image's Huffman decode is K2 (its blocks
-    come back to the host and ride the wire, as in the JAX package); on the
-    CPU both are their plain twins.
+    the dequant+IDCT step is the hand-written kernel K1 (``idct="pallas"``)
+    or K5 (``idct="exact"``) and, under ``entropy="pallas"``, each image's
+    Huffman decode is K2 (its blocks come back to the host and ride the
+    wire, as in the JAX package); on the CPU all are their plain twins.
 
     ``entropy``: ``native``, ``auto``, ``python``, ``speculative`` or
     ``pallas`` (``jax``/``hybrid`` raise :class:`~.decoder.NotPortedError`);
@@ -444,8 +448,8 @@ class BatchDecoder:
             raise ValueError(f"unknown wire format {wire!r}")
         if bucket not in (None, "pow2"):
             raise ValueError(f"unknown bucket mode {bucket!r}")
-        if idct not in ("pallas", "kron", "fast"):
-            raise ValueError(f"idct={idct!r} is not ported")
+        if idct not in ("exact", "pallas", "kron", "fast"):
+            raise ValueError(f"unknown idct {idct!r}")
         if upsample not in ("fancy", "nn"):
             raise ValueError(f"unknown upsample {upsample!r}")
         self.device = routing.resolve_device(device)
@@ -490,12 +494,8 @@ class BatchDecoder:
 
     def _host_one_inner(self, blob):
         hdr = parser.parse(blob)
-        why = decoder_mod._pixel_not_ported(hdr)
-        if why is not None:
-            raise decoder_mod.NotPortedError(
-                f"{why} frames are not ported yet")
         scan = hdr.scans[0]
-        if (hdr.progressive or hdr.arithmetic
+        if (hdr.progressive or hdr.arithmetic or hdr.precision != 8
                 or routing.needs_scan_loop(hdr)
                 or routing.segment_mismatch(hdr, scan)):
             planes = decoder_mod.decode_to_planes(
@@ -555,7 +555,7 @@ class BatchDecoder:
                 for key, idxs in keyed.items()]
 
     def _pad_group(self, key, idxs, host_out) -> Group:
-        mxb, myb, comp_hv, color, _precision = key
+        mxb, myb, comp_hv, color, precision = key
         wire = self.wire
         headers = [host_out[i][0] for i in idxs]
         packs = [host_out[i][1] for i in idxs]
@@ -625,7 +625,7 @@ class BatchDecoder:
             comp_shapes=tuple((myb * v, mxb * h) for h, v in comp_hv),
             comp_hv=comp_hv, height=myb * 8 * v_max, width=mxb * 8 * h_max,
             samplings=tuple((v_max // v, h_max // h) for h, v in comp_hv),
-            color=color, staging=staging)
+            color=color, precision=precision, staging=staging)
 
     def _stage(self, specs):
         """Host arrays of the given (shape, dtype, fill): on a CUDA device
@@ -677,7 +677,8 @@ class BatchDecoder:
         return UNPACK[group.wire](*tensors[:-2])
 
     def pixels(self, group: Group, tensors) -> torch.Tensor:
-        """Device stage of one group: (B, H_bucket, W_bucket, 3) uint8.
+        """Device stage of one group: (B, H_bucket, W_bucket, 3) uint8
+        (uint16 for 12-bit groups).
         Pixels inside each image's (geom height, width) are exact; the rest
         is padding that :attr:`BatchItem.rgb` crops."""
         qtables, geom = tensors[-2], tensors[-1]
@@ -690,7 +691,7 @@ class BatchDecoder:
             planes, qts, height=group.height, width=group.width,
             samplings=group.samplings, idct=self.idct,
             upsample=self.upsample, color=group.color,
-            true_dims=(geom[:, 2], geom[:, 3]))
+            precision=group.precision, true_dims=(geom[:, 2], geom[:, 3]))
 
     def _decode_wave(self, host_out, results, base) -> None:
         """Device stage of one wave (on a CUDA device, on the decoder's own

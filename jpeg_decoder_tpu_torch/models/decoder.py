@@ -21,12 +21,14 @@ non-interleaved frames decode to host planes (:func:`decode_to_planes`, the
 JAX function's routing) and go through the same pixel pipeline; a
 restart-count mismatch takes the resilient decoder.
 
+The pixel stage takes gray, YCbCr, Adobe RGB, CMYK and YCCK sources and
+12-bit frames (uint16 output); ``idct="exact"``, the default, is the strict
+AAN IDCT kernel K5, byte-identical to the JAX package's eager strict path.
+
 What the JAX function offers beyond this is not ported yet and raises
-:class:`NotPortedError` rather than run something else: ``idct="exact"``
-(its default) and ``strict=True``, ``colorspace="cmyk"``, 12-bit frames and
-CMYK/YCCK/RGB sources (the pixel stage takes 8-bit gray and YCbCr only),
-the ``jax`` and ``hybrid`` backends, and progressive frames under
-``pallas`` (the JAX package's device progressive lanes).
+:class:`NotPortedError` rather than run something else: the ``jax`` and
+``hybrid`` backends, and progressive frames under ``pallas`` (the JAX
+package's device progressive lanes).
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ class DecodeResult:
     """Everything a caller (or a conformance test) may want."""
 
     header: FrameHeader
-    rgb: torch.Tensor  # (H, W, 3) uint8 on the decode device
+    # (H, W, 3) uint8 on the decode device (uint16 for 12-bit frames;
+    # (H, W, 4) uint8 for colorspace="cmyk").
+    rgb: torch.Tensor
     # Dequantized per-component coefficient planes (rows, cols, 64) int32 —
     # the bit-exactness conformance surface.
     dequantized_planes: Optional[list[np.ndarray]] = None
@@ -128,15 +132,6 @@ def _decode_scan_robust(hdr: FrameHeader, scan, entropy: str,
             return native.decode_scan_resilient(hdr, scan)
         return python_ref.decode_scan_resilient(hdr, scan)
     return _entropy_backend(entropy, device)(hdr, scan)
-
-
-def _pixel_not_ported(hdr: FrameHeader) -> str | None:
-    """Why the port's pixel stage cannot take this frame yet, or None."""
-    if hdr.precision != 8:
-        return f"{hdr.precision}-bit"
-    if hdr.colorspace not in ("gray", "ycbcr"):
-        return f"{hdr.colorspace} colour"
-    return None
 
 
 def _decode_scan_loop(hdr: FrameHeader, entropy: str) -> list[np.ndarray]:
@@ -266,43 +261,51 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
     Args:
       source: file path or bytes-like JPEG stream.
       entropy: "auto" | "python" | "native" | "speculative" | "pallas"
-        (device kernel; progressive frames raise under it).
-      idct: "pallas" (the CUDA kernel; its plain twin on the CPU), "kron"
-        (that twin) or "fast".  "exact", the JAX default, is not ported.
+        (device kernel, 8-bit frames; progressive frames raise under it).
+      idct: "exact" (the reference's AAN float semantics: the CUDA kernel
+        K5, its op-by-op twin on the CPU), "pallas" (the Kronecker CUDA
+        kernel K1; its plain twin on the CPU), "kron" (that twin) or
+        "fast".
       upsample: "nn" (reference nearest-neighbour parity) or "fancy"
         (libjpeg triangular filter).
       keep_planes: also return the coefficient planes (numpy).
       device: where the pixel pipeline (and ``pallas`` entropy) runs; None
         means the CUDA card, and raises without one; "cpu" runs the
         kernels' plain twins.
-      strict: not ported (raises when True).
-      colorspace: "rgb"; "cmyk" is not ported, nor are 12-bit frames and
-        CMYK/YCCK/RGB sources (they raise NotPortedError).
+      strict: accepted for the JAX signature.  The port compiles no fused
+        pixel program: every float32 operation of ``exact`` rounds on its
+        own on the card (K5 contracts nothing) and on the CPU, so
+        ``strict=True`` and ``strict=False`` give the same bytes, equal to
+        the JAX package's eager strict output.
+      colorspace: "rgb" (CMYK/YCCK sources are converted with Pillow's
+        exact cmyk2rgb arithmetic) or "cmyk" (4-component sources only:
+        the (H, W, 4) CMYK plane, PIL-inverted convention).
       orientation: "ignore" (sensor order) or "respect" (apply the EXIF
         orientation tag, like PIL.ImageOps.exif_transpose).
     """
     dev = resolve_device(device)
-    if idct == "exact" or strict:
-        raise NotPortedError(
-            "idct='exact' and strict=True are not ported: use idct='pallas'"
-            ", 'kron' or 'fast'")
-    if colorspace != "rgb":
-        raise NotPortedError(f"colorspace={colorspace!r} is not ported")
+    if colorspace not in ("rgb", "cmyk"):
+        raise ValueError(f"unknown colorspace {colorspace!r}")
     if orientation not in ("ignore", "respect"):
         raise ValueError(f"unknown orientation {orientation!r}")
-    if not isinstance(source, (bytes, bytearray, np.ndarray)):
-        with open(source, "rb") as f:
-            source = f.read()
-    hdr = parser.parse(source)
-    why = _pixel_not_ported(hdr)
-    if why is not None:
-        raise NotPortedError(f"{why} frames are not ported yet")
+    if isinstance(source, (bytes, bytearray, np.ndarray)):
+        hdr = parser.parse(source)
+    else:
+        hdr = parser.parse_file(source)
+    color = hdr.colorspace
+    out_cmyk = colorspace == "cmyk"
+    if out_cmyk and color not in ("ycck", "cmyk"):
+        raise JPEGError(
+            f"colorspace='cmyk' requires a 4-component source, got {color}")
 
     qtables = tuple(
         torch.from_numpy(hdr.quant_tables[c.tq].values.astype(np.int32))
         .to(dev) for c in hdr.components)
     samplings = tuple(
         (hdr.v_max // c.v, hdr.h_max // c.h) for c in hdr.components)
+    pixel_kw = dict(height=hdr.height, width=hdr.width, samplings=samplings,
+                    idct=idct, upsample=upsample, color=color,
+                    out_cmyk=out_cmyk, precision=hdr.precision)
     lay = layout_mod.scan_layout(hdr)
     planes = None
     if (hdr.progressive or hdr.arithmetic or needs_scan_loop(hdr)
@@ -312,9 +315,7 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
         planes = decode_to_planes(hdr, entropy=entropy, device=dev)
         rgb = pixel_ops.pixel_pipeline_impl(
             tuple(torch.from_numpy(p).to(dev)[None] for p in planes),
-            tuple(q[None] for q in qtables),
-            height=hdr.height, width=hdr.width, samplings=samplings,
-            idct=idct, upsample=upsample, color=hdr.colorspace)[0]
+            tuple(q[None] for q in qtables), **pixel_kw)[0]
     else:
         # Production path: scan-order blocks go (or stay) on the device and
         # plane assembly is a device gather inside the pipeline.
@@ -323,11 +324,12 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
             blocks = torch.from_numpy(blocks).to(dev)
         rgb = pixel_ops.pixel_pipeline_from_scan(
             blocks, qtables, _comp_srcs(hdr, dev),
-            comp_shapes=tuple(lay.comp_shapes), height=hdr.height,
-            width=hdr.width, samplings=samplings, idct=idct,
-            upsample=upsample, color=hdr.colorspace)
+            comp_shapes=tuple(lay.comp_shapes), **pixel_kw)
     if orientation == "respect":
-        rgb = apply_exif_orientation(rgb, hdr.exif_orientation).contiguous()
+        # uint16 tensors lack flip: orient 12-bit samples as int32.
+        wide = rgb.to(torch.int32) if rgb.dtype == torch.uint16 else rgb
+        rgb = apply_exif_orientation(
+            wide, hdr.exif_orientation).contiguous().to(rgb.dtype)
     result = DecodeResult(header=hdr, rgb=rgb)
     if keep_planes:
         result.quantized_planes = planes
@@ -335,3 +337,13 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
             p * hdr.quant_tables[c.tq].values
             for p, c in zip(planes, hdr.components)]
     return result
+
+
+def decode_to_file(source, out_path, **kw) -> DecodeResult:
+    """:func:`decode`, then write the image to ``out_path`` (format by
+    extension: .bmp, .ppm, .npy, else PNG; see ``io.writers``)."""
+    from ..io import writers
+
+    res = decode(source, **kw)
+    writers.write_image(out_path, res.rgb.cpu().numpy())
+    return res

@@ -178,13 +178,14 @@ def test_planes_from_blocks_dyn_exact(comp_hv):
             np.testing.assert_array_equal(g[k].numpy(), np.asarray(r))
 
 
-# Options of the JAX BatchDecoder: the first three are ported now and are
+# Options of the JAX BatchDecoder: the first four are ported now and are
 # accepted; the rest raise (jax/hybrid as not ported).
-ACCEPTED = [dict(wire="sparse"), dict(wire="packed"), dict(entropy="python")]
+ACCEPTED = [dict(wire="sparse"), dict(wire="packed"), dict(entropy="python"),
+            dict(idct="exact")]
 
 
 @pytest.mark.parametrize("kw", ACCEPTED + [
-    dict(idct="exact"), dict(upsample="bicubic"), dict(entropy="jax"),
+    dict(upsample="bicubic"), dict(entropy="jax"),
     dict(entropy="hybrid"), dict(wire="dense"), dict(bucket="pow3")])
 def test_decoder_rejects_unported_options(kw):
     if kw in ACCEPTED:

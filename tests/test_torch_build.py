@@ -12,12 +12,12 @@ import pytest
 
 from jpeg_decoder_tpu_torch import _build
 from jpeg_decoder_tpu_torch.entropy import native
-from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda
+from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda, idct_exact_cuda
 from jpeg_decoder_tpu_torch.probes import lut_probe
 
 #: The CUDA builds of the port, one per csrc/*.cu.
 CUDA_LIBS = {"idct": idct_cuda.LIB, "entropy": entropy_cuda.LIB,
-             "lut_probe": lut_probe.LIB}
+             "lut_probe": lut_probe.LIB, "idct_exact": idct_exact_cuda.LIB}
 
 FLAGS = ("-O1", "-shared", "-fPIC")
 

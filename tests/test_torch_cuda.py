@@ -17,7 +17,8 @@ from jpeg_decoder_tpu_torch import JPEGError, decode
 from jpeg_decoder_tpu_torch.entropy import python_ref
 from jpeg_decoder_tpu_torch.io import parser
 from jpeg_decoder_tpu_torch.models import batch as tbatch
-from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda, scan_prep
+from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
+                                        idct_exact_cuda, scan_prep)
 from jpeg_decoder_tpu_torch.probes import lut_probe
 from jpeg_decoder_tpu_torch.testing.encoder import encode
 
@@ -406,3 +407,77 @@ def test_batch_pallas_entropy_equals_native(cuda_device):
         ref = bd.decode(blobs)
     for a, b in zip(got[:5], ref[:5]):
         assert torch.equal(a.rgb, b.rgb)
+
+
+# -- K5: strict exact dequant + AAN IDCT ------------------------------------
+
+def _exact_inputs(case, b, n):
+    rng = np.random.default_rng(b * 7919 + n)
+    if case == "dc_only":
+        blocks = np.zeros((b, n, 64), np.int32)
+        blocks[..., 0] = rng.integers(-2048, 2048, (b, n))
+        q = rng.integers(1, 100, (b, 64))
+    elif case == "saturating":
+        blocks = rng.integers(-32768, 32768, (b, n, 64))
+        q = rng.integers(40000, 65536, (b, 64))
+    else:
+        blocks = rng.integers(-1024, 1024, (b, n, 64))
+        q = rng.integers(1, 100, (b, 64))
+    return (torch.from_numpy(blocks.astype(np.int32)),
+            torch.from_numpy(q.astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["random", "dc_only", "saturating"])
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 1000), (2, 4161), (32, 4096)])
+def test_exact_kernel_equals_twin(cuda_device, case, b, n):
+    """K5 equals its op-by-op twin on every sample, run on the card and on
+    the CPU, and counts one launch."""
+    blocks, q = _exact_inputs(case, b, n)
+    tb, tq = blocks.to(cuda_device), q.to(cuda_device)
+    before = idct_exact_cuda.dequant_idct_exact.launches
+    got = idct_exact_cuda.dequant_idct_exact(tb, tq)
+    on_card = idct_exact_cuda.exact_twin(tb, tq)
+    torch.cuda.synchronize()
+    assert idct_exact_cuda.dequant_idct_exact.launches == before + 1
+    assert torch.equal(got, on_card)
+    assert torch.equal(got.cpu(), idct_exact_cuda.exact_twin(blocks, q))
+
+
+def _colour_blobs():
+    rgb = _rgb(41, 72, 96)
+    planes = [rgb[..., k % 3].astype(np.float64) for k in range(4)]
+    return {
+        "420": encode(rgb, quality=90, restart_interval=3)[0],
+        "cmyk": encode(rgb, raw_planes=planes, samplings=((1, 1),) * 4,
+                       app14_transform=0)[0],
+        "ycck": encode(rgb, raw_planes=planes,
+                       samplings=((2, 2), (1, 1), (1, 1), (2, 2)),
+                       app14_transform=2)[0],
+        "12bit": encode(rgb, precision=12, quality=90)[0],
+    }
+
+
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+def test_exact_decode_on_card_equals_cpu(cuda_device, upsample):
+    """decode(idct="exact") on the card: K5 once per component, K1 never,
+    and the CPU twin's bytes."""
+    for name, blob in _colour_blobs().items():
+        k5, k1 = (idct_exact_cuda.dequant_idct_exact.launches,
+                  idct_cuda.fused_dequant_idct.launches)
+        got = decode(blob, idct="exact", strict=True, upsample=upsample,
+                     device=cuda_device)
+        torch.cuda.synchronize()
+        n_comp = len(got.header.components)
+        assert idct_exact_cuda.dequant_idct_exact.launches == k5 + n_comp
+        assert idct_cuda.fused_dequant_idct.launches == k1
+        ref = decode(blob, idct="exact", upsample=upsample, device="cpu")
+        assert got.rgb.is_cuda and torch.equal(got.rgb.cpu(), ref.rgb), name
+
+
+def test_exact_batch_on_card_equals_cpu(cuda_device):
+    blobs = list(_colour_blobs().values())
+    with tbatch.BatchDecoder(device=cuda_device, idct="exact") as bd:
+        got = bd.decode(blobs)
+    for g, blob in zip(got, blobs):
+        ref = decode(blob, idct="exact", upsample="fancy", device="cpu")
+        assert g.ok and torch.equal(g.rgb.cpu(), ref.rgb)

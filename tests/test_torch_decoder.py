@@ -62,7 +62,7 @@ BLOBS = {
 
 
 def _assert_rgb_close(got: torch.Tensor, ref: np.ndarray):
-    assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    assert got.device.type == "cpu" and got.numpy().dtype == ref.dtype
     assert tuple(got.shape) == ref.shape
     d = np.abs(got.numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= RGB_TOL
@@ -152,23 +152,32 @@ def _not_ported_blobs():
     }
 
 
-#: Frames that now decode through host planes, and the entropy backends
-#: under which they still raise (the pixel stage takes neither 12-bit nor
-#: CMYK; progressive frames under pallas need the unported device lanes).
+#: Entropy backends under which a frame kind still raises the port's
+#: not-ported error: progressive frames under pallas need the unported
+#: device lanes.
 STILL_RAISE = {"progressive": ("pallas",), "arithmetic": (),
-               "multi-scan": (), "12-bit": ("pallas", "native"),
-               "cmyk": ("pallas", "native")}
+               "multi-scan": (), "12-bit": (), "cmyk": ()}
+#: Backends under which both packages raise JPEGError: JAX's Pallas kernel
+#: flags 12-bit size categories past the 8-bit limits, and the port's K2
+#: refuses 12-bit frames.
+BOTH_RAISE = {"12-bit": ("pallas",)}
 
 
 @pytest.mark.parametrize("kind", list(_not_ported_blobs()))
 def test_frames_not_ported_raise(kind):
-    """Each frame kind either raises the not-ported error or decodes
-    within the slice's tolerance of JAX (the name predates the host-plane
-    fallback)."""
+    """Each frame kind either raises the not-ported error, raises JPEGError
+    in both packages, or decodes within the slice's tolerance of JAX (the
+    name predates the host-plane fallback and the colour port)."""
     blob = _not_ported_blobs()[kind]
     for entropy in ("pallas", "native"):
         if entropy in STILL_RAISE[kind]:
             with pytest.raises(tdecoder.NotPortedError, match="not ported"):
+                decode(blob, entropy=entropy, idct="pallas", device="cpu")
+            continue
+        if entropy in BOTH_RAISE.get(kind, ()):
+            with pytest.raises(JaxJPEGError):
+                jdecoder.decode(blob, entropy=entropy, idct="pallas")
+            with pytest.raises(JPEGError):
                 decode(blob, entropy=entropy, idct="pallas", device="cpu")
             continue
         ref = jdecoder.decode(blob, entropy=entropy, idct="pallas",
@@ -186,17 +195,33 @@ def test_frames_not_ported_raise(kind):
     {"idct": "pallas", "entropy": "speculative"},
 ])
 def test_options_not_ported_raise(kw):
-    """JAX's default idct="exact", strict mode, CMYK output and the jax and
-    hybrid device backends raise the port's not-ported error; the
-    speculative backend is ported and equals native."""
+    """Only the jax and hybrid device backends still raise the port's
+    not-ported error.  JAX's default idct="exact" (with or without strict)
+    gives JAX's strict bytes; strict mode with another IDCT stays within
+    the tolerance; CMYK output of a 3-component frame raises JPEGError in
+    both packages; the speculative backend equals native."""
+    blob = BLOBS["444_dri5"]
+    if kw.get("entropy") in ("jax", "hybrid"):
+        with pytest.raises(tdecoder.NotPortedError, match="not ported"):
+            decode(blob, device="cpu", **kw)
+        return
     if kw.get("entropy") == "speculative":
-        got = decode(BLOBS["444_dri5"], device="cpu", **kw)
-        ref = decode(BLOBS["444_dri5"], device="cpu",
-                     **dict(kw, entropy="native"))
+        got = decode(blob, device="cpu", **kw)
+        ref = decode(blob, device="cpu", **dict(kw, entropy="native"))
         assert torch.equal(got.rgb, ref.rgb)
         return
-    with pytest.raises(tdecoder.NotPortedError, match="not ported"):
-        decode(BLOBS["444_dri5"], device="cpu", **kw)
+    if kw.get("colorspace") == "cmyk":
+        with pytest.raises(JaxJPEGError, match="4-component"):
+            jdecoder.decode(blob, **kw)
+        with pytest.raises(JPEGError, match="4-component"):
+            decode(blob, device="cpu", **kw)
+        return
+    ref = jdecoder.decode(blob, **dict(kw, strict=True))
+    got = decode(blob, device="cpu", **kw)
+    if kw.get("idct", "exact") == "exact":
+        np.testing.assert_array_equal(got.rgb.numpy(), ref.rgb)
+    else:
+        _assert_rgb_close(got.rgb, ref.rgb)
 
 
 @pytest.mark.parametrize("orientation", [None, 1, 2, 3, 4, 5, 6, 7, 8])

@@ -84,15 +84,18 @@ PROGRESSIVE = len(ENCODER_CASES)        # index of the PIL progressive blob
 
 
 def test_import_leaves_out_jax():
-    """Importing every module of the port, the single-image decoder, the
-    entropy kernel's wrapper, the LUT probes, the progressive and
-    arithmetic decoders and the encoder (arithmetic paths included)
-    included, loads neither jax nor the JAX package (fresh interpreter)."""
+    """Importing every module of the port (the single-image decoder, the
+    kernels' wrappers, the LUT probes, the progressive and arithmetic
+    decoders, the CLI, the writers and the utilities among them; not
+    ``__main__``, which runs the CLI) and running the encoder (arithmetic
+    paths included) loads neither jax nor the JAX package (fresh
+    interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import jpeg_decoder_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if not m.name.endswith('.__main__'):\n"
+        "        importlib.import_module(m.name)\n"
         "from jpeg_decoder_tpu_torch.testing.encoder import encode\n"
         "import numpy as np\n"
         "x = np.zeros((16, 16, 3), np.uint8)\n"
@@ -103,7 +106,9 @@ def test_import_leaves_out_jax():
         "assert not bad, bad\n"
         "for m in ('models.batch', 'models.decoder', 'ops.entropy_cuda',\n"
         "          'probes.lut_probe', 'entropy.progressive',\n"
-        "          'entropy.arith', 'testing.encoder', 'testing.photo'):\n"
+        "          'entropy.arith', 'testing.encoder', 'testing.photo',\n"
+        "          'cli', 'utils.config', 'utils.logging',\n"
+        "          'utils.profiling', 'io.writers', 'ops.idct_exact_cuda'):\n"
         "    assert 'jpeg_decoder_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -188,12 +193,15 @@ def test_port_never_opens_jax_package_paths():
         "subprocess.Popen.__init__ = popen\n"
         "import jpeg_decoder_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if not m.name.endswith('.__main__'):\n"
+        "        importlib.import_module(m.name)\n"
         "from jpeg_decoder_tpu_torch.entropy import native\n"
-        "from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda\n"
+        "from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda,"
+        " idct_exact_cuda\n"
         "from jpeg_decoder_tpu_torch.probes import lut_probe\n"
         "native._load()\n"
-        "for lib in (entropy_cuda.LIB, idct_cuda.LIB, lut_probe.LIB):\n"
+        "for lib in (entropy_cuda.LIB, idct_cuda.LIB, idct_exact_cuda.LIB,"
+        " lut_probe.LIB):\n"
         "    lib.path()\n"
         "bad = [s for s in seen if os.path.abspath(s).startswith(\n"
         f"    {JAX_PKG + os.sep!r})]\n"

@@ -108,7 +108,7 @@ def _coef_planes(seed, b, comp_shapes):
     return out
 
 
-@pytest.mark.parametrize("idct", ["pallas", "kron", "fast"])
+@pytest.mark.parametrize("idct", ["exact", "pallas", "kron", "fast"])
 @pytest.mark.parametrize("layout", ["420", "444", "gray"])
 def test_pixel_pipeline_matches_jax(idct, layout):
     """Bucket-padded planes with per-image true dims, as the batch path
@@ -149,11 +149,18 @@ def test_pixel_pipeline_matches_jax(idct, layout):
 
 
 def test_pixel_pipeline_rejects_unported():
+    """Unknown modes and 12-bit RGB/CMYK/YCCK raise ValueError (as JAX's
+    does for the last); 4 components and idct="exact" are ported."""
     p = (torch.zeros((1, 1, 1, 64), dtype=torch.int32),) * 4
     q = (torch.ones((1, 64), dtype=torch.int32),) * 4
+    kw = dict(height=8, width=8, samplings=((1, 1),) * 4)
+    for bad in (dict(idct="bicubic"), dict(upsample="linear"),
+                dict(precision=12), dict(precision=12, color="ycck")):
+        with pytest.raises(ValueError):
+            tpixel.pixel_pipeline_impl(p, q, **{**kw, **bad})
     with pytest.raises(ValueError):
-        tpixel.pixel_pipeline_impl(p, q, height=8, width=8,
-                                   samplings=((1, 1),) * 4)
-    with pytest.raises(ValueError):
-        tpixel.pixel_pipeline_impl(p[:3], q[:3], height=8, width=8,
-                                   samplings=((1, 1),) * 3, idct="exact")
+        tpixel.pixel_pipeline_impl(p[:3], q[:3], **{
+            **kw, "samplings": ((1, 1),) * 3, "color": "rgb",
+            "precision": 12})
+    rgb = tpixel.pixel_pipeline_impl(p, q, **kw, idct="exact")
+    assert rgb.shape == (1, 8, 8, 3) and rgb.dtype == torch.uint8
