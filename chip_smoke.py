@@ -37,6 +37,10 @@ kernel against its plain version:
    (CUDA events) and end-to-end MP/s;
 6. the batch under ``entropy="pallas"``: K2 once per image (32), RGB
    bit-identical to ``entropy="native"``'s; end-to-end MP/s;
+6b. the batch under ``entropy="hybrid"`` (K7, ``csrc/entropy_emit.cu``, on
+   the 28 DRI-0 images, K2 on the 4 DRI-8 ones) and ``entropy="jax"`` (K2 on
+   all 32), ``idct="pallas"``: RGB bit-identical to ``entropy="native"``'s;
+   launches, host stage ms and end-to-end MP/s;
 7. waves: 192 images (the batch six times), ``decode(blobs, wave=64)``
    against three back-to-back ``decode(blobs[i:i+64])`` calls, in turns:
    bit-identical and in input order; both MP/s, host entropy and device
@@ -90,11 +94,23 @@ kernel against its plain version:
    kind (CMYK, YCCK, Adobe RGB, 12-bit 4:2:0, gray), every count set to 0
    just before each decode: K5 once per component, K1 never, K2 once under
    ``entropy="pallas"`` (the 8-bit frames; the 12-bit one takes the native
-   decoder, as K2 refuses 12-bit frames); the RGB on the card equal to the
-   port's CPU decode byte for byte; end-to-end ms and MP/s (best of 3
+   decoder, as ``pallas`` refuses 12-bit frames); the RGB on the card equal
+   to the port's CPU decode byte for byte; end-to-end ms and MP/s (best of 3
    after warm-up) with the pixel stage's share; then
    ``decode(entropy="pallas", idct="pallas")`` on the CMYK frame, whose K2
    planes must equal the native decoder's on every coefficient;
+10b'. entropy jax/hybrid phase on (a)-(d), the 12-bit 4:2:0 frame and a
+   12-bit 4:2:0 DRI 8 one, every count set to 0 just before each decode:
+   the scan blocks of ``entropy="hybrid"`` (K7 on a DRI-0 stream, K2 on a
+   restart stream) and ``"jax"`` (K2) equal to the native decoder's on
+   every coefficient (K2 at 12 bits included); ``decode()`` under both at
+   ``idct="exact"`` byte-equal to the CPU decode and at ``"pallas"`` equal
+   to ``entropy="native"``'s on the card; K7 equal to its plain version
+   ``decode_lanes_torch`` on (c), flags included; a corrupt copy of (c)
+   raising JPEGError under hybrid; per frame the host ``emit_prep`` ms and
+   the lane count C / trips T, K7 (and its emit and carry launches) and K2
+   by CUDA events (median of 20), and ``decode(idct="pallas")`` end to end
+   under hybrid, jax and pallas (best of 3);
 10c. CLI phase: ``python -m jpeg_decoder_tpu_torch`` in subprocesses on the
    card over a temporary directory of three frames (1080p 4:2:0, CMYK,
    12-bit) and a non-JPEG file: ``--idct exact --strict --format bmp
@@ -235,40 +251,43 @@ def _close_to_cpu(what: str, gpu, cpu) -> None:
 
 
 def _zero_counts() -> None:
-    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
-                                            idct_exact_cuda)
+    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
+                                            idct_cuda, idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     for fn in (idct_cuda.fused_dequant_idct, entropy_cuda.decode_segments,
                lut_probe.lut_chain_probe, lut_probe.lut_gather,
-               idct_exact_cuda.dequant_idct_exact):
+               idct_exact_cuda.dequant_idct_exact,
+               entropy_emit_cuda.decode_lanes):
         fn.launches = 0
 
 
 def _counts() -> dict:
-    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
-                                            idct_exact_cuda)
+    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
+                                            idct_cuda, idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     return {"K1": idct_cuda.fused_dequant_idct.launches,
             "K2": entropy_cuda.decode_segments.launches,
             "K3": lut_probe.lut_chain_probe.launches,
             "K4": lut_probe.lut_gather.launches,
-            "K5": idct_exact_cuda.dequant_idct_exact.launches}
+            "K5": idct_exact_cuda.dequant_idct_exact.launches,
+            "K7": entropy_emit_cuda.decode_lanes.launches}
 
 
 def _build_all() -> None:
     """Build the native library and every CUDA source at once (one
     compiler process each); prints the times and ptxas's resource lines."""
     from jpeg_decoder_tpu_torch.entropy import native
-    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
-                                            idct_exact_cuda)
+    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
+                                            idct_cuda, idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     jobs = {"native entropy (g++)": native._load,
             "idct.cu": idct_cuda.build, "entropy.cu": entropy_cuda.build,
             "lut_probe.cu": lut_probe.build,
-            "idct_exact.cu": idct_exact_cuda.build}
+            "idct_exact.cu": idct_exact_cuda.build,
+            "entropy_emit.cu": entropy_emit_cuda.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(_wall, fn) for name, fn in jobs.items()}
@@ -277,7 +296,7 @@ def _build_all() -> None:
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + "; nvcc for sm_90a)")
     for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB,
-                idct_exact_cuda.LIB):
+                idct_exact_cuda.LIB, entropy_emit_cuda.LIB):
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {os.path.basename(lib.src)}: {line.strip()}")
@@ -437,7 +456,7 @@ def _batch_phase(dev, rng) -> tuple[int, list, list]:
           f"{time.perf_counter() - t0:.1f} s (set-up)")
 
     torch.cuda.reset_peak_memory_stats()
-    with BatchDecoder(device=dev) as bd:
+    with BatchDecoder(device=dev, idct="pallas") as bd:
         _zero_counts()
         items = bd.decode(batch)
         torch.cuda.synchronize()
@@ -466,7 +485,7 @@ def _batch_phase(dev, rng) -> tuple[int, list, list]:
 
         # One image of each group against the port's own CPU decode (plain
         # twins): 1080p 4:2:0, 1080p 4:4:4 DRI 8, 1000x750 4:2:0 (edge).
-        with BatchDecoder(device="cpu") as cpu_bd:
+        with BatchDecoder(device="cpu", idct="pallas") as cpu_bd:
             cpu_items = cpu_bd.decode([blobs[k] for k in CPU_CHECKED])
         for k, ci in zip(CPU_CHECKED, cpu_items):
             _close_to_cpu(f"slice: image {k}", items[k].rgb, ci.rgb)
@@ -906,7 +925,8 @@ def _profile_batch(bd, batch: list[bytes], dev) -> None:
         "whole decode": lambda: bd.decode(batch),
     }, ("fused_dequant_idct",))
     for k in (1, 2, 4, 8):
-        with BatchDecoder(device=dev, host_threads=k) as pool_bd:
+        with BatchDecoder(device=dev, idct="pallas",
+                          host_threads=k) as pool_bd:
             pool_bd.host_stage(batch)
             best = min(_wall(lambda: pool_bd.host_stage(batch))
                        for _ in range(3))
@@ -953,7 +973,7 @@ def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
 
     ref_items, ref_blocks, recs = None, None, {}
     for wire in WIRE_NAMES:
-        with BatchDecoder(device=dev, wire=wire) as bd:
+        with BatchDecoder(device=dev, wire=wire, idct="pallas") as bd:
             bd.decode(batch)                      # warm-up
             torch.cuda.synchronize()
             _zero_counts()
@@ -1031,7 +1051,8 @@ def _pallas_batch_phase(dev, batch: list[bytes], ref_items, mp: float):
 
     from jpeg_decoder_tpu_torch import BatchDecoder
 
-    with BatchDecoder(device=dev, entropy="pallas") as bd:
+    with BatchDecoder(device=dev, entropy="pallas",
+                      idct="pallas") as bd:
         bd.decode(batch)                          # warm-up, table cache
         torch.cuda.synchronize()
         _zero_counts()
@@ -1053,6 +1074,257 @@ def _pallas_batch_phase(dev, batch: list[bytes], ref_items, mp: float):
           f"{[round(t, 4) for t in e2e]} s -> {mp / min(e2e):.1f} MP/s "
           "(best of 3)")
     return counts
+
+
+def _lanes_batch_phase(dev, batch: list[bytes], ref_items,
+                       mp: float) -> dict:
+    """The batch under ``entropy="hybrid"`` and ``"jax"`` (``idct="pallas"``):
+    hybrid decodes each DRI-0 image with K7 (28) and the DRI-8 ones with K2
+    (4), jax all 32 with K2; the blocks come back to the host and ride the
+    nibble wire; RGB bit-identical to ``entropy="native"``'s.  Returns the
+    counts by backend."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder
+
+    want = {"hybrid": {"K7": 28, "K2": 4}, "jax": {"K7": 0, "K2": 32}}
+    out = {}
+    for entropy in ("hybrid", "jax"):
+        with BatchDecoder(device=dev, entropy=entropy, idct="pallas") as bd:
+            bd.decode(batch)                      # warm-up, table cache
+            torch.cuda.synchronize()
+            _zero_counts()
+            items = bd.decode(batch)
+            torch.cuda.synchronize()
+            counts = _counts()
+            n_rgb = _n_rgb_differ(ref_items, items)
+            bad = [it.index for it in items if not it.ok]
+            got = {k: counts[k] for k in want[entropy]}
+            if bad or n_rgb or got != want[entropy] or counts["K1"] != 9:
+                raise AssertionError(f"entropy={entropy} batch: failed "
+                                     f"{bad}, launches {counts}, {n_rgb} "
+                                     "images differ")
+            del items
+            e2e = _e2e(bd, batch)
+            host = min(_wall(lambda: bd.host_stage(batch)) for _ in range(2))
+        out[entropy] = counts
+        print(f"batch, entropy={entropy} idct=pallas: launches {counts}; RGB "
+              f"equal to entropy=native on all {len(batch)} images; host "
+              f"stage (device entropy per image from {bd.host_threads} pool "
+              f"threads, blocks back to the host, nibble encode) "
+              f"{host * 1e3:.1f} ms; end to end "
+              f"{[round(t, 4) for t in e2e]} s -> {mp / min(e2e):.1f} MP/s "
+              "(best of 3)")
+    return out
+
+
+LANE_STEPS = (64, 128, 256, 512, 1300)
+
+
+def _lane_sweep(dev, hdr, scan, ref, luts, l1) -> dict:
+    """K7 on one DRI-0 frame at several lane sizes: the host plan with
+    ``target_steps`` of :data:`LANE_STEPS` paired steps per lane (no lane
+    cap), each output equal to the native decoder's; the host emit_prep ms
+    (best of 3), the lanes and trips, K7 ms (CUDA events, median of 10)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda, entropy_spec
+
+    n_mcus = hdr.mcus_x * hdr.mcus_y
+    out = {}
+    for ts in LANE_STEPS:
+        kw_plan = dict(max_chunks=n_mcus, target_steps=ts)
+        prep_ms = min(_wall(lambda: native.emit_prep(
+            hdr, scan, n_threads=1, **kw_plan)) for _ in range(3)) * 1e3
+        (pools, starts, nm, lane_off, t_sym, _, n_lanes, seg_first,
+         _) = entropy_spec.prepare_hybrid_batch_emit(hdr, [scan], threads=1,
+                                                     **kw_plan)
+        args = tuple(torch.from_numpy(a).to(dev) for a in (
+            pools, starts, nm, lane_off, seg_first)) + (luts,)
+        kw = dict(block_comp=entropy_spec._block_comp(hdr),
+                  n_comps=len(hdr.components), n_mcus=n_mcus, trips=t_sym,
+                  precision=hdr.precision)
+        got, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+        if int(err[0]) or not torch.equal(got[0].cpu(), ref):
+            raise AssertionError(f"K7 sweep target_steps={ts}: differs")
+        ms = statistics.median(_cuda_ms(lambda: entropy_emit_cuda.decode_lanes(
+            *args, **kw, l1=l1), 10, warmup=2))
+        out[ts] = {"emit_prep_ms": prep_ms, "lanes": n_lanes, "T_sym": t_sym,
+                   "ms": ms}
+    print(f"lanes: K7 lane-size sweep on {hdr.width}x{hdr.height} "
+          f"{hdr.precision}-bit (target_steps: emit_prep ms, lanes, T, K7 "
+          "ms; outputs equal): " + "; ".join(
+              f"{ts}: {r['emit_prep_ms']:.2f}, {r['lanes']}, {r['T_sym']}, "
+              f"{r['ms']:.4f}" for ts, r in out.items()))
+    return out
+
+
+def _lanes_phase(dev, images: dict, cpu_refs: dict):
+    """``decode(entropy="hybrid"|"jax")`` on (a)-(d) and two 12-bit frames
+    (see the module docstring).  Returns the K7 record, K2's 12-bit
+    records and the kernel counts of the checked runs, summed."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import JPEGError, decode
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
+                                            entropy_spec)
+
+    med = statistics.median
+    total, k7_by, k2_12 = {}, {}, {}
+    k7_err = 0
+    for name, (blob, _) in images.items():
+        t0 = time.perf_counter()
+        hdr = parser.parse(blob)
+        scan = hdr.scans[0]
+        ref = torch.from_numpy(native.decode_scan_baseline(hdr, scan))
+        dri0 = len(scan.seg_offsets) == 2 and not scan.restart_interval
+        # Scan blocks: both backends equal the native decoder everywhere.
+        for entropy in ("hybrid", "jax"):
+            _zero_counts()
+            blocks = dec_mod._decode_scan_robust(hdr, scan, entropy, dev)
+            torch.cuda.synchronize()
+            c = _counts()
+            k7 = int(entropy == "hybrid" and dri0)
+            n_diff = int((blocks.cpu() != ref).sum())
+            if n_diff or c["K7"] != k7 or c["K2"] != 1 - k7:
+                raise AssertionError(f"lanes {name} {entropy}: {n_diff} "
+                                     f"coefficients differ, launches {c}")
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        # RGB: strict equal to the CPU decode, pallas to native's on the card.
+        cpu = cpu_refs.get(name)
+        if cpu is None:
+            cpu = decode(blob, entropy="native", idct="exact",
+                         upsample="fancy", device="cpu").rgb
+        nat = decode(blob, entropy="native", idct="pallas", upsample="fancy",
+                     device=dev).rgb
+        for entropy in ("hybrid", "jax"):
+            for idct, want in (("exact", cpu), ("pallas", nat)):
+                _zero_counts()
+                got = decode(blob, entropy=entropy, idct=idct,
+                             upsample="fancy", device=dev).rgb
+                torch.cuda.synchronize()
+                for k, v in _counts().items():
+                    total[k] = total.get(k, 0) + v
+                if not torch.equal(got.cpu(), want.cpu()):
+                    raise AssertionError(f"lanes {name} {entropy} {idct}: "
+                                         "RGB differs")
+        check_s = time.perf_counter() - t0
+
+        # Stages: the host plan, K7 (on every frame: restart ones too, for
+        # the comparison with K2), K2, end to end against pallas.
+        # The plan decode() runs (entropy_spec.device_plan).
+        prep_ms = min(_wall(lambda: native.emit_prep(
+            hdr, scan, n_threads=1, max_chunks=hdr.mcus_x * hdr.mcus_y,
+            target_steps=entropy_spec.LANE_STEPS)) for _ in range(3)) * 1e3
+        plan = entropy_spec.device_plan(hdr, [scan], threads=1)
+        pools, starts, nm, lane_off, t_sym, t_pair, n_lanes, seg_first, _ = \
+            plan
+        luts, l1 = entropy_cuda.device_tables(hdr, scan, dev)
+        args = tuple(torch.from_numpy(a).to(dev) for a in (
+            pools, starts, nm, lane_off, seg_first)) + (luts,)
+        kw = dict(block_comp=entropy_spec._block_comp(hdr),
+                  n_comps=len(hdr.components),
+                  n_mcus=hdr.mcus_x * hdr.mcus_y, trips=t_sym,
+                  precision=hdr.precision)
+        out, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+        n_diff = int((out[0].cpu() != ref).sum())
+        if n_diff or int(err[0]):
+            raise AssertionError(f"K7 {name}: {n_diff} differ, flag {err}")
+        ms7 = med(_cuda_ms(lambda: entropy_emit_cuda.decode_lanes(
+            *args, **kw, l1=l1), 20, warmup=2))
+        bufs = entropy_emit_cuda.buffers(args[0], args[1], kw["n_mcus"],
+                                         len(kw["block_comp"]))
+        largs = args + (l1, *bufs)
+        ms_ph = {ph: med(_cuda_ms(lambda ph=ph: entropy_emit_cuda.launch(
+            largs, f"jd_emit_{ph}", **kw), 20, warmup=2))
+            for ph in ("decode", "carry")}
+        n_blocks = len(ref)
+        nbytes = (pools.nbytes + starts.nbytes + nm.nbytes + lane_off.nbytes
+                  + seg_first.nbytes + n_blocks * 256)
+        rec = {"ms": ms7, "emit_ms": ms_ph["decode"],
+               "carry_ms": ms_ph["carry"],
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "lanes": n_lanes,
+               "T_sym": t_sym, "T_pair": t_pair, "emit_prep_ms": prep_ms}
+        _, _, _, k2_args, k2_kw = _scan_inputs(blob, dev)
+        k2_kw["precision"] = hdr.precision
+        ms2 = med(_cuda_ms(lambda: entropy_cuda.decode_segments(
+            *k2_args, **k2_kw), 20, warmup=2))
+        rec["k2_ms"] = ms2
+        if hdr.precision == 12:
+            k2_bytes = (k2_args[0].numel() * 4 + k2_args[1].numel() * 4
+                        + n_blocks * 256)
+            k2_12[name] = {"ms": ms2, "bound_ms":
+                           k2_bytes / HBM_BYTES_PER_S * 1e3}
+        if name == "(c)":
+            plain, p_err = entropy_emit_cuda.decode_lanes_torch(*args, **kw)
+            k7_err = int((plain - out).abs().max())
+            if k7_err or not torch.equal(p_err, err):
+                raise AssertionError("K7 (c): kernel differs from "
+                                     "decode_lanes_torch")
+            rec["plain_ms"] = med(_cuda_ms(
+                lambda: entropy_emit_cuda.decode_lanes_torch(*args, **kw),
+                1, warmup=0))
+            # A corrupt copy: bytes inverted at 12 places.
+            bad = copy.copy(scan)
+            data = scan.data.copy()
+            for q in np.linspace(len(data) // 4, 3 * len(data) // 4,
+                                 12).astype(int):
+                data[q:q + 16] ^= 0xFF
+            bad.data = data
+            try:
+                entropy_spec.decode_scan_hybrid(hdr, bad, dev)
+            except JPEGError as e:
+                print(f"lanes (c) corrupt copy under hybrid: JPEGError: {e}")
+            else:
+                raise AssertionError("corrupt (c) decoded under hybrid")
+        e2e = {}
+        for entropy in ("hybrid", "jax", "pallas"):
+            if entropy == "pallas" and hdr.precision != 8:
+                continue
+            kwd = dict(entropy=entropy, idct="pallas", upsample="fancy",
+                       device=dev)
+            decode(blob, **kwd)
+            runs = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                o = decode(blob, **kwd)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t1) * 1e3)
+                del o
+            e2e[entropy] = min(runs)
+        rec["e2e_ms"] = e2e
+        if dri0:
+            rec["lane_sweep"] = _lane_sweep(dev, hdr, scan, ref, args[5],
+                                            l1)
+        k7_by[name] = rec
+        print(f"lanes {name}: {hdr.width}x{hdr.height} {hdr.precision}-bit "
+              f"DRI {scan.restart_interval}; hybrid and jax blocks equal to "
+              "the native decoder, strict RGB equal to the CPU decode, pallas "
+              f"RGB equal to entropy=native's (checks {check_s:.1f} s); host "
+              f"emit_prep {prep_ms:.3f} ms (1 thread, best of 3), C = "
+              f"{n_lanes} lanes, T = {t_sym} symbols ({t_pair} paired); K7 "
+              f"{ms7:.4f} ms (emit {ms_ph['decode']:.4f}, carry "
+              f"{ms_ph['carry']:.4f}; CUDA events, median of 20), bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us; K2 on the same frame "
+              f"{ms2:.4f} ms; decode() idct=pallas end to end (best of 3) "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in e2e.items())
+              + ("; K7 plain version on the card "
+                 f"{rec['plain_ms']:.1f} ms, equal" if name == "(c)" else ""))
+    c = k7_by["(c)"]
+    k7 = {"name": "decode_lanes", "route": "cuda",
+          "source": "jpeg_decoder_tpu_torch/csrc/entropy_emit.cu",
+          "replaces": "jpeg_decoder_tpu/ops/entropy_flat.py:709",
+          "max_abs_err": k7_err, "ms": c["ms"], "plain_ms": c["plain_ms"],
+          "bound_ms": c["bound_ms"], "bound_by": "bytes",
+          "library_ms": None,
+          "by_image": {k: {q: v for q, v in r.items() if q != "plain_ms"}
+                       for k, r in k7_by.items()}}
+    return k7, k2_12, total
 
 
 def _cmyk_rgb(planes: list) -> np.ndarray:
@@ -1121,6 +1393,9 @@ MIXED_JOBS = {  # kind -> (seed, h, w, encoder arguments)
     "multi-scan a": (205, 1080, 1920, dict(quality=90, scans=[(0,), (1, 2)])),
     "multi-scan b": (206, 1080, 1920, dict(quality=90, scans=[(0,), (1, 2)])),
     "12-bit": (207, 1080, 1920, dict(quality=90, precision=12)),
+    # 1920x1080 12-bit 4:2:0 DRI 8 of the jax/hybrid phase.
+    "12-bit dri": (212, 1080, 1920, dict(quality=90, precision=12,
+                                         restart_interval=8)),
     "cmyk": (208, 1080, 1920, dict(quality=90, cmyk=True)),
     # 1920x1080 frames of the strict single-image phase.
     "ycck": (209, 1080, 1920, dict(quality=90, ycck=True)),
@@ -1201,7 +1476,7 @@ def _mixed_phase(dev, blobs: list, sources: list) -> tuple[int, dict]:
           f"{time.perf_counter() - t0:.1f} s in a pool of spawned processes "
           "(set-up)")
 
-    with BatchDecoder(device=dev) as bd:
+    with BatchDecoder(device=dev, idct="pallas") as bd:
         bd.decode(batch)                          # warm-up
         torch.cuda.synchronize()
         _zero_counts()
@@ -1276,7 +1551,7 @@ def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
         return [it for i in range(0, len(blobs), 64)
                 for it in bd.decode(blobs[i:i + 64])]
 
-    with BatchDecoder(device=dev) as bd:
+    with BatchDecoder(device=dev, idct="pallas") as bd:
         single()                                  # warm-up
         bd.decode(blobs, wave=64)
         torch.cuda.synchronize()
@@ -1426,10 +1701,11 @@ def _idct_exact_phase(dev, rng, blob_d: bytes) -> dict:
             "gb_per_s": gbs, "hbm_share": gbs / 3350}
 
 
-def _strict_phase(dev, images: dict, frames: dict) -> dict:
+def _strict_phase(dev, images: dict, frames: dict) -> tuple[dict, dict]:
     """``decode(idct="exact", strict=True)`` on (a)-(d) and a 1920x1080
     frame of each colour kind (see the module docstring).  Returns the
-    kernel counts of the checked runs, summed."""
+    kernel counts of the checked runs, summed, and the CPU decodes under
+    ``upsample="fancy"`` by frame name."""
     import torch
 
     from jpeg_decoder_tpu_torch import decode
@@ -1437,7 +1713,7 @@ def _strict_phase(dev, images: dict, frames: dict) -> dict:
     from jpeg_decoder_tpu_torch.models import decoder as dec_mod
     from jpeg_decoder_tpu_torch.ops import pixel
 
-    total = {}
+    total, cpu_fancy = {}, {}
     cases = {**{f"({t})": v for t, v in images.items()}, **frames}
     for name, (blob, src) in cases.items():
         hdr = parser.parse(blob)
@@ -1460,6 +1736,8 @@ def _strict_phase(dev, images: dict, frames: dict) -> dict:
             # segment) and the twin of K5.
             cpu = decode(blob, device="cpu",
                          **dict(kw, entropy="native")).rgb
+            if up == "fancy":
+                cpu_fancy[name] = cpu
             if not torch.equal(got.rgb.cpu(), cpu):
                 n = int((got.rgb.cpu().to(torch.int32)
                          != cpu.to(torch.int32)).sum())
@@ -1518,7 +1796,7 @@ def _strict_phase(dev, images: dict, frames: dict) -> dict:
         raise AssertionError(f"CMYK pallas: {n_diff} differ, {c}")
     for k, v in c.items():
         total[k] = total.get(k, 0) + v
-    return total
+    return total, cpu_fancy
 
 
 def _batch_exact_phase(dev, batch: list[bytes], mp: float,
@@ -1671,6 +1949,7 @@ def main() -> int:
     mp = sum(im.shape[0] * im.shape[1] for im in sources * 4) / 1e6
     wires, nibble_items = _wires_phase(dev, batch, mp)
     pallas_counts = _pallas_batch_phase(dev, batch, nibble_items, mp)
+    lanes_batch = _lanes_batch_phase(dev, batch, nibble_items, mp)
     del nibble_items
     torch.cuda.empty_cache()
     k1_waves = _waves_phase(dev, batch, mp)
@@ -1706,7 +1985,13 @@ def main() -> int:
     strict_frames = {"cmyk": enc["cmyk"], "ycck": enc["ycck"],
                      "adobe rgb": enc["adobe rgb"],
                      "12-bit 4:2:0": enc["12-bit"], "gray": enc["gray"]}
-    strict_counts = _strict_phase(dev, images, strict_frames)
+    strict_counts, cpu_fancy = _strict_phase(dev, images, strict_frames)
+    k7, k2_12, lanes_counts = _lanes_phase(
+        dev, {**{f"({t})": v for t, v in images.items()},
+              "12-bit 4:2:0 DRI 0": enc["12-bit"],
+              "12-bit 4:2:0 DRI 8": enc["12-bit dri"]},
+        {**cpu_fancy, "12-bit 4:2:0 DRI 0": cpu_fancy["12-bit 4:2:0"]})
+    torch.cuda.empty_cache()
     _cli_phase(dev, {**strict_frames, "c": images["c"]})
     probes = _probe_phase(dev)
     kw = dict(entropy="pallas", idct="pallas", upsample="fancy", device=dev)
@@ -1722,18 +2007,30 @@ def main() -> int:
         "BatchDecoder entropy=pallas": pallas_counts["K1"],
         "BatchDecoder mixed frames": k1_mixed,
         "BatchDecoder wave=64": k1_waves, "decode": counts["K1"],
-        "decode CMYK entropy=pallas idct=pallas": strict_counts["K1"]}
+        "decode CMYK entropy=pallas idct=pallas": strict_counts["K1"],
+        "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K1"],
+        "BatchDecoder entropy=jax": lanes_batch["jax"]["K1"],
+        "decode jax/hybrid": lanes_counts["K1"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "BatchDecoder entropy=pallas": pallas_counts["K2"],
-        "decode": counts["K2"], "decode strict": strict_counts["K2"]}
+        "decode": counts["K2"], "decode strict": strict_counts["K2"],
+        "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K2"],
+        "BatchDecoder entropy=jax": lanes_batch["jax"]["K2"],
+        "decode jax/hybrid": lanes_counts["K2"]}
     k2["launches"] = sum(k2["launches_by_path"].values())
+    k2["by_image"].update(k2_12)
     for rec, key in zip(probes, ("K3", "K4")):
         rec["launches"] = counts[key]   # on no path: 0
     k5["launches_by_path"] = {"decode strict": strict_counts["K5"],
-                              "BatchDecoder idct=exact": k5_batch}
+                              "BatchDecoder idct=exact": k5_batch,
+                              "decode jax/hybrid": lanes_counts["K5"]}
     k5["launches"] = sum(k5["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1, k2, *probes, k5]}))
+    k7["launches_by_path"] = {
+        "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K7"],
+        "decode jax/hybrid": lanes_counts["K7"]}
+    k7["launches"] = sum(k7["launches_by_path"].values())
+    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

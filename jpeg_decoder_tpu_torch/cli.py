@@ -43,8 +43,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--entropy", default="auto",
                    choices=["auto", "python", "native", "speculative", "hybrid",
                             "jax", "pallas"],
-                   help="entropy-decode backend ('pallas': the CUDA Huffman "
-                        "kernel; 'hybrid' and 'jax' are not ported)")
+                   help="entropy-decode backend ('pallas' and 'jax': the "
+                        "CUDA Huffman kernel; 'hybrid': the host skeleton "
+                        "walk and the CUDA emit-lane kernel on DRI=0 "
+                        "streams)")
     p.add_argument("--idct", default="fast",
                    choices=["exact", "fast", "kron", "pallas"],
                    help="'exact' matches the reference C++ bit-for-bit; "

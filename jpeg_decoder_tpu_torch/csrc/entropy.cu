@@ -8,9 +8,12 @@
 // big-endian 32-bit words, with the 16-bit LUT probe (entry = (symbol << 5)
 // | code length, 0 = invalid), DC predictors per component reset at the
 // segment start, EOB / ZRL run lengths, and the error conditions of the
-// Pallas kernel:
-//   DC: entry == 0, size > 11
-//   AC: entry == 0, i+run > 64, (size > 0 and i+run >= 64), size > 10.
+// Pallas kernel, with T.81's size categories for the frame's precision
+// (max_dc, max_ac = 11, 10 for 8-bit frames and 15, 14 for 12-bit ones, as
+// the JAX package's lockstep lanes have them; the Pallas kernel itself
+// flags 12-bit categories):
+//   DC: entry == 0, size > max_dc
+//   AC: entry == 0, i+run > 64, (size > 0 and i+run >= 64), size > max_ac.
 // Each coefficient is written at its natural index ZIGZAG[i] into the
 // caller's zero-filled output.  A segment is flagged when its sequential
 // decode meets an error before its last block; the rows of a flagged
@@ -104,6 +107,7 @@ struct Params {
   int64_t n_seg, n_words, rows, chunk_bits, cps, n_chunk;
   uint64_t comp_code;         // component of block k in bits 4k..4k+3
   int n_tables, bpm;
+  int max_dc, max_ac;         // size categories: 11, 10 or (12-bit) 15, 14
 };
 
 // Stats slots (read by the wrapper's caller, for reports).
@@ -155,7 +159,8 @@ struct BitReader {
   __device__ __forceinline__ uint32_t peek16() const {
     return static_cast<uint32_t>(buf >> 48);
   }
-  // n <= 27 at every call site (code <= 16 bits, then value <= 11 bits).
+  // n <= 31 at every call site (code <= 16 bits, then value <= 15 bits of
+  // a 12-bit frame), within the 33 bits refill() leaves.
   __device__ __forceinline__ void skip(int n) {
     buf <<= n;
     nbits -= n;
@@ -209,7 +214,7 @@ __device__ __forceinline__ bool step(BitReader& br, const int16_t* l1,
   const int sym = e >> 5;
   int size, i2, at = -1;
   if (dc) {
-    if (sym > 11) return false;
+    if (sym > p.max_dc) return false;
     size = sym;
     i2 = 1;
   } else if (sym == 0) {                       // EOB
@@ -219,7 +224,8 @@ __device__ __forceinline__ bool step(BitReader& br, const int16_t* l1,
     const int run = sym == 0xF0 ? 16 : sym >> 4;
     const int csize = sym & 0x0F;
     const int i_new = i + run;
-    if (i_new > 64 || (csize > 0 && i_new >= 64) || csize > 10) return false;
+    if (i_new > 64 || (csize > 0 && i_new >= 64) || csize > p.max_ac)
+      return false;
     size = csize;
     if (csize > 0) {
       at = kZigzag[i_new];
@@ -590,18 +596,20 @@ extern "C" int jd_build_l1(const void* luts, void* l1, int n_tables,
 // (uint64), blocks begun and 4 DC sums (int32) per chunk, chunks per
 // segment, then the kStats int32 stats.  comp_code holds the component of
 // within-MCU block k in bits 4k..4k+3 (bpm <= 16).  chunk_bits: a multiple
-// of 32.  All on the current device (the wrapper checks this).  Launches
-// the phases on `stream` and returns the first CUDA error (0 = launched).
+// of 32.  precision: 8 or 12 (the size categories).  All on the current
+// device (the wrapper checks this).  Launches the phases on `stream` and
+// returns the first CUDA error (0 = launched).
 extern "C" int jd_decode_segments(const void* words, const void* seg_nmcus,
                                   const void* luts, const void* l1, void* out,
                                   void* err, void* scratch, int64_t n_seg,
                                   int64_t n_words, int64_t rows, int n_tables,
                                   int bpm, uint64_t comp_code,
                                   int64_t chunk_bits, int global_rounds,
-                                  void* stream) {
+                                  int precision, void* stream) {
   if (n_seg <= 0) return 0;
   if (n_tables < 2 || n_tables > kMaxTables || bpm < 1 || bpm > 16 ||
-      chunk_bits < 32 || chunk_bits % 32 != 0 || global_rounds < 0)
+      chunk_bits < 32 || chunk_bits % 32 != 0 || global_rounds < 0 ||
+      (precision != 8 && precision != 12))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
@@ -620,6 +628,8 @@ extern "C" int jd_decode_segments(const void* words, const void* seg_nmcus,
   p.comp_code = comp_code;
   p.n_tables = n_tables;
   p.bpm = bpm;
+  p.max_dc = precision == 12 ? 15 : 11;
+  p.max_ac = precision == 12 ? 14 : 10;
   unsigned char* base = static_cast<unsigned char*>(scratch);
   p.entry = reinterpret_cast<uint64_t*>(base);
   p.exit = p.entry + p.n_chunk;

@@ -12,6 +12,7 @@ JAX package's wrappers:
   ``native``/``auto``/``speculative`` backends of ``models/decoder.py``)
   and the component-subset decoder :func:`decode_scan_subset` (multi-scan
   and non-interleaved frames);
+* the emit-lane plan of the ``hybrid`` backend, :func:`emit_prep`;
 * the wire emitters of the batched path: :func:`decode_scan_nibble`,
   :func:`decode_scan_packed`, :func:`decode_scan_sparse` and
   :func:`decode_scan_slots`;
@@ -80,6 +81,15 @@ _SIGNATURES = {
         _I32, _P, _P,           # n_comps, h, v
         _P, _P, _I64,           # dc_luts, ac_luts, n_mcus
         _P, _I32, _I32],        # out, n_threads, n_chunks
+    "jd_emit_prep": [
+        _P, _I64,               # data, data_len
+        _P, _I32, _I32,         # seg_offsets, n_segments, n_comps
+        _P, _P, _P, _P,         # h, v, dc_luts, ac_luts
+        _I64, _I64,             # n_mcus, restart_interval
+        _I32, _I32, _I32, _I32,  # precision, max_chunks, cap_factor, steps
+        _P, _P, _P,             # scratch bits, syms, pairs
+        _P, _P, _P,             # out_m_lo, out_nm, out_starts
+        _P, _P, _P, _I32],      # out_T_sym, out_T_pair, out_L, n_threads
     "jd_decode_scan_arith": [
         _P, _P, _I32, _I32,     # data, seg_offsets, n_segments, n_comps
         _P, _P,                 # h, v
@@ -414,6 +424,62 @@ def decode_scan_speculative(hdr: FrameHeader, scan: ScanHeader,
     if rc != 0:
         raise JPEGError(f"speculative entropy decode failed (code {rc})")
     return out
+
+
+def emit_prep(hdr: FrameHeader, scan: ScanHeader, *, max_chunks: int = 512,
+              cap_factor: int = 4, target_steps: int = 1300,
+              n_threads: int | None = None):
+    """Lane plan of the emit-lane decode (jd_emit_prep): per-segment
+    skeleton walks (threaded in C++), lane boundaries that balance the
+    paired step counts with every segment start a lane start, and exact
+    per-lane trip maxima.
+
+    Returns (m_lo (L,) int64 first MCU of each lane, nm (L,) int32 MCUs,
+    starts (L,) int32 start bits in ``scan.data``, T_sym, T_pair: the most
+    Huffman symbols and paired steps of any lane).  Raises JPEGError on a
+    malformed stream, a scan of 2^31 bits or more (the C function stores
+    start bits as int32) and a lane count past the output capacity (the C
+    function takes none; the capacity is the JAX wrapper's)."""
+    lib = _load()
+    if hdr.precision not in (8, 12):
+        raise JPEGError(f"unsupported precision {hdr.precision}")
+    if len(scan.data) * 8 >= 1 << 31:
+        raise JPEGError(f"emit prep takes scans under 2^31 bits, got "
+                        f"{len(scan.data)} bytes")
+    if max_chunks < 1 or cap_factor < 1:
+        raise ValueError("max_chunks and cap_factor must be >= 1")
+    lay = scan_layout(hdr)
+    n_mcus = lay.n_mcus
+    comps = hdr.components
+    data = _padded(scan)
+    seg_offsets, n_segments, ri = _segments(scan, n_mcus)
+    h = np.array([c.h for c in comps], np.int32)
+    v = np.array([c.v for c in comps], np.int32)
+    dc_luts = [_lut16(scan.dc_specs[c.td]) for c in comps]
+    ac_luts = [_lut32ac(scan.ac_specs[c.ta]) for c in comps]
+    scratch = (np.zeros(n_mcus, np.int64), np.zeros(n_mcus, np.int32),
+               np.zeros(n_mcus, np.int32))
+    cap = max_chunks + 2 * n_segments + 8
+    m_lo = np.zeros(cap, np.int64)
+    nm = np.zeros(cap, np.int32)
+    starts = np.zeros(cap, np.int32)
+    t_sym, t_pair = ctypes.c_int64(0), ctypes.c_int64(0)
+    n_l = ctypes.c_int32(0)
+    rc = lib.jd_emit_prep(
+        data.ctypes.data, len(scan.data), seg_offsets.ctypes.data,
+        n_segments, len(comps), h.ctypes.data, v.ctypes.data,
+        _ptrs(dc_luts), _ptrs(ac_luts), n_mcus, ri, hdr.precision,
+        max_chunks, cap_factor, target_steps,
+        *(a.ctypes.data for a in scratch),
+        m_lo.ctypes.data, nm.ctypes.data, starts.ctypes.data,
+        ctypes.byref(t_sym), ctypes.byref(t_pair), ctypes.byref(n_l),
+        n_threads if n_threads is not None else min(_NCPU, 4))
+    if rc != 0:
+        raise JPEGError(f"emit prep failed (code {rc})")
+    n = int(n_l.value)
+    if not 0 < n <= cap:
+        raise JPEGError(f"emit prep returned {n} lanes, capacity {cap}")
+    return m_lo[:n], nm[:n], starts[:n], int(t_sym.value), int(t_pair.value)
 
 
 def decode_scan_subset(hdr: FrameHeader, scan: ScanHeader,

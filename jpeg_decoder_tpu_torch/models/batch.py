@@ -24,9 +24,9 @@ through ``models.decoder.decode_to_planes`` and then ride the chosen wire
 like any other image.  Groups are keyed by geometry bucket, sampling, colour
 space and precision, so gray, YCbCr, Adobe RGB, CMYK and YCCK sources and
 12-bit frames (uint16 RGB) each get their own pixel pass.  Progressive
-frames under ``entropy="pallas"`` come back as that image's own
-:class:`~.decoder.NotPortedError`; a malformed blob as its own
-:class:`JPEGError`; neither fails the batch.
+frames under ``entropy="pallas"``, ``"jax"`` or ``"hybrid"`` come back as
+that image's own :class:`~.decoder.NotPortedError`; a malformed blob as its
+own :class:`JPEGError`; neither fails the batch.
 
 Large inputs run in *waves*: host entropy of wave k+1 overlaps the device
 work of wave k, which one worker thread runs on its own CUDA stream from
@@ -420,14 +420,18 @@ class BatchDecoder:
     """Reusable batched decoder; RGB comes back on ``device``.
 
     ``device`` is the CUDA card by default; without one the constructor
-    raises (pass ``device="cpu"`` to decode on the CPU).  On a CUDA device
-    the dequant+IDCT step is the hand-written kernel K1 (``idct="pallas"``)
-    or K5 (``idct="exact"``) and, under ``entropy="pallas"``, each image's
-    Huffman decode is K2 (its blocks come back to the host and ride the
-    wire, as in the JAX package); on the CPU all are their plain twins.
+    raises (pass ``device="cpu"`` to decode on the CPU).  The other defaults
+    are the JAX package's: ``entropy="auto"`` (the native host decoder,
+    ``python`` where the native library does not build) and ``idct="fast"``
+    (torch contractions).  On a CUDA device the dequant+IDCT step is the
+    hand-written kernel K1 under ``idct="pallas"`` or K5 under
+    ``idct="exact"``; under ``entropy="pallas"`` and ``"jax"`` each image's
+    Huffman decode is K2, under ``"hybrid"`` K7 for a DRI=0 stream and K2
+    otherwise (the blocks come back to the host and ride the wire, as in
+    the JAX package); on the CPU all are their plain twins.
 
-    ``entropy``: ``native``, ``auto``, ``python``, ``speculative`` or
-    ``pallas`` (``jax``/``hybrid`` raise :class:`~.decoder.NotPortedError`);
+    ``entropy``: ``auto``, ``native``, ``python``, ``speculative``,
+    ``pallas``, ``jax`` or ``hybrid``;
     ``wire``: one of :data:`WIRES`;
     ``bucket``: ``"pow2"`` groups images by power-of-two MCU grid, ``None``
     by exact MCU grid.  Host entropy runs on a pool of ``host_threads``
@@ -440,8 +444,8 @@ class BatchDecoder:
     queued pixel stage).
     """
 
-    def __init__(self, *, device="cuda", entropy: str = "native",
-                 idct: str = "pallas", upsample: str = "fancy",
+    def __init__(self, *, device="cuda", entropy: str = "auto",
+                 idct: str = "fast", upsample: str = "fancy",
                  wire: str = "nibble", bucket: str | None = "pow2",
                  host_threads: int | None = None):
         if wire not in WIRES:
@@ -453,7 +457,7 @@ class BatchDecoder:
         if upsample not in ("fancy", "nn"):
             raise ValueError(f"unknown upsample {upsample!r}")
         self.device = routing.resolve_device(device)
-        # Raises NotPortedError for jax/hybrid, ValueError for other names.
+        # Raises ValueError for an unknown name.
         self._decode_scan = decoder_mod._entropy_backend(entropy,
                                                          self.device)
         if entropy == "native":

@@ -7,9 +7,15 @@ component from the scan-order blocks, dequant+IDCT, upsample, colour.
 Entropy backends:
 
 * ``pallas`` — the device path: host scan prep, then the CUDA Huffman
-  kernel (``ops/entropy_cuda.py``) writes the scan-order blocks on the card;
-  only the per-segment error flags cross back.  On ``device="cpu"`` the
-  kernel's plain twin runs.
+  kernel K2 (``ops/entropy_cuda.py``) writes the scan-order blocks on the
+  card; only the per-segment error flags cross back.  8-bit frames, as the
+  JAX package's Pallas kernel.  On ``device="cpu"`` the kernel's plain twin
+  runs.
+* ``jax`` — K2 on every stream, 8- and 12-bit (the JAX package's lockstep
+  and speculative lanes; K2 is the port's device speculation for DRI=0).
+* ``hybrid`` — on a DRI=0 stream the host skeleton walk plans lanes from
+  true MCU starts and the emit-lane kernel K7 (``ops/entropy_spec.py``,
+  ``ops/entropy_emit_cuda.py``) decodes them; restart streams take K2.
 * ``native`` — the C++ host decoder; ``speculative`` — the same library's
   chunk-parallel self-synchronising decoder for DRI=0 streams (segment-
   threaded otherwise); ``python`` — the pure-Python oracle; ``auto`` —
@@ -26,9 +32,9 @@ The pixel stage takes gray, YCbCr, Adobe RGB, CMYK and YCCK sources and
 AAN IDCT kernel K5, byte-identical to the JAX package's eager strict path.
 
 What the JAX function offers beyond this is not ported yet and raises
-:class:`NotPortedError` rather than run something else: the ``jax`` and
-``hybrid`` backends, and progressive frames under ``pallas`` (the JAX
-package's device progressive lanes).
+:class:`NotPortedError` rather than run something else: progressive frames
+under ``pallas``, ``jax`` and ``hybrid`` (the JAX package's device
+progressive lanes).
 """
 
 from __future__ import annotations
@@ -48,8 +54,6 @@ from .routing import needs_scan_loop, resolve_device, segment_mismatch
 
 _log = logging.getLogger(__name__)
 
-#: Backends of the JAX package that the port does not have yet.
-_NOT_PORTED_BACKENDS = ("jax", "hybrid")
 _comp_src_cache: dict[tuple, tuple] = {}
 
 
@@ -76,7 +80,8 @@ class DecodeResult:
 def _entropy_backend(name: str, device: torch.device):
     """Resolve an entropy backend by name to ``fn(hdr, scan)``, which
     returns (n_blocks, 64) int32 scan-order blocks: a numpy array for the
-    host backends, a tensor on ``device`` for ``pallas``."""
+    host backends, a tensor on ``device`` for ``pallas``, ``jax`` and
+    ``hybrid`` (the JAX function's routing, jax models/decoder.py:72-94)."""
     if name == "python":
         from ..entropy import python_ref
         return python_ref.decode_scan_baseline
@@ -95,8 +100,23 @@ def _entropy_backend(name: str, device: torch.device):
         from ..ops import entropy_cuda
 
         def on_device(hdr, scan):
+            if hdr.precision != 8:
+                # The JAX Pallas kernel flags 12-bit size categories.
+                raise JPEGError(f"entropy='pallas' decodes 8-bit frames "
+                                f"only, got {hdr.precision}-bit")
             return entropy_cuda.decode_scan_baseline(hdr, scan, device)
         return on_device
+    if name in ("jax", "hybrid"):
+        from ..ops import entropy_cuda, entropy_spec
+
+        def lanes(hdr, scan):
+            if len(scan.seg_offsets) == 2 and not scan.restart_interval:
+                if name == "hybrid":
+                    return entropy_spec.decode_scan_hybrid(hdr, scan, device)
+                return entropy_spec.decode_scan_speculative(hdr, scan,
+                                                            device)
+            return entropy_cuda.decode_scan_baseline(hdr, scan, device)
+        return lanes
     if name == "auto":
         from ..entropy import native, python_ref
 
@@ -107,8 +127,6 @@ def _entropy_backend(name: str, device: torch.device):
                 return nat(hdr, scan)
             return python_ref.decode_scan_baseline(hdr, scan)
         return auto
-    if name in _NOT_PORTED_BACKENDS:
-        raise NotPortedError(f"entropy backend {name!r} is not ported")
     raise ValueError(f"unknown entropy backend {name!r}")
 
 
@@ -119,7 +137,7 @@ def _decode_scan_robust(hdr: FrameHeader, scan, entropy: str,
     ground truth) instead of raising.  As in the JAX package, that route is
     the native resilient decoder for ``auto``/``native``/``speculative``
     8- and 12-bit frames when the library builds here, and python_ref's
-    otherwise."""
+    otherwise (the device backends included)."""
     if segment_mismatch(hdr, scan):
         _log.warning(
             "restart-segment count %d disagrees with DRI %d; "
@@ -184,7 +202,8 @@ def decode_to_planes(hdr: FrameHeader, entropy: str = "auto",
     ``entropy.arith``; progressive ones by the native decoder
     (``auto``/``native``, 8-bit) or ``entropy.progressive``; multi-scan and
     non-interleaved ones scan by scan; the rest through the chosen backend
-    (``device`` is where ``pallas`` runs) with restart resynchronization."""
+    (``device`` is where the device backends run) with restart
+    resynchronization."""
     if hdr.arithmetic:
         from ..entropy import arith
         return arith.decode_to_planes(hdr)
@@ -261,7 +280,9 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
     Args:
       source: file path or bytes-like JPEG stream.
       entropy: "auto" | "python" | "native" | "speculative" | "pallas"
-        (device kernel, 8-bit frames; progressive frames raise under it).
+        (device kernel K2, 8-bit frames) | "jax" (K2, 8- and 12-bit) |
+        "hybrid" (K7 on DRI=0 streams, K2 on restart streams);
+        progressive frames raise under the three device backends.
       idct: "exact" (the reference's AAN float semantics: the CUDA kernel
         K5, its op-by-op twin on the CPU), "pallas" (the Kronecker CUDA
         kernel K1; its plain twin on the CPU), "kron" (that twin) or
@@ -269,7 +290,7 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
       upsample: "nn" (reference nearest-neighbour parity) or "fancy"
         (libjpeg triangular filter).
       keep_planes: also return the coefficient planes (numpy).
-      device: where the pixel pipeline (and ``pallas`` entropy) runs; None
+      device: where the pixel pipeline (and device entropy) runs; None
         means the CUDA card, and raises without one; "cpu" runs the
         kernels' plain twins.
       strict: accepted for the JAX signature.  The port compiles no fused

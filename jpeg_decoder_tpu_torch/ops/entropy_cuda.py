@@ -20,9 +20,14 @@ at once into scan-order 8x8 blocks in natural coefficient order.
   phases (chunks as lanes in lockstep), for the CPU tests of the
   synchronisation logic; no path runs it.
 * :func:`device_tables` caches each table set's LUTs and first-level tables
-  per device; :func:`decode_scan_baseline` is the ``entropy="pallas"``
-  backend of ``models/decoder.py``: blocks stay on the device, only the
-  per-segment error flags cross to the host.
+  per device; :func:`decode_scan_baseline` is the ``entropy="pallas"`` and
+  ``"jax"`` backend of ``models/decoder.py`` (and ``"hybrid"``'s on restart
+  streams): blocks stay on the device, only the per-segment error flags
+  cross to the host.
+
+Every version takes the frame's precision, 8 or 12 bits, for T.81's size
+categories (:func:`size_limits`); the Pallas kernel flags 12-bit ones, and
+``entropy="pallas"`` keeps refusing 12-bit frames as JAX's does.
 
 The Pallas kernel writes zig-zag rows and its wrapper de-permutes them; here
 every version stores each coefficient at its natural index directly.
@@ -57,7 +62,7 @@ LIB = CudaLib("entropy.cu", "jd_entropy", {
         ctypes.c_int64, ctypes.c_int,       # rows, n_tables
         ctypes.c_int, ctypes.c_uint64,      # bpm, comp_code
         ctypes.c_int64, ctypes.c_int,       # chunk_bits, global_rounds
-        ctypes.c_void_p,                    # stream
+        ctypes.c_int, ctypes.c_void_p,      # precision, stream
     ]})
 
 #: Lockstep steps of the twin between two checks for unfinished lanes.
@@ -89,6 +94,14 @@ def build():
     """Compile ``csrc/entropy.cu`` (once per source and flag set) and load
     it."""
     return LIB.load()
+
+
+def size_limits(precision: int) -> tuple[int, int]:
+    """The largest DC and AC size categories of a frame (T.81 F.1.2.1,
+    B.2.2): 11 and 10 at 8 bits, 15 and 14 at 12."""
+    if precision not in (8, 12):
+        raise ValueError(f"precision must be 8 or 12, got {precision}")
+    return (11, 10) if precision == 8 else (15, 14)
 
 
 def _check(words, seg_nmcus, luts, block_comp, n_comps, max_mcus) -> None:
@@ -161,14 +174,16 @@ def scratch_bytes(n_seg: int, n_words: int, chunk_bits: int) -> int:
 def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
                     luts: torch.Tensor, *, block_comp: tuple[int, ...],
                     n_comps: int, max_mcus: int, chunk_bits: int | None = None,
-                    l1: torch.Tensor | None = None):
+                    l1: torch.Tensor | None = None, precision: int = 8):
     """Decode restart segments to natural-order blocks.
 
     words: (S, W) uint32, segment s's unstuffed bytes as big-endian words
     (zero past its end); seg_nmcus: (S,) int32 MCUs of each segment (at
     most ``max_mcus`` are decoded); luts: (2*n_comps, 65536) int32, table
     2c the DC and 2c+1 the AC LUT of component c (``huffman.build_lut``);
-    block_comp: the component of each block of an MCU.  On the card:
+    block_comp: the component of each block of an MCU; precision: the
+    frame's, 8 or 12 (its size categories, :func:`size_limits`).  On the
+    card:
     ``chunk_bits`` (default :data:`CHUNK_BITS`, a multiple of 32) is the
     size of the kernel's chunks, and ``l1`` the first-level tables of
     ``luts`` (:func:`first_level`; built here when not given, cached by
@@ -182,11 +197,12 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
     :func:`decode_segments_torch`.
     """
     _check(words, seg_nmcus, luts, block_comp, n_comps, max_mcus)
+    size_limits(precision)
     dev = words.device
     if dev.type == "cpu":
         return decode_segments_torch(words, seg_nmcus, luts,
                                      block_comp=block_comp, n_comps=n_comps,
-                                     max_mcus=max_mcus)
+                                     max_mcus=max_mcus, precision=precision)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     chunk_bits = CHUNK_BITS if chunk_bits is None else chunk_bits
@@ -215,7 +231,7 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
             words.data_ptr(), seg_nmcus.data_ptr(), luts.data_ptr(),
             l1.data_ptr(), out.data_ptr(), err.data_ptr(),
             scratch.data_ptr(), s, w, rows, luts.shape[0], bpm, comp_code,
-            chunk_bits, GLOBAL_ROUNDS, stream)
+            chunk_bits, GLOBAL_ROUNDS, precision, stream)
     launch_check(rc, "decode_segments")
     with _count_lock:
         decode_segments.launches += 1
@@ -231,7 +247,7 @@ decode_segments.last_stats = None
 
 def decode_segments_torch(words: torch.Tensor, seg_nmcus: torch.Tensor,
                           luts: torch.Tensor, *, block_comp: tuple[int, ...],
-                          n_comps: int, max_mcus: int):
+                          n_comps: int, max_mcus: int, precision: int = 8):
     """Plain PyTorch twin of :func:`decode_segments`, the same contract.
 
     Segments are lanes in lockstep: each step decodes one symbol (a DC
@@ -245,6 +261,7 @@ def decode_segments_torch(words: torch.Tensor, seg_nmcus: torch.Tensor,
     s, w = words.shape
     bpm = len(block_comp)
     rows = max_mcus * bpm
+    max_dc, max_ac = size_limits(precision)
     w64 = words.to(torch.int64)
     lut = luts.to(torch.int64).reshape(-1)
     comp = torch.tensor(block_comp, dtype=torch.int64, device=dev)
@@ -283,16 +300,16 @@ def decode_segments_torch(words: torch.Tensor, seg_nmcus: torch.Tensor,
         csize = sym & 0x0F
         i_new = i + run
         bad = torch.where(
-            is_dc, (e == 0) | (sym > 11),
+            is_dc, (e == 0) | (sym > max_dc),
             (e == 0) | (~eob & ((i_new > 64) | ((csize > 0) & (i_new >= 64))
-                                | (csize > 10))))
+                                | (csize > max_ac))))
         ok = act & ~bad
         err = err | (act & bad)
         # Value bits: the DC size category, or the AC size (none at EOB).
         size = torch.where(ok, torch.where(is_dc, sym,
                                            torch.where(eob, 0, csize)), 0)
         pos1 = pos + (e & 31)
-        raw = peek16(pos1) >> (16 - size)            # size <= 11 here
+        raw = peek16(pos1) >> (16 - size)            # size <= 15 here
         half = torch.where(size > 0, 1 << (size - 1).clamp(min=0), 0)
         val = torch.where(raw < half, raw - ((1 << size) - 1), raw)
         pos = torch.where(ok, pos1 + size, pos)
@@ -348,11 +365,13 @@ def seg_chunks(words: torch.Tensor, chunk_bits: int) -> torch.Tensor:
 
 
 class _Lanes:
-    """Plain-PyTorch lanes of the chunked decoder: per-lane segment row and
+    """Plain-PyTorch lanes of the chunked decoder and of the emit-lane
+    decoder (``ops/entropy_emit_cuda.py``): per-lane row of ``words`` and
     state, and one decode step (one symbol) for every lane at once."""
 
-    def __init__(self, words, luts, block_comp, seg):
+    def __init__(self, words, luts, block_comp, seg, precision=8):
         dev = words.device
+        self.max_dc, self.max_ac = size_limits(precision)
         self.w = words.shape[1]
         self.words = words.to(torch.int64).reshape(-1)
         self.lut = luts.to(torch.int64).reshape(-1)
@@ -384,9 +403,9 @@ class _Lanes:
         csize = sym & 0x0F
         i_new = i + run
         bad = torch.where(
-            is_dc, (e == 0) | (sym > 11),
+            is_dc, (e == 0) | (sym > self.max_dc),
             (e == 0) | (~eob & ((i_new > 64) | ((csize > 0) & (i_new >= 64))
-                                | (csize > 10))))
+                                | (csize > self.max_ac))))
         size = torch.where(bad, 0, torch.where(
             is_dc, sym, torch.where(eob, 0, csize)))
         pos1 = pos + (e & 31)
@@ -439,7 +458,8 @@ def decode_segments_chunked_torch(words: torch.Tensor,
                                   max_mcus: int, chunk_bits: int,
                                   lanes_per_cta: int | None = None,
                                   global_rounds: int | None = None,
-                                  stats: dict | None = None):
+                                  stats: dict | None = None,
+                                  precision: int = 8):
     """Plain PyTorch model of the chunked kernel, the same contract as
     :func:`decode_segments`; chunks are lanes in lockstep.
 
@@ -483,7 +503,7 @@ def decode_segments_chunked_torch(words: torch.Tensor,
     g = torch.arange(s * cps, device=dev)
     seg, c = g // cps, g % cps
     n = seg_chunks(words, chunk_bits)[seg]
-    lanes = _Lanes(words, luts, block_comp, seg)
+    lanes = _Lanes(words, luts, block_comp, seg, precision)
     end = (c + 1) * chunk_bits
     spec = c < n - 1                      # phase-1 lanes
     has_prev = spec & (c > 0)
@@ -619,14 +639,14 @@ def clear_table_cache() -> None:
 
 def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
                          device) -> torch.Tensor:
-    """Decode an 8-bit interleaved baseline scan on ``device``.
+    """Decode an 8- or 12-bit interleaved baseline scan on ``device``.
 
     Returns (n_mcus*bpm, 64) int32 scan-order natural-layout coefficients on
     ``device`` (equal to ``python_ref.decode_scan_baseline``).  Only the
     (S,) error flags cross to the host; any flag raises :class:`JPEGError`
     naming the failed segments."""
-    if hdr.precision != 8:
-        raise JPEGError(f"device entropy decodes 8-bit frames only, got "
+    if hdr.precision not in (8, 12):
+        raise JPEGError(f"device entropy decodes 8- and 12-bit frames, got "
                         f"{hdr.precision}-bit")
     dev = torch.device(device)
     words, nm, block_comp, max_mcus, lay = scan_prep.prepare_scan(hdr, scan)
@@ -634,7 +654,7 @@ def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
     out, err = decode_segments(
         torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(dev),
         luts, block_comp=block_comp, n_comps=len(hdr.components),
-        max_mcus=max_mcus, l1=l1)
+        max_mcus=max_mcus, l1=l1, precision=hdr.precision)
     bad = np.flatnonzero(err.cpu().numpy())
     if bad.size:
         raise JPEGError(f"device entropy decode failed in segments "

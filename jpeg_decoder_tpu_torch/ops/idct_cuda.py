@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .._build import CudaLib, KernelBuildFailure, launch_check
-from .pixel import IDCT_M
+from .pixel import IDCT_M, trunc_int32
 
 __all__ = ["KernelBuildFailure", "build", "fused_dequant_idct", "idct_kron",
            "idct_separable"]
@@ -97,7 +97,8 @@ def idct_kron(blocks: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
             "torch.backends.cuda.matmul.allow_tf32 = False")
     deq = (blocks * qtable[:, None, :].to(torch.int32)).to(torch.float32)
     out = torch.matmul(deq, _basis_t(blocks.device))
-    return torch.round(out).to(torch.int32)
+    # Saturating, as XLA's convert and the kernel's __float2int_rn are.
+    return trunc_int32(torch.round(out))
 
 
 def _fma(a, b, c):

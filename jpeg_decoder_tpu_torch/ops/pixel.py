@@ -164,10 +164,19 @@ def idct_exact(blocks: torch.Tensor) -> torch.Tensor:
 
 def idct_fast(blocks: torch.Tensor) -> torch.Tensor:
     """Orthonormal IDCT on int32 blocks (..., 8, 8): out = M @ X @ M^T,
-    rounded half to even to int32."""
+    rounded half to even to int32, saturating at the int32 range as XLA's
+    convert does.
+
+    The contractions must run in full float32: on a CUDA tensor this needs
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default),
+    and the function raises rather than compute in TF32."""
+    if blocks.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "idct_fast needs full float32: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
     m = torch.from_numpy(IDCT_M_F32).to(blocks.device)
     y = torch.einsum("pu,...uv,qv->...pq", m, blocks.to(_F32), m)
-    return torch.round(y).to(torch.int32)
+    return trunc_int32(torch.round(y))
 
 
 def blocks_to_plane(plane: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
 The same blobs, made from a numpy seed by tools/encoder.py and PIL, go
 through the JAX ``BatchDecoder(entropy="native", idct="pallas",
 upsample="fancy")`` (which runs the Kronecker IDCT on the CPU) and the
-port's ``BatchDecoder(device="cpu")`` (which runs the kernel's plain twin on
-a CPU tensor).  Tolerance: RGB max |diff| <= 2 with >= 99.99% of samples
+port's ``BatchDecoder(device="cpu", idct="pallas")`` (which runs the
+kernel's plain twin on a CPU tensor).  Tolerance: RGB max |diff| <= 2 with >= 99.99% of samples
 equal — the IDCT may round +-1 differently (another summation order), and
 the colour transform's x1.402 can turn that into 2.  The wire unpack and
 the plane gather are integer code and must match exactly.
@@ -29,7 +29,6 @@ from jpeg_decoder_tpu.models import batch as jbatch  # noqa: E402
 
 from jpeg_decoder_tpu_torch import JPEGError  # noqa: E402
 from jpeg_decoder_tpu_torch.models import batch as tbatch  # noqa: E402
-from jpeg_decoder_tpu_torch.models.decoder import NotPortedError  # noqa: E402
 
 RGB_TOL = 2          # +-1 IDCT rounding times the x1.402 colour gain
 MIN_EQUAL = 0.9999   # share of RGB samples that must match exactly
@@ -70,7 +69,7 @@ def mixed():
     blobs = _mixed_batch()
     ref = jbatch.BatchDecoder(entropy="native", idct="pallas",
                               upsample="fancy", wire="nibble").decode(blobs)
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         got = bd.decode(blobs)
     return blobs, ref, got
 
@@ -178,13 +177,13 @@ def test_planes_from_blocks_dyn_exact(comp_hv):
             np.testing.assert_array_equal(g[k].numpy(), np.asarray(r))
 
 
-# Options of the JAX BatchDecoder: the first four are ported now and are
-# accepted; the rest raise (jax/hybrid as not ported).
+# Options of the JAX BatchDecoder: the ported ones are accepted (jax and
+# hybrid since the emit-lane port); unknown values raise ValueError.
 ACCEPTED = [dict(wire="sparse"), dict(wire="packed"), dict(entropy="python"),
-            dict(idct="exact")]
+            dict(idct="exact"), dict(entropy="jax"), dict(entropy="hybrid")]
 
 
-@pytest.mark.parametrize("kw", ACCEPTED + [
+@pytest.mark.parametrize("kw", ACCEPTED[:4] + [
     dict(upsample="bicubic"), dict(entropy="jax"),
     dict(entropy="hybrid"), dict(wire="dense"), dict(bucket="pow3")])
 def test_decoder_rejects_unported_options(kw):
@@ -193,10 +192,24 @@ def test_decoder_rejects_unported_options(kw):
             for name, value in kw.items():
                 assert getattr(bd, name) == value
         return
-    err = (NotPortedError if kw.get("entropy") in ("jax", "hybrid")
-           else ValueError)
-    with pytest.raises(err):
+    with pytest.raises(ValueError):
         tbatch.BatchDecoder(device="cpu", **kw)
+
+
+def test_defaults_are_jax_signature():
+    """BatchDecoder's keyword defaults equal the JAX package's, but for
+    the device (the card here, the default JAX device there)."""
+    import inspect
+
+    def defaults(cls):
+        return {k: p.default for k, p in
+                inspect.signature(cls.__init__).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+
+    got, ref = defaults(tbatch.BatchDecoder), defaults(jbatch.BatchDecoder)
+    assert got.pop("device") == "cuda" and ref.pop("device") is None
+    assert got == ref
+    assert (got["entropy"], got["idct"]) == ("auto", "fast")
 
 
 def test_decoder_needs_a_device(monkeypatch):

@@ -12,12 +12,21 @@ import pytest
 
 from jpeg_decoder_tpu_torch import _build
 from jpeg_decoder_tpu_torch.entropy import native
-from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda, idct_exact_cuda
+from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
+                                        idct_cuda, idct_exact_cuda)
 from jpeg_decoder_tpu_torch.probes import lut_probe
 
 #: The CUDA builds of the port, one per csrc/*.cu.
 CUDA_LIBS = {"idct": idct_cuda.LIB, "entropy": entropy_cuda.LIB,
-             "lut_probe": lut_probe.LIB, "idct_exact": idct_exact_cuda.LIB}
+             "lut_probe": lut_probe.LIB, "idct_exact": idct_exact_cuda.LIB,
+             "entropy_emit": entropy_emit_cuda.LIB}
+
+
+def test_every_cuda_source_has_a_build():
+    srcs = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    assert srcs == sorted(os.path.basename(lib.src)
+                          for lib in CUDA_LIBS.values())
+    assert len({lib.stem for lib in CUDA_LIBS.values()}) == len(CUDA_LIBS)
 
 FLAGS = ("-O1", "-shared", "-fPIC")
 

@@ -17,8 +17,9 @@ from jpeg_decoder_tpu_torch import JPEGError, decode
 from jpeg_decoder_tpu_torch.entropy import python_ref
 from jpeg_decoder_tpu_torch.io import parser
 from jpeg_decoder_tpu_torch.models import batch as tbatch
-from jpeg_decoder_tpu_torch.ops import (entropy_cuda, idct_cuda,
-                                        idct_exact_cuda, scan_prep)
+from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
+                                        entropy_spec, idct_cuda,
+                                        idct_exact_cuda, pixel, scan_prep)
 from jpeg_decoder_tpu_torch.probes import lut_probe
 from jpeg_decoder_tpu_torch.testing.encoder import encode
 
@@ -111,6 +112,23 @@ def test_twin_refuses_tf32(cuda_device):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def test_idct_fast_refuses_tf32(cuda_device):
+    """idct="fast" computes in full float32 or raises: with the global
+    TF32 flag set it raises; with it cleared (restored here) it equals the
+    CPU result within +-1."""
+    blocks, _ = _inputs(8, 1, 64)
+    tb = torch.from_numpy(blocks).view(-1, 8, 8)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="full float32"):
+            pixel.idct_fast(tb.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    got = pixel.idct_fast(tb.to(cuda_device)).cpu()
+    assert int((got - pixel.idct_fast(tb)).abs().max()) <= TOL
+
+
 def _rgb(seed, h, w):
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:h, 0:w]
@@ -130,12 +148,12 @@ def test_slice_on_card_matches_cpu(cuda_device):
              encode(_rgb(2, 37, 53), quality=75, restart_interval=2)[0],
              encode(_rgb(3, 60, 90), quality=85)[0],
              b"\xff\xd8\xff\xdb\x00\x04garbage"]
-    with tbatch.BatchDecoder(device=cuda_device) as bd:
+    with tbatch.BatchDecoder(device=cuda_device, idct="pallas") as bd:
         before = idct_cuda.fused_dequant_idct.launches
         got = bd.decode(blobs)
         torch.cuda.synchronize()
         launched = idct_cuda.fused_dequant_idct.launches - before
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         ref = bd.decode(blobs)
     groups = {id(it.rgb_batch) for it in got if it.ok}
     assert len(groups) == 3
@@ -360,7 +378,8 @@ def test_wires_identical_on_card(cuda_device):
     blobs = _batch_blobs()
     got = {}
     for wire in tbatch.WIRES:
-        with tbatch.BatchDecoder(device=cuda_device, wire=wire) as bd:
+        with tbatch.BatchDecoder(device=cuda_device, wire=wire,
+                                 idct="pallas") as bd:
             k1 = idct_cuda.fused_dequant_idct.launches
             got[wire] = bd.decode(blobs)
             torch.cuda.synchronize()
@@ -371,7 +390,7 @@ def test_wires_identical_on_card(cuda_device):
     for wire in tbatch.WIRES:
         for a, b in zip(got["nibble"][:5], got[wire][:5]):
             assert b.rgb.is_cuda and torch.equal(a.rgb, b.rgb)
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         ref = bd.decode(blobs)
     for g, r in zip(got["nibble"][:5], ref[:5]):
         d = (g.rgb.cpu().to(torch.int32) - r.rgb.to(torch.int32)).abs()
@@ -384,7 +403,7 @@ def test_waves_equal_single_pass_on_card(cuda_device):
     thread) equal one pass bit for bit and in input order; the caller's
     stream sees finished outputs."""
     blobs = _batch_blobs() * 2
-    with tbatch.BatchDecoder(device=cuda_device) as bd:
+    with tbatch.BatchDecoder(device=cuda_device, idct="pallas") as bd:
         one = bd.decode(blobs)
         waved = bd.decode(blobs, wave=2)
         again = bd.decode(blobs, wave=2)
@@ -398,12 +417,13 @@ def test_batch_pallas_entropy_equals_native(cuda_device):
     """entropy="pallas": K2 once per baseline image (fallback frames take
     the host), RGB equal to the native backend's."""
     blobs = _batch_blobs()
-    with tbatch.BatchDecoder(device=cuda_device, entropy="pallas") as bd:
+    with tbatch.BatchDecoder(device=cuda_device, entropy="pallas",
+                             idct="pallas") as bd:
         k2 = entropy_cuda.decode_segments.launches
         got = bd.decode(blobs)
         torch.cuda.synchronize()
         assert entropy_cuda.decode_segments.launches - k2 == 3
-    with tbatch.BatchDecoder(device=cuda_device) as bd:
+    with tbatch.BatchDecoder(device=cuda_device, idct="pallas") as bd:
         ref = bd.decode(blobs)
     for a, b in zip(got[:5], ref[:5]):
         assert torch.equal(a.rgb, b.rgb)
@@ -481,3 +501,98 @@ def test_exact_batch_on_card_equals_cpu(cuda_device):
     for g, blob in zip(got, blobs):
         ref = decode(blob, idct="exact", upsample="fancy", device="cpu")
         assert g.ok and torch.equal(g.rgb.cpu(), ref.rgb)
+
+
+# -- K7: emit lanes from true MCU starts; K2 at 12 bits --------------------
+
+def _lane_inputs(blob, dev):
+    """The host plan of ``blob`` and K7's inputs on ``dev``."""
+    hdr = parser.parse(blob)
+    scan = hdr.scans[0]
+    (pools, starts, nm, lane_off, t_sym, _, _, seg_first,
+     ok) = entropy_spec.device_plan(hdr, [scan], threads=1)
+    assert ok.all()
+    luts, l1 = entropy_cuda.device_tables(hdr, scan, dev)
+    args = tuple(torch.from_numpy(a).to(dev) for a in (pools, starts, nm,
+                                                       lane_off, seg_first))
+    kw = dict(block_comp=entropy_spec._block_comp(hdr),
+              n_comps=len(hdr.components), n_mcus=hdr.mcus_x * hdr.mcus_y,
+              trips=t_sym, precision=hdr.precision)
+    return hdr, args + (luts,), kw, l1
+
+
+@pytest.mark.parametrize("precision", [8, 12])
+@pytest.mark.parametrize("ri", [0, 4])
+def test_emit_kernel_matches_plain_and_native(cuda_device, ri, precision):
+    """K7 on a 1920x1080 4:2:0 frame under decode()'s plan (thousands of
+    lanes, so the carry scan spans many tiles): every coefficient and the
+    flag equal to decode_lanes_torch (run on the card) and to the native
+    decoder; one launch counted."""
+    from jpeg_decoder_tpu_torch.entropy import native
+
+    blob = encode(_rgb(70 + ri, 1080, 1920), quality=90, restart_interval=ri,
+                  precision=precision)[0]
+    hdr, args, kw, l1 = _lane_inputs(blob, cuda_device)
+    before = entropy_emit_cuda.decode_lanes.launches
+    out, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+    torch.cuda.synchronize()
+    assert entropy_emit_cuda.decode_lanes.launches == before + 1
+    ref, ref_err = entropy_emit_cuda.decode_lanes_torch(*args, **kw)
+    assert not err.any() and not ref_err.any()
+    assert torch.equal(out, ref)
+    np.testing.assert_array_equal(
+        out[0].cpu().numpy(), native.decode_scan_baseline(hdr, hdr.scans[0]))
+
+
+def test_emit_kernel_flags_as_plain(cuda_device):
+    """Corrupt words in one lane, and a plan with a gap between two lanes:
+    both flag the image in the kernel and in the plain version."""
+    blob = encode(_rgb(80, 240, 320), quality=90)[0]
+    _, args, kw, l1 = _lane_inputs(blob, cuda_device)
+    pools, starts, nm, lane_off = (a.clone() for a in args[:4])
+    pools[0, pools.shape[1] // 2:pools.shape[1] // 2 + 8] = 0xFFFFFFFF
+    gap = nm.clone()
+    gap[0, 1] -= 1
+    for bad in ((pools,) + args[1:], args[:2] + (gap,) + args[3:]):
+        _, err = entropy_emit_cuda.decode_lanes(*bad, **kw, l1=l1)
+        _, ref_err = entropy_emit_cuda.decode_lanes_torch(*bad, **kw)
+        assert int(err[0]) == int(ref_err[0]) == 1
+
+
+@pytest.mark.parametrize("ri", [0, 3])
+def test_entropy_kernel_12bit_matches_native(cuda_device, ri):
+    from jpeg_decoder_tpu_torch.entropy import native
+
+    blob = encode(_rgb(75 + ri, 240, 320), quality=90, precision=12,
+                  restart_interval=ri)[0]
+    hdr = parser.parse(blob)
+    before = entropy_cuda.decode_segments.launches
+    got = entropy_cuda.decode_scan_baseline(hdr, hdr.scans[0], cuda_device)
+    torch.cuda.synchronize()
+    assert entropy_cuda.decode_segments.launches == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), native.decode_scan_baseline(hdr, hdr.scans[0]))
+
+
+@pytest.mark.parametrize("entropy", ["jax", "hybrid"])
+def test_lane_backends_on_card_equal_native(cuda_device, entropy):
+    """decode(entropy="jax"|"hybrid") on the card: planes equal the native
+    decoder's and RGB equals entropy="native"'s bit for bit (the same pixel
+    stage), 8- and 12-bit, DRI 0 and DRI > 0; K7 once on a DRI-0 stream
+    under hybrid, K2 once otherwise."""
+    for k, (precision, ri) in enumerate([(8, 0), (8, 5), (12, 0), (12, 2)]):
+        blob = encode(_rgb(90 + k, 120, 200), quality=90,
+                      precision=precision, restart_interval=ri)[0]
+        k2 = entropy_cuda.decode_segments.launches
+        k7 = entropy_emit_cuda.decode_lanes.launches
+        got = decode(blob, entropy=entropy, idct="pallas", keep_planes=True,
+                     device=cuda_device)
+        torch.cuda.synchronize()
+        on_k7 = entropy == "hybrid" and ri == 0
+        assert entropy_emit_cuda.decode_lanes.launches - k7 == int(on_k7)
+        assert entropy_cuda.decode_segments.launches - k2 == int(not on_k7)
+        ref = decode(blob, entropy="native", idct="pallas", keep_planes=True,
+                     device=cuda_device)
+        for a, b in zip(got.quantized_planes, ref.quantized_planes):
+            np.testing.assert_array_equal(a, b)
+        assert torch.equal(got.rgb, ref.rgb)

@@ -195,15 +195,20 @@ def test_frames_not_ported_raise(kind):
     {"idct": "pallas", "entropy": "speculative"},
 ])
 def test_options_not_ported_raise(kw):
-    """Only the jax and hybrid device backends still raise the port's
-    not-ported error.  JAX's default idct="exact" (with or without strict)
-    gives JAX's strict bytes; strict mode with another IDCT stays within
-    the tolerance; CMYK output of a 3-component frame raises JPEGError in
-    both packages; the speculative backend equals native."""
+    """Every option of the JAX decode() is ported (the name predates the
+    jax and hybrid backends).  JAX's default idct="exact" (with or without
+    strict) gives JAX's strict bytes; strict mode with another IDCT stays
+    within the tolerance; CMYK output of a 3-component frame raises
+    JPEGError in both packages; the speculative backend equals native; the
+    jax and hybrid backends give JAX's planes and RGB within the
+    tolerance."""
     blob = BLOBS["444_dri5"]
     if kw.get("entropy") in ("jax", "hybrid"):
-        with pytest.raises(tdecoder.NotPortedError, match="not ported"):
-            decode(blob, device="cpu", **kw)
+        ref = jdecoder.decode(blob, keep_planes=True, **kw)
+        got = decode(blob, device="cpu", keep_planes=True, **kw)
+        for a, b in zip(got.quantized_planes, ref.quantized_planes):
+            np.testing.assert_array_equal(a, b)
+        _assert_rgb_close(got.rgb, ref.rgb)
         return
     if kw.get("entropy") == "speculative":
         got = decode(blob, device="cpu", **kw)

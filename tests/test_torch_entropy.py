@@ -485,3 +485,85 @@ def test_lut_gather_twin_equals_take():
     got = lut_probe.lut_gather(torch.from_numpy(lut), torch.from_numpy(idx))
     assert got.shape == (8, 128) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), lut[idx])
+
+
+# 12-bit frames (T.81 size categories up to 15 for DC and 14 for AC):
+# (samplings or "gray", restart_interval, (h, w)).
+CASES_12 = [(((2, 2), (1, 1), (1, 1)), 2, (24, 32)),
+            (((2, 2), (1, 1), (1, 1)), 0, (16, 32)),
+            ("gray", 3, (24, 40))]
+
+
+def _blob12(k):
+    samp, ri, (h, w) = CASES_12[k]
+    if samp == "gray":
+        return encode(_rgb(40 + k, h, w)[..., 1], grayscale=True,
+                      samplings=((1, 1),), precision=12,
+                      restart_interval=ri)[0]
+    return encode(_rgb(40 + k, h, w), samplings=samp, precision=12,
+                  restart_interval=ri)[0]
+
+
+def _inputs12(k):
+    thdr = tparser.parse(_blob12(k))
+    words, nm, luts, kw = _kernel_inputs(_blob12(k))
+    ref = tnative.decode_scan_baseline(thdr, thdr.scans[0])
+    return thdr, words, nm, luts, kw, ref
+
+
+def _scan_rows(out, nm, kw, n_blocks):
+    """Segment rows of an (S, rows, 64) output back to scan order."""
+    bpm = len(kw["block_comp"])
+    return np.concatenate([out[s, :int(nm[s]) * bpm]
+                           for s in range(len(nm))])[:n_blocks]
+
+
+@pytest.mark.parametrize("k", range(len(CASES_12)))
+def test_twin_12bit_matches_native(k):
+    """The K2 twin at precision 12 equals the native decoder on 12-bit
+    frames; where an AC term needs size 11 the 8-bit categories flag the
+    frame (so the wider ones are in use)."""
+    thdr, words, nm, luts, kw, ref = _inputs12(k)
+    assert thdr.precision == 12
+    args = (torch.from_numpy(words), torch.from_numpy(nm),
+            torch.from_numpy(luts))
+    out, err = entropy_cuda.decode_segments_torch(*args, **kw, precision=12)
+    assert not err.any()
+    np.testing.assert_array_equal(_scan_rows(out.numpy(), nm, kw, len(ref)),
+                                  ref)
+    _, err8 = entropy_cuda.decode_segments_torch(*args, **kw)
+    assert bool(err8.any()) or np.abs(ref[:, 1:]).max() < 1024
+    assert k != 0 or err8.any()
+
+
+@pytest.mark.parametrize("chunk_bits", [32, 1024])
+@pytest.mark.parametrize("k", range(len(CASES_12)))
+def test_chunked_model_12bit_matches_native(k, chunk_bits):
+    _, words, nm, luts, kw, ref = _inputs12(k)
+    got, err = _chunked(words, nm, luts, kw, chunk_bits, precision=12)
+    assert not err.any()
+    np.testing.assert_array_equal(_scan_rows(got, nm, kw, len(ref)), ref)
+
+
+@pytest.mark.parametrize("k", range(len(CASES_12)))
+def test_device_backend_12bit_on_cpu_matches_jax_lanes(k):
+    """entropy_cuda.decode_scan_baseline takes 12-bit frames and equals the
+    JAX package's lockstep lanes (entropy_flat.decode_scan_baseline, its
+    `jax` backend on restart streams)."""
+    from jpeg_decoder_tpu.ops import entropy_flat
+
+    jhdr, thdr = jparser.parse(_blob12(k)), tparser.parse(_blob12(k))
+    got = entropy_cuda.decode_scan_baseline(thdr, thdr.scans[0], "cpu")
+    np.testing.assert_array_equal(
+        got.numpy(), entropy_flat.decode_scan_baseline(jhdr, jhdr.scans[0]))
+
+
+def test_size_limits_refuse_other_precisions():
+    assert entropy_cuda.size_limits(8) == (11, 10)
+    assert entropy_cuda.size_limits(12) == (15, 14)
+    words, nm, luts, kw = _kernel_inputs(BLOBS[0])
+    with pytest.raises(ValueError):
+        entropy_cuda.decode_segments(torch.from_numpy(words),
+                                     torch.from_numpy(nm),
+                                     torch.from_numpy(luts), **kw,
+                                     precision=16)

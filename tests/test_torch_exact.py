@@ -32,7 +32,8 @@ from jpeg_decoder_tpu.models import decoder as jdecoder  # noqa: E402
 from jpeg_decoder_tpu.ops import pixel as jpixel  # noqa: E402
 
 from jpeg_decoder_tpu_torch import decode  # noqa: E402
-from jpeg_decoder_tpu_torch.ops import idct_exact_cuda, pixel  # noqa: E402
+from jpeg_decoder_tpu_torch.ops import (  # noqa: E402
+    idct_cuda, idct_exact_cuda, pixel)
 
 RGB_TOL = 2   # jitted JAX: one truncation flipped, times the x1.402 gain
 KERNEL_SRC = os.path.join(os.path.dirname(__file__), "..",
@@ -155,6 +156,43 @@ def test_trunc_int32_saturates_like_jax():
     ref = np.asarray(jnp.asarray(x).astype(jnp.int32))
     got = pixel.trunc_int32(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("idct", ["fast", "kron"])
+def test_fast_and_kron_saturate_like_jax(idct):
+    """The extreme block (12-bit coefficients up to 2^15 times 16-bit
+    tables, Pq=1) under ``fast`` and ``kron``: where JAX's rounded float
+    leaves the int32 range it saturates, and the port must give the same
+    saturated value (a plain ``.to(int32)`` gives INT_MIN on the CPU).
+    ``kron``'s product sums in JAX's order: equal everywhere.  ``fast``
+    contracts in another order than XLA's einsum: elsewhere within two
+    float32 8-term contractions' rounding, 2^-22 of the block's sum|deq|,
+    plus the final +-1."""
+    from jpeg_decoder_tpu.ops import idct_pallas as jidct
+
+    blocks, q = _blocks("saturating")
+    if idct == "kron":
+        ref = np.stack([np.asarray(jidct.idct_kron(jnp.asarray(blocks[b]),
+                                                   jnp.asarray(q[b])))
+                        for b in range(len(blocks))])
+        got = idct_cuda.idct_kron(torch.from_numpy(blocks),
+                                  torch.from_numpy(q)).numpy()
+        bound = np.zeros(ref.shape)
+    else:
+        deq = (blocks * q[:, None, :]).reshape(-1, 8, 8)
+        ref = np.asarray(jpixel.idct_fast(jnp.asarray(deq))).reshape(
+            blocks.shape)
+        got = pixel.idct_fast(torch.from_numpy(deq)).numpy().reshape(
+            blocks.shape)
+        bound = 1 + 2.0 ** -22 * np.abs(deq.astype(np.float64)).sum(
+            (1, 2)).reshape(blocks.shape[:2])[..., None]
+    assert got.dtype == np.int32
+    sat = (ref == 2 ** 31 - 1) | (ref == -2 ** 31)
+    assert (ref == 2 ** 31 - 1).any() and (ref == -2 ** 31).any()
+    np.testing.assert_array_equal(got[sat], ref[sat])
+    assert ((got == 2 ** 31 - 1) | (got == -2 ** 31))[~sat].sum() == 0
+    d = np.abs(got.astype(np.int64) - ref)
+    assert (d <= bound).all()
 
 
 @pytest.mark.parametrize("kw,err", [

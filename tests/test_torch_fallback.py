@@ -218,7 +218,7 @@ def mixed():
     blobs = list(KINDS.values()) + [b"\xff\xd8\xff\xc0\x00\x03x"]
     ref = jbatch.BatchDecoder(entropy="native", idct="pallas",
                               upsample="fancy").decode(blobs)
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         got = bd.decode(blobs)
     return blobs, ref, got
 
@@ -245,7 +245,8 @@ def test_batch_isolates_not_ported_and_corrupt(mixed):
 
 def test_batch_isolates_progressive_under_pallas():
     blobs = [KINDS["progressive"], KINDS["sof9"]]
-    with tbatch.BatchDecoder(device="cpu", entropy="pallas") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas",
+                             entropy="pallas") as bd:
         got = bd.decode(blobs)
     assert isinstance(got[0].error, tdecoder.NotPortedError)
     assert got[1].ok
@@ -255,7 +256,7 @@ def test_batch_isolates_progressive_under_pallas():
 @pytest.mark.parametrize("wire", ["sparse", "packed", "slots"])
 def test_batch_fallback_rides_every_wire(kind, wire):
     blob = KINDS[kind]
-    with tbatch.BatchDecoder(device="cpu", wire=wire) as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas", wire=wire) as bd:
         got = bd.decode([blob])[0]
     ref = decode(blob, entropy="native", idct="pallas", upsample="fancy",
                  device="cpu")
@@ -277,9 +278,10 @@ def test_speculative_equals_native():
     for b in (blob, KINDS["restart_mismatch"]):
         assert torch.equal(decode(b, entropy="speculative", **kw).rgb,
                            decode(b, entropy="native", **kw).rgb)
-    with tbatch.BatchDecoder(device="cpu", entropy="speculative") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas",
+                             entropy="speculative") as bd:
         got = bd.decode([blob, KINDS["progressive"]])
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         want = bd.decode([blob, KINDS["progressive"]])
     for a, b in zip(got, want):
         assert torch.equal(a.rgb, b.rgb)

@@ -108,7 +108,8 @@ def test_import_leaves_out_jax():
         "          'probes.lut_probe', 'entropy.progressive',\n"
         "          'entropy.arith', 'testing.encoder', 'testing.photo',\n"
         "          'cli', 'utils.config', 'utils.logging',\n"
-        "          'utils.profiling', 'io.writers', 'ops.idct_exact_cuda'):\n"
+        "          'utils.profiling', 'io.writers', 'ops.idct_exact_cuda',\n"
+        "          'ops.entropy_emit_cuda', 'ops.entropy_spec'):\n"
         "    assert 'jpeg_decoder_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -197,11 +198,11 @@ def test_port_never_opens_jax_package_paths():
         "        importlib.import_module(m.name)\n"
         "from jpeg_decoder_tpu_torch.entropy import native\n"
         "from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda,"
-        " idct_exact_cuda\n"
+        " idct_exact_cuda, entropy_emit_cuda\n"
         "from jpeg_decoder_tpu_torch.probes import lut_probe\n"
         "native._load()\n"
         "for lib in (entropy_cuda.LIB, idct_cuda.LIB, idct_exact_cuda.LIB,"
-        " lut_probe.LIB):\n"
+        " lut_probe.LIB, entropy_emit_cuda.LIB):\n"
         "    lib.path()\n"
         "bad = [s for s in seen if os.path.abspath(s).startswith(\n"
         f"    {JAX_PKG + os.sep!r})]\n"

@@ -56,7 +56,7 @@ BLOBS = _blobs()
 
 @pytest.fixture(scope="module")
 def single():
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         return bd.decode(BLOBS)
 
 
@@ -75,7 +75,7 @@ def _assert_same(got, ref):
 
 @pytest.mark.parametrize("wave", [1, 3, 4, 9, 10, 96])
 def test_waves_equal_single_pass(single, wave):
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         got = bd.decode(BLOBS, wave=wave)
         n_waves = -(-len(BLOBS) // wave)
         assert len(bd.last_timing["host_s"]) == n_waves
@@ -87,7 +87,7 @@ def test_waves_equal_single_pass(single, wave):
 
 @pytest.mark.parametrize("wire", ["sparse", "slots"])
 def test_waves_on_other_wires(single, wire):
-    with tbatch.BatchDecoder(device="cpu", wire=wire) as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas", wire=wire) as bd:
         got = bd.decode(BLOBS, wave=3)
     _assert_same(got, single)
 
@@ -95,7 +95,7 @@ def test_waves_on_other_wires(single, wire):
 def test_wave_groups_stay_within_their_wave():
     """Images of one geometry in different waves land in different group
     outputs; images of one wave and one geometry share one."""
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         got = bd.decode(BLOBS, wave=4)
     assert got[0].rgb_batch is got[3].rgb_batch            # wave 0
     assert got[0].rgb_batch is not got[8].rgb_batch        # waves 0 and 2
@@ -104,7 +104,7 @@ def test_wave_groups_stay_within_their_wave():
 def test_worker_exception_reaches_caller(monkeypatch):
     """A failure in the device worker's pass over the second wave is raised
     by decode(), not swallowed."""
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         real = bd.pixels
         calls = []
 
@@ -122,7 +122,7 @@ def test_worker_exception_reaches_caller(monkeypatch):
 
 
 def test_wave_must_be_positive():
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         with pytest.raises(ValueError):
             bd.decode(BLOBS, wave=0)
 
@@ -130,7 +130,7 @@ def test_wave_must_be_positive():
 def test_bucket_none_groups_by_exact_grid(single):
     """bucket=None: the two 4:2:0 sizes that share a pow-2 bucket get
     their own groups, at their exact MCU grids, with the same pixels."""
-    with tbatch.BatchDecoder(device="cpu", bucket=None) as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas", bucket=None) as bd:
         got = bd.decode(BLOBS, wave=5)
     assert got[0].rgb_batch is not got[3].rgb_batch
     assert tuple(got[0].rgb_batch.shape[1:3]) == (64, 96)
@@ -138,7 +138,7 @@ def test_bucket_none_groups_by_exact_grid(single):
 
 
 def test_group_arrays_pad_the_batch_to_a_power_of_two():
-    with tbatch.BatchDecoder(device="cpu") as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         host_out = bd.host_stage(BLOBS[:1] + BLOBS[3:4] + BLOBS[8:9])
         (group,) = bd.group(host_out)
     dc, e, ov, ei, ev, qt, geom = group.arrays
@@ -155,7 +155,8 @@ def test_waves_under_thread_stress(single):
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        with tbatch.BatchDecoder(device="cpu", host_threads=16) as bd:
+        with tbatch.BatchDecoder(device="cpu", idct="pallas",
+                                 host_threads=16) as bd:
             got = bd.decode(BLOBS * 3, wave=1)
     finally:
         sys.setswitchinterval(interval)

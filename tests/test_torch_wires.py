@@ -142,7 +142,7 @@ def test_reconstruction_matches_jax_blocks(wire, monkeypatch):
             "nibble": (dc16, *tbatch.nibbleize_ac(ac8), ei, ev),
             "slots": (dc16, *tbatch.slotify_ac(ac8, 16), ei, ev)}[wire]
         host_out.append((hdr, wire_pack))
-    with tbatch.BatchDecoder(device="cpu", wire=wire) as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas", wire=wire) as bd:
         (group,) = bd.group(host_out)
         got = bd.unpack(group, bd.to_device(group))
     b, n_fill = got.shape[:2]
@@ -170,7 +170,7 @@ def decoded():
     for wire in tbatch.WIRES:
         ref = jbatch.BatchDecoder(entropy="native", idct="pallas",
                                   upsample="fancy", wire=wire).decode(blobs)
-        with tbatch.BatchDecoder(device="cpu", wire=wire) as bd:
+        with tbatch.BatchDecoder(device="cpu", idct="pallas", wire=wire) as bd:
             out[wire] = (ref, bd.decode(blobs))
     return out
 
@@ -200,10 +200,10 @@ def test_wire_without_native_emitter_matches(wire):
     """entropy="python" takes blocks through pack_blocks and the numpy
     encoders: the same RGB as the native emitters."""
     blobs = BLOBS[:2]
-    with tbatch.BatchDecoder(device="cpu", wire=wire,
+    with tbatch.BatchDecoder(device="cpu", idct="pallas", wire=wire,
                              entropy="python") as bd:
         got = bd.decode(blobs)
-    with tbatch.BatchDecoder(device="cpu", wire=wire) as bd:
+    with tbatch.BatchDecoder(device="cpu", idct="pallas", wire=wire) as bd:
         ref = bd.decode(blobs)
     for a, b in zip(got, ref):
         assert torch.equal(a.rgb, b.rgb)
