@@ -7,8 +7,12 @@ Drives both entry points of the port once on the card and holds every
 kernel against its plain version:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
-2. builds the native entropy library and the four CUDA sources, all at
-   once (set-up, timed);
+2. builds the native entropy library and the CUDA sources (K7's first form
+   ``csrc/entropy_emit_v1.cu``, the baseline of its comparison, included),
+   all at once, printing ptxas's registers, shared memory and spills (set-up,
+   timed); then starts a pool of spawned processes that encodes the
+   8192x6144 frame of phase 10b'' (first) and the frames of phase 8 while
+   the phases before them run;
 3. IDCT kernel phase (K1, ``csrc/idct.cu``), at the batch path's largest
    launch shape (B=32, N=65,536 blocks: the luma plane of one 1080p 4:2:0
    pow-2 bucket): ``fused_dequant_idct`` on DC-only blocks, whose samples
@@ -40,6 +44,7 @@ kernel against its plain version:
 6b. the batch under ``entropy="hybrid"`` (K7, ``csrc/entropy_emit.cu``, on
    the 28 DRI-0 images, K2 on the 4 DRI-8 ones) and ``entropy="jax"`` (K2 on
    all 32), ``idct="pallas"``: RGB bit-identical to ``entropy="native"``'s;
+   each distinct DRI-0 image's K7 launch staging every lane group;
    launches, host stage ms and end-to-end MP/s;
 7. waves: 192 images (the batch six times), ``decode(blobs, wave=64)``
    against three back-to-back ``decode(blobs[i:i+64])`` calls, in turns:
@@ -103,14 +108,35 @@ kernel against its plain version:
    12-bit 4:2:0 DRI 8 one, every count set to 0 just before each decode:
    the scan blocks of ``entropy="hybrid"`` (K7 on a DRI-0 stream, K2 on a
    restart stream) and ``"jax"`` (K2) equal to the native decoder's on
-   every coefficient (K2 at 12 bits included); ``decode()`` under both at
-   ``idct="exact"`` byte-equal to the CPU decode and at ``"pallas"`` equal
-   to ``entropy="native"``'s on the card; K7 equal to its plain version
-   ``decode_lanes_torch`` on (c), flags included; a corrupt copy of (c)
-   raising JPEGError under hybrid; per frame the host ``emit_prep`` ms and
-   the lane count C / trips T, K7 (and its emit and carry launches) and K2
-   by CUDA events (median of 20), and ``decode(idct="pallas")`` end to end
-   under hybrid, jax and pallas (best of 3);
+   every coefficient (K2 at 12 bits included), with no K7 lane group over
+   the staging budget; ``decode()`` under both at ``idct="exact"``
+   byte-equal to the CPU decode and at ``"pallas"`` equal to
+   ``entropy="native"``'s on the card (K7 staging every group again); K7
+   equal to its plain version ``decode_lanes_torch`` on (c), flags
+   included; a corrupt copy of (c) raising JPEGError under hybrid; per
+   frame the host ``emit_prep`` ms and the lane count C / trips T; K7 and
+   its first form (``testing/emit_v1.py``) on the same plan, both equal to
+   the native decoder and to ``decode_lanes_torch``, no lane group over the
+   staging budget, timed in turns by device time (launches queued behind a
+   spin kernel, timed by CUDA events; the first form's emit and carry
+   launches also apart; one call queued alone) and by CUDA events around
+   one wrapper call, with the kernels each wrapper call launches (their
+   names from torch.profiler), the byte bound, each one's share of it,
+   the group size, budget, CTAs per SM and the kernel's counters (groups
+   staged / over budget, LUT misses); the new kernel also with every
+   group over a 4-word staging budget and at the other group sizes; K2 by
+   CUDA events;
+   ``decode(idct="pallas")`` end to end under hybrid, jax and pallas (best
+   of 3); on the DRI-0 frames a lane-size sweep (16 to 1,300 paired steps:
+   emit_prep ms, lanes, T, K7 device ms, the staging counters, none over
+   budget);
+10b''. K7 as one B = 24 launch over the batch's 24 DRI-0 1080p images
+   (their tables asserted identical), against its first form as above;
+   then the 8192x6144 4:2:0 q90 DRI-0 frame (50.3 MP) through
+   ``decode(entropy="hybrid")`` (K7) and ``decode(entropy="pallas")`` (K2),
+   each count set to 0 just before: one launch each, scan blocks equal to
+   ``native.decode_scan_baseline``, peak device memory, end-to-end ms, K7
+   (against its first form, device time and events) and K2 by CUDA events;
 10c. CLI phase: ``python -m jpeg_decoder_tpu_torch`` in subprocesses on the
    card over a temporary directory of three frames (1080p 4:2:0, CMYK,
    12-bit) and a non-JPEG file: ``--idct exact --strict --format bmp
@@ -120,8 +146,9 @@ kernel against its plain version:
    card (12-bit BMP/PPM as the high 8 bits);
 11. probe phase (K3/K4, ``csrc/lut_probe.cu``): the dependent probe chain
    must equal the value tools/pallas_mosaic_repro.py expects and the
-   per-lane gather must equal ``lut[idx]``; the kernels' device time from
-   torch.profiler beside ``torch.take``'s (the same way), and the wrappers
+   per-lane gather must equal ``lut[idx]``; the kernels' device time per
+   launch (50 queued behind a spin, CUDA events) beside ``torch.take``'s
+   and an empty kernel's (the same way), and the wrappers
    timed beside their twins and ``torch.take`` by CUDA events;
 12. a torch.profiler breakdown of the batch path's device pixel stage, one
    whole batch decode and one ``decode()`` of each image, and host entropy
@@ -141,8 +168,9 @@ import os
 import statistics
 import subprocess
 import sys
+import multiprocessing
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -185,37 +213,91 @@ def _cuda_ms(fn, n: int, warmup: int = 3) -> list[float]:
     return times
 
 
-def _kernel_ms(fn, n: int, groups: dict) -> dict:
-    """Device time of one call of ``fn``, by kernel, from torch.profiler
-    over ``n`` calls after one warm-up: {group: ms} for the kernels whose
-    name contains one of the group's substrings, and "other" (with the
-    other kernels' names) for the rest."""
+def _cuda_events(fn, n: int) -> tuple[list, bool]:
+    """torch.profiler's CUDA kernel records of ``n`` calls of ``fn`` after
+    one warm-up (key_averages), and whether the session is whole.  On the
+    card the profiler has lost some kernel records (a kernel launched once
+    per call counted 1 of 3 times), which makes a mean per call low; a
+    session is whole when every kernel's count is a multiple of ``n``.  A
+    session that is not is run again, up to five times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {g: 0.0 for g in groups}
+    evs = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        got = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        evs = got or evs
+        if got and all(e.count % n == 0 for e in got):
+            return got, True
+    return evs, False
+
+
+def _kernel_ms(fn, n: int, groups: dict) -> dict:
+    """Device time of one call of ``fn``, by kernel, from a whole
+    torch.profiler session of ``n`` calls (``_cuda_events``): {group: ms}
+    for the kernels whose name contains one of the group's substrings, and
+    "other" (with the other kernels' names) for the rest.  A group of
+    which the profiler recorded no kernel, and every group when no session
+    was whole, is None: not measured."""
+    out = {g: None for g in groups}
     out["other"], others = 0.0, set()
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    evs, whole = _cuda_events(fn, n)
+    if not whole:
+        out["other"], out["other_names"] = None, []
+        return out
+    for e in evs:
         ms = e.self_device_time_total / 1e3 / n
         for g, keys in groups.items():
             if any(k in e.key for k in keys):
-                out[g] += ms
+                out[g] = (out[g] or 0.0) + ms
                 break
         else:
             out["other"] += ms
             others.add(e.key[:40])
     out["other_names"] = sorted(others)
     return out
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _queued_ms(fn, n: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: ``n`` calls queued behind a
+    spin kernel (``torch.cuda._sleep``), so the card runs them back to back
+    and none waits on the host's launch work, timed by CUDA events around
+    the ``n``.  ``fn`` must not synchronise.  Raises when the host took
+    longer to queue them than the spin lasted, even at 64x the spin."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / n
+        cycles *= 4
+    raise AssertionError(f"queued timing: {n} calls took {host_ms:.2f} ms "
+                         "of host time, longer than the spin")
 
 
 def _wall(fn) -> float:
@@ -282,12 +364,14 @@ def _build_all() -> None:
     from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
                                             idct_cuda, idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
+    from jpeg_decoder_tpu_torch.testing import emit_v1
 
     jobs = {"native entropy (g++)": native._load,
             "idct.cu": idct_cuda.build, "entropy.cu": entropy_cuda.build,
             "lut_probe.cu": lut_probe.build,
             "idct_exact.cu": idct_exact_cuda.build,
-            "entropy_emit.cu": entropy_emit_cuda.build}
+            "entropy_emit.cu": entropy_emit_cuda.build,
+            "entropy_emit_v1.cu (baseline)": emit_v1.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(_wall, fn) for name, fn in jobs.items()}
@@ -296,7 +380,7 @@ def _build_all() -> None:
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + "; nvcc for sm_90a)")
     for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB,
-                idct_exact_cuda.LIB, entropy_emit_cuda.LIB):
+                idct_exact_cuda.LIB, entropy_emit_cuda.LIB, emit_v1.LIB):
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {os.path.basename(lib.src)}: {line.strip()}")
@@ -638,8 +722,9 @@ def _entropy_phase(dev, images: dict) -> dict:
         ph["tables"] = _kernel_ms(lambda: entropy_cuda.first_level(args[2]),
                                   10, K2_PHASES)["tables"]
         print(f"entropy ({tag}): device ms per phase (profiler, mean of 10): "
-              + ", ".join(f"{k} {ph[k]:.4f}" for k in K2_PHASES)
-              + f", other {ph['other']:.4f} ({', '.join(ph['other_names'])})")
+              + ", ".join(f"{k} {_fmt_ms(ph[k])}" for k in K2_PHASES)
+              + f", other {_fmt_ms(ph['other'])} "
+              f"({', '.join(ph['other_names'])})")
         rec["phases_ms"] = {k: ph[k] for k in (*K2_PHASES, "other")}
         rec["rounds"] = stats
         # Chunk size sweep: same output, median of 10 runs each.
@@ -842,35 +927,39 @@ def _probe_phase(dev) -> list[dict]:
     k3_bytes = 8 * 4 + len(set(lut_probe.CHAIN_IDX)) * 4 + 4
     k4_bytes = gidx.numel() * 8 + int(torch.unique(gidx).numel()) * 4
     med = statistics.median
-    # The kernels' own device time (profiler), not the wrapper's: a tiny
-    # kernel leaves the card idle between two events.
-    dev_k3 = _kernel_ms(lambda: lut_probe.lut_chain_probe(lut, idx), 50,
-                        {"k": ("lut_chain_kernel",)})["k"]
-    dev_k4 = _kernel_ms(lambda: lut_probe.lut_gather(lut, gidx), 50,
-                        {"k": ("lut_gather_kernel",)})["k"]
-    # The library call's own device time, measured as K4's is (every
-    # kernel torch.take launches).
-    dev_take = _kernel_ms(lambda: torch.take(lut, gidx64), 50,
-                          {"k": ("",)})["k"]
+    # The kernels' own device time, not the wrapper's: a tiny kernel
+    # leaves the card idle between two events, so 50 launches are queued
+    # behind a spin and timed together (median of 3); the library call and
+    # a kernel that does nothing (a spin of 0 cycles, the floor under all
+    # three) the same way.
+    def dev_ms(fn):
+        return med([_queued_ms(fn, 50) for _ in range(3)])
+    dev_k3 = dev_ms(lambda: lut_probe.lut_chain_probe(lut, idx))
+    dev_k4 = dev_ms(lambda: lut_probe.lut_gather(lut, gidx))
+    dev_take = dev_ms(lambda: torch.take(lut, gidx64))
+    dev_empty = dev_ms(lambda: torch.cuda._sleep(0))
     print(f"probe: lut_chain_probe device {dev_k3 * 1e3:.2f} us per launch "
-          f"(profiler, 50 launches; wrapper median {med(ms_k3):.4f} ms by "
-          f"CUDA events, twin {med(ms_k3_plain):.4f} ms); lut_gather device "
+          f"(50 launches queued behind a spin, CUDA events, median of 3; "
+          f"wrapper median {med(ms_k3):.4f} ms by CUDA events, twin "
+          f"{med(ms_k3_plain):.4f} ms); lut_gather device "
           f"{dev_k4 * 1e3:.2f} us (wrapper median {med(ms_k4):.4f} ms, twin "
           f"{med(ms_k4_plain):.4f} ms, torch.take {med(ms_k4_lib):.4f} ms); "
           "CUDA events, 50 runs (twin of the chain 20); torch.take device "
-          f"{dev_take * 1e3:.2f} us (profiler, 50 calls, like lut_gather's)")
+          f"{dev_take * 1e3:.2f} us (queued, like lut_gather's); an empty "
+          f"kernel's device time {dev_empty * 1e3:.2f} us (the same way): "
+          "the floor under all three")
     return [
         {"name": "lut_chain_probe", "route": "cuda",
          "source": "jpeg_decoder_tpu_torch/csrc/lut_probe.cu",
          "replaces": "tools/pallas_mosaic_repro.py:45",
-         "max_abs_err": chain_err, "ms": dev_k3,
+         "max_abs_err": chain_err, "ms": dev_k3, "empty_kernel_ms": dev_empty,
          "wrapper_ms": med(ms_k3), "plain_ms": med(ms_k3_plain),
          "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
         {"name": "lut_gather", "route": "cuda",
          "source": "jpeg_decoder_tpu_torch/csrc/lut_probe.cu",
          "replaces": "tools/pallas_mosaic_repro.py:104",
-         "max_abs_err": gather_err, "ms": dev_k4,
+         "max_abs_err": gather_err, "ms": dev_k4, "empty_kernel_ms": dev_empty,
          "wrapper_ms": med(ms_k4), "plain_ms": med(ms_k4_plain),
          "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": dev_take, "library_wrapper_ms": med(ms_k4_lib)},
@@ -899,7 +988,8 @@ def _profile(windows: dict, ours: tuple) -> None:
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         print(f"profile [{name}]: {dev_ms:.3f} ms of device kernel time in "
               f"{wall_ms:.3f} ms of wall under the profiler (busy share "
-              f"{dev_ms / wall_ms:.3f})")
+              f"{dev_ms / wall_ms:.3f}, a lower bound: the profiler can "
+              "lose kernel records)")
         ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
                       and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
@@ -1035,7 +1125,7 @@ def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
         print(f"wire {wire}: {wire_mb:.2f} MB copied; host entropy "
               f"{rec['host entropy']:.1f} ms, group+pad "
               f"{rec['group+pad']:.1f} ms, copy {rec['copy']:.2f} ms, "
-              f"device unpack {unpack_ms:.3f} ms (profiler, mean of 5), "
+              f"device unpack {_fmt_ms(unpack_ms)} ms (profiler, mean of 5), "
               f"pixel stage {rec['pixel stage']:.1f} ms (events; stages best "
               f"of 2); end to end {[round(t, 4) for t in e2e]} s -> "
               f"{rec['mp_per_s']:.1f} MP/s (best of 3); K1 launches {k1}; "
@@ -1076,6 +1166,26 @@ def _pallas_batch_phase(dev, batch: list[bytes], ref_items, mp: float):
     return counts
 
 
+def _batch_k7_staged(dev, batch: list[bytes]) -> None:
+    """Each distinct DRI-0 image of ``batch`` through the scan decode the
+    ``hybrid`` batch runs per image (``decoder._decode_scan_robust``, one
+    K7 launch): no lane group over the staging budget."""
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+
+    seen = set()
+    for blob in batch:
+        hdr = parser.parse(blob)
+        scan = hdr.scans[0]
+        if blob in seen or scan.restart_interval or len(scan.seg_offsets) != 2:
+            continue
+        seen.add(blob)
+        dec_mod._decode_scan_robust(hdr, scan, "hybrid", dev)
+        _k7_all_staged(f"batch hybrid {hdr.width}x{hdr.height}")
+    print(f"batch, entropy=hybrid: K7 staged every lane group on each of the "
+          f"{len(seen)} distinct DRI-0 images (0 over budget)")
+
+
 def _lanes_batch_phase(dev, batch: list[bytes], ref_items,
                        mp: float) -> dict:
     """The batch under ``entropy="hybrid"`` and ``"jax"`` (``idct="pallas"``):
@@ -1105,6 +1215,8 @@ def _lanes_batch_phase(dev, batch: list[bytes], ref_items,
                                      f"{bad}, launches {counts}, {n_rgb} "
                                      "images differ")
             del items
+            if entropy == "hybrid":
+                _batch_k7_staged(dev, batch)
             e2e = _e2e(bd, batch)
             host = min(_wall(lambda: bd.host_stage(batch)) for _ in range(2))
         out[entropy] = counts
@@ -1118,45 +1230,281 @@ def _lanes_batch_phase(dev, batch: list[bytes], ref_items,
     return out
 
 
-LANE_STEPS = (64, 128, 256, 512, 1300)
+def _k7_inputs(hdr, scans, dev, target_steps=None):
+    """K7's inputs for same-geometry ``scans``: ``entropy_spec.device_plan``
+    (or ``target_steps`` paired steps per lane, no lane cap), the LUTs and
+    first levels on ``dev``.  Returns (args, kw, l1, plan)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, entropy_spec
+
+    n_mcus = hdr.mcus_x * hdr.mcus_y
+    if target_steps is None:
+        plan = entropy_spec.device_plan(hdr, scans, threads=1)
+    else:
+        plan = entropy_spec.prepare_hybrid_batch_emit(
+            hdr, scans, threads=1, max_chunks=n_mcus,
+            target_steps=target_steps)
+    pools, starts, nm, lane_off, t_sym, _, _, seg_first, ok = plan
+    if not ok.all():
+        raise AssertionError("K7 plan: a skeleton walk failed")
+    luts, l1 = entropy_cuda.device_tables(hdr, scans[0], dev)
+    args = tuple(torch.from_numpy(a).to(dev) for a in (
+        pools, starts, nm, lane_off, seg_first)) + (luts,)
+    kw = dict(block_comp=entropy_spec._block_comp(hdr),
+              n_comps=len(hdr.components), n_mcus=n_mcus, trips=t_sym,
+              precision=hdr.precision)
+    return args, kw, l1, plan
 
 
-def _lane_sweep(dev, hdr, scan, ref, luts, l1) -> dict:
+def _launch_list(fn, n: int = 3) -> str:
+    """The kernels one call of ``fn`` launches on the card, by name, with
+    launches per call (``_cuda_events`` over ``n`` calls)."""
+    evs, whole = _cuda_events(fn, n)
+    if not evs:
+        return "not recorded"
+    return ", ".join(f"{e.key[:60]} x{e.count / n:g}" for e in sorted(
+        evs, key=lambda e: e.key)) + ("" if whole else " (records lost)")
+
+
+def _k7_all_staged(what: str) -> None:
+    """Raises unless K7's last launch (``decode_lanes.last_stats``) staged
+    every lane group's words: no group over the staging budget."""
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+
+    st = dict(zip(k7.STATS, k7.decode_lanes.last_stats.tolist()))
+    if st["groups_over_budget"] or not st["groups_staged"]:
+        raise AssertionError(f"{what}: K7 staging counters {st}")
+
+
+def _k7_launcher(args, kw, l1, group_lanes=None, budget_words=None):
+    """One K7 launch through ``entropy_emit_cuda.launch`` on preallocated
+    buffers (no wrapper checks, no count): ``fn()`` zero-fills the scratch
+    and launches.  The group size and staging budget are
+    ``decode_lanes``' schedule unless given (a given group size gets its own
+    ``staging_words``, cut to what fits the CTA).  Returns (fn, out,
+    scratch, (group_lanes, budget_words))."""
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+
+    pools, starts, luts = args[0], args[1], args[5]
+    lanes, budget = k7.schedule(pools.shape[0], pools.shape[1],
+                                starts.shape[1], luts.shape[0],
+                                k7._n_sms(pools.device))
+    if group_lanes is not None:
+        lanes = group_lanes
+        cap = (k7.SMEM_LIMIT - k7.smem_bytes(lanes, 0, luts.shape[0])
+               ) // 16 * 4
+        budget = min(cap, k7.staging_words(lanes, pools.shape[1],
+                                           starts.shape[1]))
+    if budget_words is not None:
+        budget = budget_words
+    out, scratch = k7.buffers(pools, starts, kw["n_mcus"],
+                              len(kw["block_comp"]), lanes)
+    full = args + (l1,)
+
+    def fn():
+        scratch.zero_()
+        k7.launch(full, out, scratch, group_lanes=lanes,
+                  budget_words=budget, **kw)
+    return fn, out, scratch, (lanes, budget)
+
+
+def _k7_turns(what: str, args, kw, l1, refs: list, plain: bool = True,
+              variants: bool = True, n: int = 20) -> dict:
+    """The new K7 and its first form (``testing/emit_v1.py``) on the same
+    inputs: both outputs equal to the native decoder's blocks ``refs`` (one
+    per image) and, when ``plain``, to ``decode_lanes_torch`` on the card,
+    flags included; the new kernel's counters (no group over the staging
+    budget).  Both timed in turns (first form, new, new, first form):
+    CUDA events around one wrapper call (median of ``n`` each: what a
+    caller waits, host work included), device time (``_queued_ms``: ``n``
+    launches queued behind a spin, median of 3 such runs each, the first
+    form's zero-fills and carry included; its emit and carry launches also
+    apart) and the device time of one call queued alone behind the spin
+    (median of 6).  The kernels one wrapper call launches, by name
+    (torch.profiler).  The byte bound (pools and plan read once,
+    blocks written once) and each one's share of it by device time.  With
+    ``variants``, the new kernel also with every group over a 4-word
+    staging budget (all stream words from device memory; the counters
+    must show it) and at the other group sizes, each equal to the native
+    decoder."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+    from jpeg_decoder_tpu_torch.testing import emit_v1
+
+    med = statistics.median
+    n_img = args[0].shape[0]
+    refs = [r.cpu() for r in refs]
+
+    def check(label, out, err):
+        for i, ref in enumerate(refs):
+            if int(err[i]) or not torch.equal(out[i].cpu(), ref):
+                raise AssertionError(f"K7 {what} {label} image {i}: differs "
+                                     "from the native decoder (flag "
+                                     f"{int(err[i])})")
+
+    out, err = k7.decode_lanes(*args, **kw, l1=l1)
+    torch.cuda.synchronize()
+    st = dict(zip(k7.STATS, k7.decode_lanes.last_stats.tolist()))
+    check("new", out, err)
+    o1, e1 = emit_v1.decode_lanes_v1(*args, **kw, l1=l1)
+    torch.cuda.synchronize()
+    check("first form", o1, e1)
+    max_err = 0
+    if plain:
+        p_out, p_err = k7.decode_lanes_torch(*args, **kw)
+        max_err = int((p_out - out).abs().max())
+        if max_err or not torch.equal(p_err, err):
+            raise AssertionError(f"K7 {what}: differs from "
+                                 "decode_lanes_torch")
+        del p_out
+    if st["groups_over_budget"]:
+        raise AssertionError(f"K7 {what}: groups over the staging budget "
+                             f"{st}")
+    del out, o1
+    half = max(1, n // 2)
+    new, old = [], []
+    v1_wrap = lambda: emit_v1.decode_lanes_v1(*args, **kw, l1=l1)  # noqa: E731
+    new_wrap = lambda: k7.decode_lanes(*args, **kw, l1=l1)  # noqa: E731
+    for bucket, fn in ((old, v1_wrap), (new, new_wrap), (new, new_wrap),
+                       (old, v1_wrap)):
+        bucket.extend(_cuda_ms(fn, half, warmup=2))
+    new_fn, _, _, sched = _k7_launcher(args, kw, l1)
+    bufs = emit_v1.buffers(args[0], args[1], kw["n_mcus"],
+                           len(kw["block_comp"]))
+    v1_args = args + (l1, *bufs)
+
+    def v1_fn():
+        for t in bufs:
+            t.zero_()
+        for entry in emit_v1.PHASES:
+            emit_v1.launch(v1_args, entry, **kw)
+    dev_new, dev_old, one_new, one_old = [], [], [], []
+    for _ in range(3):
+        for bucket, fn in ((dev_old, v1_fn), (dev_new, new_fn),
+                           (dev_new, new_fn), (dev_old, v1_fn)):
+            bucket.append(_queued_ms(fn, n))
+    for _ in range(3):
+        for bucket, fn in ((one_old, v1_fn), (one_new, new_fn),
+                           (one_new, new_fn), (one_old, v1_fn)):
+            bucket.append(_queued_ms(fn, 1))
+    calls = {"new": _launch_list(new_wrap), "first form": _launch_list(
+        v1_wrap)}
+    v1_ph = {ph: med([_queued_ms(lambda ph=ph: emit_v1.launch(
+        v1_args, ph, **kw), n) for _ in range(3)]) for ph in emit_v1.PHASES}
+    del bufs, v1_args
+    pools, starts = args[0], args[1]
+    n_blocks = n_img * kw["n_mcus"] * len(kw["block_comp"])
+    nbytes = (sum(t.numel() * t.element_size() for t in args[:5])
+              + n_blocks * 256)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    d_new, d_old = med(dev_new), med(dev_old)
+    rec = {"ms": med(new), "v1_ms": med(old), "device_ms": d_new,
+           "v1_device_ms": d_old, "single_launch_ms": med(one_new),
+           "v1_single_launch_ms": med(one_old),
+           "v1_emit_device_ms": v1_ph["jd_emit_decode"],
+           "v1_carry_device_ms": v1_ph["jd_emit_carry"], "bound_ms": bound,
+           "share_of_bound": bound / d_new,
+           "v1_share_of_bound": bound / d_old,
+           "ns_per_trip": d_new * 1e6 / max(1, kw["trips"]),
+           "images": n_img, "lanes": int((args[2] > 0).sum()),
+           "C": starts.shape[1], "T_sym": kw["trips"],
+           "group_lanes": sched[0], "budget_words": sched[1],
+           "ctas_per_sm": k7.ctas_per_sm(sched[0], sched[1],
+                                         args[5].shape[0]),
+           "max_abs_err": max_err, **st}
+    print(f"K7 {what}: device time (queued, median of 3 x {n} launches "
+          f"each, in turns) new {d_new:.4f} ms, first form {d_old:.4f} ms "
+          f"(emit {rec['v1_emit_device_ms']:.4f} + carry "
+          f"{rec['v1_carry_device_ms']:.4f} + zero-fills): "
+          f"{d_old / d_new:.2f}x; one call alone behind the spin (median "
+          f"of 6) new {rec['single_launch_ms']:.4f} ms, first form "
+          f"{rec['v1_single_launch_ms']:.4f} ms; per call with the wrapper "
+          f"(CUDA events, "
+          f"median of {2 * half} each, in turns) new {rec['ms']:.4f} ms, "
+          f"first form {rec['v1_ms']:.4f} ms; bound {bound * 1e3:.2f} us "
+          f"(bytes) = {100 * rec['share_of_bound']:.2f}% / "
+          f"{100 * rec['v1_share_of_bound']:.2f}% of the device times; "
+          f"{n_img} image(s), {rec['lanes']} lanes (C = {rec['C']}), T = "
+          f"{kw['trips']}, {rec['ns_per_trip']:.1f} ns per trip; groups of "
+          f"{sched[0]} lanes, budget {sched[1]} words, "
+          f"{rec['ctas_per_sm']} CTAs/SM; staged {st['groups_staged']}, "
+          f"over budget {st['groups_over_budget']}, LUT misses "
+          f"{st['lut_misses']}; outputs equal to the native decoder"
+          + (" and to decode_lanes_torch" if plain else ""))
+    print(f"K7 {what}: kernels one wrapper call launches (torch.profiler, "
+          "per call): " + "; ".join(f"{k}: {v}" for k, v in calls.items()))
+    if not variants:
+        return rec
+    runs = {"budget 4 words": {"budget_words": 4}}
+    runs.update({f"groups of {g}": {"group_lanes": g}
+                 for g in k7.GROUP_LANES if g != sched[0]})
+    rec["variants"] = {}
+    for label, opt in runs.items():
+        fn, o, sc, (g, bw) = _k7_launcher(args, kw, l1, **opt)
+        fn()
+        torch.cuda.synchronize()
+        check(label, o, sc[:n_img])
+        st_v = k7.stats(sc, n_img)
+        if "budget_words" in opt and not st_v["groups_over_budget"]:
+            raise AssertionError(f"K7 {what} {label}: no group over budget")
+        ms = med([_queued_ms(fn, n) for _ in range(3)])
+        rec["variants"][label] = {"device_ms": ms, "x_new": ms / d_new,
+                                  "group_lanes": g, "budget_words": bw,
+                                  **st_v}
+        del o, sc
+    print(f"K7 {what} variants (device time, queued, median of 3; outputs "
+          "equal to the native decoder): " + "; ".join(
+              f"{k} {v['device_ms']:.4f} ms = {v['x_new']:.2f}x (groups of "
+              f"{v['group_lanes']}, budget {v['budget_words']}, staged "
+              f"{v['groups_staged']}, over budget {v['groups_over_budget']})"
+              for k, v in rec["variants"].items()))
+    return rec
+
+
+LANE_STEPS = (16, 32, 64, 128, 256, 512, 1300)
+
+
+def _lane_sweep(dev, hdr, scan, ref) -> dict:
     """K7 on one DRI-0 frame at several lane sizes: the host plan with
     ``target_steps`` of :data:`LANE_STEPS` paired steps per lane (no lane
-    cap), each output equal to the native decoder's; the host emit_prep ms
-    (best of 3), the lanes and trips, K7 ms (CUDA events, median of 10)."""
+    cap), each output equal to the native decoder's with no group over the
+    staging budget; the host emit_prep ms (best of 3), the lanes and trips,
+    the staging counters, K7's device time (``_queued_ms``, median of 3 x
+    10 launches)."""
     import torch
 
     from jpeg_decoder_tpu_torch.entropy import native
-    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda, entropy_spec
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda
 
     n_mcus = hdr.mcus_x * hdr.mcus_y
     out = {}
     for ts in LANE_STEPS:
-        kw_plan = dict(max_chunks=n_mcus, target_steps=ts)
         prep_ms = min(_wall(lambda: native.emit_prep(
-            hdr, scan, n_threads=1, **kw_plan)) for _ in range(3)) * 1e3
-        (pools, starts, nm, lane_off, t_sym, _, n_lanes, seg_first,
-         _) = entropy_spec.prepare_hybrid_batch_emit(hdr, [scan], threads=1,
-                                                     **kw_plan)
-        args = tuple(torch.from_numpy(a).to(dev) for a in (
-            pools, starts, nm, lane_off, seg_first)) + (luts,)
-        kw = dict(block_comp=entropy_spec._block_comp(hdr),
-                  n_comps=len(hdr.components), n_mcus=n_mcus, trips=t_sym,
-                  precision=hdr.precision)
+            hdr, scan, n_threads=1, max_chunks=n_mcus, target_steps=ts))
+            for _ in range(3)) * 1e3
+        args, kw, l1, plan = _k7_inputs(hdr, [scan], dev, ts)
         got, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+        st = dict(zip(entropy_emit_cuda.STATS,
+                      entropy_emit_cuda.decode_lanes.last_stats.tolist()))
         if int(err[0]) or not torch.equal(got[0].cpu(), ref):
             raise AssertionError(f"K7 sweep target_steps={ts}: differs")
-        ms = statistics.median(_cuda_ms(lambda: entropy_emit_cuda.decode_lanes(
-            *args, **kw, l1=l1), 10, warmup=2))
-        out[ts] = {"emit_prep_ms": prep_ms, "lanes": n_lanes, "T_sym": t_sym,
-                   "ms": ms}
+        if st["groups_over_budget"]:
+            raise AssertionError(f"K7 sweep target_steps={ts}: groups over "
+                                 f"the staging budget {st}")
+        del got
+        fn = _k7_launcher(args, kw, l1)[0]
+        ms = statistics.median([_queued_ms(fn, 10) for _ in range(3)])
+        out[ts] = {"emit_prep_ms": prep_ms, "lanes": plan[6],
+                   "T_sym": kw["trips"], "device_ms": ms, **st}
     print(f"lanes: K7 lane-size sweep on {hdr.width}x{hdr.height} "
           f"{hdr.precision}-bit (target_steps: emit_prep ms, lanes, T, K7 "
-          "ms; outputs equal): " + "; ".join(
+          "device ms, groups staged/over budget; outputs equal): "
+          + "; ".join(
               f"{ts}: {r['emit_prep_ms']:.2f}, {r['lanes']}, {r['T_sym']}, "
-              f"{r['ms']:.4f}" for ts, r in out.items()))
+              f"{r['device_ms']:.4f}, {r['groups_staged']}/"
+              f"{r['groups_over_budget']}" for ts, r in out.items()))
     return out
 
 
@@ -1193,6 +1541,8 @@ def _lanes_phase(dev, images: dict, cpu_refs: dict):
             if n_diff or c["K7"] != k7 or c["K2"] != 1 - k7:
                 raise AssertionError(f"lanes {name} {entropy}: {n_diff} "
                                      f"coefficients differ, launches {c}")
+            if k7:
+                _k7_all_staged(f"lanes {name} hybrid")
             for k, v in c.items():
                 total[k] = total.get(k, 0) + v
         # RGB: strict equal to the CPU decode, pallas to native's on the card.
@@ -1213,59 +1563,32 @@ def _lanes_phase(dev, images: dict, cpu_refs: dict):
                 if not torch.equal(got.cpu(), want.cpu()):
                     raise AssertionError(f"lanes {name} {entropy} {idct}: "
                                          "RGB differs")
+                if entropy == "hybrid" and dri0:
+                    _k7_all_staged(f"lanes {name} hybrid {idct}")
         check_s = time.perf_counter() - t0
 
         # Stages: the host plan, K7 (on every frame: restart ones too, for
-        # the comparison with K2), K2, end to end against pallas.
-        # The plan decode() runs (entropy_spec.device_plan).
+        # the comparison with K2) against its first form, K2, end to end
+        # against pallas.  The plan decode() runs (entropy_spec.device_plan).
         prep_ms = min(_wall(lambda: native.emit_prep(
             hdr, scan, n_threads=1, max_chunks=hdr.mcus_x * hdr.mcus_y,
             target_steps=entropy_spec.LANE_STEPS)) for _ in range(3)) * 1e3
-        plan = entropy_spec.device_plan(hdr, [scan], threads=1)
-        pools, starts, nm, lane_off, t_sym, t_pair, n_lanes, seg_first, _ = \
-            plan
-        luts, l1 = entropy_cuda.device_tables(hdr, scan, dev)
-        args = tuple(torch.from_numpy(a).to(dev) for a in (
-            pools, starts, nm, lane_off, seg_first)) + (luts,)
-        kw = dict(block_comp=entropy_spec._block_comp(hdr),
-                  n_comps=len(hdr.components),
-                  n_mcus=hdr.mcus_x * hdr.mcus_y, trips=t_sym,
-                  precision=hdr.precision)
-        out, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
-        n_diff = int((out[0].cpu() != ref).sum())
-        if n_diff or int(err[0]):
-            raise AssertionError(f"K7 {name}: {n_diff} differ, flag {err}")
-        ms7 = med(_cuda_ms(lambda: entropy_emit_cuda.decode_lanes(
-            *args, **kw, l1=l1), 20, warmup=2))
-        bufs = entropy_emit_cuda.buffers(args[0], args[1], kw["n_mcus"],
-                                         len(kw["block_comp"]))
-        largs = args + (l1, *bufs)
-        ms_ph = {ph: med(_cuda_ms(lambda ph=ph: entropy_emit_cuda.launch(
-            largs, f"jd_emit_{ph}", **kw), 20, warmup=2))
-            for ph in ("decode", "carry")}
-        n_blocks = len(ref)
-        nbytes = (pools.nbytes + starts.nbytes + nm.nbytes + lane_off.nbytes
-                  + seg_first.nbytes + n_blocks * 256)
-        rec = {"ms": ms7, "emit_ms": ms_ph["decode"],
-               "carry_ms": ms_ph["carry"],
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "lanes": n_lanes,
-               "T_sym": t_sym, "T_pair": t_pair, "emit_prep_ms": prep_ms}
+        args, kw, l1, plan = _k7_inputs(hdr, [scan], dev)
+        rec = _k7_turns(name, args, kw, l1, [ref])
+        rec.update(T_pair=plan[5], emit_prep_ms=prep_ms)
         _, _, _, k2_args, k2_kw = _scan_inputs(blob, dev)
         k2_kw["precision"] = hdr.precision
         ms2 = med(_cuda_ms(lambda: entropy_cuda.decode_segments(
             *k2_args, **k2_kw), 20, warmup=2))
         rec["k2_ms"] = ms2
+        n_blocks = len(ref)
         if hdr.precision == 12:
             k2_bytes = (k2_args[0].numel() * 4 + k2_args[1].numel() * 4
                         + n_blocks * 256)
             k2_12[name] = {"ms": ms2, "bound_ms":
                            k2_bytes / HBM_BYTES_PER_S * 1e3}
         if name == "(c)":
-            plain, p_err = entropy_emit_cuda.decode_lanes_torch(*args, **kw)
-            k7_err = int((plain - out).abs().max())
-            if k7_err or not torch.equal(p_err, err):
-                raise AssertionError("K7 (c): kernel differs from "
-                                     "decode_lanes_torch")
+            k7_err = rec["max_abs_err"]
             rec["plain_ms"] = med(_cuda_ms(
                 lambda: entropy_emit_cuda.decode_lanes_torch(*args, **kw),
                 1, warmup=0))
@@ -1299,19 +1622,20 @@ def _lanes_phase(dev, images: dict, cpu_refs: dict):
             e2e[entropy] = min(runs)
         rec["e2e_ms"] = e2e
         if dri0:
-            rec["lane_sweep"] = _lane_sweep(dev, hdr, scan, ref, args[5],
-                                            l1)
+            rec["lane_sweep"] = _lane_sweep(dev, hdr, scan, ref)
         k7_by[name] = rec
         print(f"lanes {name}: {hdr.width}x{hdr.height} {hdr.precision}-bit "
               f"DRI {scan.restart_interval}; hybrid and jax blocks equal to "
               "the native decoder, strict RGB equal to the CPU decode, pallas "
               f"RGB equal to entropy=native's (checks {check_s:.1f} s); host "
               f"emit_prep {prep_ms:.3f} ms (1 thread, best of 3), C = "
-              f"{n_lanes} lanes, T = {t_sym} symbols ({t_pair} paired); K7 "
-              f"{ms7:.4f} ms (emit {ms_ph['decode']:.4f}, carry "
-              f"{ms_ph['carry']:.4f}; CUDA events, median of 20), bound "
-              f"{rec['bound_ms'] * 1e3:.2f} us; K2 on the same frame "
-              f"{ms2:.4f} ms; decode() idct=pallas end to end (best of 3) "
+              f"{rec['C']} lanes, T = {rec['T_sym']} symbols ({rec['T_pair']} "
+              f"paired); K7 device {rec['device_ms']:.4f} ms (first form "
+              f"{rec['v1_device_ms']:.4f}), with the wrapper {rec['ms']:.4f} "
+              f"ms ({rec['v1_ms']:.4f}), bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us; "
+              f"K2 on the same frame {ms2:.4f} ms; decode() idct=pallas end "
+              "to end (best of 3) "
               + ", ".join(f"{k} {v:.2f} ms" for k, v in e2e.items())
               + ("; K7 plain version on the card "
                  f"{rec['plain_ms']:.1f} ms, equal" if name == "(c)" else ""))
@@ -1319,12 +1643,117 @@ def _lanes_phase(dev, images: dict, cpu_refs: dict):
     k7 = {"name": "decode_lanes", "route": "cuda",
           "source": "jpeg_decoder_tpu_torch/csrc/entropy_emit.cu",
           "replaces": "jpeg_decoder_tpu/ops/entropy_flat.py:709",
-          "max_abs_err": k7_err, "ms": c["ms"], "plain_ms": c["plain_ms"],
+          "max_abs_err": k7_err, "ms": c["device_ms"],
+          "wrapper_ms": c["ms"], "plain_ms": c["plain_ms"],
           "bound_ms": c["bound_ms"], "bound_by": "bytes",
-          "library_ms": None,
+          "library_ms": None, "earlier_ms": c["v1_device_ms"],
+          "earlier_source": "jpeg_decoder_tpu_torch/csrc/entropy_emit_v1.cu",
           "by_image": {k: {q: v for q, v in r.items() if q != "plain_ms"}
                        for k, r in k7_by.items()}}
     return k7, k2_12, total
+
+
+def _k7_batch_phase(dev, blobs: list) -> dict:
+    """K7 over the batch's 24 DRI-0 1920x1080 images (its six distinct
+    4:2:0 images four times) as one B = 24 launch, the shape of a batched
+    device-entropy route: the 24 share the test encoder's standard tables
+    (asserted), every image equal to the native decoder and to
+    ``decode_lanes_torch``, the new kernel against its first form in turns
+    (``_k7_turns``)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+
+    hdrs = [parser.parse(blobs[k % 6]) for k in range(24)]
+    luts0 = entropy_cuda.device_tables(hdrs[0], hdrs[0].scans[0], dev)[0]
+    for h in hdrs[1:6]:
+        if not torch.equal(entropy_cuda.device_tables(h, h.scans[0],
+                                                      dev)[0], luts0):
+            raise AssertionError("K7 B=24: the images' tables differ")
+    refs = [torch.from_numpy(native.decode_scan_baseline(h, h.scans[0]))
+            for h in hdrs[:6]]
+    args, kw, l1, _ = _k7_inputs(hdrs[0], [h.scans[0] for h in hdrs], dev)
+    return _k7_turns("B=24 (the batch's DRI-0 1080p images, one launch)",
+                     args, kw, l1, [refs[k % 6] for k in range(24)])
+
+
+BIG = (8192, 6144)   # width, height of the >= 50 MP frame
+
+
+def _encode_big(seed: int) -> bytes:
+    """The 8192x6144 4:2:0 q90 DRI-0 frame (a process-pool job)."""
+    from jpeg_decoder_tpu_torch.testing.encoder import encode
+    from jpeg_decoder_tpu_torch.testing.photo import synthetic_photo
+
+    w, h = BIG
+    img = synthetic_photo(np.random.default_rng(seed), h, w)
+    return encode(img, samplings=((2, 2), (1, 1), (1, 1)), quality=90,
+                  restart_interval=0)[0]
+
+
+def _big_frame_phase(dev, blob: bytes) -> dict:
+    """The 8192x6144 (50.3 MP) DRI-0 frame through ``decode(entropy=
+    "hybrid")`` (K7) and ``decode(entropy="pallas")`` (K2), every count set
+    to 0 just before each: one launch of its kernel, peak device memory,
+    end-to-end ms; the scan blocks of both routes equal to
+    ``native.decode_scan_baseline`` on every coefficient; K7 (against its
+    first form, ``_k7_turns``) and K2 timed by CUDA events."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+
+    hdr = parser.parse(blob)
+    scan = hdr.scans[0]
+    t0 = time.perf_counter()
+    ref = torch.from_numpy(native.decode_scan_baseline(hdr, scan))
+    rec = {"bytes": len(blob), "native_s": time.perf_counter() - t0}
+    for entropy, key in (("hybrid", "K7"), ("pallas", "K2")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        t1 = time.perf_counter()
+        out = decode(blob, entropy=entropy, idct="pallas", upsample="fancy",
+                     device=dev)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t1
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        shape = tuple(out.rgb.shape)
+        del out
+        blocks = dec_mod._decode_scan_robust(hdr, scan, entropy, dev)
+        n_diff = int((blocks.cpu() != ref).sum())
+        del blocks
+        if n_diff or counts[key] != 1 or shape != (BIG[1], BIG[0], 3):
+            raise AssertionError(f"{BIG} {entropy}: {n_diff} coefficients "
+                                 f"differ, launches {counts}, {shape}")
+        rec[entropy] = {"e2e_ms": e2e * 1e3, "peak_bytes": peak,
+                        "launches": counts}
+    torch.cuda.empty_cache()
+    args, kw, l1, _ = _k7_inputs(hdr, [scan], dev)
+    rec["k7"] = _k7_turns(f"{BIG[0]}x{BIG[1]}", args, kw, l1, [ref],
+                          plain=False, variants=False, n=6)
+    del args
+    _, _, _, k2_args, k2_kw = _scan_inputs(blob, dev)
+    rec["k2_ms"] = statistics.median(_cuda_ms(
+        lambda: entropy_cuda.decode_segments(*k2_args, **k2_kw), 5,
+        warmup=1))
+    print(f"big frame {BIG[0]}x{BIG[1]} 4:2:0 q90 DRI 0 "
+          f"({BIG[0] * BIG[1] / 1e6:.1f} MP, {len(blob) / 1e6:.2f} MB): "
+          "scan blocks of hybrid (K7) and pallas (K2) equal to the native "
+          f"decoder ({rec['native_s']:.2f} s); decode() idct=pallas "
+          + ", ".join(f"{e} {rec[e]['e2e_ms']:.1f} ms, peak device memory "
+                      f"{rec[e]['peak_bytes'] / 2**20:.1f} MiB, launches "
+                      f"{rec[e]['launches']}" for e in ("hybrid", "pallas"))
+          + f"; K7 device {rec['k7']['device_ms']:.4f} ms, with the "
+          f"wrapper {rec['k7']['ms']:.4f} ms ({rec['k7']['lanes']} lanes), "
+          f"K2 {rec['k2_ms']:.4f} ms (CUDA events)")
+    return rec
 
 
 def _cmyk_rgb(planes: list) -> np.ndarray:
@@ -1432,13 +1861,12 @@ def _python_planes(hdr):
             for ci in range(len(hdr.components))]
 
 
-def _mixed_phase(dev, blobs: list, sources: list) -> tuple[int, dict]:
+def _mixed_phase(dev, blobs: list, sources: list,
+                 futs: dict) -> tuple[int, dict]:
     """32 frames of every kind through one ``BatchDecoder`` (see the module
-    docstring).  Returns K1's launches in the checked run and the encoded
-    frames (blob, pixels) by kind."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    docstring); ``futs`` the encode pool's jobs of :data:`MIXED_JOBS`.
+    Returns K1's launches in the checked run and the encoded frames (blob,
+    pixels) by kind."""
     import torch
 
     from jpeg_decoder_tpu_torch import BatchDecoder, decode
@@ -1447,12 +1875,7 @@ def _mixed_phase(dev, blobs: list, sources: list) -> tuple[int, dict]:
     from jpeg_decoder_tpu_torch.testing import photo
 
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(
-            min(6, os.cpu_count() or 1),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        futs = {k: pool.submit(_encode_job, *v) for k, v in
-                sorted(MIXED_JOBS.items(), key=lambda kv: -kv[1][1])}
-        enc = {k: f.result() for k, f in futs.items()}
+    enc = {k: f.result() for k, f in futs.items()}
     enc["512 restart-mismatch"] = (
         _drop_last_rst(enc["512 restart-mismatch"][0]),
         enc["512 restart-mismatch"][1])
@@ -1472,9 +1895,9 @@ def _mixed_phase(dev, blobs: list, sources: list) -> tuple[int, dict]:
     batch = [b for _, (b, _) in mixed]
     print(f"mixed inputs: {len(batch)} frames, "
           f"{sum(map(len, batch)) / 1e6:.2f} MB; encoded (arithmetic, "
-          "multi-scan, 12-bit, CMYK, and the 512x512 set) in "
-          f"{time.perf_counter() - t0:.1f} s in a pool of spawned processes "
-          "(set-up)")
+          "multi-scan, 12-bit, CMYK, and the 512x512 set) in a pool of "
+          "spawned processes started before the batch phase, "
+          f"{time.perf_counter() - t0:.1f} s more waited for here (set-up)")
 
     with BatchDecoder(device=dev, idct="pallas") as bd:
         bd.decode(batch)                          # warm-up
@@ -1920,27 +2343,15 @@ def _cli_phase(dev, frames: dict) -> None:
           f"equal to decode() on the card; per-image lines: {timing}")
 
 
-def main() -> int:
+def _phases(dev, pool, big_fut, mixed_futs) -> int:
+    """Every phase after the build, in order (see the module docstring);
+    ``pool`` the encode pool with the big frame's and the mixed frames'
+    jobs."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
-        return 2
     from jpeg_decoder_tpu_torch import decode
     from jpeg_decoder_tpu_torch.testing.encoder import encode
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    print(smi.splitlines()[0])  # the card's name and power limit
-    print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    _build_all()
     rng = np.random.default_rng(SEED)
     k1 = _idct_phase(dev, rng)
     torch.cuda.empty_cache()
@@ -1954,7 +2365,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_waves = _waves_phase(dev, batch, mp)
     torch.cuda.empty_cache()
-    k1_mixed, enc = _mixed_phase(dev, blobs, sources)
+    k1_mixed, enc = _mixed_phase(dev, blobs, sources, mixed_futs)
     torch.cuda.empty_cache()
     k5_batch = _batch_exact_phase(dev, batch, mp, wires["nibble"]["mp_per_s"])
     torch.cuda.empty_cache()
@@ -1991,6 +2402,16 @@ def main() -> int:
               "12-bit 4:2:0 DRI 0": enc["12-bit"],
               "12-bit 4:2:0 DRI 8": enc["12-bit dri"]},
         {**cpu_fancy, "12-bit 4:2:0 DRI 0": cpu_fancy["12-bit 4:2:0"]})
+    torch.cuda.empty_cache()
+    k7["B=24"] = _k7_batch_phase(dev, blobs)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    big_blob = big_fut.result()
+    pool.shutdown()
+    print(f"big frame: encoded in the pool, {time.perf_counter() - t0:.1f} s "
+          "more waited for here (set-up)")
+    k7["big_frame"] = _big_frame_phase(dev, big_blob)
+    del big_blob
     torch.cuda.empty_cache()
     _cli_phase(dev, {**strict_frames, "c": images["c"]})
     probes = _probe_phase(dev)
@@ -2035,6 +2456,43 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(smi.splitlines()[0])  # the card's name and power limit
+    print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    _build_all()
+    # The encode pool: the >= 50 MP frame first (about 80 s of one
+    # process), then the mixed-frame jobs, all overlapping the phases
+    # before they are needed.
+    pool = ProcessPoolExecutor(
+        min(6, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    big_fut = pool.submit(_encode_big, SEED + 1)
+    mixed_futs = {k: pool.submit(_encode_job, *v) for k, v in
+                  sorted(MIXED_JOBS.items(), key=lambda kv: -kv[1][1])}
+    try:
+        return _phases(dev, pool, big_fut, mixed_futs)
+    finally:
+        # A failed phase must not leave encoder processes behind.
+        for proc in list((pool._processes or {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 if __name__ == "__main__":

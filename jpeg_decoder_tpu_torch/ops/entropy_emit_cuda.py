@@ -10,12 +10,14 @@ lane from a true state: no speculation, no synchronisation.
 
 * :func:`decode_lanes` launches ``csrc/entropy_emit.cu`` (built with nvcc for
   sm_90a at first use into ``.cache/torch/kernels/``, bound with ctypes) on
-  CUDA tensors and counts its launches in ``decode_lanes.launches``: the
-  emit kernel (one thread per lane, one symbol per iteration, coefficients
-  stored at their natural index, DC as lane-local sums) and the carry kernel
-  (each lane's DC carry-in within its restart segment).  A failed build or
-  launch raises.  On CPU tensors it runs :func:`decode_lanes_torch`; that is
-  the only way the plain version is reached.
+  CUDA tensors and counts its launches in ``decode_lanes.launches``: one
+  persistent grid that stages each lane group's stream words and the tables
+  in shared memory, decodes the group's lanes one thread each, stores every
+  block whole once, and carries DC across groups by a decoupled look-back
+  (see the source).  :func:`schedule` picks the group size and the staging
+  budget on the host.  A failed build or launch raises.  On CPU tensors it
+  runs :func:`decode_lanes_torch`; that is the only way the plain version
+  is reached.
 * :func:`decode_lanes_torch` is the plain PyTorch version the kernel is held
   to: the lanes in lockstep, one symbol per step (as ``decode_emit``, with a
   Python loop over the steps), then the segmented carry.
@@ -27,6 +29,7 @@ the JAX package's ``entropy_flat.merged_luts``), cached per device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -39,15 +42,37 @@ _ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,   # nm, lane_off
     ctypes.c_void_p, ctypes.c_void_p,   # seg_first, luts
     ctypes.c_void_p, ctypes.c_void_p,   # l1, out
-    ctypes.c_void_p, ctypes.c_void_p,   # err, tot
+    ctypes.c_void_p, ctypes.c_void_p,   # err, scratch
     ctypes.c_int64, ctypes.c_int64,     # n_img, n_words
     ctypes.c_int64, ctypes.c_int64,     # lanes_per_img, n_mcus
     ctypes.c_int64, ctypes.c_int,       # trips, n_tables
     ctypes.c_int, ctypes.c_uint64,      # bpm, comp_code
-    ctypes.c_int, ctypes.c_void_p,      # precision, stream
+    ctypes.c_int, ctypes.c_int,         # precision, group_lanes
+    ctypes.c_int, ctypes.c_int,         # budget_words, grid
+    ctypes.c_void_p,                    # stream
 ]
-LIB = CudaLib("entropy_emit.cu", "jd_entropy_emit",
-              {"jd_emit_decode": _ARGS, "jd_emit_carry": _ARGS})
+LIB = CudaLib("entropy_emit.cu", "jd_entropy_emit", {
+    "jd_emit_lanes": _ARGS,
+    "jd_emit_ctas_per_sm": [ctypes.c_int, ctypes.c_int, ctypes.c_int]})
+
+# Constants of csrc/entropy_emit.cu.
+#: Lanes per group (threads per CTA), in order of preference.
+GROUP_LANES = (128, 64, 32)
+#: Words past a lane's last word that its reader may load.
+LOOKAHEAD_WORDS = 3
+_L1_BYTES = 2 << entropy_cuda.L1_BITS     # one first-level table
+_L2_BYTES = 128 * 16 * 2                  # the second-level slots
+_LANE_BYTES = 68 * 2 + 16 * 4            # a lane's block buffer, DC terms
+_HEADER_WORDS = 8
+_STATUS_WORDS = 16
+#: Dynamic shared memory a CTA may ask for on sm_90 (227 KB), less room for
+#: the kernel's static shared memory.
+SMEM_LIMIT = 232448 - 1024
+#: What ``decode_lanes.last_stats`` holds, in order: the lane groups whose
+#: reads all came from shared memory, the groups that read stream words from
+#: device memory (over the staging budget), and the probes that read the
+#: full tables in device memory.
+STATS = ("groups_staged", "groups_over_budget", "lut_misses")
 
 _count_lock = threading.Lock()
 
@@ -56,6 +81,44 @@ def build():
     """Compile ``csrc/entropy_emit.cu`` (once per source and flag set) and
     load it."""
     return LIB.load()
+
+
+def smem_bytes(group_lanes: int, budget_words: int, n_tables: int) -> int:
+    """Dynamic shared memory of one CTA: the staged words (plus 4 for
+    alignment), the first- and second-level tables, each lane's block
+    buffer and lane-local DC terms."""
+    return (4 * (budget_words + 4) + n_tables * _L1_BYTES + _L2_BYTES
+            + group_lanes * _LANE_BYTES)
+
+
+def staging_words(group_lanes: int, n_words: int, lanes_per_img: int) -> int:
+    """Staging budget of a group of ``group_lanes`` lanes: twice its share
+    of the pool row plus 64 words (lanes hold about equal symbol counts, not
+    equal bits), rounded up to 64 words."""
+    share = -(-group_lanes * n_words // max(1, lanes_per_img))
+    return -(-(2 * share + 64) // 64) * 64
+
+
+def schedule(n_img: int, n_words: int, lanes_per_img: int, n_tables: int,
+             n_sms: int) -> tuple[int, int]:
+    """(group_lanes, budget_words) of a launch.
+
+    The largest group in :data:`GROUP_LANES` that still gives half the SMs
+    a group (``n_img * ceil(C / L) >= n_sms / 2``; the smallest
+    otherwise), whose :func:`staging_words` fit the CTA's shared memory: a
+    CTA pays for its table copy once, so a few large groups beat many
+    one-warp ones (chip_smoke.py's group-size readings on an H100,
+    PERF.md)."""
+    c = max(1, lanes_per_img)
+    need = cap = 0
+    for lanes in GROUP_LANES:
+        need = staging_words(lanes, n_words, c)
+        cap = (SMEM_LIMIT - smem_bytes(lanes, 0, n_tables)) // 16 * 4
+        fills = (2 * n_img * -(-c // lanes) >= n_sms
+                 or lanes == GROUP_LANES[-1])
+        if fills and need <= cap:
+            return lanes, need
+    return GROUP_LANES[-1], min(need, cap)
 
 
 def _check(pools, starts, nm_lane, lane_off, seg_first, luts, block_comp,
@@ -123,7 +186,7 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
     The lanes of an image must tile its MCUs in order, each inside one
     restart segment; a plan that does not is flagged.  Returns ((B, n_mcus
     * bpm, 64) int32 blocks, (B,) int32 error flags); a flagged image's
-    blocks are unspecified.  On CUDA tensors this launches the kernels or
+    blocks are unspecified.  On CUDA tensors this launches the kernel or
     raises; on CPU tensors it runs :func:`decode_lanes_torch`.
     """
     _check(pools, starts, nm_lane, lane_off, seg_first, luts, block_comp,
@@ -144,55 +207,118 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
           or not l1.is_contiguous()):
         raise TypeError(f"l1 must be ({luts.shape[0]}, "
                         f"{1 << entropy_cuda.L1_BITS}) int16 on {dev}")
-    bufs = buffers(pools, starts, n_mcus, len(block_comp))
-    args = (pools, starts, nm_lane, lane_off, seg_first, luts, l1, *bufs)
-    launch(args, "jd_emit_decode", **kw)
-    launch(args, "jd_emit_carry", **kw)
+    sched = schedule(pools.shape[0], pools.shape[1], starts.shape[1],
+                     luts.shape[0], _n_sms(dev))
+    out, scratch = buffers(pools, starts, n_mcus, len(block_comp), sched[0])
+    launch((pools, starts, nm_lane, lane_off, seg_first, luts, l1), out,
+           scratch, group_lanes=sched[0], budget_words=sched[1], **kw)
     with _count_lock:
         decode_lanes.launches += 1
-    return bufs[0], bufs[1]
+    n = pools.shape[0]
+    decode_lanes.last_stats = scratch[n + 1:n + 1 + len(STATS)]
+    return out, scratch[:n]
 
 
-#: Launches of the CUDA kernels (emit, then carry) since the count was last
-#: set to 0.
+#: Launches of the CUDA kernel since the count was last set to 0.
 decode_lanes.launches = 0
+#: The :data:`STATS` counters of the last launch, a device tensor.
+decode_lanes.last_stats = None
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _n_sms(dev: torch.device) -> int:
+    return _n_sms_of(torch.device(dev).index or 0)
 
 
 def buffers(pools: torch.Tensor, starts: torch.Tensor, n_mcus: int,
-            bpm: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The zero-filled (B, n_mcus*bpm, 64) int32 blocks, (B,) int32 flags
-    and (B*C, 4) int32 lane DC sums the two kernels write."""
+            bpm: int, group_lanes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (B, n_mcus*bpm, 64) int32 blocks, left uninitialised (the kernel
+    writes every element of an unflagged image), and the zero-filled int32
+    scratch: the (B,) error flags, then the kernel's ticket, its
+    :data:`STATS` counters and each lane group's carry status."""
     b, c = starts.shape
     dev = pools.device
-    return (torch.zeros((b, n_mcus * bpm, 64), dtype=torch.int32, device=dev),
-            torch.zeros((b,), dtype=torch.int32, device=dev),
-            torch.zeros((b * c, 4), dtype=torch.int32, device=dev))
+    n_groups = b * -(-c // group_lanes)
+    return (torch.empty((b, n_mcus * bpm, 64), dtype=torch.int32, device=dev),
+            torch.zeros(b + _HEADER_WORDS + _STATUS_WORDS * n_groups,
+                        dtype=torch.int32, device=dev))
 
 
-def launch(args: tuple, entry: str, *, block_comp: tuple[int, ...],
-           n_comps: int, n_mcus: int, trips: int, precision: int) -> None:
-    """One kernel launch on the current stream: ``entry`` is
-    ``jd_emit_decode`` or ``jd_emit_carry``; ``args`` the tensors pools,
-    starts, nm_lane, lane_off, seg_first, luts, l1 and the
-    :func:`buffers`, checked by :func:`decode_lanes`.  Counts nothing (the
-    phases' own timing calls it)."""
+@functools.lru_cache(maxsize=256)
+def _ctas_per_sm(index: int, group_lanes: int, budget_words: int,
+                 n_tables: int) -> int:
+    with torch.cuda.device(index):
+        n = build().jd_emit_ctas_per_sm(group_lanes, budget_words, n_tables)
+    launch_check(max(0, -n), "jd_emit_ctas_per_sm")
+    if n < 1:
+        raise RuntimeError(f"K7 cannot run {group_lanes} lanes with "
+                           f"{budget_words} staged words per CTA")
+    return n
+
+
+def ctas_per_sm(group_lanes: int, budget_words: int, n_tables: int,
+                dev: torch.device | None = None) -> int:
+    """CTAs of the kernel one SM of ``dev`` holds at this shape (the
+    persistent grid is this times the SMs, or the groups if fewer); cached
+    per device and shape."""
+    index = torch.device(dev).index if dev is not None else None
+    index = torch.cuda.current_device() if index is None else index
+    return _ctas_per_sm(index, group_lanes, budget_words, n_tables)
+
+
+def launch(args: tuple, out: torch.Tensor, scratch: torch.Tensor, *,
+           block_comp: tuple[int, ...], n_comps: int, n_mcus: int,
+           trips: int, precision: int, group_lanes: int,
+           budget_words: int) -> None:
+    """One kernel launch on the current stream: ``args`` the tensors pools,
+    starts, nm_lane, lane_off, seg_first, luts and l1, checked by
+    :func:`decode_lanes`; ``out`` and ``scratch`` from :func:`buffers` (the
+    scratch zero-filled).  Counts nothing (the phases' own timing and the
+    tests that force a staging budget call it)."""
     lib = build()
     pools, starts, luts = args[0], args[1], args[5]
     comp_code = sum(c << (4 * k) for k, c in enumerate(block_comp))
     dev = pools.device
+    n = pools.shape[0]
+    grid = ctas_per_sm(group_lanes, budget_words, luts.shape[0],
+                       dev) * _n_sms(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
-            *(t.data_ptr() for t in args), pools.shape[0], pools.shape[1],
-            starts.shape[1], n_mcus, trips, luts.shape[0], len(block_comp),
-            comp_code, precision, stream)
-    launch_check(rc, entry)
+        rc = lib.jd_emit_lanes(
+            *(t.data_ptr() for t in args), out.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + 4 * n, n,
+            pools.shape[1], starts.shape[1], n_mcus, trips, luts.shape[0],
+            len(block_comp), comp_code, precision, group_lanes,
+            budget_words, grid, stream)
+    launch_check(rc, "jd_emit_lanes")
+
+
+def stats(scratch: torch.Tensor, n_img: int) -> dict:
+    """The :data:`STATS` counters of a launch's scratch, as ints."""
+    vals = scratch[n_img + 1:n_img + 1 + len(STATS)].tolist()
+    return dict(zip(STATS, vals))
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 values reduced to the int32 range modulo 2^32 (two's
     complement wrap, as the kernel's uint32 sums and jnp.cumsum give)."""
     return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def lane_carry(key: torch.Tensor, tot: torch.Tensor) -> torch.Tensor:
+    """Each lane's DC carry-in: the exclusive sum of ``tot`` (S, 4) over the
+    run of consecutive lanes with its ``key`` (S,) (keys of distinct runs
+    differ), wrapped to int32."""
+    lane = torch.arange(len(key), device=key.device)
+    excl = tot.cumsum(0) - tot
+    head = torch.ones(len(key), dtype=torch.bool, device=key.device)
+    head[1:] = key[1:] != key[:-1]
+    first = torch.where(head, lane, 0).cummax(0).values
+    return _wrap32(excl - excl[first])
 
 
 def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
@@ -271,12 +397,7 @@ def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
     # Carry: exclusive sums of the lane sums within (image, segment) runs.
     on = nm > 0
     key = torch.where(on, img * (n_mcus + 1) + seg[m_lo], -1 - lane)
-    tot = torch.where(on.view(-1, 1), run, 0)
-    excl = tot.cumsum(0) - tot
-    head = torch.ones(s, dtype=torch.bool, device=dev)
-    head[1:] = key[1:] != key[:-1]
-    first = torch.where(head, lane, 0).cummax(0).values
-    carry = _wrap32(excl - excl[first])
+    carry = lane_carry(key, torch.where(on.view(-1, 1), run, 0))
     owner = torch.repeat_interleave(lane, n_blk)
     within = torch.arange(len(owner), device=dev) - torch.repeat_interleave(
         n_blk.cumsum(0) - n_blk, n_blk)

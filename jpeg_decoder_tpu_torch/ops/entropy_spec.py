@@ -127,9 +127,9 @@ def prepare_hybrid_batch_emit(hdr: FrameHeader, scans: list, *,
 #: :func:`prepare_hybrid_batch_emit` (1,300 steps, at most 512 lanes) suit
 #: the TPU's lockstep loop, whose cost per step grows with the lanes; K7
 #: runs one thread per lane and is latency-bound, so it wants many short
-#: lanes: chip_smoke.py's sweep on an H100 (PERF.md) puts its time lowest
-#: near 64-256.
-LANE_STEPS = 128
+#: lanes, enough to fill the card: chip_smoke.py's sweep on an H100
+#: (PERF.md) puts its time lowest here.
+LANE_STEPS = 32
 
 
 def device_plan(hdr: FrameHeader, scans: list, *, threads: int | None = None):

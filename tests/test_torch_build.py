@@ -15,11 +15,14 @@ from jpeg_decoder_tpu_torch.entropy import native
 from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
                                         idct_cuda, idct_exact_cuda)
 from jpeg_decoder_tpu_torch.probes import lut_probe
+from jpeg_decoder_tpu_torch.testing import emit_v1
 
-#: The CUDA builds of the port, one per csrc/*.cu.
+#: The CUDA builds of the port, one per csrc/*.cu (K7's first form, the
+#: baseline chip_smoke.py times it against, included).
 CUDA_LIBS = {"idct": idct_cuda.LIB, "entropy": entropy_cuda.LIB,
              "lut_probe": lut_probe.LIB, "idct_exact": idct_exact_cuda.LIB,
-             "entropy_emit": entropy_emit_cuda.LIB}
+             "entropy_emit": entropy_emit_cuda.LIB,
+             "entropy_emit_v1": emit_v1.LIB}
 
 
 def test_every_cuda_source_has_a_build():

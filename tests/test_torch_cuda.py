@@ -596,3 +596,146 @@ def test_lane_backends_on_card_equal_native(cuda_device, entropy):
         for a, b in zip(got.quantized_planes, ref.quantized_planes):
             np.testing.assert_array_equal(a, b)
         assert torch.equal(got.rgb, ref.rgb)
+
+
+# -- K7's schedule: staged words, look-back carry, blocks written once -----
+
+def _plan_inputs(blobs, dev, target_steps=None):
+    """K7's inputs for same-geometry ``blobs`` (decode()'s plan, or
+    ``target_steps`` paired steps per lane) and the native blocks."""
+    from jpeg_decoder_tpu_torch.entropy import native
+
+    hdrs = [parser.parse(b) for b in blobs]
+    hdr = hdrs[0]
+    n_mcus = hdr.mcus_x * hdr.mcus_y
+    scans = [h.scans[0] for h in hdrs]
+    if target_steps is None:
+        plan = entropy_spec.device_plan(hdr, scans, threads=1)
+    else:
+        plan = entropy_spec.prepare_hybrid_batch_emit(
+            hdr, scans, threads=1, max_chunks=n_mcus,
+            target_steps=target_steps)
+    assert plan[-1].all()
+    luts, l1 = entropy_cuda.device_tables(hdr, scans[0], dev)
+    args = tuple(torch.from_numpy(a).to(dev) for a in (
+        plan[0], plan[1], plan[2], plan[3], plan[7])) + (luts,)
+    kw = dict(block_comp=entropy_spec._block_comp(hdr),
+              n_comps=len(hdr.components), n_mcus=n_mcus, trips=plan[4],
+              precision=hdr.precision)
+    refs = [torch.from_numpy(native.decode_scan_baseline(h, h.scans[0]))
+            for h in hdrs]
+    return args, kw, l1, refs
+
+
+@pytest.mark.parametrize("precision", [8, 12])
+@pytest.mark.parametrize("ri", [0, 2, 7])
+def test_emit_schedule_stages_and_matches_plain(cuda_device, ri, precision):
+    """decode()'s plan on a 640x480 frame: the kernel equals
+    decode_lanes_torch and the native decoder, every lane group staged its
+    words (none over budget) and no probe left shared memory."""
+    blob = encode(_rgb(100 + ri + precision, 480, 640), quality=90,
+                  restart_interval=ri, precision=precision)[0]
+    args, kw, l1, refs = _plan_inputs([blob], cuda_device)
+    out, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+    torch.cuda.synchronize()
+    stats = dict(zip(entropy_emit_cuda.STATS,
+                     entropy_emit_cuda.decode_lanes.last_stats.tolist()))
+    ref, ref_err = entropy_emit_cuda.decode_lanes_torch(*args, **kw)
+    assert not err.any() and not ref_err.any()
+    assert torch.equal(out, ref) and torch.equal(out[0].cpu(), refs[0])
+    assert stats["groups_staged"] > 0 and stats["groups_over_budget"] == 0
+    assert stats["lut_misses"] == 0
+
+
+def test_emit_batch_of_three_with_an_empty_image(cuda_device):
+    """One B = 3 launch: images with different lane counts and one whose
+    plan has no lane (it decodes to zeros, unflagged, though the output is
+    not zero-filled first)."""
+    blobs = [encode(_rgb(110 + k, 240, 320), quality=q)[0]
+             for k, q in enumerate((90, 50, 97))]
+    args, kw, l1, refs = _plan_inputs(blobs, cuda_device, target_steps=16)
+    counts = (args[2] > 0).sum(1).tolist()
+    assert len(set(counts)) == 3
+    nm = args[2].clone()
+    nm[1] = 0
+    for _ in range(2):
+        # Dirty the allocator's free blocks: the output is not zero-filled.
+        junk = torch.full((3, kw["n_mcus"] * len(kw["block_comp"]), 64),
+                          0x5A5A5A5A, dtype=torch.int32, device=cuda_device)
+        del junk
+        out, err = entropy_emit_cuda.decode_lanes(
+            *args[:2], nm, *args[3:], **kw, l1=l1)
+        torch.cuda.synchronize()
+        assert err.tolist() == [0, 0, 0]
+        assert not out[1].any()
+        for i in (0, 2):
+            assert torch.equal(out[i].cpu(), refs[i])
+    ref, _ = entropy_emit_cuda.decode_lanes_torch(*args[:2], nm, *args[3:],
+                                                  **kw)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("budget", [4, 64])
+def test_emit_over_budget_groups_read_device_memory(cuda_device, budget):
+    """A staging budget far below a group's words: the groups read the rest
+    from device memory (counted over budget) and the output is unchanged."""
+    blob = encode(_rgb(120, 480, 640), quality=90)[0]
+    args, kw, l1, refs = _plan_inputs([blob], cuda_device)
+    out, scratch = entropy_emit_cuda.buffers(
+        args[0], args[1], kw["n_mcus"], len(kw["block_comp"]), 32)
+    entropy_emit_cuda.launch(args + (l1,), out, scratch, group_lanes=32,
+                             budget_words=budget, **kw)
+    torch.cuda.synchronize()
+    stats = entropy_emit_cuda.stats(scratch, 1)
+    assert int(scratch[0]) == 0 and torch.equal(out[0].cpu(), refs[0])
+    assert stats["groups_over_budget"] > 0
+
+
+@pytest.mark.parametrize("group_lanes", [32, 64, 128])
+def test_emit_group_sizes_agree(cuda_device, group_lanes):
+    """Each group size gives the same blocks (the look-back carry spans
+    many groups of a DRI-0 frame)."""
+    blob = encode(_rgb(130, 480, 640), quality=90)[0]
+    args, kw, l1, refs = _plan_inputs([blob], cuda_device, target_steps=16)
+    lanes, budget = entropy_emit_cuda.schedule(
+        1, args[0].shape[1], args[1].shape[1], args[5].shape[0], 1)
+    out, scratch = entropy_emit_cuda.buffers(
+        args[0], args[1], kw["n_mcus"], len(kw["block_comp"]), group_lanes)
+    entropy_emit_cuda.launch(args + (l1,), out, scratch,
+                             group_lanes=group_lanes, budget_words=budget,
+                             **kw)
+    torch.cuda.synchronize()
+    assert int(scratch[0]) == 0 and torch.equal(out[0].cpu(), refs[0])
+
+
+def test_emit_first_form_equals_new(cuda_device):
+    """The first-form baseline (testing/emit_v1.py) gives the same blocks
+    and flags as the kernel, corrupt words included."""
+    from jpeg_decoder_tpu_torch.testing import emit_v1
+
+    blob = encode(_rgb(140, 240, 320), quality=90)[0]
+    args, kw, l1, refs = _plan_inputs([blob], cuda_device)
+    out, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+    o1, e1 = emit_v1.decode_lanes_v1(*args, **kw, l1=l1)
+    assert torch.equal(out, o1) and torch.equal(err, e1)
+    pools = args[0].clone()
+    pools[0, pools.shape[1] // 3:pools.shape[1] // 3 + 6] = 0xFFFFFFFF
+    _, err = entropy_emit_cuda.decode_lanes(pools, *args[1:], **kw, l1=l1)
+    _, e1 = emit_v1.decode_lanes_v1(pools, *args[1:], **kw, l1=l1)
+    assert int(err[0]) == int(e1[0]) == 1
+
+
+def test_emit_shapes_in_any_order(cuda_device):
+    """Launches whose shared memory grows, shrinks and grows again (a
+    larger staging budget, then a smaller one, then the larger one, from
+    the per-shape cache) all run: the kernel's shared memory limit is never
+    lowered under a launch."""
+    blob = encode(_rgb(150, 240, 320), quality=90)[0]
+    args, kw, l1, refs = _plan_inputs([blob], cuda_device)
+    for budget in (30000, 512, 30000, 4096, 512):
+        out, scratch = entropy_emit_cuda.buffers(
+            args[0], args[1], kw["n_mcus"], len(kw["block_comp"]), 128)
+        entropy_emit_cuda.launch(args + (l1,), out, scratch,
+                                 group_lanes=128, budget_words=budget, **kw)
+        torch.cuda.synchronize()
+        assert int(scratch[0]) == 0 and torch.equal(out[0].cpu(), refs[0])
