@@ -137,13 +137,35 @@ kernel against its plain version:
    each count set to 0 just before: one launch each, scan blocks equal to
    ``native.decode_scan_baseline``, peak device memory, end-to-end ms, K7
    (against its first form, device time and events) and K2 by CUDA events;
+10b'''. sharded phase: ``decode_batch_sharded`` (``parallel/sharded.py``,
+   entropy decode on the card per geometry group), every count set to 0
+   just before each checked call: the batch of 32 under ``idct="pallas"``,
+   ``"exact"`` and ``"kron"``, each RGB equal to the nibble wire's
+   ``BatchDecoder`` under the same IDCT, K7 twice (the 24 DRI-0 1080p
+   images, the 4 1000x750 ones: two uniform groups) and K2 once (the 4
+   DRI-8 4:4:4 images' 16,200 segments), K1 or K5 9 times, no row patched
+   by the per-image fallback, no K7 lane group over budget nor LUT miss;
+   end-to-end MP/s (best of 3) in turns with the nibble wire and
+   ``BatchDecoder(entropy="hybrid")``, parse, host plan and device ms per
+   group, ``prepare_scan`` of (b); a bucketed group of six web-size frames
+   (one power-of-two bucket, DRI 0 and 8, two Huffman table sets, encoded
+   in the pool): one K7 launch, each RGB equal to its own ``decode()``,
+   K7 on the group equal to ``decode_lanes_torch`` on the card with the
+   rows sorted by table set and alternating between sets; the cost of one
+   table-set staging (K7 over the 24 DRI-0 1080p images with one set and
+   with two copies of it alternating by image, device time queued, the
+   stagings counted); the mixed frames: all 32 decoded, 22 through the host
+   fallback, RGB equal to the ``BatchDecoder``'s, MP/s in turns; the
+   8192x6144 frame: RGB equal to ``decode(entropy="hybrid")``, peak device
+   memory;
 10c. CLI phase: ``python -m jpeg_decoder_tpu_torch`` in subprocesses on the
    card over a temporary directory of three frames (1080p 4:2:0, CMYK,
    12-bit) and a non-JPEG file: ``--idct exact --strict --format bmp
-   --time``, ``--batch --idct pallas --format ppm`` (both rc 1 with the bad
-   file's error line), the 12-bit frame to ``.npy`` and a ``--resume`` rerun
-   that writes nothing; every output read back equals ``decode()`` on the
-   card (12-bit BMP/PPM as the high 8 bits);
+   --time``, ``--batch --idct pallas --format ppm`` and ``--batch
+   --device-entropy --idct pallas --format ppm`` (all rc 1 with the bad
+   file's error line), the 12-bit frame to ``.npy`` and a ``--resume``
+   rerun that writes nothing; every output read back equals ``decode()`` on
+   the card (12-bit BMP/PPM as the high 8 bits);
 11. probe phase (K3/K4, ``csrc/lut_probe.cu``): the dependent probe chain
    must equal the value tools/pallas_mosaic_repro.py expects and the
    per-lane gather must equal ``lut[idx]``; the kernels' device time per
@@ -1862,11 +1884,11 @@ def _python_planes(hdr):
 
 
 def _mixed_phase(dev, blobs: list, sources: list,
-                 futs: dict) -> tuple[int, dict]:
+                 futs: dict) -> tuple[int, dict, list]:
     """32 frames of every kind through one ``BatchDecoder`` (see the module
     docstring); ``futs`` the encode pool's jobs of :data:`MIXED_JOBS`.
-    Returns K1's launches in the checked run and the encoded frames (blob,
-    pixels) by kind."""
+    Returns K1's launches in the checked run, the encoded frames (blob,
+    pixels) by kind and the 32 blobs."""
     import torch
 
     from jpeg_decoder_tpu_torch import BatchDecoder, decode
@@ -1955,7 +1977,7 @@ def _mixed_phase(dev, blobs: list, sources: list,
               f"{t3 - t2:.1f} s)")
         if n_diff or len(nat) != len(ref):
             raise AssertionError(f"planes ({kind}): native != python")
-    return counts["K1"], enc
+    return counts["K1"], enc, batch
 
 
 def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
@@ -2257,6 +2279,327 @@ def _batch_exact_phase(dev, batch: list[bytes], mp: float,
     return c["K5"]
 
 
+# Sizes of the bucketed group of the sharded phase: web-photo sizes of one
+# power-of-two MCU bucket at 4:2:0 (33..64 MCUs a side), DRI 0 and 8, two
+# Huffman table sets.  (height, width, DRI, luma/chroma tables exchanged)
+DYN_JOBS = [(750, 1000, 0, False), (768, 1024, 8, True), (600, 800, 0, True),
+            (720, 960, 8, False), (540, 960, 0, False), (1024, 768, 8, True)]
+
+
+def _encode_dyn(seed: int, h: int, w: int, ri: int, swapped: bool) -> bytes:
+    """One frame of the bucketed group (a process-pool job)."""
+    from jpeg_decoder_tpu_torch.testing.encoder import (
+        encode, encode_swapped_tables)
+    from jpeg_decoder_tpu_torch.testing.photo import synthetic_photo
+
+    img = synthetic_photo(np.random.default_rng(seed), h, w)
+    enc = encode_swapped_tables if swapped else encode
+    return enc(img, quality=90, restart_interval=ri)[0]
+
+
+def _sharded_run(dev, blobs, idct: str) -> tuple:
+    """One checked ``decode_batch_sharded`` call, every count set to 0 just
+    before and read just after.  Returns (items, counts, timing); raises
+    when a group's K7 launch staged a group over budget or missed the
+    shared tables."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode_batch_sharded
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    items = decode_batch_sharded(blobs, dev, idct=idct, upsample="fancy")
+    torch.cuda.synchronize()
+    counts = _counts()
+    timing = decode_batch_sharded.last_timing
+    for g in timing["groups"]:
+        st = g.get("k7_stats")
+        if st and (st["groups_over_budget"] or st["lut_misses"]):
+            raise AssertionError(f"sharded {idct}: K7 counters {st}")
+    return items, counts, timing
+
+
+def _group_line(timing) -> str:
+    """Per group of a ``decode_batch_sharded`` call: its route and images,
+    the host plan (walks or ``prepare_scan``) and the rest of its dispatch
+    on the host clock, and its device ms after the plan (CUDA events on its
+    stream: copy + tables + entropy kernel, then planes + pixels)."""
+    return "; ".join(
+        f"{g['route']} x{g['images']}: host plan {g['host_s'] * 1e3:.2f} "
+        f"ms, enqueue {(g['dispatch_s'] - g['host_s']) * 1e3:.2f} ms; "
+        f"device copy+entropy {_fmt_ms(g.get('entropy_ms'))} ms, pixels "
+        f"{_fmt_ms(g.get('pixels_ms'))} ms"
+        + (f"; K7 {g['k7_stats']}" if g.get("k7_stats") else "")
+        for g in timing["groups"])
+
+
+def _k7_group_fn(args, kw, l1):
+    """A K7 launch of a bucketed group on preallocated buffers (no checks,
+    no count): ``fn()`` zero-fills the scratch and launches.  Returns (fn,
+    out, scratch)."""
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+
+    pools, starts = args[0], args[1]
+    lanes, budget = k7.schedule(pools.shape[0], pools.shape[1],
+                                starts.shape[1], 2 * kw["n_comps"],
+                                k7._n_sms(pools.device))
+    kw = dict(kw)
+    rows = kw.pop("rows", None)
+    out, scratch = k7.buffers(pools, starts, kw["n_mcus"],
+                              len(kw["block_comp"]), lanes, rows=rows)
+
+    def fn():
+        scratch.zero_()
+        k7.launch(args + (l1,), out, scratch, group_lanes=lanes,
+                  budget_words=budget, **kw)
+    return fn, out, scratch
+
+
+def _restage_cost(dev, batch: list) -> dict:
+    """The cost of a table-set staging in K7: the batch's 24 DRI-0 1080p
+    images in one launch (840 lane groups on a persistent grid, so a CTA
+    takes several tickets), with one table set (each CTA stages once) and
+    with that set stacked twice and the images pointed at the two copies
+    alternately (a CTA stages again whenever its next ticket is on an
+    image of the other copy).  Both equal; their device time (queued,
+    median of 3 x 20, in turns) and table stagings give the time of one
+    extra staging."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+
+    hdrs = [parser.parse(b) for k, b in enumerate(batch) if k % 8 < 6]
+    args, kw, l1, _ = _k7_inputs(hdrs[0], [h.scans[0] for h in hdrs], dev)
+    ref, _ = k7.decode_lanes(*args, **kw, l1=l1)
+    stack = args[:5] + (torch.cat([args[5], args[5]]),)
+    l1_2 = torch.cat([l1, l1])
+    n = len(hdrs)
+    rec, fns = {}, {}
+    alternating = torch.tensor([6 * (k % 2) for k in range(n)],
+                               dtype=torch.int32, device=dev)
+    for label, a, kw_l, l1_l in (
+            ("one set", args, kw, l1),
+            ("alternating", stack, dict(kw, lut_base=alternating), l1_2)):
+        fns[label], out, scratch = _k7_group_fn(a, kw_l, l1_l)
+        fns[label]()
+        torch.cuda.synchronize()
+        st = k7.stats(scratch, n)
+        if (not torch.equal(out, ref) or scratch[:n].any()
+                or st["groups_over_budget"] or st["lut_misses"]):
+            raise AssertionError(f"K7 two sets ({label}): differs from the "
+                                 f"one-set launch, counters {st}")
+        rec[label] = {"table_stages": st["table_stages"], "device_ms": []}
+    del ref
+    for _ in range(3):
+        for label in ("alternating", "one set", "one set", "alternating"):
+            rec[label]["device_ms"].append(_queued_ms(fns[label], 20))
+    for r in rec.values():
+        r["device_ms"] = statistics.median(r["device_ms"])
+    extra = (rec["alternating"]["table_stages"]
+             - rec["one set"]["table_stages"])
+    rec["restage_us"] = ((rec["alternating"]["device_ms"]
+                          - rec["one set"]["device_ms"]) * 1e3
+                         / max(1, extra))
+    print(f"K7 table-set staging: B = {n} 1080p DRI-0 images, one table set "
+          "and two copies of it alternating by image, outputs equal; device "
+          "time (queued, median of 3 x 20, in turns) one set "
+          f"{rec['one set']['device_ms']:.4f} ms "
+          f"({rec['one set']['table_stages']} stagings), alternating "
+          f"{rec['alternating']['device_ms']:.4f} ms "
+          f"({rec['alternating']['table_stages']} stagings): "
+          f"{rec['restage_us']:.3f} us of device time per extra staging")
+    return {"restage": rec}
+
+
+def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
+                   big_blob: bytes) -> dict:
+    """``decode_batch_sharded`` on the card (see the module docstring):
+    the batch of 32 under three IDCTs, a bucketed group, the mixed frames
+    and the 8192x6144 frame.  Returns the launch counts by path and K7's
+    bucketed-group record."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import (BatchDecoder, decode,
+                                        decode_batch_sharded)
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, entropy_spec
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+    from jpeg_decoder_tpu_torch.ops import scan_prep
+
+    med = statistics.median
+    launches = {}
+    # The batch of 32: three groups, K7 over the 24 DRI-0 1080p images and
+    # over the 4 1000x750 ones, K2 over the 4 DRI-8 4:4:4 ones' 16,200
+    # restart segments; RGB equal to the nibble wire's under each IDCT.
+    want = {"K7": 2, "K2": 1}
+    for idct in ("pallas", "exact", "kron"):
+        with BatchDecoder(device=dev, idct=idct) as bd:
+            ref = bd.decode(batch)
+            decode_batch_sharded(batch, dev, idct=idct)      # warm-up
+            items, counts, timing = _sharded_run(dev, batch, idct)
+            n_rgb = _n_rgb_differ(ref, items)
+            bad = [it.index for it in items if not it.ok]
+            got = {k: counts[k] for k in want}
+            idct_k = {"pallas": "K1", "exact": "K5"}.get(idct)
+            if (bad or n_rgb or got != want or timing["fallback_rows"]
+                    or (idct_k and counts[idct_k] != 9)):
+                raise AssertionError(
+                    f"sharded batch {idct}: failed {bad}, {n_rgb} images "
+                    f"differ from the nibble wire, launches {counts}, "
+                    f"{timing['fallback_rows']} rows patched")
+            launches[f"batch {idct}"] = counts
+            del ref, items
+            line = (f"sharded batch of 32, idct={idct}: launches {counts}; "
+                    "RGB equal to the nibble wire's on all 32; 0 rows "
+                    f"patched; parse {timing['parse_s'] * 1e3:.2f} ms; "
+                    f"groups: {_group_line(timing)}")
+            if idct == "pallas":
+                turns = {"nibble": [], "sharded": [], "hybrid": []}
+                with BatchDecoder(device=dev, idct="pallas",
+                                  entropy="hybrid") as hy:
+                    hy.decode(batch)
+                    fns = {"nibble": lambda: bd.decode(batch),
+                           "sharded": lambda: decode_batch_sharded(
+                               batch, dev, idct="pallas"),
+                           "hybrid": lambda: hy.decode(batch)}
+                    for _ in range(3):
+                        for k in ("nibble", "sharded", "hybrid"):
+                            turns[k].append(_wall(lambda f=fns[k]: (
+                                f(), torch.cuda.synchronize())))
+                sh = decode_batch_sharded.last_timing
+                line += ("; end to end (best of 3, in turns): " + ", ".join(
+                    f"{k} {mp / min(v):.1f} MP/s ({min(v) * 1e3:.1f} ms)"
+                    for k, v in turns.items())
+                    + f"; last sharded call: parse {sh['parse_s'] * 1e3:.2f}"
+                    f" ms, dispatch {sh['dispatch_s'] * 1e3:.2f} ms, flags "
+                    f"{sh['finish_s'] * 1e3:.2f} ms; {_group_line(sh)}")
+                launches["e2e_mp_per_s"] = {k: mp / min(v)
+                                            for k, v in turns.items()}
+        print(line)
+    hdr_b = parser.parse(batch[6])
+    prep = min(_wall(lambda: scan_prep.prepare_scan(hdr_b, hdr_b.scans[0]))
+               for _ in range(3))
+    print(f"sharded: scan_prep.prepare_scan of (b) (1080p 4:4:4 DRI 8, "
+          f"4,050 segments) {prep * 1e3:.2f} ms (best of 3)")
+
+    # The bucketed group: one K7 launch with two table sets.
+    hdrs = [parser.parse(b) for b in dyn]
+    items, counts, timing = _sharded_run(dev, dyn, "pallas")
+    g = timing["groups"]
+    if (counts["K7"] != 1 or counts["K2"] or len(g) != 1
+            or g[0]["route"] != "dyn" or g[0]["table_sets"] < 2
+            or timing["fallback_rows"]):
+        raise AssertionError(f"sharded bucket: launches {counts}, groups "
+                             f"{g}, {timing['fallback_rows']} rows patched")
+    for it, blob in zip(items, dyn):
+        one = decode(blob, idct="pallas", upsample="fancy", device=dev).rgb
+        if not it.ok or not torch.equal(it.rgb, one):
+            raise AssertionError(f"sharded bucket: image {it.index} differs "
+                                 "from decode()")
+    launches["bucket"] = counts
+    plan = entropy_spec.plan_bucket_group(hdrs, [h.scans[0] for h in hdrs])
+    luts, l1 = entropy_cuda.device_table_stack(plan.sets, dev)
+    bpm = 6
+
+    def group_args(rows_order):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                a[rows_order])).to(dev)
+        args = (t(plan.pools), t(plan.starts), t(plan.nm_lane),
+                t(plan.lane_off), None, luts)
+        kw = dict(block_comp=(0, 0, 0, 0, 1, 2), n_comps=3,
+                  n_mcus=plan.n_mcus, trips=plan.trips, precision=8,
+                  rows=plan.n_mcus * bpm + 1, lut_base=t(plan.lut_base),
+                  n_mcus_img=t(plan.n_mcus_img), ri=t(plan.ri))
+        return args, kw
+
+    sets = plan.lut_base.tolist()
+    alternate = sorted(range(len(sets)),
+                       key=lambda r: (sets[:r].count(sets[r]), sets[r]))
+    rec = {"images": len(dyn), "table_sets": len(plan.sets),
+           "C": int(plan.starts.shape[1]), "T_sym": int(plan.trips)}
+    for label, order in (("sorted", list(range(len(sets)))),
+                         ("alternating", alternate)):
+        args, kw = group_args(order)
+        out, err = k7.decode_lanes(*args, **kw, l1=l1)
+        torch.cuda.synchronize()
+        st = dict(zip(k7.STATS, k7.decode_lanes.last_stats.tolist()))
+        p_out, p_err = k7.decode_lanes_torch(*args, **kw)
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0),
+                                 int((p_out - out).abs().max()))
+        if (rec["max_abs_err"] or err.any() or not torch.equal(p_err, err)
+                or st["groups_over_budget"] or st["lut_misses"]):
+            raise AssertionError(f"K7 bucket ({label}): differs from "
+                                 f"decode_lanes_torch or counters {st}")
+        rec[f"{label}_table_stages"] = st["table_stages"]
+        del p_out, out
+    print(f"sharded bucket: {len(dyn)} frames ("
+          + ", ".join(f"{w}x{h} DRI {r}" for h, w, r, _ in DYN_JOBS)
+          + f"), {len(plan.sets)} table sets, one K7 launch (launches "
+          f"{counts}), RGB equal to each frame's decode() on the card; "
+          f"{_group_line(timing)}; K7 on the group equal to "
+          "decode_lanes_torch on the card with the rows sorted by set "
+          f"({rec['sorted_table_stages']} table stagings) and alternating "
+          f"({rec['alternating_table_stages']})")
+    rec.update(_restage_cost(dev, batch))
+
+    # The mixed frames: the device routes and the host fallback, equal to
+    # the mixed phase's BatchDecoder.
+    with BatchDecoder(device=dev, idct="pallas") as bd:
+        ref = bd.decode(mixed)
+        decode_batch_sharded(mixed, dev, idct="pallas")      # warm-up
+        items, counts, timing = _sharded_run(dev, mixed, "pallas")
+        bad = [it.index for it in items if not it.ok]
+        n_rgb = _n_rgb_differ(ref, items)
+        if (bad or n_rgb or timing["host_fallback"] != 22
+                or timing["fallback_rows"]):
+            raise AssertionError(f"sharded mixed: failed {bad}, {n_rgb} "
+                                 f"differ, {timing['host_fallback']} on the "
+                                 "host fallback")
+        launches["mixed"] = counts
+        del ref, items
+        m_mp = sum(parser.parse(b).width * parser.parse(b).height
+                   for b in mixed) / 1e6
+        turns = {"BatchDecoder": [], "sharded": []}
+        for _ in range(2):
+            for k in ("sharded", "BatchDecoder", "BatchDecoder", "sharded"):
+                fn = ((lambda: bd.decode(mixed)) if k == "BatchDecoder"
+                      else (lambda: decode_batch_sharded(mixed, dev,
+                                                         idct="pallas")))
+                turns[k].append(_wall(lambda f=fn: (
+                    f(), torch.cuda.synchronize())))
+    print(f"sharded mixed: all {len(mixed)} decoded, RGB equal to the "
+          f"BatchDecoder's; {timing['host_fallback']} frames on the host "
+          f"fallback ({timing['fallback_s'] * 1e3:.1f} ms); launches "
+          f"{counts}; {_group_line(timing)}; end to end (best of 4, in "
+          "turns): " + ", ".join(f"{k} {m_mp / min(v):.1f} MP/s"
+                                 for k, v in turns.items()))
+
+    # The 8192x6144 DRI-0 frame.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    items, counts, timing = _sharded_run(dev, [big_blob], "pallas")
+    e2e = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    one = decode(big_blob, entropy="hybrid", idct="pallas", upsample="fancy",
+                 device=dev).rgb
+    if not items[0].ok or not torch.equal(items[0].rgb, one) or \
+            counts["K7"] != 1:
+        raise AssertionError(f"sharded {BIG}: differs from decode(hybrid) "
+                             f"or launches {counts}")
+    launches["big"] = counts
+    del items, one
+    print(f"sharded {BIG[0]}x{BIG[1]}: RGB equal to decode(entropy=hybrid); "
+          f"launches {counts}; {e2e * 1e3:.1f} ms end to end (first call "
+          f"after the others); peak device memory {peak / 2**20:.1f} MiB; "
+          f"{_group_line(timing)}")
+    rec["launches"] = launches
+    return rec
+
+
+
 def _cli_phase(dev, frames: dict) -> None:
     """``python -m jpeg_decoder_tpu_torch`` in subprocesses on the card over
     a temporary directory of three frames (1080p 4:2:0, CMYK, 12-bit) and a
@@ -2311,11 +2654,14 @@ def _cli_phase(dev, frames: dict) -> None:
         p3, t3 = run("--idct", "exact", "-o", npy, paths[2])
         p4, t4 = run("--batch", "--idct", "pallas", "--format", "ppm",
                      "--resume", "-o", out2, *paths)
-        for p, rc in ((p1, 1), (p2, 1), (p3, 0), (p4, 0)):
+        out5 = os.path.join(d, "device_entropy")
+        p5, t5 = run("--batch", "--device-entropy", "--idct", "pallas",
+                     "--format", "ppm", "-o", out5, *inputs)
+        for p, rc in ((p1, 1), (p2, 1), (p3, 0), (p4, 0), (p5, 1)):
             if p.returncode != rc:
                 raise AssertionError(f"CLI rc {p.returncode} != {rc}:\n"
                                      f"{p.stdout}\n{p.stderr}")
-        for p in (p1, p2):
+        for p in (p1, p2, p5):
             if f"{bad}: ERROR: not a JPEG file (missing SOI)" not in p.stderr:
                 raise AssertionError(f"CLI error line missing:\n{p.stderr}")
         if p4.stdout.count("exists, skipped") != 3 or " -> " in p4.stdout:
@@ -2327,26 +2673,30 @@ def _cli_phase(dev, frames: dict) -> None:
             pal = decode(path, idct="pallas", device=dev).rgb
             got_bmp = writers.read_bmp(os.path.join(out1, f"{base}.bmp"))
             got_ppm = ppm(os.path.join(out2, f"{base}.ppm"))
+            got_dev = ppm(os.path.join(out5, f"{base}.ppm"))
             if not (np.array_equal(got_bmp, as8(exact))
-                    and np.array_equal(got_ppm, as8(pal))):
+                    and np.array_equal(got_ppm, as8(pal))
+                    and np.array_equal(got_dev, as8(pal))):
                 raise AssertionError(f"CLI outputs of {base} differ from "
                                      "decode() on the card")
-            n_checked += 2
+            n_checked += 3
         if not np.array_equal(np.load(npy), decode(
                 paths[2], idct="exact", device=dev).rgb.cpu().numpy()):
             raise AssertionError("CLI .npy of the 12-bit frame differs")
     timing = [ln for ln in p1.stdout.splitlines() if "MP/s" in ln]
     print(f"CLI: single --idct exact --strict bmp rc 1 ({t1:.1f} s), batch "
           f"--idct pallas ppm rc 1 ({t2:.1f} s), 12-bit to .npy rc 0 "
-          f"({t3:.1f} s), --resume rc 0 wrote nothing ({t4:.1f} s); the bad "
-          f"file's error line in both; {n_checked + 1} outputs read back "
+          f"({t3:.1f} s), --resume rc 0 wrote nothing ({t4:.1f} s), --batch "
+          f"--device-entropy --idct pallas ppm rc 1 ({t5:.1f} s); the bad "
+          f"file's error line in all three; {n_checked + 1} outputs read "
+          "back "
           f"equal to decode() on the card; per-image lines: {timing}")
 
 
-def _phases(dev, pool, big_fut, mixed_futs) -> int:
+def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     """Every phase after the build, in order (see the module docstring);
-    ``pool`` the encode pool with the big frame's and the mixed frames'
-    jobs."""
+    ``pool`` the encode pool with the big frame's, the mixed frames' and
+    the bucketed group's jobs."""
     import torch
 
     from jpeg_decoder_tpu_torch import decode
@@ -2365,7 +2715,8 @@ def _phases(dev, pool, big_fut, mixed_futs) -> int:
     torch.cuda.empty_cache()
     k1_waves = _waves_phase(dev, batch, mp)
     torch.cuda.empty_cache()
-    k1_mixed, enc = _mixed_phase(dev, blobs, sources, mixed_futs)
+    k1_mixed, enc, mixed_batch = _mixed_phase(dev, blobs, sources,
+                                              mixed_futs)
     torch.cuda.empty_cache()
     k5_batch = _batch_exact_phase(dev, batch, mp, wires["nibble"]["mp_per_s"])
     torch.cuda.empty_cache()
@@ -2407,10 +2758,15 @@ def _phases(dev, pool, big_fut, mixed_futs) -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     big_blob = big_fut.result()
-    pool.shutdown()
     print(f"big frame: encoded in the pool, {time.perf_counter() - t0:.1f} s "
           "more waited for here (set-up)")
     k7["big_frame"] = _big_frame_phase(dev, big_blob)
+    torch.cuda.empty_cache()
+    k7["sharded_bucket"] = _sharded_phase(
+        dev, batch, mp, mixed_batch, [f.result() for f in dyn_futs],
+        big_blob)
+    sharded = k7["sharded_bucket"].pop("launches")
+    pool.shutdown()
     del big_blob
     torch.cuda.empty_cache()
     _cli_phase(dev, {**strict_frames, "c": images["c"]})
@@ -2431,25 +2787,33 @@ def _phases(dev, pool, big_fut, mixed_futs) -> int:
         "decode CMYK entropy=pallas idct=pallas": strict_counts["K1"],
         "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K1"],
         "BatchDecoder entropy=jax": lanes_batch["jax"]["K1"],
-        "decode jax/hybrid": lanes_counts["K1"]}
+        "decode jax/hybrid": lanes_counts["K1"],
+        **{f"decode_batch_sharded {k}": v["K1"] for k, v in sharded.items()
+           if k != "e2e_mp_per_s"}}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "BatchDecoder entropy=pallas": pallas_counts["K2"],
         "decode": counts["K2"], "decode strict": strict_counts["K2"],
         "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K2"],
         "BatchDecoder entropy=jax": lanes_batch["jax"]["K2"],
-        "decode jax/hybrid": lanes_counts["K2"]}
+        "decode jax/hybrid": lanes_counts["K2"],
+        **{f"decode_batch_sharded {k}": v["K2"] for k, v in sharded.items()
+           if k != "e2e_mp_per_s"}}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k2["by_image"].update(k2_12)
     for rec, key in zip(probes, ("K3", "K4")):
         rec["launches"] = counts[key]   # on no path: 0
     k5["launches_by_path"] = {"decode strict": strict_counts["K5"],
                               "BatchDecoder idct=exact": k5_batch,
-                              "decode jax/hybrid": lanes_counts["K5"]}
+                              "decode jax/hybrid": lanes_counts["K5"],
+                              "decode_batch_sharded batch exact":
+                                  sharded["batch exact"]["K5"]}
     k5["launches"] = sum(k5["launches_by_path"].values())
     k7["launches_by_path"] = {
         "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K7"],
-        "decode jax/hybrid": lanes_counts["K7"]}
+        "decode jax/hybrid": lanes_counts["K7"],
+        **{f"decode_batch_sharded {k}": v["K7"] for k, v in sharded.items()
+           if k != "e2e_mp_per_s"}}
     k7["launches"] = sum(k7["launches_by_path"].values())
     print(json.dumps({"kernels": [k1, k2, *probes, k5, k7]}))
     print(json.dumps({"ok": True, "device": {
@@ -2486,8 +2850,10 @@ def main() -> int:
     big_fut = pool.submit(_encode_big, SEED + 1)
     mixed_futs = {k: pool.submit(_encode_job, *v) for k, v in
                   sorted(MIXED_JOBS.items(), key=lambda kv: -kv[1][1])}
+    dyn_futs = [pool.submit(_encode_dyn, SEED + 40 + k, *job)
+                for k, job in enumerate(DYN_JOBS)]
     try:
-        return _phases(dev, pool, big_fut, mixed_futs)
+        return _phases(dev, pool, big_fut, mixed_futs, dyn_futs)
     finally:
         # A failed phase must not leave encoder processes behind.
         for proc in list((pool._processes or {}).values()):

@@ -1,13 +1,17 @@
 """jpeg_decoder_tpu_torch — the PyTorch/CUDA port of jpeg_decoder_tpu.
 
-Two entry points: the batched serving path :class:`BatchDecoder` (host
+Three entry points: the batched serving path :class:`BatchDecoder` (host
 parse, entropy decode to one of four wire formats, geometry grouping, then
 unpack, plane gather, dequant+IDCT, fancy upsample and YCbCr->RGB on the
-device, in waves that overlap host and device work) and the single-image
-:func:`decode` (host parse and scan prep, then Huffman decode, plane gather,
-dequant+IDCT, upsample and colour on the device).  Progressive, arithmetic,
-multi-scan and restart-mismatched frames (and, in the batch, 12-bit
-ones) decode to host planes first.  :func:`decode_to_file` writes the result (``io/writers.py``) and
+device, in waves that overlap host and device work); the batch with entropy
+decode on the device, :func:`decode_batch_sharded` (``parallel/sharded.py``:
+per geometry group one launch of the emit-lane kernel
+(``csrc/entropy_emit.cu``) or of the Huffman decoder over every restart
+segment, then plane gather and pixels); and the single-image :func:`decode`
+(host parse and scan prep, then Huffman decode, plane gather, dequant+IDCT,
+upsample and colour on the device).  Progressive, arithmetic, multi-scan and
+restart-mismatched frames (and, in ``BatchDecoder``, 12-bit ones) decode to
+host planes first.  :func:`decode_to_file` writes the result (``io/writers.py``) and
 ``python -m jpeg_decoder_tpu_torch`` is the command-line tool (``cli.py``).
 Their device kernels are hand-written CUDA for Hopper: the Kronecker
 dequant+IDCT (``csrc/idct.cu``), the strict AAN dequant+IDCT
@@ -22,8 +26,9 @@ under ``.cache/torch/``).
 from .io.parser import parse, parse_file
 from .models.batch import BatchDecoder, BatchItem, decode_batch
 from .models.decoder import DecodeResult, decode, decode_to_file
+from .parallel.sharded import decode_batch_sharded
 from .types import FrameHeader, JPEGError
 
 __all__ = ["BatchDecoder", "BatchItem", "DecodeResult", "FrameHeader",
-           "JPEGError", "decode", "decode_batch", "decode_to_file", "parse",
-           "parse_file"]
+           "JPEGError", "decode", "decode_batch", "decode_batch_sharded",
+           "decode_to_file", "parse", "parse_file"]

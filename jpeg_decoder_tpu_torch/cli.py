@@ -14,8 +14,9 @@ Under ``--idct exact`` (with or without ``--strict``: the port has no fused
 variant) the written images equal the JAX CLI's ``--strict`` output byte for
 byte.  PNG output and ``--show`` need Pillow; ``--format bmp``/``ppm`` (or an
 ``.npy`` output path, which keeps 12-bit samples) need nothing.
-``--device-entropy`` (the JAX package's sharded device-entropy route) is not
-ported: it prints so and exits 2.
+``--batch --device-entropy`` decodes through
+``parallel.sharded.decode_batch_sharded`` (entropy decode on the device per
+geometry group); without ``--batch`` the flag is ignored, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -84,8 +85,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="decode all inputs through the batched device "
                         "pipeline (geometry-grouped single dispatches)")
     p.add_argument("--device-entropy", action="store_true",
-                   help="with --batch: fully device-resident path "
-                        "(not ported)")
+                   help="with --batch: fully device-resident path (entropy "
+                        "decode on the device per geometry group)")
     return p
 
 
@@ -103,11 +104,6 @@ def main(argv=None) -> int:
                         format="%(levelname)s %(name)s: %(message)s")
     logging.getLogger("jpeg_decoder_tpu_torch").setLevel(
         [logging.WARNING, logging.INFO, logging.DEBUG][min(args.verbose, 2)])
-    if args.device_entropy:
-        print("--device-entropy is not ported (the sharded device-entropy "
-              "route); use --entropy pallas", file=sys.stderr)
-        return 2
-
     from . import decode
     from .io import writers
     from .models.routing import resolve_device
@@ -195,7 +191,8 @@ def main(argv=None) -> int:
 
 
 def _run_batch(args, timer, outdir, cfg, device) -> int:
-    """Batched decode path: all inputs through BatchDecoder.
+    """Batched decode path: all inputs through BatchDecoder, or with
+    ``--device-entropy`` through ``decode_batch_sharded``.
 
     Output naming matches the single-image path: -o names a FILE for a
     single input and a directory otherwise; per-input failures (unreadable
@@ -240,10 +237,20 @@ def _run_batch(args, timer, outdir, cfg, device) -> int:
     if not blobs:
         return rc
     t0 = time.perf_counter()
-    with BatchDecoder(device=device, **cfg.batch_kwargs()) as bd:
-        with timer.stage("batch decode"):
-            items = bd.decode(blobs)
+    if args.device_entropy:
+        # Entropy decode on the device per geometry group.
+        from .parallel.sharded import decode_batch_sharded
+
+        with timer.stage("batch decode (device entropy)"):
+            items = decode_batch_sharded(blobs, device, idct=args.idct,
+                                         upsample=args.upsample)
             rgbs = [it.rgb.cpu().numpy() if it.ok else None for it in items]
+    else:
+        with BatchDecoder(device=device, **cfg.batch_kwargs()) as bd:
+            with timer.stage("batch decode"):
+                items = bd.decode(blobs)
+                rgbs = [it.rgb.cpu().numpy() if it.ok else None
+                        for it in items]
     dt = time.perf_counter() - t0
 
     total_mp = 0.0

@@ -5,13 +5,20 @@
 // jpeg_decoder_tpu/ops/entropy_flat.py:decode_emit2 (the emission decoder)
 // with ops/entropy_spec.py:_hybrid_pipeline_batch_emit (the scatter into
 // scan order through ZIGZAG_INV) and :_dc_prefix_sum_seg (the segmented DC
-// prefix sum).  It computes the same function: B images, C lanes each; lane
-// (b, j) starts at the true start bit starts[b, j] of MCU m_lo = lane_off /
-// (64 * bpm) and decodes nm[b, j] contiguous MCUs of bpm blocks.  The output
-// is (B, n_mcus * bpm, 64) int32 natural-order blocks in scan order, DC as
-// the prefix sum of the differences per component, reset at every restart
-// segment (seg_first[m] is the first MCU of MCU m's segment), wrapping as
-// int32 as jnp.cumsum does; plus a (B,) error flag.  An image is flagged,
+// prefix sum), and the geometry-bucketed form of them that
+// jpeg_decoder_tpu/parallel/sharded.py:_hybrid_full_step_emit_dyn runs (its
+// `lut_base` and per-image geometry).  It computes the same function: B
+// images, C lanes each; lane (b, j) starts at the true start bit starts[b, j]
+// of MCU m_lo = lane_off / (64 * bpm) and decodes nm[b, j] contiguous MCUs of
+// bpm blocks of image b's n_mcus_img[b] (n_mcus, the bucket's, when not
+// given), with the Huffman tables lut_base[b] .. lut_base[b] + 2 * n_comps - 1
+// of a stack of table sets (0 when not given).  The output is (B, rows, 64)
+// int32 natural-order blocks in scan order (rows >= n_mcus * bpm), DC as the
+// prefix sum of the differences per component, reset at every restart
+// segment, wrapping as int32 as jnp.cumsum does; rows past n_mcus_img[b] *
+// bpm are zeros; plus a (B,) error flag.  The first MCU of MCU m's segment
+// is seg_first[m] when that array is given, else (m / ri[b]) * ri[b] (0 for
+// DRI 0 or no ri), as sharded.py:829-838 derives it.  An image is flagged,
 // as decode_emit2 flags a lane, on
 //   an LUT entry of 0;
 //   a DC size over max_dc or an AC size over max_ac (11, 10 for 8-bit
@@ -22,7 +29,8 @@
 // plan that does not tile the image's MCUs in order (a lane_off that is not
 // an MCU start, a lane past n_mcus, a gap or overlap between consecutive
 // lanes) or a lane whose first and last MCUs lie in different restart
-// segments.  The blocks of a flagged image are unspecified (the wrapper's
+// segments, or on an n_mcus_img outside [1, n_mcus] or a table set outside
+// the stack.  The blocks of a flagged image are unspecified (the wrapper's
 // callers raise).  An image with no lane (nm[b, 0] <= 0: its host walk
 // failed) decodes to zeros unflagged, as the JAX function does.
 //
@@ -37,9 +45,13 @@
 // memory, zero-filled the output before the launch, and carried DC in two
 // more launches (one CTA per image, one per lane).  This one is a single
 // launch of persistent CTAs (a few per SM, as many as shared memory allows):
-//  * Each CTA stages the first-level tables once, and builds in shared
-//    memory a second level for every 12-bit prefix of a longer code, so that
-//    no probe reads device memory (`misses` counts those that still do).
+//  * Each CTA stages the first-level tables of one table set, and builds in
+//    shared memory a second level for every 12-bit prefix of a longer code,
+//    so that no probe reads device memory (`misses` counts those that still
+//    do).  Shared memory holds one set: when a ticket lands on an image of
+//    another set, the CTA stages and builds again (`stages` counts each
+//    staging); callers order a batch's images by set, so that a CTA seldom
+//    does.
 //  * It then takes lane groups by ticket (an atomic counter, in order): a
 //    group is `blockDim.x` consecutive lanes of one image, one thread each.
 //    A valid plan's lanes are consecutive in the stream, so the group reads
@@ -63,6 +75,9 @@
 //    inclusive sum, and adds each lane's carry-in to its blocks' DC terms
 //    (the lane-local terms of its first kDcSlots blocks kept in shared
 //    memory, so those are stores, not reads).
+//  * Each group also zeroes its share of the rows past its image's blocks
+//    (a bucket's tail, and the fill row a caller may ask for), or of all the
+//    image's rows when it has no lane.
 //    Tickets are taken in order by running CTAs, so a group only waits on
 //    groups whose aggregate does not wait on anything: no deadlock,
 //    whatever the scheduling order.
@@ -78,7 +93,7 @@ namespace {
 
 constexpr int kL1Bits = 12;                 // first-level table index bits
 constexpr int kL1Size = 1 << kL1Bits;
-constexpr int kMaxTables = 8;               // 2 * at most 4 components
+constexpr int kMaxTables = 8;               // one set: 2 * <= 4 components
 constexpr int kMaxLanes = 128;              // threads (lanes) per CTA, most
 constexpr int kWarps = kMaxLanes / 32;
 constexpr int kL2Slots = 128;               // second-level tables of 16
@@ -100,20 +115,25 @@ struct Params {
   const int32_t* starts;      // (B, C) lane start bits within the pool row
   const int32_t* nm;          // (B, C) MCUs per lane (0: no lane)
   const int64_t* lane_off;    // (B, C) coefficient slot of the first block
-  const int32_t* seg_first;   // (n_mcus,) first MCU of each MCU's segment
-  const int32_t* luts;        // (n_tables, 65536)
-  const int16_t* l1;          // (n_tables, kL1Size)
-  int32_t* out;               // (B, n_mcus * bpm, 64), not initialised
+  const int32_t* seg_first;   // (n_mcus,) first MCU of each MCU's segment,
+                              // or null: from ri
+  const int32_t* lut_base;    // (B,) first table of each image's set, or null
+  const int32_t* n_mcus_img;  // (B,) each image's MCUs, or null: n_mcus
+  const int32_t* ri;          // (B,) each image's restart interval, or null
+  const int32_t* luts;        // (n_stack, 65536)
+  const int16_t* l1;          // (n_stack, kL1Size)
+  int32_t* out;               // (B, rows, 64), not initialised
   int32_t* err;               // (B,), zero-filled
   uint32_t* scratch;          // header + status per group, zero-filled
-  int64_t n_img, n_words, n_mcus, trips, n_groups;
+  int64_t n_img, n_words, n_mcus, rows, trips, n_groups;
   uint64_t comp_code;         // component of block k in bits 4k..4k+3
-  int lanes_per_img, groups_per_img, n_tables, bpm, max_dc, max_ac;
+  int lanes_per_img, groups_per_img, n_tables, n_stack, bpm, max_dc, max_ac;
   int budget_words;           // staged words per group, a multiple of 4
 };
 
 // Scratch header words.
-constexpr int kTicket = 0, kStaged = 1, kOverBudget = 2, kMisses = 3;
+constexpr int kTicket = 0, kStaged = 1, kOverBudget = 2, kMisses = 3,
+              kStages = 4;
 
 // ---- Copies and flags (PTX) ----------------------------------------------
 
@@ -217,33 +237,52 @@ struct Tables {
 
 // ---- The plan ------------------------------------------------------------
 
+// Image b's MCUs, or -1 when n_mcus_img[b] is outside [1, n_mcus].
+__device__ __forceinline__ int64_t img_mcus(const Params& p, int64_t b) {
+  if (p.n_mcus_img == nullptr) return p.n_mcus;
+  const int64_t n = p.n_mcus_img[b];
+  return n >= 1 && n <= p.n_mcus ? n : -1;
+}
+
+// The first MCU of the restart segment of image b's MCU m (m < n_mcus).
+__device__ __forceinline__ int64_t seg_start(const Params& p, int64_t b,
+                                             int64_t m) {
+  if (p.seg_first != nullptr) return p.seg_first[m];
+  const int64_t r = p.ri != nullptr ? p.ri[b] : 0;
+  return r > 0 ? m / r * r : 0;
+}
+
 // Lane g's first MCU, or -1 when its plan is malformed: lane_off is not an
-// MCU start or the lane runs past n_mcus.  nm must be > 0.
-__device__ __forceinline__ int64_t first_mcu(const Params& p, int64_t g) {
+// MCU start or the lane runs past the image's n_mcus (n >= 1).  nm must be
+// > 0.
+__device__ __forceinline__ int64_t first_mcu(const Params& p, int64_t g,
+                                             int64_t n) {
   const int64_t per_mcu = 64LL * p.bpm;
   const int64_t off = p.lane_off[g];
   if (off < 0 || off % per_mcu != 0) return -1;
   const int64_t m = off / per_mcu;
-  return m + p.nm[g] <= p.n_mcus ? m : -1;
+  return m + p.nm[g] <= n ? m : -1;
 }
 
 // Lane (b, j)'s first MCU when its plan is part of one that tiles the
 // image's MCUs in order (lane 0 starts at MCU 0, each lane ends where the
-// next one starts, the last lane with MCUs ends at n_mcus) and its MCUs lie
-// in one restart segment; -1 for a lane without MCUs, -2 for a malformed
-// lane (its image is flagged).
+// next one starts, the last lane with MCUs ends at the image's n_mcus) and
+// its MCUs lie in one restart segment; -1 for a lane without MCUs, -2 for a
+// malformed lane (its image is flagged).
 __device__ __forceinline__ int64_t lane_mcu(const Params& p, int64_t b,
                                             int j) {
   const int64_t g = b * p.lanes_per_img + j;
   if (p.nm[g] <= 0) return -1;
-  const int64_t m_lo = first_mcu(p, g);
+  const int64_t n = img_mcus(p, b);
+  if (n < 0) return -2;
+  const int64_t m_lo = first_mcu(p, g, n);
   if (m_lo < 0) return -2;
   if (j == 0 ? m_lo != 0 : p.nm[g - 1] <= 0) return -2;
   const int64_t end = m_lo + p.nm[g];
-  if (p.seg_first[end - 1] != p.seg_first[m_lo]) return -2;
+  if (seg_start(p, b, end - 1) != seg_start(p, b, m_lo)) return -2;
   if (j + 1 < p.lanes_per_img && p.nm[g + 1] > 0)
-    return first_mcu(p, g + 1) == end ? m_lo : -2;
-  return end == p.n_mcus ? m_lo : -2;
+    return first_mcu(p, g + 1, n) == end ? m_lo : -2;
+  return end == n ? m_lo : -2;
 }
 
 // The carry's run key of lane (b, j): its restart segment, or -1 (a run of
@@ -251,7 +290,7 @@ __device__ __forceinline__ int64_t lane_mcu(const Params& p, int64_t b,
 __device__ __forceinline__ int64_t run_key(const Params& p, int64_t b,
                                            int j) {
   const int64_t m = lane_mcu(p, b, j);
-  return m < 0 ? -1 : p.seg_first[m];
+  return m < 0 ? -1 : seg_start(p, b, m);
 }
 
 // The row words a group stages: [s_lo, s_hi).  s_lo is its first lane's
@@ -368,12 +407,10 @@ __global__ void __launch_bounds__(kMaxLanes) emit_kernel(Params p) {
   Tables tab{s_l1, s_l2, p.luts, false};
   uint32_t misses = 0;
 
-  if (tid == 0) s_n_slots = 0;
   for (int q = tid; q < 64; q += blockDim.x) s_zz[q] = kZigzag[q];
   for (int q = 0; q < kBlkStride / 4; ++q)
     reinterpret_cast<uint2*>(my_blk)[q] = make_uint2(0u, 0u);
-  stage_tables(s_l1, p.l1, p.n_tables);   // waited for with the first words
-  bool tables_ready = false;
+  int64_t staged_set = -1;   // the first table of the set in shared memory
 
   for (;;) {
     if (tid == 0) {
@@ -388,35 +425,55 @@ __global__ void __launch_bounds__(kMaxLanes) emit_kernel(Params p) {
     const int j = x * static_cast<int>(blockDim.x) + tid;
     const bool in = j < p.lanes_per_img;
     const int64_t g = b * p.lanes_per_img + j;
-    const int64_t n_blk_img = p.n_mcus * p.bpm;
 
-    // An image without lanes decodes to zeros: each of its groups zeroes
-    // its share of the image's blocks.
-    if (p.nm[b * p.lanes_per_img] <= 0) {
-      int4* o = reinterpret_cast<int4*>(p.out + b * n_blk_img * 64);
-      const int64_t lo = n_blk_img * 16 * x / p.groups_per_img;
-      const int64_t hi = n_blk_img * 16 * (x + 1) / p.groups_per_img;
+    // Rows past the image's blocks (all of them for an image without
+    // lanes) are zeros: each of its groups zeroes its share.
+    {
+      const int64_t n = img_mcus(p, b);
+      const int64_t z0 =
+          p.nm[b * p.lanes_per_img] <= 0 ? 0 : (n < 0 ? p.n_mcus : n) * p.bpm;
+      int4* o = reinterpret_cast<int4*>(p.out + (b * p.rows + z0) * 64);
+      const int64_t span = (p.rows - z0) * 16;
+      const int64_t lo = span * x / p.groups_per_img;
+      const int64_t hi = span * (x + 1) / p.groups_per_img;
       for (int64_t v = lo + tid; v < hi; v += blockDim.x)
         o[v] = make_int4(0, 0, 0, 0);
     }
 
+    // The image's table set: staged again when it is not the one in shared
+    // memory (every thread is past the last group's probes: the ticket's
+    // __syncthreads).  A set outside the stack flags the image.
+    int64_t set = p.lut_base != nullptr ? p.lut_base[b] : 0;
+    if (set < 0 || set + p.n_tables > p.n_stack) {
+      if (tid == 0) p.err[b] = 1;
+      set = 0;
+    }
+    const bool restage = set != staged_set;
+    if (restage) {
+      if (tid == 0) {
+        s_n_slots = 0;
+        atomicAdd(p.scratch + kStages, 1u);
+      }
+      stage_tables(s_l1, p.l1 + set * kL1Size, p.n_tables);
+    }
     int64_t s_lo, s_hi;
     window(p, b, x, s_lo, s_hi);
     const int64_t s_base = stage_words(s_words, p, b, s_lo, s_hi, aligned);
     cp_async_wait_all();
     __syncthreads();
-    if (!tables_ready) {
-      build_l2(s_l1, s_l2, p.luts, p.n_tables, &s_n_slots);
+    if (restage) {
+      tab.luts = p.luts + set * 65536;
+      build_l2(s_l1, s_l2, tab.luts, p.n_tables, &s_n_slots);
       __syncthreads();
       tab.l2_full = s_n_slots > kL2Slots;
-      tables_ready = true;
+      staged_set = set;
     }
 
     // Decode: the warp's lanes in lockstep, one symbol per step.
     const int64_t m_lo = in ? lane_mcu(p, b, j) : -1;
     if (m_lo == -2) p.err[b] = 1;
     const int n_blocks = m_lo >= 0 ? p.nm[g] * p.bpm : 0;
-    const int64_t lane_base = (b * n_blk_img + (m_lo >= 0 ? m_lo : 0) *
+    const int64_t lane_base = (b * p.rows + (m_lo >= 0 ? m_lo : 0) *
                                p.bpm) * 64;
     const int32_t n_words32 = static_cast<int32_t>(
         p.n_words < 0x7fffffff ? p.n_words : 0x7fffffff);
@@ -530,7 +587,7 @@ __global__ void __launch_bounds__(kMaxLanes) emit_kernel(Params p) {
     if (br.far) s_far = 1;
 
     // Carry: segmented inclusive scan of the lane sums over the group.
-    const int64_t key = m_lo >= 0 ? p.seg_first[m_lo] : -1;
+    const int64_t key = m_lo >= 0 ? seg_start(p, b, m_lo) : -1;
     int h = !in || j == 0 || key < 0 || key != run_key(p, b, j - 1);
     const bool lane_head = h;
     const uint32_t own[4] = {run0, run1, run2, run3};
@@ -649,14 +706,17 @@ size_t smem_bytes(int group_lanes, int budget_words, int n_tables) {
 }
 
 bool fill(Params& p, const void* pools, const void* starts, const void* nm,
-          const void* lane_off, const void* seg_first, const void* luts,
+          const void* lane_off, const void* seg_first, const void* lut_base,
+          const void* n_mcus_img, const void* ri, const void* luts,
           const void* l1, void* out, void* err, void* scratch, int64_t n_img,
           int64_t n_words, int64_t lanes_per_img, int64_t n_mcus,
-          int64_t trips, int n_tables, int bpm, uint64_t comp_code,
-          int precision, int group_lanes, int budget_words) {
+          int64_t rows, int64_t trips, int n_tables, int n_stack, int bpm,
+          uint64_t comp_code, int precision, int group_lanes,
+          int budget_words) {
   if (n_img < 1 || n_words < 1 || lanes_per_img < 1 ||
-      lanes_per_img > 0x7fffffff || n_mcus < 1 || trips < 0 ||
-      n_tables < 2 || n_tables > kMaxTables || bpm < 1 || bpm > 16 ||
+      lanes_per_img > 0x7fffffff || n_mcus < 1 || rows < n_mcus * bpm ||
+      trips < 0 || n_tables < 2 || n_tables > kMaxTables ||
+      n_stack < n_tables || bpm < 1 || bpm > 16 ||
       (precision != 8 && precision != 12) || group_lanes < 32 ||
       group_lanes > kMaxLanes || group_lanes % 32 != 0 || budget_words < 4 ||
       budget_words % 4 != 0)
@@ -666,6 +726,9 @@ bool fill(Params& p, const void* pools, const void* starts, const void* nm,
   p.nm = static_cast<const int32_t*>(nm);
   p.lane_off = static_cast<const int64_t*>(lane_off);
   p.seg_first = static_cast<const int32_t*>(seg_first);
+  p.lut_base = static_cast<const int32_t*>(lut_base);
+  p.n_mcus_img = static_cast<const int32_t*>(n_mcus_img);
+  p.ri = static_cast<const int32_t*>(ri);
   p.luts = static_cast<const int32_t*>(luts);
   p.l1 = static_cast<const int16_t*>(l1);
   p.out = static_cast<int32_t*>(out);
@@ -678,9 +741,11 @@ bool fill(Params& p, const void* pools, const void* starts, const void* nm,
       static_cast<int>((lanes_per_img + group_lanes - 1) / group_lanes);
   p.n_groups = n_img * p.groups_per_img;
   p.n_mcus = n_mcus;
+  p.rows = rows;
   p.trips = trips;
   p.comp_code = comp_code;
   p.n_tables = n_tables;
+  p.n_stack = n_stack;
   p.bpm = bpm;
   p.max_dc = precision == 12 ? 15 : 11;
   p.max_ac = precision == 12 ? 14 : 10;
@@ -718,10 +783,12 @@ extern "C" int jd_emit_ctas_per_sm(int group_lanes, int budget_words,
 }
 
 // pools (n_img, n_words) uint32; starts, nm (n_img, lanes_per_img) int32;
-// lane_off (n_img, lanes_per_img) int64; seg_first (n_mcus,) int32; luts
-// (n_tables, 65536) int32 with tables 2c (DC) and 2c+1 (AC) of component c
-// and l1 their first levels (csrc/entropy.cu's jd_build_l1); out (n_img,
-// n_mcus * bpm, 64) int32, 16-byte aligned, not initialised; err (n_img,)
+// lane_off (n_img, lanes_per_img) int64; seg_first (n_mcus,) int32 or null
+// (segments from ri); lut_base, n_mcus_img, ri (n_img,) int32, each or null
+// (table set 0, n_mcus, DRI 0); luts (n_stack, 65536) int32, table sets of
+// n_tables tables, tables 2c (DC) and 2c+1 (AC) of component c, and l1 their
+// first levels (csrc/entropy.cu's jd_build_l1); out (n_img, rows, 64) int32,
+// rows >= n_mcus * bpm, 16-byte aligned, not initialised; err (n_img,)
 // int32 and scratch (8 + 16 * n_img * ceil(lanes_per_img / group_lanes))
 // uint32, both zero-filled; trips: the symbols a lane may decode;
 // comp_code: the component of within-MCU block k in bits 4k..4k+3;
@@ -729,25 +796,28 @@ extern "C" int jd_emit_ctas_per_sm(int group_lanes, int budget_words,
 // 64, 96 or 128); budget_words: words a group stages (a multiple of 4);
 // grid: the persistent CTAs, at most jd_emit_ctas_per_sm's count times the
 // SMs (that call, made first on this device, set the shared memory limit).
-// After the launch scratch[1..3] hold the groups that read only shared
-// memory, the groups that read stream words from device memory, and the
-// probes that read the full tables.  All on the current device (the
+// After the launch scratch[1..4] hold the groups that read only shared
+// memory, the groups that read stream words from device memory, the probes
+// that read the full tables, and the table sets staged.  All on the current device (the
 // wrapper checks this).  Launches on `stream` and returns the CUDA error of
 // the launch (0 = launched).
 extern "C" int jd_emit_lanes(const void* pools, const void* starts,
                              const void* nm, const void* lane_off,
-                             const void* seg_first, const void* luts,
-                             const void* l1, void* out, void* err,
-                             void* scratch, int64_t n_img, int64_t n_words,
-                             int64_t lanes_per_img, int64_t n_mcus,
-                             int64_t trips, int n_tables, int bpm,
+                             const void* seg_first, const void* lut_base,
+                             const void* n_mcus_img, const void* ri,
+                             const void* luts, const void* l1, void* out,
+                             void* err, void* scratch, int64_t n_img,
+                             int64_t n_words, int64_t lanes_per_img,
+                             int64_t n_mcus, int64_t rows, int64_t trips,
+                             int n_tables, int n_stack, int bpm,
                              uint64_t comp_code, int precision,
                              int group_lanes, int budget_words, int grid,
                              void* stream) {
   Params p;
-  if (!fill(p, pools, starts, nm, lane_off, seg_first, luts, l1, out, err,
-            scratch, n_img, n_words, lanes_per_img, n_mcus, trips, n_tables,
-            bpm, comp_code, precision, group_lanes, budget_words) ||
+  if (!fill(p, pools, starts, nm, lane_off, seg_first, lut_base, n_mcus_img,
+            ri, luts, l1, out, err, scratch, n_img, n_words, lanes_per_img,
+            n_mcus, rows, trips, n_tables, n_stack, bpm, comp_code, precision,
+            group_lanes, budget_words) ||
       grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ctas = grid < p.n_groups ? grid : p.n_groups;

@@ -341,6 +341,24 @@ def planes_from_blocks_dyn(blocks, geom, *, comp_shapes, comp_hv):
     return tuple(planes)
 
 
+def rgb_from_blocks_dyn(blocks, qtables, geom, *, comp_shapes, comp_hv,
+                        height, width, samplings, idct, upsample, color,
+                        precision) -> torch.Tensor:
+    """Pixels of a geometry bucket: :func:`planes_from_blocks_dyn`, then the
+    pixel pipeline at the bucket's dims with each image's true edge (the
+    JAX package's ``_rgb_one_dyn``, batched).  ``qtables``: (B, n_comps, 64)
+    int32; ``geom``: (B, 4) int.  Returns (B, height, width, 3) RGB whose
+    pixels inside each image's (geom height, width) are exact; the rest is
+    padding that :attr:`BatchItem.rgb` crops."""
+    planes = planes_from_blocks_dyn(blocks, geom, comp_shapes=comp_shapes,
+                                    comp_hv=comp_hv)
+    qts = tuple(qtables[:, i].contiguous() for i in range(len(comp_shapes)))
+    return pixel_ops.pixel_pipeline_impl(
+        planes, qts, height=height, width=width, samplings=samplings,
+        idct=idct, upsample=upsample, color=color, precision=precision,
+        true_dims=(geom[:, 2], geom[:, 3]))
+
+
 @dataclasses.dataclass
 class BatchItem:
     index: int              # position in the input list
@@ -685,17 +703,13 @@ class BatchDecoder:
         (uint16 for 12-bit groups).
         Pixels inside each image's (geom height, width) are exact; the rest
         is padding that :attr:`BatchItem.rgb` crops."""
-        qtables, geom = tensors[-2], tensors[-1]
-        planes = planes_from_blocks_dyn(
-            self.unpack(group, tensors), geom, comp_shapes=group.comp_shapes,
-            comp_hv=group.comp_hv)
-        qts = tuple(qtables[:, i].contiguous()
-                    for i in range(len(group.comp_shapes)))
-        return pixel_ops.pixel_pipeline_impl(
-            planes, qts, height=group.height, width=group.width,
+        return rgb_from_blocks_dyn(
+            self.unpack(group, tensors), tensors[-2], tensors[-1],
+            comp_shapes=group.comp_shapes, comp_hv=group.comp_hv,
+            height=group.height, width=group.width,
             samplings=group.samplings, idct=self.idct,
             upsample=self.upsample, color=group.color,
-            precision=group.precision, true_dims=(geom[:, 2], geom[:, 3]))
+            precision=group.precision)
 
     def _decode_wave(self, host_out, results, base) -> None:
         """Device stage of one wave (on a CUDA device, on the decoder's own

@@ -369,7 +369,8 @@ class _Lanes:
     decoder (``ops/entropy_emit_cuda.py``): per-lane row of ``words`` and
     state, and one decode step (one symbol) for every lane at once."""
 
-    def __init__(self, words, luts, block_comp, seg, precision=8):
+    def __init__(self, words, luts, block_comp, seg, precision=8,
+                 table_base=None):
         dev = words.device
         self.max_dc, self.max_ac = size_limits(precision)
         self.w = words.shape[1]
@@ -378,6 +379,8 @@ class _Lanes:
         self.comp = torch.tensor(block_comp, dtype=torch.int64, device=dev)
         self.bpm = len(block_comp)
         self.row = seg * self.w
+        # Each lane's first table in a stack of table sets (0: one set).
+        self.table_base = 0 if table_base is None else table_base
 
     def _word(self, idx):
         got = self.words[self.row + idx.clamp(0, self.w - 1)]
@@ -395,8 +398,8 @@ class _Lanes:
         after it (meaningless where the flag is set)."""
         ci = self.comp[k]
         is_dc = i == 0
-        e = self.lut[(2 * ci + (~is_dc).to(torch.int64)) * 65536
-                     + self._peek16(pos)]
+        e = self.lut[(self.table_base + 2 * ci + (~is_dc).to(torch.int64))
+                     * 65536 + self._peek16(pos)]
         sym = e >> 5
         eob = ~is_dc & (sym == 0)
         run = torch.where(sym == 0xF0, 16, sym >> 4)
@@ -604,10 +607,7 @@ def device_tables(hdr: FrameHeader, scan: ScanHeader,
     (the :data:`TABLE_CACHE_SIZE` most recent sets), so ``decode()`` uploads
     and builds them once per table set."""
     dev = torch.device(dev)
-    key = (str(dev),) + tuple(
-        b for c in hdr.components
-        for spec in (scan.dc_specs[c.td], scan.ac_specs[c.ta])
-        for b in (spec.counts.tobytes(), spec.symbols.tobytes()))
+    key = (str(dev),) + table_key(hdr, scan)
     with _tables_lock:
         hit = _tables.get(key)
         if hit is not None:
@@ -629,6 +629,30 @@ def device_tables(hdr: FrameHeader, scan: ScanHeader,
         while len(_tables) > TABLE_CACHE_SIZE:
             _tables.popitem(last=False)
     return hit
+
+
+def table_key(hdr: FrameHeader, scan: ScanHeader) -> tuple:
+    """The bytes of the scan's DC and AC tables, component by component:
+    equal keys give equal LUT sets (``device_tables``' cache key)."""
+    return tuple(b for c in hdr.components
+                 for spec in (scan.dc_specs[c.td], scan.ac_specs[c.ta])
+                 for b in (spec.counts.tobytes(), spec.symbols.tobytes()))
+
+
+def device_table_stack(sets: list, dev: torch.device):
+    """The LUTs of several table sets, one (hdr, scan) each, stacked on
+    ``dev``: ((n_sets * 2*n_comps, 65536) int32, and on a CUDA device their
+    first-level tables, else None).  Set k's tables start at row k *
+    2*n_comps, the ``lut_base`` of ``entropy_emit_cuda.decode_lanes``.
+    Each set comes from :func:`device_tables`' cache; one set is returned
+    as it is, without a copy."""
+    parts = [device_tables(hdr, scan, dev) for hdr, scan in sets]
+    if len(parts) == 1:
+        return parts[0]
+    luts = torch.cat([p[0] for p in parts])
+    l1 = (torch.cat([p[1] for p in parts])
+          if torch.device(dev).type == "cuda" else None)
+    return luts, l1
 
 
 def clear_table_cache() -> None:

@@ -3,7 +3,10 @@ its plain version.
 
 Counterpart of the device half of the JAX package's ``hybrid`` backend,
 ``jpeg_decoder_tpu/ops/entropy_spec.py:_hybrid_pipeline_batch_emit`` with
-``ops/entropy_flat.py:decode_emit2`` and ``_dc_prefix_sum_seg``.  A host walk
+``ops/entropy_flat.py:decode_emit2`` and ``_dc_prefix_sum_seg``, and of the
+emission step of ``parallel/sharded.py:_hybrid_full_step_emit_dyn``: a
+geometry-bucketed group whose images differ in size, restart interval and
+Huffman tables (``lut_base``, ``n_mcus_img``, ``ri``).  A host walk
 (``entropy/native.py:emit_prep``, planned by ``ops/entropy_spec.py``) finds
 the true start bit of every lane's first MCU, so the device decodes each
 lane from a true state: no speculation, no synchronisation.
@@ -23,7 +26,9 @@ lane from a true state: no speculation, no synchronisation.
   Python loop over the steps), then the segmented carry.
 
 The LUTs are ``entropy_cuda.device_tables``' (rows ``comp * 2 + is_ac``, as
-the JAX package's ``entropy_flat.merged_luts``), cached per device.
+the JAX package's ``entropy_flat.merged_luts``), cached per device, or a
+stack of such sets (``entropy_cuda.device_table_stack``) that ``lut_base``
+indexes.
 """
 
 from __future__ import annotations
@@ -40,12 +45,15 @@ from . import entropy_cuda
 _ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,   # pools, starts
     ctypes.c_void_p, ctypes.c_void_p,   # nm, lane_off
-    ctypes.c_void_p, ctypes.c_void_p,   # seg_first, luts
-    ctypes.c_void_p, ctypes.c_void_p,   # l1, out
-    ctypes.c_void_p, ctypes.c_void_p,   # err, scratch
+    ctypes.c_void_p, ctypes.c_void_p,   # seg_first, lut_base
+    ctypes.c_void_p, ctypes.c_void_p,   # n_mcus_img, ri
+    ctypes.c_void_p, ctypes.c_void_p,   # luts, l1
+    ctypes.c_void_p, ctypes.c_void_p,   # out, err
+    ctypes.c_void_p,                    # scratch
     ctypes.c_int64, ctypes.c_int64,     # n_img, n_words
     ctypes.c_int64, ctypes.c_int64,     # lanes_per_img, n_mcus
-    ctypes.c_int64, ctypes.c_int,       # trips, n_tables
+    ctypes.c_int64, ctypes.c_int64,     # rows, trips
+    ctypes.c_int, ctypes.c_int,         # n_tables, n_stack
     ctypes.c_int, ctypes.c_uint64,      # bpm, comp_code
     ctypes.c_int, ctypes.c_int,         # precision, group_lanes
     ctypes.c_int, ctypes.c_int,         # budget_words, grid
@@ -70,9 +78,10 @@ _STATUS_WORDS = 16
 SMEM_LIMIT = 232448 - 1024
 #: What ``decode_lanes.last_stats`` holds, in order: the lane groups whose
 #: reads all came from shared memory, the groups that read stream words from
-#: device memory (over the staging budget), and the probes that read the
-#: full tables in device memory.
-STATS = ("groups_staged", "groups_over_budget", "lut_misses")
+#: device memory (over the staging budget), the probes that read the full
+#: tables in device memory, and the table sets the CTAs staged (at least one
+#: per CTA; more when a CTA moves to an image of another set).
+STATS = ("groups_staged", "groups_over_budget", "lut_misses", "table_stages")
 
 _count_lock = threading.Lock()
 
@@ -122,11 +131,18 @@ def schedule(n_img: int, n_words: int, lanes_per_img: int, n_tables: int,
 
 
 def _check(pools, starts, nm_lane, lane_off, seg_first, luts, block_comp,
-           n_comps, n_mcus, trips) -> None:
+           n_comps, n_mcus, trips, per_img=None, rows=None) -> None:
+    """Raises unless the arguments of :func:`decode_lanes` are as it says:
+    ``per_img`` the per-image tensors by name, ``rows`` the output's rows
+    (n_mcus * bpm when None)."""
+    per_img = per_img or {}
+    rows = n_mcus * len(block_comp) if rows is None else rows
     dev = pools.device
     for name, t in (("starts", starts), ("nm_lane", nm_lane),
                     ("lane_off", lane_off), ("seg_first", seg_first),
-                    ("luts", luts)):
+                    ("luts", luts), *per_img.items()):
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, pools on {dev}")
         if not t.is_contiguous():
@@ -144,16 +160,29 @@ def _check(pools, starts, nm_lane, lane_off, seg_first, luts, block_comp,
                 t.shape[1] < 1 or t.shape != starts.shape:
             raise TypeError(f"{name} must be ({b}, C) {dt}, got {t.dtype} "
                             f"{tuple(t.shape)}")
-    if n_mcus < 1 or seg_first.dtype != torch.int32 or \
-            tuple(seg_first.shape) != (n_mcus,):
+    if n_mcus < 1:
+        raise ValueError(f"n_mcus must be >= 1, got {n_mcus}")
+    if seg_first is not None and (seg_first.dtype != torch.int32 or tuple(
+            seg_first.shape) != (n_mcus,)):
         raise TypeError(f"seg_first must be ({n_mcus},) int32, got "
                         f"{seg_first.dtype} {tuple(seg_first.shape)}")
+    for name, t in per_img.items():
+        if t is not None and (t.dtype != torch.int32
+                              or tuple(t.shape) != (b,)):
+            raise TypeError(f"{name} must be ({b},) int32, got {t.dtype} "
+                            f"{tuple(t.shape)}")
     if not 1 <= n_comps <= 4:
         raise ValueError(f"n_comps must be 1..4, got {n_comps}")
-    if luts.dtype != torch.int32 or tuple(luts.shape) != (2 * n_comps,
-                                                          1 << 16):
-        raise TypeError(f"luts must be ({2 * n_comps}, 65536) int32, got "
-                        f"{luts.dtype} {tuple(luts.shape)}")
+    one_set = per_img.get("lut_base") is None
+    if (luts.dtype != torch.int32 or luts.dim() != 2
+            or luts.shape[1] != 1 << 16 or luts.shape[0] < 2 * n_comps
+            or luts.shape[0] % (2 * n_comps)
+            or (one_set and luts.shape[0] != 2 * n_comps)):
+        raise TypeError(f"luts must be ({2 * n_comps} * sets, 65536) int32 "
+                        f"(one set without lut_base), got {luts.dtype} "
+                        f"{tuple(luts.shape)}")
+    if rows < n_mcus * len(block_comp):
+        raise ValueError(f"rows {rows} < n_mcus * bpm")
     if not 1 <= len(block_comp) <= 16 or any(
             not 0 <= c < n_comps for c in block_comp):
         raise ValueError(f"bad block_comp {block_comp} for {n_comps} "
@@ -164,40 +193,56 @@ def _check(pools, starts, nm_lane, lane_off, seg_first, luts, block_comp,
 
 def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
                  nm_lane: torch.Tensor, lane_off: torch.Tensor,
-                 seg_first: torch.Tensor, luts: torch.Tensor, *,
+                 seg_first: torch.Tensor | None, luts: torch.Tensor, *,
                  block_comp: tuple[int, ...], n_comps: int, n_mcus: int,
                  trips: int, precision: int = 8,
-                 l1: torch.Tensor | None = None):
+                 l1: torch.Tensor | None = None,
+                 lut_base: torch.Tensor | None = None,
+                 n_mcus_img: torch.Tensor | None = None,
+                 ri: torch.Tensor | None = None, rows: int | None = None):
     """Decode B images of C lanes each to scan-order natural-order blocks.
 
     pools: (B, W) uint32, each image's scan bytes as big-endian words (zero
     past its end); starts: (B, C) int32 start bit of each lane in its row;
     nm_lane: (B, C) int32 MCUs of each lane (0: no lane); lane_off: (B, C)
     int64 coefficient slot of each lane's first block, first MCU * bpm * 64;
-    seg_first: (n_mcus,) int32 first MCU of each MCU's restart segment;
-    luts: (2*n_comps, 65536) int32, table 2c the DC and 2c+1 the AC LUT of
-    component c; block_comp: the component of each block of an MCU; trips:
-    the symbols any lane may decode (the bucketed ``T`` of
+    seg_first: (n_mcus,) int32 first MCU of each MCU's restart segment, or
+    None (each image's segments from ``ri``); luts: (2*n_comps, 65536) int32,
+    table 2c the DC and 2c+1 the AC LUT of component c, or with ``lut_base``
+    a stack of such sets; block_comp: the component of each block of an MCU;
+    trips: the symbols any lane may decode (the bucketed ``T`` of
     ``entropy_spec.prepare_hybrid_batch_emit``); precision: 8 or 12 (the
     size categories).  On the card ``l1`` is the first-level tables of
     ``luts`` (built here when not given, cached by
     ``entropy_cuda.device_tables``).
 
+    A group of images of assorted geometry and tables (a geometry bucket)
+    adds, each (B,) int32: ``lut_base``, the first table of each image's set
+    in the stack; ``n_mcus_img``, each image's MCUs (``n_mcus`` is then the
+    bucket's); ``ri``, each image's restart interval, whose segments start
+    at multiples of it (with ``seg_first`` None).  ``rows`` (at least
+    ``n_mcus * bpm``, the default) is the rows of each image's output.
+
     The lanes of an image must tile its MCUs in order, each inside one
-    restart segment; a plan that does not is flagged.  Returns ((B, n_mcus
-    * bpm, 64) int32 blocks, (B,) int32 error flags); a flagged image's
-    blocks are unspecified.  On CUDA tensors this launches the kernel or
-    raises; on CPU tensors it runs :func:`decode_lanes_torch`.
+    restart segment; a plan that does not is flagged, and so is an
+    ``n_mcus_img`` outside [1, n_mcus] or a set outside the stack.  Returns
+    ((B, rows, 64) int32 blocks, (B,) int32 error flags); the rows past an
+    image's blocks are zeros, a flagged image's blocks are unspecified.  On
+    CUDA tensors this launches the kernel or raises; on CPU tensors it runs
+    :func:`decode_lanes_torch`.
     """
+    per_img = dict(lut_base=lut_base, n_mcus_img=n_mcus_img, ri=ri)
+    rows = n_mcus * len(block_comp) if rows is None else rows
     _check(pools, starts, nm_lane, lane_off, seg_first, luts, block_comp,
-           n_comps, n_mcus, trips)
+           n_comps, n_mcus, trips, per_img, rows)
     entropy_cuda.size_limits(precision)
     dev = pools.device
     kw = dict(block_comp=block_comp, n_comps=n_comps, n_mcus=n_mcus,
               trips=trips, precision=precision)
     if dev.type == "cpu":
         return decode_lanes_torch(pools, starts, nm_lane, lane_off,
-                                  seg_first, luts, **kw)
+                                  seg_first, luts, **kw, **per_img,
+                                  rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     if l1 is None:
@@ -208,10 +253,12 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
         raise TypeError(f"l1 must be ({luts.shape[0]}, "
                         f"{1 << entropy_cuda.L1_BITS}) int16 on {dev}")
     sched = schedule(pools.shape[0], pools.shape[1], starts.shape[1],
-                     luts.shape[0], _n_sms(dev))
-    out, scratch = buffers(pools, starts, n_mcus, len(block_comp), sched[0])
+                     2 * n_comps, _n_sms(dev))
+    out, scratch = buffers(pools, starts, n_mcus, len(block_comp), sched[0],
+                           rows=rows)
     launch((pools, starts, nm_lane, lane_off, seg_first, luts, l1), out,
-           scratch, group_lanes=sched[0], budget_words=sched[1], **kw)
+           scratch, group_lanes=sched[0], budget_words=sched[1], **kw,
+           **per_img)
     with _count_lock:
         decode_lanes.launches += 1
     n = pools.shape[0]
@@ -235,15 +282,18 @@ def _n_sms(dev: torch.device) -> int:
 
 
 def buffers(pools: torch.Tensor, starts: torch.Tensor, n_mcus: int,
-            bpm: int, group_lanes: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (B, n_mcus*bpm, 64) int32 blocks, left uninitialised (the kernel
-    writes every element of an unflagged image), and the zero-filled int32
-    scratch: the (B,) error flags, then the kernel's ticket, its
-    :data:`STATS` counters and each lane group's carry status."""
+            bpm: int, group_lanes: int,
+            rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (B, rows, 64) int32 blocks (``rows`` n_mcus*bpm by default), left
+    uninitialised (the kernel writes every element of an unflagged image),
+    and the zero-filled int32 scratch: the (B,) error flags, then the
+    kernel's ticket, its :data:`STATS` counters and each lane group's carry
+    status."""
     b, c = starts.shape
     dev = pools.device
     n_groups = b * -(-c // group_lanes)
-    return (torch.empty((b, n_mcus * bpm, 64), dtype=torch.int32, device=dev),
+    rows = n_mcus * bpm if rows is None else rows
+    return (torch.empty((b, rows, 64), dtype=torch.int32, device=dev),
             torch.zeros(b + _HEADER_WORDS + _STATUS_WORDS * n_groups,
                         dtype=torch.int32, device=dev))
 
@@ -270,28 +320,38 @@ def ctas_per_sm(group_lanes: int, budget_words: int, n_tables: int,
     return _ctas_per_sm(index, group_lanes, budget_words, n_tables)
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def launch(args: tuple, out: torch.Tensor, scratch: torch.Tensor, *,
            block_comp: tuple[int, ...], n_comps: int, n_mcus: int,
-           trips: int, precision: int, group_lanes: int,
-           budget_words: int) -> None:
+           trips: int, precision: int, group_lanes: int, budget_words: int,
+           lut_base: torch.Tensor | None = None,
+           n_mcus_img: torch.Tensor | None = None,
+           ri: torch.Tensor | None = None) -> None:
     """One kernel launch on the current stream: ``args`` the tensors pools,
-    starts, nm_lane, lane_off, seg_first, luts and l1, checked by
+    starts, nm_lane, lane_off, seg_first (or None), luts and l1, and the
+    per-image ``lut_base``, ``n_mcus_img`` and ``ri``, checked by
     :func:`decode_lanes`; ``out`` and ``scratch`` from :func:`buffers` (the
     scratch zero-filled).  Counts nothing (the phases' own timing and the
     tests that force a staging budget call it)."""
     lib = build()
-    pools, starts, luts = args[0], args[1], args[5]
+    pools, starts, seg_first, luts, l1 = (args[0], args[1], args[4], args[5],
+                                          args[6])
     comp_code = sum(c << (4 * k) for k, c in enumerate(block_comp))
     dev = pools.device
     n = pools.shape[0]
-    grid = ctas_per_sm(group_lanes, budget_words, luts.shape[0],
+    grid = ctas_per_sm(group_lanes, budget_words, 2 * n_comps,
                        dev) * _n_sms(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jd_emit_lanes(
-            *(t.data_ptr() for t in args), out.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + 4 * n, n,
-            pools.shape[1], starts.shape[1], n_mcus, trips, luts.shape[0],
+            *(t.data_ptr() for t in args[:4]), _ptr(seg_first),
+            _ptr(lut_base), _ptr(n_mcus_img), _ptr(ri), luts.data_ptr(),
+            l1.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * n, n, pools.shape[1], starts.shape[1],
+            n_mcus, out.shape[1], trips, 2 * n_comps, luts.shape[0],
             len(block_comp), comp_code, precision, group_lanes,
             budget_words, grid, stream)
     launch_check(rc, "jd_emit_lanes")
@@ -323,46 +383,70 @@ def lane_carry(key: torch.Tensor, tot: torch.Tensor) -> torch.Tensor:
 
 def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
                        nm_lane: torch.Tensor, lane_off: torch.Tensor,
-                       seg_first: torch.Tensor, luts: torch.Tensor, *,
+                       seg_first: torch.Tensor | None, luts: torch.Tensor, *,
                        block_comp: tuple[int, ...], n_comps: int,
-                       n_mcus: int, trips: int, precision: int = 8):
+                       n_mcus: int, trips: int, precision: int = 8,
+                       lut_base: torch.Tensor | None = None,
+                       n_mcus_img: torch.Tensor | None = None,
+                       ri: torch.Tensor | None = None,
+                       rows: int | None = None):
     """Plain PyTorch version of :func:`decode_lanes`, the same contract.
 
     Lanes in lockstep: each of at most ``trips`` steps decodes one symbol of
     every unfinished lane with ``torch`` gathers into the words and the
-    LUTs (``entropy_cuda``'s lane step), storing each coefficient at its
-    natural index and DC as the lane's running sum per component; then each
-    lane's carry-in, the exclusive sum of the lane sums before it in its
-    image and restart segment, is added to its blocks' DC terms.  Arithmetic
-    is int64, wrapped to int32 where the kernel's sums wrap."""
+    LUTs (``entropy_cuda``'s lane step, from the lane's image's table set),
+    storing each coefficient at its natural index and DC as the lane's
+    running sum per component; then each lane's carry-in, the exclusive sum
+    of the lane sums before it in its image and restart segment, is added to
+    its blocks' DC terms.  Arithmetic is int64, wrapped to int32 where the
+    kernel's sums wrap."""
     dev = pools.device
     b, c = starts.shape
     s = b * c
     bpm = len(block_comp)
-    nb = n_mcus * bpm
+    rows = n_mcus * bpm if rows is None else rows
     lane = torch.arange(s, device=dev)
     img, j = lane // c, lane % c
-    lanes = entropy_cuda._Lanes(pools, luts, block_comp, img, precision)
+
+    def per_img(t, default):
+        return (torch.full((b,), default, dtype=torch.int64, device=dev)
+                if t is None else t.to(torch.int64))
+
+    set_base = per_img(lut_base, 0)
+    bad_set = (set_base < 0) | (set_base + 2 * n_comps > luts.shape[0])
+    set_base = torch.where(bad_set, 0, set_base)
+    n_img = per_img(n_mcus_img, n_mcus)
+    bad_img = bad_set | (n_img < 1) | (n_img > n_mcus)
+    n_img = torch.where(bad_img, n_mcus, n_img)
+    lanes = entropy_cuda._Lanes(pools, luts, block_comp, img, precision,
+                                table_base=set_base[img])
     nm = nm_lane.reshape(-1).to(torch.int64)
     off = lane_off.reshape(-1).to(torch.int64)
-    seg = seg_first.to(torch.int64)
     active = nm > 0
+
+    def seg(m):            # first MCU of the restart segment of lane MCU m
+        if seg_first is not None:
+            return seg_first.to(torch.int64)[m]
+        r = per_img(ri, 0)[img]
+        return torch.where(r > 0, m // r.clamp(min=1) * r, 0)
 
     # The plan: lanes tile each image's MCUs in order, each inside one
     # restart segment (see the kernel).
+    n_lane = n_img[img]
     m_lo = off // (64 * bpm)
     end = m_lo + nm
-    malformed = (off % (64 * bpm) != 0) | (off < 0) | (end > n_mcus)
+    malformed = (off % (64 * bpm) != 0) | (off < 0) | (end > n_lane)
     m_lo = torch.where(malformed, 0, m_lo)
     nxt_on = torch.roll(active, -1) & (j + 1 < c)
     prv_on = torch.roll(active, 1) & (j > 0)
-    last = (end - 1).clamp(0, n_mcus - 1)
+    last = torch.minimum((end - 1).clamp(min=0), n_lane - 1)
     bad_plan = active & (malformed | torch.where(j == 0, m_lo != 0, ~prv_on)
                          | torch.where(nxt_on, end != torch.roll(m_lo, -1),
-                                       end != n_mcus)
-                         | (seg[last] != seg[m_lo]))
+                                       end != n_lane)
+                         | (seg(last) != seg(m_lo)) | bad_img[img])
     nm = torch.where(bad_plan, 0, nm)
     n_blk = nm * bpm
+    nb = rows
 
     dump = b * nb * 64
     out = torch.zeros(dump + 1, dtype=torch.int32, device=dev)
@@ -396,7 +480,7 @@ def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
 
     # Carry: exclusive sums of the lane sums within (image, segment) runs.
     on = nm > 0
-    key = torch.where(on, img * (n_mcus + 1) + seg[m_lo], -1 - lane)
+    key = torch.where(on, img * (n_mcus + 1) + seg(m_lo), -1 - lane)
     carry = lane_carry(key, torch.where(on.view(-1, 1), run, 0))
     owner = torch.repeat_interleave(lane, n_blk)
     within = torch.arange(len(owner), device=dev) - torch.repeat_interleave(
@@ -406,4 +490,4 @@ def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
     out[at] = _wrap32(out[at].to(torch.int64)
                       + carry[owner, comp[within % bpm]]).to(torch.int32)
     return (out[:dump].view(b, nb, 64),
-            err.view(b, c).any(1).to(torch.int32))
+            (err.view(b, c).any(1) | bad_set).to(torch.int32))

@@ -25,6 +25,7 @@ the device, equal to ``python_ref.decode_scan_baseline``, and raise
 
 from __future__ import annotations
 
+import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -139,6 +140,133 @@ def device_plan(hdr: FrameHeader, scans: list, *, threads: int | None = None):
     return prepare_hybrid_batch_emit(
         hdr, scans, threads=threads, max_chunks=scan_layout(hdr).n_mcus,
         target_steps=LANE_STEPS)
+
+
+def _eighth(n: int) -> int:
+    """``n`` rounded up to a multiple of an eighth of its power of two (at
+    most 12.5% padding): the bucket dims of a geometry group, as in the JAX
+    package's ``_hybrid_group_dispatch_dyn``."""
+    step = 1 << max(n.bit_length() - 3, 0)
+    return -(-n // step) * step
+
+
+@dataclasses.dataclass
+class GroupPlan:
+    """Host plan of one geometry-bucketed group for one K7 launch: row k of
+    every (B, ...) array is image ``order[k]`` of the group, the images
+    sorted by table set (stable), so that a CTA of the kernel seldom stages
+    another set."""
+
+    order: list[int]            # group position of row k
+    pools: np.ndarray           # (B, W) uint32
+    starts: np.ndarray          # (B, C) int32
+    nm_lane: np.ndarray         # (B, C) int32
+    lane_off: np.ndarray        # (B, C) int64
+    trips: int                  # bucketed most symbols of any lane
+    skel_ok: np.ndarray         # (B,) bool: the image's walk succeeded
+    lut_base: np.ndarray        # (B,) int32 first table of the image's set
+    sets: list                  # (hdr, scan) of each distinct table set
+    n_mcus_img: np.ndarray      # (B,) int32
+    ri: np.ndarray              # (B,) int32 restart intervals
+    geom: np.ndarray            # (B, 4) int32 mcus_x, mcus_y, height, width
+    qtables: np.ndarray         # (B, n_comps, 64) int32
+    comp_hv: tuple              # (h, v) of each component
+    n_mcus: int                 # the bucket's MCUs
+    comp_shapes: tuple          # the bucket's plane dims per component
+    samplings: tuple
+    height: int                 # the bucket's pixel dims
+    width: int
+
+
+def plan_bucket_group(hdrs: list, scans: list, *,
+                      threads: int | None = None) -> GroupPlan:
+    """Host plan of a geometry-bucketed group: frames of one sampling,
+    colour space and precision whose sizes, restart intervals and Huffman
+    tables may differ (the JAX package's ``_hybrid_group_dispatch_dyn``,
+    jax sharded.py:863-975, with the port's :func:`device_plan` per image).
+
+    The bucket is each MCU-grid axis's group maximum rounded up to an
+    eighth of its power of two; the pool width the largest image's,
+    bucketed as :func:`_bucket_T` (as JAX does); the lanes the most any
+    image has.  Each image's walk runs on a pool of ``threads`` (min(4, B))
+    threads; an image whose plan fails keeps no lanes and ``skel_ok``
+    False.  Table sets are de-duplicated by their bytes, numbered in order
+    of first appearance, and each image's ``lut_base`` is its set's first
+    table, set * 2 * n_comps."""
+    b_n = len(hdrs)
+    hdr0 = hdrs[0]
+    comp_hv = tuple((c.h, c.v) for c in hdr0.components)
+    h_max = max(h for h, _ in comp_hv)
+    v_max = max(v for _, v in comp_hv)
+    mxb = _eighth(max(h.mcus_x for h in hdrs))
+    myb = _eighth(max(h.mcus_y for h in hdrs))
+
+    preps: list = [None] * b_n
+
+    def prep_one(k):
+        # A failed plan must not sink the group: the image goes to the
+        # per-image fallback through skel_ok.
+        try:
+            preps[k] = device_plan(hdrs[k], [scans[k]], threads=1)
+        except Exception:  # noqa: BLE001 — per-image isolation
+            preps[k] = None
+
+    if b_n > 1 and (threads is None or threads > 1):
+        with ThreadPoolExecutor(threads or min(4, b_n)) as ex:
+            list(ex.map(prep_one, range(b_n)))
+    else:
+        for k in range(b_n):
+            prep_one(k)
+
+    set_of: dict[tuple, int] = {}
+    sets: list = []
+    set_idx = []
+    for hdr, scan in zip(hdrs, scans):
+        key = entropy_cuda.table_key(hdr, scan)
+        if key not in set_of:
+            set_of[key] = len(sets)
+            sets.append((hdr, scan))
+        set_idx.append(set_of[key])
+    order = sorted(range(b_n), key=lambda k: set_idx[k])
+
+    live = [p for p in preps if p is not None]
+    w = _bucket_T(max((p[0].shape[1] for p in live), default=64))
+    c = max((p[6] for p in live), default=1)
+    pools = np.zeros((b_n, w), np.uint32)
+    starts = np.zeros((b_n, c), np.int32)
+    nm_lane = np.zeros((b_n, c), np.int32)
+    lane_off = np.zeros((b_n, c), np.int64)
+    skel_ok = np.zeros(b_n, bool)
+    for row, k in enumerate(order):
+        p = preps[k]
+        if p is None:
+            continue
+        pools[row, :p[0].shape[1]] = p[0][0]
+        c_k = p[1].shape[1]
+        starts[row, :c_k] = p[1][0]
+        nm_lane[row, :c_k] = p[2][0]
+        lane_off[row, :c_k] = p[3][0]
+        skel_ok[row] = bool(p[8][0])
+    rows = [(hdrs[k], scans[k]) for k in order]
+    return GroupPlan(
+        order=order, pools=pools, starts=starts, nm_lane=nm_lane,
+        lane_off=lane_off, trips=max((p[4] for p in live), default=64),
+        skel_ok=skel_ok,
+        lut_base=np.array([set_idx[k] * 2 * len(comp_hv) for k in order],
+                          np.int32),
+        sets=sets,
+        n_mcus_img=np.array([h.mcus_x * h.mcus_y for h, _ in rows],
+                            np.int32),
+        ri=np.array([s.restart_interval for _, s in rows], np.int32),
+        geom=np.array([(h.mcus_x, h.mcus_y, h.height, h.width)
+                       for h, _ in rows], np.int32).reshape(b_n, 4),
+        qtables=np.stack([
+            np.stack([h.quant_tables[cp.tq].values for cp in h.components])
+            for h, _ in rows]).astype(np.int32),
+        comp_hv=comp_hv, n_mcus=mxb * myb,
+        comp_shapes=tuple((myb * v, mxb * h) for h, v in comp_hv),
+        samplings=tuple((v_max // v, h_max // h) for h, v in comp_hv),
+        height=myb * 8 * v_max, width=mxb * 8 * h_max)
 
 
 def _block_comp(hdr: FrameHeader) -> tuple[int, ...]:

@@ -28,6 +28,20 @@ def pack_words(data: np.ndarray) -> np.ndarray:
     return padded.view(">u4").astype(np.uint32)
 
 
+def _segment_rows(data: np.ndarray, off: np.ndarray,
+                  row_bytes: int) -> np.ndarray:
+    """(S, row_bytes) uint8: row s holds bytes ``data[off[s]:off[s+1]]``
+    (a row no longer than ``row_bytes``), zero past them.  One gather of
+    ``row_bytes`` windows starting at the segment offsets, then a mask."""
+    lo, hi = int(off[0]), int(off[-1])
+    padded = np.zeros(max(hi - lo, 0) + row_bytes, np.uint8)
+    padded[:max(hi - lo, 0)] = data[lo:hi]
+    rows = np.lib.stride_tricks.sliding_window_view(
+        padded, row_bytes)[off[:-1] - lo]
+    rows[np.arange(row_bytes) >= np.diff(off)[:, None]] = 0
+    return rows
+
+
 def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
     """Host prep: per-segment packed words + geometry (NumPy, cheap).
 
@@ -43,13 +57,11 @@ def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
         raise JPEGError(
             f"restart-segment count {n_segments} does not match DRI {ri}")
     max_mcus = ri if ri else n_mcus
-    seg_lens = np.diff(seg_offsets)
+    off = np.asarray(seg_offsets, np.int64)
+    seg_lens = np.diff(off)
     seg_words = int(max(1, -(-int(seg_lens.max()) // 4) + 2))
-    words = np.zeros((n_segments, seg_words), np.uint32)
-    data = scan.data
-    for s in range(n_segments):
-        seg = data[seg_offsets[s]: seg_offsets[s + 1]]
-        words[s, : (len(seg) + 3) // 4] = pack_words(seg)[: (len(seg) + 3) // 4]
+    words = _segment_rows(np.asarray(scan.data, np.uint8), off,
+                          4 * seg_words).view(">u4").astype(np.uint32)
     nm = np.full((n_segments,), max_mcus, np.int32)
     if ri:
         nm[-1] = n_mcus - ri * (n_segments - 1)

@@ -547,3 +547,18 @@ def encode(rgb: np.ndarray, *, samplings=((2, 2), (1, 1), (1, 1)),
         out.write(payload)
     out.write(b"\xff\xd9")  # EOI
     return out.getvalue(), planes
+
+
+def encode_swapped_tables(*args, **kw):
+    """:func:`encode` with the luma and chroma Huffman tables exchanged (8-bit
+    frames): a valid stream whose table set differs from :func:`encode`'s,
+    for tests of decoders that take several table sets at once.  It swaps
+    this module's tables while it runs: do not call it from two threads."""
+    global STD_DC_LUMA, STD_AC_LUMA, STD_DC_CHROMA, STD_AC_CHROMA
+    std = (STD_DC_LUMA, STD_AC_LUMA, STD_DC_CHROMA, STD_AC_CHROMA)
+    STD_DC_LUMA, STD_AC_LUMA, STD_DC_CHROMA, STD_AC_CHROMA = (
+        std[2], std[3], std[0], std[1])
+    try:
+        return encode(*args, **kw)
+    finally:
+        STD_DC_LUMA, STD_AC_LUMA, STD_DC_CHROMA, STD_AC_CHROMA = std

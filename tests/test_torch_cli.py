@@ -7,7 +7,9 @@ the same inputs in temporary directories (both on the CPU).  Under
 >= 99.99% of samples equal, the slice's tolerance.  Also: ``--resume``
 skips, ``--dump-coeffs`` writes the dequantised planes, a non-JPEG input
 gets its own error line and rc 1 while the others are written, and
-``--device-entropy`` (not ported) exits 2.
+``--batch --device-entropy`` (the device-entropy batch route) writes the
+JAX CLI's files, a corrupt stream failing alone; without ``--batch`` the
+flag is ignored, as in the JAX CLI.
 """
 
 import os
@@ -162,13 +164,69 @@ def test_12bit_to_npy_keeps_samples(tmp_path, capsys):
     np.testing.assert_array_equal(got, want.numpy())
 
 
-@pytest.mark.parametrize("batch", [False, True])
-def test_device_entropy_is_not_ported(tmp_path, capsys, batch):
+def _same_files(mine, theirs):
+    assert sorted(os.listdir(mine)) == sorted(os.listdir(theirs))
+    for name in os.listdir(mine):
+        with open(os.path.join(mine, name), "rb") as a, \
+                open(os.path.join(theirs, name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+def test_batch_device_entropy_equals_jax(tmp_path, capsys):
+    """--batch --device-entropy: the same files as the JAX CLI's (K7 and K2
+    plain versions here; the 12-bit frame and CMYK ride the device routes),
+    the bad file's error line, rc 1."""
     paths = _inputs(str(tmp_path / "in"))
-    rc, _, err = _run(cli.main, ["--platform", "cpu", "--device-entropy",
-                                 *(["--batch"] if batch else []), paths[0]],
-                      capsys)
-    assert rc == 2 and "not ported" in err
+    mine, theirs = str(tmp_path / "port"), str(tmp_path / "jax")
+    opts = ["--batch", "--device-entropy", "--idct", "pallas", "--format",
+            "ppm", "--platform", "cpu", "--upsample", "fancy"]
+    rc, out, err = _run(cli.main, [*opts, "-o", mine, *paths], capsys)
+    rc_j, _, _ = _run(jcli.main, [*opts, "-o", theirs, *paths], capsys)
+    assert (rc, rc_j) == (1, 1) and "bad.jpg: ERROR" in err
+    assert out.count(" -> ") == 3
+    _same_files(mine, theirs)
+
+
+def test_device_entropy_without_batch_is_ignored(tmp_path, capsys):
+    """Without --batch the flag changes nothing: the single-image path
+    writes the same files as without it, as the JAX CLI does."""
+    paths = _inputs(str(tmp_path / "in"))
+    with_flag, without = str(tmp_path / "with"), str(tmp_path / "without")
+    opts = ["--idct", "exact", "--format", "bmp", "--platform", "cpu"]
+    rc, _, err = _run(cli.main, [*opts, "--device-entropy", "-o", with_flag,
+                                 *paths], capsys)
+    rc0, _, _ = _run(cli.main, [*opts, "-o", without, *paths], capsys)
+    assert (rc, rc0) == (1, 1) and err.count("ERROR") == 1
+    _same_files(with_flag, without)
+
+
+def test_batch_device_entropy_isolates_a_corrupt_stream(tmp_path, capsys):
+    """A frame whose entropy data is corrupt fails alone (rc 1, its error
+    line); the other frames of its group are written, equal to decode()."""
+    d = str(tmp_path / "in")
+    os.makedirs(d)
+    paths = []
+    for k in range(3):
+        blob = encode(_rgb(40 + k, 40, 56), quality=90)[0]
+        if k == 1:
+            sos = blob.index(b"\xff\xda")
+            start = sos + 2 + int.from_bytes(blob[sos + 2:sos + 4], "big")
+            blob = blob[:start + 4] + b"\xff\x00" * 8 + blob[start + 20:]
+        paths.append(os.path.join(d, f"f{k}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(blob)
+    out_dir = str(tmp_path / "out")
+    rc, out, err = _run(cli.main, [
+        "--batch", "--device-entropy", "--idct", "exact", "--format", "bmp",
+        "--platform", "cpu", "--upsample", "fancy", "-o", out_dir, *paths],
+        capsys)
+    assert rc == 1 and err.count("ERROR") == 1 and "f1.jpg: ERROR" in err
+    assert sorted(os.listdir(out_dir)) == ["f0.bmp", "f2.bmp"]
+    for k in (0, 2):
+        want = decode(paths[k], idct="exact", upsample="fancy", device="cpu")
+        np.testing.assert_array_equal(
+            writers.read_bmp(os.path.join(out_dir, f"f{k}.bmp")),
+            want.rgb.numpy())
 
 
 def test_batch_rejects_strict_and_dump(tmp_path, capsys):

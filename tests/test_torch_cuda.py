@@ -739,3 +739,106 @@ def test_emit_shapes_in_any_order(cuda_device):
                                  group_lanes=128, budget_words=budget, **kw)
         torch.cuda.synchronize()
         assert int(scratch[0]) == 0 and torch.equal(out[0].cpu(), refs[0])
+
+
+# -- K7 with per-image table sets and geometry; the device-entropy batch ---
+
+def _bucket_blobs():
+    """Five 4:2:0 frames of one power-of-two MCU bucket: four sizes, DRI 0
+    and 4, two Huffman table sets (the test encoder's, and the same with
+    luma and chroma tables exchanged)."""
+    from jpeg_decoder_tpu_torch.testing.encoder import encode_swapped_tables
+
+    specs = [(240, 320, 0, encode), (200, 288, 4, encode_swapped_tables),
+             (232, 304, 4, encode), (240, 320, 0, encode_swapped_tables),
+             (176, 272, 0, encode)]
+    return [enc(_rgb(160 + k, h, w), quality=90, restart_interval=ri)[0]
+            for k, (h, w, ri, enc) in enumerate(specs)]
+
+
+def test_emit_kernel_table_sets_in_shuffled_order(cuda_device):
+    """One K7 launch over a bucket whose rows alternate between two table
+    sets (every CTA restages): equal to decode_lanes_torch on the card and
+    to the native decoder per image, each image's rows past its blocks and
+    the fill row zero though the output is not zero-filled first, no group
+    over budget, no LUT miss, more table stagings than one per set."""
+    from jpeg_decoder_tpu_torch.entropy import native
+
+    blobs = _bucket_blobs()
+    hdrs = [parser.parse(b) for b in blobs]
+    plan = entropy_spec.plan_bucket_group(hdrs, [h.scans[0] for h in hdrs],
+                                          threads=1)
+    assert plan.skel_ok.all() and len(plan.sets) == 2
+    rows_order = [0, 3, 1, 4, 2]          # sets 0, 1, 0, 1, 0
+    assert [int(plan.lut_base[r]) for r in rows_order] == [0, 6, 0, 6, 0]
+    pick = [plan.order[r] for r in rows_order]
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(a[rows_order])).to(
+            cuda_device)
+
+    luts, l1 = entropy_cuda.device_table_stack(plan.sets, cuda_device)
+    bpm = 6
+    n_rows = plan.n_mcus * bpm + 1
+    args = (rows(plan.pools), rows(plan.starts), rows(plan.nm_lane),
+            rows(plan.lane_off), None, luts)
+    kw = dict(block_comp=(0, 0, 0, 0, 1, 2), n_comps=3, n_mcus=plan.n_mcus,
+              trips=plan.trips, precision=8, rows=n_rows,
+              lut_base=rows(plan.lut_base), n_mcus_img=rows(plan.n_mcus_img),
+              ri=rows(plan.ri))
+    junk = torch.full((5, n_rows, 64), 0x5A5A5A5A, dtype=torch.int32,
+                      device=cuda_device)
+    del junk
+    before = entropy_emit_cuda.decode_lanes.launches
+    out, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+    torch.cuda.synchronize()
+    assert entropy_emit_cuda.decode_lanes.launches == before + 1
+    stats = dict(zip(entropy_emit_cuda.STATS,
+                     entropy_emit_cuda.decode_lanes.last_stats.tolist()))
+    ref, ref_err = entropy_emit_cuda.decode_lanes_torch(*args, **kw)
+    assert not err.any() and not ref_err.any()
+    assert torch.equal(out, ref)
+    for row, k in enumerate(pick):
+        n = hdrs[k].mcus_x * hdrs[k].mcus_y * bpm
+        np.testing.assert_array_equal(
+            out[row, :n].cpu().numpy(),
+            native.decode_scan_baseline(hdrs[k], hdrs[k].scans[0]))
+        assert not out[row, n:].any()
+    assert stats["groups_over_budget"] == 0 and stats["lut_misses"] == 0
+    assert stats["table_stages"] > 2
+
+
+def test_sharded_batch_on_card_equals_cpu(cuda_device, monkeypatch):
+    """decode_batch_sharded(idct="exact") on the card equals the same call
+    on the CPU (plain versions) item for item, byte for byte: a uniform
+    DRI-0 group and the bucket (K7 once each), a restart group over the
+    segment threshold (K2 once), a 12-bit frame (K7) and a corrupt stream
+    that fails alone."""
+    from jpeg_decoder_tpu_torch.parallel import sharded
+
+    monkeypatch.setenv("JD_RESTART_EMIT_MAX_LANES", "100")
+    same = [encode(_rgb(170 + k, 120, 160), quality=90)[0] for k in range(3)]
+    bad = bytearray(same[1])
+    sos = bytes(bad).index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(bad[sos + 2:sos + 4], "big")
+    bad[start + 4:start + 20] = b"\xff\x00" * 8
+    blobs = (same + [bytes(bad)] + _bucket_blobs()
+             + [encode(_rgb(180 + k, 80, 128), quality=85,
+                       restart_interval=1)[0] for k in range(3)]
+             + [encode(_rgb(190, 120, 200), quality=90, precision=12)[0]])
+    k7 = entropy_emit_cuda.decode_lanes.launches
+    k2 = entropy_cuda.decode_segments.launches
+    got = sharded.decode_batch_sharded(blobs, cuda_device, idct="exact")
+    torch.cuda.synchronize()
+    assert entropy_emit_cuda.decode_lanes.launches - k7 == 3
+    assert entropy_cuda.decode_segments.launches - k2 == 1
+    ref = sharded.decode_batch_sharded(blobs, "cpu", idct="exact")
+    assert [it.ok for it in got] == [k != 3 for k in range(len(blobs))]
+    for g, r in zip(got, ref):
+        assert g.ok == r.ok
+        if g.ok:
+            assert g.rgb.is_cuda and torch.equal(g.rgb.cpu(), r.rgb)
+    for rec in sharded.decode_batch_sharded.last_timing["groups"]:
+        if "k7_stats" in rec:
+            assert rec["k7_stats"]["groups_over_budget"] == 0
+            assert rec["k7_stats"]["lut_misses"] == 0

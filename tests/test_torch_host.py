@@ -109,7 +109,8 @@ def test_import_leaves_out_jax():
         "          'entropy.arith', 'testing.encoder', 'testing.photo',\n"
         "          'cli', 'utils.config', 'utils.logging',\n"
         "          'utils.profiling', 'io.writers', 'ops.idct_exact_cuda',\n"
-        "          'ops.entropy_emit_cuda', 'ops.entropy_spec'):\n"
+        "          'ops.entropy_emit_cuda', 'ops.entropy_spec',\n"
+        "          'parallel.sharded'):\n"
         "    assert 'jpeg_decoder_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -410,3 +411,38 @@ def test_huffman_luts_match_jax(name):
     np.testing.assert_array_equal(tnative._lut16(got), jnative._lut16(ref))
     np.testing.assert_array_equal(tnative._lut32ac(got),
                                   jnative._lut32ac(ref))
+
+
+# Restart layouts of the vectorised scan_prep.prepare_scan: DRI 1 (one MCU
+# per segment), a last segment shorter than the rest (a 5x7-MCU frame at
+# DRI 4), a segment of 0 bytes (offsets edited after parsing) and DRI 0.
+PREP_LAYOUTS = {"dri1": (1, (40, 56), None), "short_last": (4, (40, 56), None),
+                "empty_segment": (2, (48, 64), 3), "dri0": (0, (40, 56), None)}
+
+
+@pytest.mark.parametrize("name", list(PREP_LAYOUTS))
+def test_prepare_scan_matches_jax(name):
+    from jpeg_decoder_tpu.ops import scan_prep as jprep
+
+    from jpeg_decoder_tpu_torch.ops import scan_prep as tprep
+
+    ri, (h, w), empty = PREP_LAYOUTS[name]
+    blob = ref_encode(_rgb(20 + ri, h, w), samplings=((1, 1),) * 3,
+                      quality=80, restart_interval=ri)[0]
+    jhdr, thdr = jparser.parse(blob), tparser.parse(blob)
+    if empty is not None:
+        for hdr in (jhdr, thdr):
+            offs = hdr.scans[0].seg_offsets.copy()
+            offs[empty + 1] = offs[empty]       # segment `empty` is 0 bytes
+            hdr.scans[0].seg_offsets = offs
+    lens = np.diff(thdr.scans[0].seg_offsets)
+    if name == "short_last":
+        assert lens[-1] < lens[:-1].min()
+    if empty is not None:
+        assert lens[empty] == 0
+    ref = jprep.prepare_scan(jhdr, jhdr.scans[0])
+    got = tprep.prepare_scan(thdr, thdr.scans[0])
+    for a, b in zip(got[:2], ref[:2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert got[2:4] == ref[2:4]
