@@ -154,10 +154,31 @@ kernel against its plain version:
    rows sorted by table set and alternating between sets; the cost of one
    table-set staging (K7 over the 24 DRI-0 1080p images with one set and
    with two copies of it alternating by image, device time queued, the
-   stagings counted); the mixed frames: all 32 decoded, 22 through the host
-   fallback, RGB equal to the ``BatchDecoder``'s, MP/s in turns; the
+   stagings counted); the mixed frames: all 32 decoded, the 8
+   progressive ones on the progressive lanes (K8a-K8d; each also equal to
+   its own ``decode()``), 14 through the host fallback, RGB equal to the
+   ``BatchDecoder``'s, MP/s in turns; the
    8192x6144 frame: RGB equal to ``decode(entropy="hybrid")``, peak device
    memory;
+10d. progressive lanes phase (K8a-K8d, ``csrc/entropy_prog.cu``, under
+   ``ops/entropy_prog.py``; run after 10b''): every scan of the 512x512
+   and 1080p (a) progressive fixtures through each kernel and its plain
+   version on the card, from the native decoder's prior planes, with
+   skeleton lanes at the default count: planes and flags equal, and equal
+   to the native decoder's; the 1080p (a), (b), 1080p restart (a restart
+   marker every MCU row) and 3840x2160 DRI-0 fixtures: the planes of
+   ``decode_to_planes`` under ``pallas``, ``jax`` and ``hybrid`` equal to
+   ``native.decode_progressive`` (each count set to 0 just before: every
+   K8 kernel launched), again at 512 lanes (DRI 0); ``decode()`` under
+   ``pallas`` and ``hybrid`` with ``idct="exact"`` byte-equal to the CPU
+   decode and ``"pallas"`` within the batch tolerance; per frame the host
+   skeleton walks per scan kind (1 thread, best of 3), K8's device time per
+   scan kind (10 launches queued behind a spin kernel, CUDA events; AC
+   refinement restores its plane before each, the restores timed apart
+   and taken off), both at the default lane target and at JAX's 512 on
+   DRI-0 frames, the byte bound, the pixel stage, ``decode()`` end to end
+   under ``hybrid`` (also at 512 lanes on DRI-0 frames) and ``native`` and
+   the native host progressive decode;
 10c. CLI phase: ``python -m jpeg_decoder_tpu_torch`` in subprocesses on the
    card over a temporary directory of three frames (1080p 4:2:0, CMYK,
    12-bit) and a non-JPEG file: ``--idct exact --strict --format bmp
@@ -356,19 +377,22 @@ def _close_to_cpu(what: str, gpu, cpu) -> None:
 
 def _zero_counts() -> None:
     from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
-                                            idct_cuda, idct_exact_cuda)
+                                            entropy_prog_cuda, idct_cuda,
+                                            idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     for fn in (idct_cuda.fused_dequant_idct, entropy_cuda.decode_segments,
                lut_probe.lut_chain_probe, lut_probe.lut_gather,
                idct_exact_cuda.dequant_idct_exact,
-               entropy_emit_cuda.decode_lanes):
+               entropy_emit_cuda.decode_lanes,
+               *entropy_prog_cuda.KERNELS.values()):
         fn.launches = 0
 
 
 def _counts() -> dict:
     from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
-                                            idct_cuda, idct_exact_cuda)
+                                            entropy_prog_cuda, idct_cuda,
+                                            idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
     return {"K1": idct_cuda.fused_dequant_idct.launches,
@@ -376,7 +400,9 @@ def _counts() -> dict:
             "K3": lut_probe.lut_chain_probe.launches,
             "K4": lut_probe.lut_gather.launches,
             "K5": idct_exact_cuda.dequant_idct_exact.launches,
-            "K7": entropy_emit_cuda.decode_lanes.launches}
+            "K7": entropy_emit_cuda.decode_lanes.launches,
+            **{k: fn.launches
+               for k, fn in entropy_prog_cuda.KERNELS.items()}}
 
 
 def _build_all() -> None:
@@ -384,7 +410,8 @@ def _build_all() -> None:
     compiler process each); prints the times and ptxas's resource lines."""
     from jpeg_decoder_tpu_torch.entropy import native
     from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
-                                            idct_cuda, idct_exact_cuda)
+                                            entropy_prog_cuda, idct_cuda,
+                                            idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
     from jpeg_decoder_tpu_torch.testing import emit_v1
 
@@ -393,7 +420,8 @@ def _build_all() -> None:
             "lut_probe.cu": lut_probe.build,
             "idct_exact.cu": idct_exact_cuda.build,
             "entropy_emit.cu": entropy_emit_cuda.build,
-            "entropy_emit_v1.cu (baseline)": emit_v1.build}
+            "entropy_emit_v1.cu (baseline)": emit_v1.build,
+            "entropy_prog.cu": entropy_prog_cuda.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(_wall, fn) for name, fn in jobs.items()}
@@ -402,7 +430,8 @@ def _build_all() -> None:
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
           + "; nvcc for sm_90a)")
     for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB,
-                idct_exact_cuda.LIB, entropy_emit_cuda.LIB, emit_v1.LIB):
+                idct_exact_cuda.LIB, entropy_emit_cuda.LIB, emit_v1.LIB,
+                entropy_prog_cuda.LIB):
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {os.path.basename(lib.src)}: {line.strip()}")
@@ -1701,6 +1730,270 @@ def _k7_batch_phase(dev, blobs: list) -> dict:
                      args, kw, l1, [refs[k % 6] for k in range(24)])
 
 
+PROG_FRAMES = ("progressive_1080p_a.jpg", "progressive_1080p_b.jpg",
+               "progressive_1080p_dri.jpg", "progressive_4k.jpg")
+#: K8's kernels: (wrapper, TPU code it replaces, what it decodes).
+PROG_KERNELS = {
+    "K8a": ("dc_first", "jpeg_decoder_tpu/ops/entropy_prog.py:87",
+            "DC first"),
+    "K8b": ("dc_refine", "jpeg_decoder_tpu/ops/entropy_prog.py:152",
+            "DC refine"),
+    "K8c": ("ac_first", "jpeg_decoder_tpu/ops/entropy_prog.py:770",
+            "AC first"),
+    "K8d": ("ac_refine", "jpeg_decoder_tpu/ops/entropy_prog.py:517",
+            "AC refine"),
+}
+
+
+def _prog_kind(scan) -> str:
+    return ("K8a" if scan.ah == 0 else "K8b") if scan.ss == 0 else (
+        "K8c" if scan.ah == 0 else "K8d")
+
+
+def _prog_bytes(scan, before, after) -> int:
+    """The bytes one scan must move: its words, and per block the plane
+    elements it reads (a refinement's history: coefficient 0, or the AC
+    band) and the elements it changes (read once, written once)."""
+    n_words = (len(scan.data) + 3) // 4 + 8
+    cis = sorted(set(scan.comp_indices))
+    changed = sum(int((a != b).sum()) for ci in cis
+                  for a, b in [(before[ci][:-1], after[ci][:-1])])
+    blocks = sum(len(before[ci]) - 1 for ci in cis)
+    read = blocks * (scan.se - scan.ss + 1) if scan.ah else 0
+    return 4 * (n_words + read + changed)
+
+
+def _prog_phase(dev) -> dict:
+    """The progressive lanes on the card (see the module docstring).
+    Returns the K8a-K8d records, without ``launches``."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing import photo
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    t_phase = time.perf_counter()
+    recs = {k: {"name": f, "route": "cuda",
+                "source": "jpeg_decoder_tpu_torch/csrc/entropy_prog.cu",
+                "replaces": rep, "max_abs_err": 0, "library_ms": None,
+                "by_frame": {}}
+            for k, (f, rep, _) in PROG_KERNELS.items()}
+    counts = {}
+
+    def tally(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # Kernels against their plain versions on the card: every scan of the
+    # 512x512 and the 1080p (a) fixture, skeleton lanes at the default
+    # count, from the native decoder's prior planes.
+    plain_ms = {k: 0.0 for k in PROG_KERNELS}
+    native_ms = {}
+    n_scans = 0
+    for name in ("progressive_512.jpg", "progressive_1080p_a.jpg"):
+        hdr = parser.parse(photo.fixture(name)[0])
+        states = native_prog_states(hdr)
+        nzmaps: dict = {}
+        for k, scan in enumerate(hdr.scans):
+            lanes = ep.hybrid_scan_prep(hdr, scan, nzmaps,
+                                        target_lanes=ep.target_lanes_default())
+            args = ep.scan_inputs(hdr, scan, lanes, dev)
+            got = []
+            for kernel in (True, False):
+                planes = [torch.tensor(p, device=dev) for p in states[k]]
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                err = ep.launch_scan(scan, args, planes, plain=not kernel)
+                t1.record()
+                t1.synchronize()
+                if not kernel and name != "progressive_512.jpg":
+                    plain_ms[_prog_kind(scan)] += t0.elapsed_time(t1)
+                got.append((err.cpu(), [p.cpu() for p in planes]))
+            kind = _prog_kind(scan)
+            d = max(int((a - b).abs().max())
+                    for a, b in zip(got[0][1], got[1][1]))
+            recs[kind]["max_abs_err"] = max(recs[kind]["max_abs_err"], d)
+            off = sum(int((a.numpy() != b).sum())
+                      for a, b in zip(got[0][1], states[k + 1]))
+            if d or off or got[0][0].any() or \
+                    not torch.equal(got[0][0], got[1][0]):
+                raise AssertionError(
+                    f"prog {name} scan {k} ({kind}): kernel vs plain max "
+                    f"|diff| {d}, {off} coefficients off the native "
+                    f"decoder, flags {int(got[0][0].sum())} and "
+                    f"{int(got[1][0].sum())}")
+            n_scans += 1
+    print(f"prog kernels: {n_scans} scans of the 512x512 and 1080p (a) "
+          "fixtures through K8a-K8d and their plain versions on the card "
+          "from the native decoder's prior planes: planes and flags equal, "
+          "planes equal to the native decoder's; plain versions on (a) "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
+
+    # Planes against the native decoder under every device backend, with
+    # each count set to 0 just before; a second plan of 512 lanes.
+    for name in PROG_FRAMES:
+        blob = photo.fixture(name)[0]
+        hdr = parser.parse(blob)
+        t0 = time.perf_counter()
+        want = native.decode_progressive(hdr)
+        nat_ms = (time.perf_counter() - t0) * 1e3
+        dri0 = hdr.scans[0].restart_interval == 0
+        for entropy in ("pallas", "jax", "hybrid"):
+            torch.cuda.synchronize()
+            _zero_counts()
+            got = dec_mod.decode_to_planes(hdr, entropy=entropy, device=dev)
+            torch.cuda.synchronize()
+            c = _counts()
+            tally(c)
+            off = sum(int((a != b).sum()) for a, b in zip(got, want))
+            if off or any(c[k] == 0 for k in PROG_KERNELS):
+                raise AssertionError(f"prog {name} {entropy}: {off} "
+                                     f"coefficients off native, launches {c}")
+        if dri0:
+            got = ep.decode_progressive_hybrid(hdr, dev, target_lanes=512)
+            if any(not np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"prog {name}: 512 lanes differ")
+        native_ms[name] = nat_ms
+
+    # decode() end to end, stage times per frame.
+    for name in PROG_FRAMES:
+        blob = photo.fixture(name)[0]
+        hdr = parser.parse(blob)
+        dri0 = hdr.scans[0].restart_interval == 0
+        for idct in ("exact", "pallas"):
+            cpu = decode(blob, entropy="native", idct=idct,
+                         upsample="fancy", device="cpu").rgb
+            for entropy in ("pallas", "hybrid"):
+                _zero_counts()
+                rgb = decode(blob, entropy=entropy, idct=idct,
+                             upsample="fancy", device=dev).rgb
+                torch.cuda.synchronize()
+                tally(_counts())
+                if idct == "exact" and not torch.equal(rgb.cpu(), cpu):
+                    raise AssertionError(f"prog {name} {entropy}: strict RGB "
+                                         "differs from the CPU decode")
+                if idct == "pallas":
+                    _close_to_cpu(f"prog {name} {entropy} pallas", rgb, cpu)
+        # Host walks per kind (one thread, best of 3) and K8 device time
+        # per kind (launches queued behind a spin; AC refinement restores
+        # its plane before each launch, the restore timed apart), at the
+        # default lane target and, on DRI-0 frames, at JAX's 512.
+        states = native_prog_states(hdr)
+        targets = (ep.target_lanes_default(), 512) if dri0 else (None,)
+        walk_ms = {t: {k: 0.0 for k in PROG_KERNELS} for t in targets}
+        dev_ms = {t: {k: 0.0 for k in PROG_KERNELS} for t in targets}
+        byts = {k: 0 for k in PROG_KERNELS}
+        nzmaps: dict = {t: {} for t in targets}
+        for k, scan in enumerate(hdr.scans):
+            kind = _prog_kind(scan)
+            byts[kind] += _prog_bytes(scan, states[k], states[k + 1])
+            for t in targets:
+                lanes = None
+                if t is not None:
+                    walk = []
+                    for _ in range(3):
+                        trial = {ci: m.copy()
+                                 for ci, m in nzmaps[t].items()}
+                        t0 = time.perf_counter()
+                        lanes = ep.hybrid_scan_prep(hdr, scan, trial,
+                                                    target_lanes=t)
+                        walk.append(time.perf_counter() - t0)
+                    nzmaps[t] = trial
+                    walk_ms[t][kind] += min(walk) * 1e3
+                args = ep.scan_inputs(hdr, scan, lanes, dev)
+                planes = [torch.tensor(p, device=dev) for p in states[k]]
+                prior = [p.clone() for p in planes]
+
+                def restore(pl=planes, pr=prior, cis=args.cis):
+                    for ci in cis:
+                        pl[ci].copy_(pr[ci])
+
+                def run(a=args, pl=planes, sc=scan, refine=kind == "K8d",
+                        restore=restore):
+                    if refine:
+                        restore()
+                    ep.launch_scan(sc, a, pl)
+
+                ms = _queued_ms(run, n=10)
+                if kind == "K8d":
+                    ms -= _queued_ms(restore, n=10)
+                dev_ms[t][kind] += ms
+        # Pixels on the lanes' planes, end to end (hybrid also at 512 lanes
+        # on DRI-0 frames), the host decode.
+        planes = ep.decode_progressive_lanes(hdr, dev, as_device=True)
+        pix_ms = statistics.median(_cuda_ms(
+            lambda: dec_mod.pixels_from_planes(hdr, planes, idct="pallas",
+                                               upsample="fancy"), 5))
+        e2e = {}
+        runs = [("hybrid", None), ("native", None)]
+        if dri0:
+            runs.append(("hybrid", "512"))
+        for entropy, lanes_env in runs:
+            kwd = dict(entropy=entropy, idct="pallas", upsample="fancy",
+                       device=dev)
+            old = os.environ.get("JD_PROG_LANES")
+            if lanes_env:
+                os.environ["JD_PROG_LANES"] = lanes_env
+            try:
+                decode(blob, **kwd)
+                e2e[entropy + (f"@{lanes_env}" if lanes_env else "")] = min(
+                    _wall(lambda: (decode(blob, **kwd),
+                                   torch.cuda.synchronize()))
+                    for _ in range(3)) * 1e3
+            finally:
+                if old is None:
+                    os.environ.pop("JD_PROG_LANES", None)
+                else:
+                    os.environ["JD_PROG_LANES"] = old
+        t_def = targets[0]
+        mp = hdr.width * hdr.height / 1e6
+        for kind in PROG_KERNELS:
+            recs[kind]["by_frame"].setdefault(name, {}).update(
+                ms=dev_ms[t_def][kind],
+                bound_ms=byts[kind] / HBM_BYTES_PER_S * 1e3,
+                host_walk_ms=walk_ms[t_def][kind] if dri0 else None,
+                ms_512_lanes=dev_ms[512][kind] if dri0 else None,
+                host_walk_ms_512_lanes=walk_ms[512][kind] if dri0 else None)
+        nat_ms = native_ms[name]
+        print(f"prog {name} ({hdr.width}x{hdr.height}, DRI "
+              f"{hdr.scans[0].restart_interval}, {len(hdr.scans)} scans, "
+              f"{len(blob) / 1e6:.2f} MB): planes equal to the native "
+              "decoder under pallas, jax and hybrid"
+              + (" and at 512 lanes" if dri0 else "") + "; strict RGB equal "
+              "to the CPU decode, pallas within the K1 bound; "
+              + "; ".join(
+                  (f"at {t} target lanes host walks " + ", ".join(
+                      f"{PROG_KERNELS[k][2]} {v:.2f} ms"
+                      for k, v in walk_ms[t].items()) if t else
+                   "segment lanes, no host walks") + ", K8 device "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms[t].items())
+                  for t in targets)
+              + "; K8 bounds " + ", ".join(
+                  f"{k} {v / HBM_BYTES_PER_S * 1e6:.2f} us"
+                  for k, v in byts.items())
+              + f"; pixels {pix_ms:.3f} ms; decode() end to end (best of 3) "
+              f"hybrid {e2e['hybrid']:.2f} ms ({mp / e2e['hybrid'] * 1e3:.1f}"
+              f" MP/s)"
+              + (f", hybrid at 512 lanes {e2e['hybrid@512']:.2f} ms"
+                 if dri0 else "")
+              + f", native {e2e['native']:.2f} ms; native host "
+              f"progressive decode {nat_ms:.2f} ms")
+        del planes
+    a = "progressive_1080p_a.jpg"
+    for kind, rec in recs.items():
+        rec.update(ms=rec["by_frame"][a]["ms"], plain_ms=plain_ms[kind],
+                   bound_ms=rec["by_frame"][a]["bound_ms"], bound_by="bytes",
+                   frame=a)
+    recs["K8a"]["decode_counts"] = counts
+    print(f"prog phase: {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 BIG = (8192, 6144)   # width, height of the >= 50 MP frame
 
 
@@ -2552,11 +2845,23 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
         items, counts, timing = _sharded_run(dev, mixed, "pallas")
         bad = [it.index for it in items if not it.ok]
         n_rgb = _n_rgb_differ(ref, items)
-        if (bad or n_rgb or timing["host_fallback"] != 22
-                or timing["fallback_rows"]):
+        # The 8 progressive frames ride the lanes (K8a-K8d), each equal to
+        # its own decode() too; 14 frames remain on the host fallback.
+        n_prog = 0
+        for it, blob in zip(items, mixed):
+            if parser.parse(blob).progressive and it.ok and not parser.parse(
+                    blob).arithmetic:
+                one = decode(blob, idct="pallas", upsample="fancy",
+                             device=dev).rgb
+                n_prog += int(torch.equal(it.rgb, one))
+        if (bad or n_rgb or timing["host_fallback"] != 14
+                or timing["progressive"] != 8 or n_prog != 8
+                or timing["progressive_fallback"] or timing["fallback_rows"]
+                or any(counts[k] == 0 for k in PROG_KERNELS)):
             raise AssertionError(f"sharded mixed: failed {bad}, {n_rgb} "
                                  f"differ, {timing['host_fallback']} on the "
-                                 "host fallback")
+                                 f"host fallback, {n_prog} progressive "
+                                 f"equal to decode(), launches {counts}")
         launches["mixed"] = counts
         del ref, items
         m_mp = sum(parser.parse(b).width * parser.parse(b).height
@@ -2570,7 +2875,9 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
                 turns[k].append(_wall(lambda f=fn: (
                     f(), torch.cuda.synchronize())))
     print(f"sharded mixed: all {len(mixed)} decoded, RGB equal to the "
-          f"BatchDecoder's; {timing['host_fallback']} frames on the host "
+          f"BatchDecoder's; {timing['progressive']} progressive frames on "
+          f"the lanes ({timing['progressive_s'] * 1e3:.1f} ms, equal to "
+          f"their decode()); {timing['host_fallback']} frames on the host "
           f"fallback ({timing['fallback_s'] * 1e3:.1f} ms); launches "
           f"{counts}; {_group_line(timing)}; end to end (best of 4, in "
           "turns): " + ", ".join(f"{k} {m_mp / min(v):.1f} MP/s"
@@ -2756,6 +3063,8 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     torch.cuda.empty_cache()
     k7["B=24"] = _k7_batch_phase(dev, blobs)
     torch.cuda.empty_cache()
+    k8 = _prog_phase(dev)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     big_blob = big_fut.result()
     print(f"big frame: encoded in the pool, {time.perf_counter() - t0:.1f} s "
@@ -2815,7 +3124,13 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
         **{f"decode_batch_sharded {k}": v["K7"] for k, v in sharded.items()
            if k != "e2e_mp_per_s"}}
     k7["launches"] = sum(k7["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7]}))
+    decode_counts = k8["K8a"].pop("decode_counts")
+    for key, rec in k8.items():
+        rec["launches_by_path"] = {
+            "decode/decode_to_planes pallas, jax, hybrid": decode_counts[key],
+            "decode_batch_sharded mixed": sharded["mixed"][key]}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7, *k8.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,9 @@ JAX package's wrappers:
 * the wire emitters of the batched path: :func:`decode_scan_nibble`,
   :func:`decode_scan_packed`, :func:`decode_scan_sparse` and
   :func:`decode_scan_slots`;
+* the skeleton walks of the device progressive lanes
+  (``ops/entropy_prog.py``), :func:`prog_skeleton_dc` and
+  :func:`prog_skeleton_ac`;
 * the progressive Huffman decoder :func:`decode_progressive` and the
   arithmetic decoders :func:`decode_scan_arith` (SOF9) and
   :func:`decode_progressive_arith` (SOF10).
@@ -90,6 +93,18 @@ _SIGNATURES = {
         _P, _P, _P,             # scratch bits, syms, pairs
         _P, _P, _P,             # out_m_lo, out_nm, out_starts
         _P, _P, _P, _I32],      # out_T_sym, out_T_pair, out_L, n_threads
+    "jd_prog_skeleton_dc": [
+        _P, _I64, _I64,         # data, start_byte, data_len
+        _I32, _P, _P,           # n_scan_comps, comp_h, comp_v
+        _P, _I32,               # dc_luts, interleaved
+        _I64, _I64,             # n_mcus, stride
+        _P, _P],                # out_bits, out_preds
+    "jd_prog_skeleton_ac": [
+        _P, _I64, _I64,         # data, start_byte, data_len
+        _I32, _I32, _I32,       # first, ss, se
+        _P, _P,                 # ac_lut, nzmap
+        _I64, _I64,             # n_blocks, stride
+        _P, _P, _P],            # out_bits, out_eobrun, out_syms
     "jd_decode_scan_arith": [
         _P, _P, _I32, _I32,     # data, seg_offsets, n_segments, n_comps
         _P, _P,                 # h, v
@@ -480,6 +495,98 @@ def emit_prep(hdr: FrameHeader, scan: ScanHeader, *, max_chunks: int = 512,
     if not 0 < n <= cap:
         raise JPEGError(f"emit prep returned {n} lanes, capacity {cap}")
     return m_lo[:n], nm[:n], starts[:n], int(t_sym.value), int(t_pair.value)
+
+
+def _skeleton_scan(hdr: FrameHeader, scan: ScanHeader) -> int:
+    """Checks shared by the skeleton walks: a DRI-0 scan of under 2^31
+    bits.  Returns its units (MCUs of an interleaved scan, else the
+    component's unpadded blocks)."""
+    if len(scan.seg_offsets) != 2:
+        raise JPEGError("progressive skeleton requires a DRI=0 scan")
+    if len(scan.data) * 8 >= 1 << 31:
+        raise JPEGError(f"progressive skeleton takes scans under 2^31 bits, "
+                        f"got {len(scan.data)} bytes")
+    if len(scan.comp_indices) > 1:
+        return hdr.mcus_x * hdr.mcus_y
+    r, c = comp_dims_unpadded(hdr, scan.comp_indices[0])
+    return r * c
+
+
+def _check_lane_bits(bits: np.ndarray, scan: ScanHeader, what: str) -> None:
+    """The walk's lane start bits must ascend inside the scan."""
+    if (bits < 0).any() or (np.diff(bits) < 0).any() or \
+            (bits > len(scan.data) * 8).any():
+        raise JPEGError(f"progressive {what} skeleton returned lane bits "
+                        "out of order or outside the scan")
+
+
+def prog_skeleton_dc(hdr: FrameHeader, scan: ScanHeader, stride: int):
+    """Skeleton of a DRI-0 DC first scan (jd_prog_skeleton_dc): a walk that
+    decodes every difference and stores nothing, recording at every
+    ``stride``-th MCU the lane state.  Returns (bits (L,) int64 absolute
+    start bits, preds (L, n_scan_comps) int32 predictors entering each
+    lane), L = ceil(n_units / stride).
+
+    JAX's guards (DRI 0, ``rc != 0`` -> JPEGError), and the lane arrays'
+    guards of the emit-lane prep: outputs sized from ``stride``, scans of
+    2^31 bits or more refused, lane bits checked to ascend inside the
+    scan."""
+    lib = _load()
+    n_mcus = _skeleton_scan(hdr, scan)
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    nsc = len(scan.comp_indices)
+    h = np.array([hdr.components[ci].h for ci in scan.comp_indices],
+                 np.int32)
+    v = np.array([hdr.components[ci].v for ci in scan.comp_indices],
+                 np.int32)
+    dc_luts = [_lut16(scan.dc_specs[scan.dc_table_ids[k]])
+               for k in range(nsc)]
+    n_lanes = -(-n_mcus // stride)
+    bits = np.zeros(n_lanes, np.int64)
+    preds = np.zeros((n_lanes, nsc), np.int32)
+    rc = lib.jd_prog_skeleton_dc(
+        _padded(scan).ctypes.data, int(scan.seg_offsets[0]), len(scan.data),
+        nsc, h.ctypes.data, v.ctypes.data, _ptrs(dc_luts), int(nsc > 1),
+        n_mcus, stride, bits.ctypes.data, preds.ctypes.data)
+    if rc != 0:
+        raise JPEGError(f"progressive DC skeleton failed (code {rc})")
+    _check_lane_bits(bits, scan, "DC")
+    return bits, preds
+
+
+def prog_skeleton_ac(hdr: FrameHeader, scan: ScanHeader, stride: int,
+                     nzmap: np.ndarray, want_syms: bool = False):
+    """Skeleton of a DRI-0 AC scan, first or refinement
+    (jd_prog_skeleton_ac).  Returns (bits (L,) int64, eobrun (L,) int32)
+    lane states every ``stride`` blocks and UPDATES ``nzmap``, the
+    component's (n_blocks,) uint64 band bitmap kept across its scans (bit k
+    set: zigzag coefficient k nonzero), which decides refinement bit
+    consumption.  With ``want_syms`` also a per-block (n_blocks,) int32
+    count: Huffman symbols (first scans) or the JAX emission refine
+    kernel's events (refinements), the lane-balancing weights.  The guards
+    of :func:`prog_skeleton_dc`, and ``nzmap``'s shape and dtype."""
+    lib = _load()
+    n_blocks = _skeleton_scan(hdr, scan)
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    if nzmap.shape != (n_blocks,) or nzmap.dtype != np.uint64 or \
+            not nzmap.flags.c_contiguous:
+        raise ValueError("nzmap must be contiguous (n_blocks,) uint64")
+    lut = _lut16(scan.ac_specs[scan.ac_table_ids[0]])
+    n_lanes = -(-n_blocks // stride)
+    bits = np.zeros(n_lanes, np.int64)
+    eob = np.zeros(n_lanes, np.int32)
+    syms = np.zeros(n_blocks, np.int32) if want_syms else None
+    rc = lib.jd_prog_skeleton_ac(
+        _padded(scan).ctypes.data, int(scan.seg_offsets[0]), len(scan.data),
+        int(scan.ah == 0), scan.ss, scan.se, lut.ctypes.data,
+        nzmap.ctypes.data, n_blocks, stride, bits.ctypes.data,
+        eob.ctypes.data, syms.ctypes.data if want_syms else None)
+    if rc != 0:
+        raise JPEGError(f"progressive AC skeleton failed (code {rc})")
+    _check_lane_bits(bits, scan, "AC")
+    return (bits, eob, syms) if want_syms else (bits, eob)
 
 
 def decode_scan_subset(hdr: FrameHeader, scan: ScanHeader,

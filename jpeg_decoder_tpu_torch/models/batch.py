@@ -21,12 +21,14 @@ Every wire carries the int16 DC plane and an escape list for |AC| > 127.
 Frames the fast path cannot take — progressive, arithmetic, multi-scan or
 non-interleaved, restart-count-mismatched, 12-bit — decode to host planes
 through ``models.decoder.decode_to_planes`` and then ride the chosen wire
-like any other image.  Groups are keyed by geometry bucket, sampling, colour
-space and precision, so gray, YCbCr, Adobe RGB, CMYK and YCCK sources and
-12-bit frames (uint16 RGB) each get their own pixel pass.  Progressive
-frames under ``entropy="pallas"``, ``"jax"`` or ``"hybrid"`` come back as
-that image's own :class:`~.decoder.NotPortedError`; a malformed blob as its
-own :class:`JPEGError`; neither fails the batch.
+like any other image; under ``entropy="pallas"``, ``"jax"`` or
+``"hybrid"`` a progressive Huffman frame's planes come from the device
+progressive lanes (``ops/entropy_prog.py``, kernels K8a-K8d), as in JAX.
+Groups are keyed by geometry bucket, sampling, colour space and precision,
+so gray, YCbCr, Adobe RGB, CMYK and YCCK sources and 12-bit frames (uint16
+RGB) each get their own pixel pass.  A malformed blob, or a progressive
+scan the lanes flag, comes back as that image's own :class:`JPEGError`; it
+does not fail the batch.
 
 Large inputs run in *waves*: host entropy of wave k+1 overlaps the device
 work of wave k, which one worker thread runs on its own CUDA stream from

@@ -22,19 +22,19 @@ Entropy backends:
   native when it builds here, else python.  Their blocks are copied to the
   device.
 
-Progressive (Huffman or arithmetic), arithmetic sequential, multi-scan and
-non-interleaved frames decode to host planes (:func:`decode_to_planes`, the
-JAX function's routing) and go through the same pixel pipeline; a
+Progressive Huffman frames under ``pallas``, ``jax`` and ``hybrid`` decode
+on the device progressive lanes (``ops/entropy_prog.py``: the kernels
+K8a-K8d fed restart segments or the host's skeleton walks; 8-bit frames,
+others on the host as in JAX), and the device planes go straight to the
+pixel pipeline.  Under the host backends progressive frames, and under every
+backend arithmetic (sequential or progressive), multi-scan and
+non-interleaved frames, decode to host planes (:func:`decode_to_planes`,
+the JAX function's routing) and go through the same pixel pipeline; a
 restart-count mismatch takes the resilient decoder.
 
 The pixel stage takes gray, YCbCr, Adobe RGB, CMYK and YCCK sources and
 12-bit frames (uint16 output); ``idct="exact"``, the default, is the strict
 AAN IDCT kernel K5, byte-identical to the JAX package's eager strict path.
-
-What the JAX function offers beyond this is not ported yet and raises
-:class:`NotPortedError` rather than run something else: progressive frames
-under ``pallas``, ``jax`` and ``hybrid`` (the JAX package's device
-progressive lanes).
 """
 
 from __future__ import annotations
@@ -57,9 +57,8 @@ _log = logging.getLogger(__name__)
 _comp_src_cache: dict[tuple, tuple] = {}
 
 
-class NotPortedError(JPEGError):
-    """A frame kind or an option of the JAX ``decode()`` that the port does
-    not have yet."""
+#: The entropy backends that decode on the device.
+DEVICE_BACKENDS = ("pallas", "jax", "hybrid")
 
 
 @dataclasses.dataclass
@@ -203,16 +202,19 @@ def decode_to_planes(hdr: FrameHeader, entropy: str = "auto",
     (``auto``/``native``, 8-bit) or ``entropy.progressive``; multi-scan and
     non-interleaved ones scan by scan; the rest through the chosen backend
     (``device`` is where the device backends run) with restart
-    resynchronization."""
+    resynchronization.  Under ``pallas``, ``jax`` and ``hybrid`` progressive
+    Huffman frames take the device lanes
+    (``entropy_prog.decode_progressive_lanes`` on ``device``), whose planes
+    are copied back."""
     if hdr.arithmetic:
         from ..entropy import arith
         return arith.decode_to_planes(hdr)
     if hdr.progressive:
-        if entropy in ("jax", "hybrid", "pallas"):
-            raise NotPortedError(
-                f"progressive frames under entropy={entropy!r} take the "
-                "device progressive lanes (ops/entropy_prog), which are not "
-                "ported (ROADMAP queue 1 item 7)")
+        if entropy in DEVICE_BACKENDS:
+            from ..ops import entropy_prog
+
+            return entropy_prog.decode_progressive_lanes(
+                hdr, torch.device(device))
         from ..entropy import native, progressive
 
         if (entropy in ("auto", "native") and hdr.precision == 8
@@ -271,6 +273,25 @@ def _comp_srcs(hdr: FrameHeader, device: torch.device) -> tuple:
     return hit
 
 
+def pixels_from_planes(hdr: FrameHeader, planes, *, idct: str,
+                       upsample: str, out_cmyk: bool = False) -> torch.Tensor:
+    """The frame's (1, H, W, C) pixels from its coefficient planes (one
+    (rows*cols[+1], 64) int32 tensor per component, on the device the
+    pixels go to): its quantisation tables and samplings, then the pixel
+    pipeline."""
+    dev = planes[0].device
+    qts = tuple(torch.from_numpy(hdr.quant_tables[c.tq].values
+                                 .astype(np.int32)).to(dev)[None]
+                for c in hdr.components)
+    return pixel_ops.pixel_pipeline_impl(
+        tuple(p[None] for p in planes), qts, height=hdr.height,
+        width=hdr.width,
+        samplings=tuple((hdr.v_max // c.v, hdr.h_max // c.h)
+                        for c in hdr.components),
+        idct=idct, upsample=upsample, color=hdr.colorspace,
+        out_cmyk=out_cmyk, precision=hdr.precision)
+
+
 def decode(source, *, entropy: str = "auto", idct: str = "exact",
            upsample: str = "nn", keep_planes: bool = False, device=None,
            strict: bool = False, colorspace: str = "rgb",
@@ -281,8 +302,9 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
       source: file path or bytes-like JPEG stream.
       entropy: "auto" | "python" | "native" | "speculative" | "pallas"
         (device kernel K2, 8-bit frames) | "jax" (K2, 8- and 12-bit) |
-        "hybrid" (K7 on DRI=0 streams, K2 on restart streams);
-        progressive frames raise under the three device backends.
+        "hybrid" (K7 on DRI=0 streams, K2 on restart streams); under
+        these three, progressive frames decode on the device lanes
+        (K8a-K8d, ``ops/entropy_prog.py``).
       idct: "exact" (the reference's AAN float semantics: the CUDA kernel
         K5, its op-by-op twin on the CPU), "pallas" (the Kronecker CUDA
         kernel K1; its plain twin on the CPU), "kron" (that twin) or
@@ -329,14 +351,27 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
                     out_cmyk=out_cmyk, precision=hdr.precision)
     lay = layout_mod.scan_layout(hdr)
     planes = None
-    if (hdr.progressive or hdr.arithmetic or needs_scan_loop(hdr)
+    if hdr.progressive and not hdr.arithmetic and entropy in DEVICE_BACKENDS:
+        # Device progressive lanes: the planes stay on the device for the
+        # pixel pipeline; the lane flags are read once, after it is queued.
+        from ..ops import entropy_prog
+
+        errs: list = []
+        dplanes = entropy_prog.decode_progressive_lanes(
+            hdr, dev, as_device=True, err_sink=errs)
+        rgb = pixels_from_planes(hdr, dplanes, idct=idct, upsample=upsample,
+                                 out_cmyk=out_cmyk)[0]
+        entropy_prog.check_errors(errs)
+        if keep_planes:
+            planes = [p.cpu().numpy() for p in dplanes]
+    elif (hdr.progressive or hdr.arithmetic or needs_scan_loop(hdr)
             or keep_planes):
         # Host planes: every scan of the frame decoded on the host (or by
         # K2 for ``keep_planes`` under pallas), then the pixel pipeline.
         planes = decode_to_planes(hdr, entropy=entropy, device=dev)
-        rgb = pixel_ops.pixel_pipeline_impl(
-            tuple(torch.from_numpy(p).to(dev)[None] for p in planes),
-            tuple(q[None] for q in qtables), **pixel_kw)[0]
+        rgb = pixels_from_planes(
+            hdr, [torch.from_numpy(p).to(dev) for p in planes], idct=idct,
+            upsample=upsample, out_cmyk=out_cmyk)[0]
     else:
         # Production path: scan-order blocks go (or stay) on the device and
         # plane assembly is a device gather inside the pipeline.

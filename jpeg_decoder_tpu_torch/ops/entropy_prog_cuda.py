@@ -1,0 +1,593 @@
+"""Progressive Huffman scan kernels K8a-K8d: the CUDA kernels and their plain
+versions.
+
+Counterparts of the JAX package's device loops in
+``jpeg_decoder_tpu/ops/entropy_prog.py`` (see ``csrc/entropy_prog.cu`` for
+the mapping): each wrapper applies one scan of one kind to device-resident
+coefficient planes, in place, and returns the scan's (S,) int32 lane flags.
+
+* :func:`dc_first` (K8a), :func:`dc_refine` (K8b), :func:`ac_first` (K8c)
+  and :func:`ac_refine` (K8d) launch ``csrc/entropy_prog.cu`` (built with
+  nvcc for sm_90a at first use into ``.cache/torch/kernels/``, bound with
+  ctypes) on CUDA tensors, on the current stream, and count their launches
+  in ``<wrapper>.launches``.  A failed build or launch raises.  On CPU
+  tensors they run the plain versions; that is the only way those are
+  reached.
+* :func:`dc_first_torch`, :func:`dc_refine_torch`, :func:`ac_first_torch`
+  and :func:`ac_refine_torch` are the plain PyTorch versions the kernels are
+  held to, vectorised over lanes: one Python step per block slot (DC), per
+  symbol or skipped EOB run (AC first) or per symbol or band position (AC
+  refine), with masks.  They run on any device.
+
+Planes are ``(n_rows + 1, 64)`` int32 in natural coefficient order, the last
+row the drop row, as in the JAX package.  A scan's lanes come as a
+:class:`LaneTable` (:func:`lane_table` checks on the host that the lanes
+tile the scan's units in order and lie inside the scan), its block rows as a
+:class:`Geometry`.  A lane is flagged for a bad code, a size or run out of
+range, a position past its end bit and, when the lanes are ``chained``
+(records of one host walk), for an end state other than the next lane's
+start; a flagged lane's blocks are unspecified.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+
+from .._build import CudaLib, launch_check
+from ..types import JPEGError, ZIGZAG
+from .staging import upload
+
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_LANES = [_P, _I64, _P, _P, _P, _P]   # words, n_words, base, end, n_per, first
+LIB = CudaLib("entropy_prog.cu", "jd_entropy_prog", {
+    "jd_prog_dc_first": _LANES + [_P, _I32, _P, _P, _P, _P, _P, _P, _I32,
+                                  _I32, _I64, _P, _P],
+    "jd_prog_dc_refine": _LANES + [_P, _P, _P, _P, _P, _I32, _I64, _I64, _P,
+                                   _P],
+    "jd_prog_ac": [_I32] + _LANES + [_P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                                     _I64, _P, _P],
+    "jd_prog_geo_len": []})
+
+#: Blocks per MCU of an interleaved scan and planes per scan (T.81 B.2.3).
+MAX_SLOTS = 10
+MAX_PLANES = 4
+#: Zero words past the end of a scan's data that its word pool must hold.
+PAD_WORDS = 8
+#: Length of :meth:`Geometry.pack` (the kernel's ``kGeoLen``).
+GEO_LEN = 2 + 6 * MAX_SLOTS + 2 * MAX_PLANES
+
+_ZZ = torch.from_numpy(ZIGZAG.astype(np.int64))
+_count_lock = threading.Lock()
+
+
+def build():
+    """Compile ``csrc/entropy_prog.cu`` (once per source and flag set) and
+    load it."""
+    lib = LIB.load()
+    if lib.jd_prog_geo_len() != GEO_LEN:
+        raise RuntimeError(f"entropy_prog.cu geometry length "
+                           f"{lib.jd_prog_geo_len()} != {GEO_LEN}")
+    return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Where block t of a lane whose first unit is m0 goes: unit
+    m = m0 + t // bpm, slot j = t % bpm; slot j's plane ``slots[j][0]``, row
+    (my * v + jv) * pcols + mx * h + jh with my, mx = divmod(m, mx_div) and
+    (plane, v, jv, h, jh, comp) = ``slots[j]`` (comp: the slot's component
+    in scan order, its DC table).  ``pcols`` and ``n_rows`` are each plane's
+    block columns and rows without the drop row.  A single-component scan
+    has one slot (0, 1, 0, 1, 0, 0) and ``mx_div`` its unpadded block
+    columns: it walks the unpadded grid and writes into the padded plane."""
+
+    mx_div: int
+    slots: tuple
+    pcols: tuple
+    n_rows: tuple
+
+    @property
+    def bpm(self) -> int:
+        return len(self.slots)
+
+    def pack(self) -> np.ndarray:
+        """The (GEO_LEN,) int64 host array the C entry points read."""
+        out = np.zeros(GEO_LEN, np.int64)
+        out[:2] = self.bpm, self.mx_div
+        for f in range(6):
+            for j, slot in enumerate(self.slots):
+                out[2 + f * MAX_SLOTS + j] = slot[f]
+        out[2 + 6 * MAX_SLOTS:2 + 6 * MAX_SLOTS + len(self.pcols)] = \
+            self.pcols
+        base = 2 + 6 * MAX_SLOTS + MAX_PLANES
+        out[base:base + len(self.n_rows)] = self.n_rows
+        return out
+
+    def check(self, n_units: int) -> None:
+        """Raises unless every unit below ``n_units`` maps inside its
+        plane."""
+        if not 1 <= self.bpm <= MAX_SLOTS or not 1 <= len(self.pcols) \
+                <= MAX_PLANES or len(self.n_rows) != len(self.pcols) \
+                or self.mx_div < 1:
+            raise ValueError(f"bad geometry {self}")
+        my_max = (n_units - 1) // self.mx_div
+        mx_max = min(n_units, self.mx_div) - 1
+        for p, v, jv, h, jh, _c in self.slots:
+            if not 0 <= p < len(self.pcols):
+                raise ValueError(f"slot plane {p} outside {self}")
+            hi = (my_max * v + jv) * self.pcols[p] + mx_max * h + jh
+            if min(v, jv, h, jh) < 0 or jh >= self.pcols[p] \
+                    or mx_max * h + jh >= self.pcols[p] \
+                    or hi >= self.n_rows[p]:
+                raise ValueError(f"{n_units} units do not fit {self}")
+
+    def rows(self, m0: torch.Tensor, t) -> tuple[int, torch.Tensor]:
+        """(plane, rows) of block ``t`` of lanes starting at units ``m0``:
+        ``t`` an int (one slot for all lanes) or, with one slot, a tensor;
+        rows outside the plane are -1."""
+        j = t % self.bpm if isinstance(t, int) else 0
+        p, v, jv, h, jh, _c = self.slots[j]
+        m = m0 + t // self.bpm
+        my, mx = m // self.mx_div, m % self.mx_div
+        row = (my * v + jv) * self.pcols[p] + mx * h + jh
+        return p, torch.where((row >= 0) & (row < self.n_rows[p]), row, -1)
+
+
+@dataclasses.dataclass
+class LaneTable:
+    """One scan's lanes on a device (see :func:`lane_table`): (S,) int64
+    ``base`` and ``end`` bits, int32 ``n_per`` units, int64 ``first`` unit,
+    int32 ``eob0`` pending EOB runs, (S, nsc) int32 ``pred0`` predictors;
+    ``chained`` lanes must each end at the next one's start."""
+
+    base: torch.Tensor
+    end: torch.Tensor
+    n_per: torch.Tensor
+    first: torch.Tensor
+    eob0: torch.Tensor
+    pred0: torch.Tensor
+    chained: bool
+    n_units: int
+    scan_bits: int
+    max_units: int
+
+    @property
+    def n(self) -> int:
+        return self.base.shape[0]
+
+
+def lane_table(base, n_per, first, *, n_units: int, scan_bits: int,
+               chained: bool, end=None, eob0=None, pred0=None,
+               device="cpu", words: np.ndarray | None = None):
+    """Check a scan's lanes on the host and copy them to ``device``.
+
+    ``base``: (S,) start bits in the scan's data; ``n_per``: units (MCUs of
+    a DC scan, blocks of an AC scan) per lane; ``first``: each lane's first
+    unit; ``end``: each lane's last allowed bit (segment lanes: their
+    segment's end; ``chained`` lanes: the next lane's start, the scan's end
+    for the last, the default); ``eob0``, ``pred0``: pending EOB runs and
+    (S, nsc) predictors entering each lane (zeros by default).  With
+    ``words`` (the scan's word pool) the pool and the tables go in one
+    copy, and the pool comes back first.
+
+    Raises :class:`JPEGError` for a scan of 2^31 bits or more, and
+    ValueError unless the lanes tile units 0 .. n_units-1 in order and
+    their bits lie in order inside the scan."""
+    if scan_bits >= 1 << 31:
+        raise JPEGError(f"progressive lanes take scans under 2^31 bits, got "
+                        f"{scan_bits}")
+    base = np.ascontiguousarray(base, np.int64)
+    n_per = np.ascontiguousarray(n_per, np.int32)
+    first = np.ascontiguousarray(first, np.int64)
+    s = len(base)
+    eob0 = np.zeros(s, np.int32) if eob0 is None else \
+        np.ascontiguousarray(eob0, np.int32)
+    pred0 = np.zeros((s, 1), np.int32) if pred0 is None else \
+        np.ascontiguousarray(pred0, np.int32)
+    if end is None:
+        if not chained:
+            raise ValueError("segment lanes need their end bits")
+        end = np.append(base[1:], scan_bits)
+    end = np.ascontiguousarray(end, np.int64)
+    if s < 1 or any(len(a) != s for a in (n_per, first, eob0, end)) or \
+            pred0.ndim != 2 or pred0.shape[0] != s or not \
+            1 <= pred0.shape[1] <= MAX_PLANES:
+        raise ValueError(f"lane tables of {s} lanes disagree in shape")
+    if (n_per < 0).any() or first[0] != 0 or (
+            first[1:] != first[:-1] + n_per[:-1]).any() or \
+            first[-1] + n_per[-1] != n_units:
+        raise ValueError(f"lanes do not tile the scan's {n_units} units in "
+                         "order")
+    if (base < 0).any() or (np.diff(base) < 0).any() or \
+            (end < base).any() or (end > scan_bits).any() or \
+            (eob0 < 0).any():
+        raise ValueError("lane bits out of order or outside the scan")
+    if chained and (end[:-1] != base[1:]).any():
+        raise ValueError("chained lanes must end at the next lane's start")
+    arrays = [base, end, n_per, first, eob0, pred0]
+    if words is not None:
+        arrays = [words] + arrays
+    got = upload(arrays, device)
+    lanes = LaneTable(*got[-6:], chained=chained, n_units=n_units,
+                      scan_bits=scan_bits, max_units=int(n_per.max()))
+    return (got[0], lanes) if words is not None else lanes
+
+
+def _check(words, lanes: LaneTable, tables, planes, geom: Geometry,
+           al: int, band=None) -> torch.device:
+    dev = words.device
+    if words.dtype != torch.uint32 or words.dim() != 1 or \
+            not words.is_contiguous():
+        raise TypeError(f"words must be contiguous (W,) uint32, got "
+                        f"{words.dtype} {tuple(words.shape)}")
+    need = -(-lanes.scan_bits // 32) + PAD_WORDS
+    if words.numel() < need:
+        raise ValueError(f"word pool of {words.numel()} words < {need} (the "
+                         f"scan's words and {PAD_WORDS} of padding)")
+    for name, t in (("base", lanes.base), ("end", lanes.end),
+                    ("n_per", lanes.n_per), ("first", lanes.first),
+                    ("eob0", lanes.eob0), ("pred0", lanes.pred0),
+                    *(("tables", t) for t in tables),
+                    *((f"plane {p}", t) for p, t in enumerate(planes))):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, words on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for t in tables:
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 1 << 16:
+            raise TypeError(f"tables must be (n, 65536) int32, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    if len(planes) != len(geom.pcols):
+        raise ValueError(f"{len(planes)} planes for a geometry of "
+                         f"{len(geom.pcols)}")
+    for p, t in enumerate(planes):
+        if t.dtype != torch.int32 or tuple(t.shape) != (geom.n_rows[p] + 1,
+                                                        64):
+            raise TypeError(f"plane {p} must be ({geom.n_rows[p] + 1}, 64) "
+                            f"int32, got {t.dtype} {tuple(t.shape)}")
+    geom.check(lanes.n_units)
+    if not 0 <= al <= 13:
+        raise ValueError(f"al must be 0..13, got {al}")
+    if band is not None and not 1 <= band[0] <= band[1] <= 63:
+        raise ValueError(f"bad AC band {band}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev
+
+
+def _count(fn) -> None:
+    with _count_lock:
+        fn.launches += 1
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _plane_ptrs(planes) -> list:
+    return [p.data_ptr() for p in planes] + [None] * (MAX_PLANES - len(planes))
+
+
+def _lane_ptrs(words, lanes: LaneTable) -> tuple:
+    return (words.data_ptr(), words.numel(), lanes.base.data_ptr(),
+            lanes.end.data_ptr(), lanes.n_per.data_ptr(),
+            lanes.first.data_ptr())
+
+
+def dc_first(words, lanes: LaneTable, luts, planes: list, geom: Geometry,
+             *, al: int) -> torch.Tensor:
+    """K8a: a DC first scan (Ss = 0, Ah = 0) over ``lanes`` into ``planes``
+    (coefficient 0; one plane per component of the scan, in the order of
+    ``geom``'s planes).  ``luts``: (nsc, 65536) int32 DC tables in scan
+    component order.  Returns the (S,) int32 lane flags."""
+    dev = _check(words, lanes, [luts], planes, geom, al)
+    if lanes.pred0.shape[1] != luts.shape[0] or any(
+            not 0 <= s[5] < luts.shape[0] for s in geom.slots):
+        raise ValueError("pred0, luts and the slots' components disagree")
+    if dev.type == "cpu":
+        return dc_first_torch(words, lanes, luts, planes, geom, al=al)
+    err = torch.zeros(lanes.n, dtype=torch.int32, device=dev)
+    geo = geom.pack()
+    with torch.cuda.device(dev):
+        rc = build().jd_prog_dc_first(
+            *_lane_ptrs(words, lanes), lanes.pred0.data_ptr(),
+            luts.shape[0], luts.data_ptr(), *_plane_ptrs(planes),
+            geo.ctypes.data, al, int(lanes.chained), lanes.n,
+            err.data_ptr(), _stream(dev))
+    launch_check(rc, "jd_prog_dc_first")
+    _count(dc_first)
+    return err
+
+
+def dc_refine(words, lanes: LaneTable, planes: list, geom: Geometry, *,
+              al: int) -> torch.Tensor:
+    """K8b: a DC refinement scan (Ss = 0, Ah > 0): block t of a lane adds
+    ``bit(base + t) << al`` to coefficient 0.  Returns the lane flags."""
+    dev = _check(words, lanes, [], planes, geom, al)
+    if dev.type == "cpu":
+        return dc_refine_torch(words, lanes, planes, geom, al=al)
+    err = torch.zeros(lanes.n, dtype=torch.int32, device=dev)
+    geo = geom.pack()
+    with torch.cuda.device(dev):
+        rc = build().jd_prog_dc_refine(
+            *_lane_ptrs(words, lanes), *_plane_ptrs(planes),
+            geo.ctypes.data, al, lanes.n, lanes.max_units * geom.bpm,
+            err.data_ptr(), _stream(dev))
+    launch_check(rc, "jd_prog_dc_refine")
+    _count(dc_refine)
+    return err
+
+
+def _ac(refine: bool, words, lanes, lut, plane, geom, ss, se, al):
+    dev = _check(words, lanes, [lut], [plane], geom, al, band=(ss, se))
+    if geom.bpm != 1 or lut.shape[0] != 1:
+        raise ValueError("AC scans have one component and one table")
+    if dev.type == "cpu":
+        fn = ac_refine_torch if refine else ac_first_torch
+        return fn(words, lanes, lut, plane, geom, ss=ss, se=se, al=al)
+    err = torch.zeros(lanes.n, dtype=torch.int32, device=dev)
+    geo = geom.pack()
+    with torch.cuda.device(dev):
+        rc = build().jd_prog_ac(
+            int(refine), *_lane_ptrs(words, lanes), lanes.eob0.data_ptr(),
+            lut.data_ptr(), plane.data_ptr(), geo.ctypes.data, ss, se, al,
+            int(lanes.chained), lanes.n, err.data_ptr(), _stream(dev))
+    launch_check(rc, "jd_prog_ac")
+    _count(ac_refine if refine else ac_first)
+    return err
+
+
+def ac_first(words, lanes: LaneTable, lut, plane, geom: Geometry, *,
+             ss: int, se: int, al: int) -> torch.Tensor:
+    """K8c: an AC first scan (Ss >= 1, Ah = 0) of one component into
+    ``plane`` (``lut``: (1, 65536) int32).  Returns the lane flags."""
+    return _ac(False, words, lanes, lut, plane, geom, ss, se, al)
+
+
+def ac_refine(words, lanes: LaneTable, lut, plane, geom: Geometry, *,
+              ss: int, se: int, al: int) -> torch.Tensor:
+    """K8d: an AC refinement scan (Ss >= 1, Ah > 0) of one component; the
+    plane's band values are the history.  Returns the lane flags."""
+    return _ac(True, words, lanes, lut, plane, geom, ss, se, al)
+
+
+#: Launches of each kernel since its count was last set to 0.
+dc_first.launches = dc_refine.launches = 0
+ac_first.launches = ac_refine.launches = 0
+KERNELS = {"K8a": dc_first, "K8b": dc_refine, "K8c": ac_first,
+           "K8d": ac_refine}
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced to int32 modulo 2^32, as the kernels' uint32
+    sums wrap."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _window(w64: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    i = (pos >> 5).clamp(max=w64.numel() - 2)
+    off = pos & 31
+    return ((w64[i] << off) | (w64[i + 1] >> (32 - off))) & 0xFFFFFFFF
+
+
+def _bit(w64: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    i = (pos >> 5).clamp(max=w64.numel() - 1)
+    return (w64[i] >> (31 - (pos & 31))) & 1
+
+
+def _take(w, length, n):
+    """The top ``n`` bits of ``w << length`` (0 where n is 0)."""
+    got = ((w << length) & 0xFFFFFFFF) >> (32 - n.clamp(min=1))
+    return torch.where(n > 0, got, 0)
+
+
+def _extend(raw, size):
+    half = 1 << (size - 1).clamp(min=0)
+    return torch.where(size == 0, 0, torch.where(
+        raw < half, raw - ((1 << size) - 1), raw))
+
+
+def _add_at(plane, idx, val) -> None:
+    """plane.view(-1)[idx] += val (distinct idx), wrapped to int32; only the
+    indexed elements are read and written."""
+    flat = plane.view(-1)
+    flat[idx] = _wrap32(flat[idx].to(torch.int64) + val).to(torch.int32)
+
+
+def _ends(err, lanes: LaneTable, pos, state, state0):
+    """The lane flags after the walk: a position past the end bit, and for
+    chained lanes other than the last an end state other than the next
+    lane's start (``state`` (S, ...) against ``state0``)."""
+    err = err | (pos > lanes.end)
+    if lanes.chained and lanes.n > 1:
+        nxt = (pos[:-1] != lanes.end[:-1]) | (
+            state[:-1] != state0[1:]).reshape(lanes.n - 1, -1).any(1)
+        err[:-1] |= nxt
+    return err.to(torch.int32)
+
+
+def dc_first_torch(words, lanes: LaneTable, luts, planes: list,
+                   geom: Geometry, *, al: int) -> torch.Tensor:
+    """Plain version of :func:`dc_first`: one step per block slot, every
+    lane at once."""
+    w64 = words.to(torch.int64)
+    lut = luts.to(torch.int64)
+    pos = lanes.base.clone()
+    pred = lanes.pred0.to(torch.int64).clone()
+    nb = lanes.n_per.to(torch.int64) * geom.bpm
+    err = torch.zeros(lanes.n, dtype=torch.bool, device=words.device)
+    for t in range(lanes.max_units * geom.bpm):
+        act = ~err & (t < nb)
+        over = act & (pos > lanes.end)
+        err |= over
+        act &= ~over
+        p, row = geom.rows(lanes.first, t)
+        c = geom.slots[t % geom.bpm][5]
+        w = _window(w64, pos)
+        e = lut[c][w >> 16]
+        length, size = e & 31, e >> 5
+        bad = act & ((e == 0) | (size > 11) | (row < 0))
+        err |= bad
+        ok = act & ~bad
+        new = _wrap32(pred[:, c] + _extend(_take(w, length, size), size))
+        pred[:, c] = torch.where(ok, new, pred[:, c])
+        _add_at(planes[p], row[ok] * 64, _wrap32(new[ok] << al))
+        pos = torch.where(ok, pos + length + size, pos)
+    return _ends(err, lanes, pos, _wrap32(pred), lanes.pred0.to(torch.int64))
+
+
+def dc_refine_torch(words, lanes: LaneTable, planes: list, geom: Geometry,
+                    *, al: int) -> torch.Tensor:
+    """Plain version of :func:`dc_refine`: every (lane, slot) at once."""
+    w64 = words.to(torch.int64)
+    nb = lanes.n_per.to(torch.int64) * geom.bpm
+    err = lanes.base + nb > lanes.end
+    for j in range(geom.bpm):
+        t = torch.arange(j, max(lanes.max_units * geom.bpm, 1), geom.bpm,
+                         device=words.device)
+        p, v, jv, h, jh, _c = geom.slots[j]
+        m = lanes.first[:, None] + t[None, :] // geom.bpm
+        my, mx = m // geom.mx_div, m % geom.mx_div
+        row = (my * v + jv) * geom.pcols[p] + mx * h + jh
+        valid = t[None, :] < nb[:, None]
+        inside = (row >= 0) & (row < geom.n_rows[p])
+        err |= (valid & ~inside).any(1)
+        on = valid & inside & (_bit(w64, lanes.base[:, None] + t[None, :])
+                               == 1)
+        _add_at(planes[p], row[on] * 64,
+                torch.full((int(on.sum()),), 1 << al, dtype=torch.int64,
+                           device=words.device))
+    return err.to(torch.int32)
+
+
+def _ac_lanes(words, lanes, lut, ss):
+    dev = words.device
+    s = lanes.n
+    return (words.to(torch.int64), lut[0].to(torch.int64),
+            lanes.base.clone(), torch.zeros(s, dtype=torch.int64, device=dev),
+            torch.full((s,), ss, dtype=torch.int64, device=dev),
+            lanes.eob0.to(torch.int64).clone(),
+            torch.zeros(s, dtype=torch.bool, device=dev),
+            lanes.n_per.to(torch.int64))
+
+
+def ac_first_torch(words, lanes: LaneTable, lut, plane, geom: Geometry, *,
+                   ss: int, se: int, al: int) -> torch.Tensor:
+    """Plain version of :func:`ac_first`: one step decodes one symbol of
+    every lane inside a block, or skips the blocks of a pending EOB run of
+    every lane at a block's start."""
+    w64, lut64, pos, blk, k, eob, err, n = _ac_lanes(words, lanes, lut, ss)
+    zz = _ZZ.to(words.device)
+    while True:
+        act = ~err & (blk < n)
+        if not bool(act.any()):
+            break
+        skip = act & (k == ss) & (eob > 0)
+        adv = torch.minimum(eob, n - blk)
+        blk = torch.where(skip, blk + adv, blk)
+        eob = torch.where(skip, eob - adv, eob)
+        dec = act & ~skip
+        over = dec & (pos > lanes.end)
+        _, row = geom.rows(lanes.first, blk)
+        w = _window(w64, pos)
+        e = lut64[w >> 16]
+        length, sym = e & 31, (e >> 5) & 0xFF
+        r, sz = sym >> 4, sym & 15
+        is_eob = (sz == 0) & (r < 15)
+        coef = sz > 0
+        k2 = k + r
+        bad = dec & (over | (row < 0) | (e == 0) | (coef & (k2 > se)))
+        err |= bad
+        ok = dec & ~bad
+        put = ok & coef
+        val = _extend(_take(w, length, sz), sz) << al
+        _add_at(plane, row[put] * 64 + zz[k2[put]], _wrap32(val[put]))
+        pos = torch.where(ok, pos + length + torch.where(
+            is_eob, r, torch.where(coef, sz, 0)), pos)
+        eob = torch.where(ok & is_eob,
+                          (1 << r) - 1 + _take(w, length, r), eob)
+        k_new = torch.where(coef, k2 + 1, k + 16)
+        done = ok & (is_eob | (k_new > se))
+        k = torch.where(done, ss, torch.where(ok, k_new, k))
+        blk = blk + done
+    return _ends(err, lanes, pos, eob, lanes.eob0.to(torch.int64))
+
+
+def ac_refine_torch(words, lanes: LaneTable, lut, plane, geom: Geometry, *,
+                    ss: int, se: int, al: int) -> torch.Tensor:
+    """Plain version of :func:`ac_refine` (entropy/progressive.py's
+    ``_ac_refine_scan``).  One step per symbol of every lane: a lane at the
+    start of a block under an EOB run walks the block's band; any other
+    decodes one symbol and walks the band positions it covers, all at once
+    over the 64 positions: the nonzero-history positions before the run's
+    stop (the r+1-th zero-history position, or the band's end for an EOB
+    run) each take the next correction bit in order, and the new value goes
+    to the stop."""
+    w64, lut64, pos, blk, k, eob, err, n = _ac_lanes(words, lanes, lut, ss)
+    dev = words.device
+    zz = _ZZ.to(dev)
+    kk = torch.arange(64, device=dev)
+    p1 = 1 << al
+    flat = plane.view(-1)
+    while True:
+        act = ~err & (blk < n)
+        if not bool(act.any()):
+            break
+        _, row = geom.rows(lanes.first, blk)
+        err |= act & (row < 0)
+        act &= row >= 0
+        covered = act & (k == ss) & (eob > 0)
+        sym_on = act & ~covered
+        w = _window(w64, pos)
+        e = lut64[w >> 16]
+        length, sym = e & 31, (e >> 5) & 0xFF
+        r_s, sz = sym >> 4, sym & 15
+        is_eob = (sz == 0) & (r_s < 15)
+        bad = sym_on & ((pos > lanes.end) | (e == 0)
+                        | ((sz != 0) & (sz != 1)))
+        err |= bad
+        sym_ok = sym_on & ~bad
+        newval = torch.where(
+            sz == 1, torch.where(_take(w, length, torch.ones_like(sz)) == 1,
+                                 p1, -p1), 0)
+        eob = torch.where(sym_ok & is_eob,
+                          (1 << r_s) + _take(w, length, r_s), eob)
+        pos = torch.where(sym_ok, pos + length + torch.where(
+            is_eob, r_s, sz), pos)
+        # The band walk of the covered blocks and of the decoded symbols.
+        walk = covered | sym_ok
+        run = sym_ok & ~is_eob
+        at = row.clamp(min=0)[:, None] * 64 + zz[None, :]
+        vals = flat[at].to(torch.int64)
+        band = walk[:, None] & (kk[None, :] >= k[:, None]) & (kk <= se)
+        zeros = band & (vals == 0)
+        stops = zeros & (zeros.cumsum(1) == r_s[:, None] + 1) & run[:, None]
+        has_stop = stops.any(1)
+        p_stop = torch.where(has_stop, stops.to(torch.int8).argmax(1), 64)
+        crossed = band & (vals != 0) & (kk[None, :] < p_stop[:, None])
+        rank = crossed.cumsum(1) - crossed.to(torch.int64)
+        bits = _bit(w64, pos[:, None] + rank)
+        fix = crossed & (bits == 1) & ((vals & p1) == 0)
+        flat[at[fix]] = torch.where(vals[fix] > 0, vals[fix] + p1,
+                                    vals[fix] - p1).to(torch.int32)
+        pos = pos + crossed.sum(1)
+        place = has_stop & (newval != 0)
+        flat[at[place, p_stop[place]]] = newval[place].to(torch.int32)
+        # Block ends: a tail (covered or after an EOB symbol; the run loses
+        # this block), a run past the band end, or a stop at the band end.
+        tail = covered | (sym_ok & is_eob)
+        eob = torch.where(tail, eob - 1, eob)
+        k_next = torch.where(has_stop, p_stop + 1, 64)
+        done = tail | (run & (k_next > se))
+        blk = blk + done
+        k = torch.where(done, ss, torch.where(run, k_next, k))
+    return _ends(err, lanes, pos, eob, lanes.eob0.to(torch.int64))

@@ -37,12 +37,19 @@ and environment switches included); each route's device work:
   library: K2 over each image's single segment, the same way.  K2 is the
   port's device speculation: JAX's ``_spec_full_step`` (speculative lanes
   and ``_device_splice``) is not ported;
-* progressive frames: JAX decodes them on its device progressive lanes,
-  which are not ported yet; here they join the host fallback below, which
-  gives the same RGB;
+* progressive 8-bit Huffman frames: one frame at a time on the device
+  progressive lanes (``ops/entropy_prog.decode_progressive_lanes``: the
+  kernels K8a-K8d fed the host's skeleton walks or the restart segments),
+  then the pixel pipeline on the device planes — JAX's ``_prog_one``, on a
+  pool of two threads (each on a CUDA stream of its own) after the groups
+  are dispatched; a frame whose lanes flag or whose walk refuses the
+  stream (:class:`JPEGError`) joins the host fallback, and any other
+  failure there (a kernel that does not build or launch) is that image's
+  error, never a quiet host decode;
 * the host fallback (arithmetic, multi-scan, restart-mismatched frames,
-  other precisions, and for now progressive ones): one
-  ``models.batch.BatchDecoder(idct=..., upsample=...)`` batch;
+  other precisions, and the progressive frames above whose lanes
+  flagged): one ``models.batch.BatchDecoder(idct=..., upsample=...)``
+  batch;
 * rows whose walk or device decode flagged, on the emission and ``spec``
   routes: each image again through the host decoder
   (``decoder._decode_scan_robust``) and ``pixel_pipeline_from_scan``; a
@@ -75,12 +82,12 @@ from ..models import decoder as decoder_mod
 from ..models import routing
 from ..models.batch import (BatchDecoder, BatchItem, _bucket_pow2,
                             rgb_from_blocks_dyn)
-from ..ops import entropy_cuda, entropy_emit_cuda, entropy_spec, scan_prep
+from ..ops import (entropy_cuda, entropy_emit_cuda, entropy_prog,
+                   entropy_spec, scan_prep)
 from ..ops import pixel as pixel_ops
+from ..ops.staging import upload as _upload
 from ..types import FrameHeader, JPEGError, ScanHeader
 
-#: Alignment of each array in a group's pinned staging buffer.
-_ALIGN = 64
 # K7's counters of a launch are read under this lock, so that the two
 # dispatch threads do not read each other's.
 _k7_lock = threading.Lock()
@@ -104,25 +111,6 @@ def decode_planes_sharded(hdr: FrameHeader, device="cuda") -> list:
     lay = scan_layout(hdr)
     return [scan_coefs[lay.comp_src[ci]].reshape(*lay.comp_shapes[ci], 64)
             for ci in range(len(hdr.components))]
-
-
-def _upload(arrays: list, dev: torch.device) -> list:
-    """The numpy ``arrays`` on ``dev``: on a CUDA device one non-blocking
-    copy of a pinned staging buffer on the current stream, then views."""
-    if dev.type != "cuda":
-        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-    offs, n = [], 0
-    for a in arrays:
-        offs.append(n)
-        n += -(-a.nbytes // _ALIGN) * _ALIGN
-    buf = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True)
-    raw = buf.numpy()
-    for a, off in zip(arrays, offs):
-        raw[off:off + a.nbytes] = np.ascontiguousarray(a).view(np.uint8) \
-            .reshape(-1)
-    dbuf = buf.to(dev, non_blocking=True)
-    return [dbuf[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-            .view(a.shape) for a, off in zip(arrays, offs)]
 
 
 def _qtables(hdrs: list) -> np.ndarray:
@@ -267,6 +255,15 @@ def _dyn_group(hdrs, scans, dev, rec, *, idct, upsample):
     return rgb, (err != 0) | skel_bad, row_of
 
 
+def _prog_one(hdr, dev, *, idct, upsample) -> torch.Tensor:
+    """A progressive frame's (1, H, W, 3) RGB: its planes from the device
+    lanes (raises JPEGError when a lane is flagged), then the pixel
+    pipeline."""
+    planes = entropy_prog.decode_progressive_lanes(hdr, dev, as_device=True)
+    return decoder_mod.pixels_from_planes(hdr, planes, idct=idct,
+                                          upsample=upsample)
+
+
 def _host_rgb_one(hdr, scan, dev, *, idct, upsample) -> torch.Tensor:
     """One image's (H, W, 3) RGB at its own geometry from the host decoder
     (``_decode_scan_robust`` with the native backend): the per-image
@@ -317,7 +314,9 @@ def decode_batch_sharded(blobs, device="cuda", *, idct="kron",
 
     After each call ``decode_batch_sharded.last_timing`` holds host-clock
     seconds of the parse (``parse_s``), the dispatch of every group
-    (``dispatch_s``), the host fallback (``fallback_s``, of
+    (``dispatch_s``), the progressive frames (``progressive_s``, of
+    ``progressive`` frames, ``progressive_fallback`` of them sent to the
+    host fallback), the host fallback (``fallback_s``, of
     ``host_fallback`` images) and the flag fetch and per-row fallback
     (``finish_s``, of ``fallback_rows`` rows), and per group (``groups``)
     its route, images, host plan seconds (the walks or ``prepare_scan``)
@@ -333,6 +332,7 @@ def decode_batch_sharded(blobs, device="cuda", *, idct="kron",
     results: list = [None] * len(blobs)
     groups: dict[tuple, list] = {}
     host_fallback: list[int] = []
+    prog_frames: list = []
     native_ok = native.available()
     emit_max_lanes = int(os.environ.get("JD_RESTART_EMIT_MAX_LANES", "512"))
     spec = os.environ.get("JD_DEVICE_ENTROPY", "hybrid") == "spec"
@@ -341,6 +341,10 @@ def decode_batch_sharded(blobs, device="cuda", *, idct="kron",
     for i, blob in enumerate(blobs):
         try:
             hdr = parser.parse(blob)
+            if (hdr.progressive and not hdr.arithmetic
+                    and hdr.precision == 8):
+                prog_frames.append((i, hdr))
+                continue
             scan = hdr.scans[0]
             if (hdr.progressive or hdr.arithmetic
                     or hdr.precision not in (8, 12)
@@ -441,6 +445,43 @@ def decode_batch_sharded(blobs, device="cuda", *, idct="kron",
             dispatch(slot, key, items)
     timing["dispatch_s"] = time.perf_counter() - t0
 
+    # Progressive frames on the device lanes, while the groups run; a frame
+    # whose lanes flag or whose walk refuses the stream (JPEGError) joins
+    # the host fallback; any other failure (a kernel that does not build or
+    # launch) is the image's error.
+    t0 = time.perf_counter()
+    prog_done: list = []
+    prog_fallback: list = []
+
+    def prog(arg):
+        i, hdr = arg
+        if cuda and getattr(tls, "stream", None) is None:
+            tls.stream = torch.cuda.Stream(dev)
+            streams.append(tls.stream)
+        try:
+            with (torch.cuda.stream(tls.stream) if cuda
+                  else contextlib.nullcontext()):
+                if cuda:
+                    tls.stream.wait_stream(caller)
+                rgb = _prog_one(hdr, dev, idct=idct, upsample=upsample)
+            prog_done.append((i, hdr, rgb))
+        except JPEGError:
+            prog_fallback.append(i)
+        except Exception as e:  # noqa: BLE001 — per-image isolation
+            results[i] = BatchItem(index=i, header=hdr, rgb_batch=None,
+                                   batch_index=-1, error=e)
+
+    if len(prog_frames) > 1:
+        with ThreadPoolExecutor(2) as ex:
+            list(ex.map(prog, prog_frames))
+    else:
+        for pf in prog_frames:
+            prog(pf)
+    timing["progressive_s"] = time.perf_counter() - t0
+    timing["progressive"] = len(prog_frames)
+    timing["progressive_fallback"] = len(prog_fallback)
+    host_fallback += sorted(prog_fallback)
+
     # Frames the device routes do not cover decode while the groups run.
     t0 = time.perf_counter()
     if host_fallback:
@@ -459,6 +500,11 @@ def decode_batch_sharded(blobs, device="cuda", *, idct="kron",
     t0 = time.perf_counter()
     for s in streams:
         caller.wait_stream(s)
+    for i, hdr, rgb in prog_done:
+        if cuda:
+            rgb.record_stream(caller)
+        results[i] = BatchItem(index=i, header=hdr, rgb_batch=rgb,
+                               batch_index=0)
     dispatched = [d for d in dispatched if d is not None]
     flags = (torch.cat([d[2] for d in dispatched]).cpu().numpy()
              if dispatched else np.zeros(0, bool))

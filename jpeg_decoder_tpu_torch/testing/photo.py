@@ -21,11 +21,14 @@ import numpy as np
 
 FIXTURES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "fixtures")
-#: name -> (seed, height, width, PIL quality); 4:2:0, progressive Huffman.
+#: name -> (seed, height, width, PIL quality, restart interval in MCU rows
+#: of each scan, 0 for none); 4:2:0, progressive Huffman.
 PROGRESSIVE_FIXTURES = {
-    "progressive_1080p_a.jpg": (101, 1080, 1920, 90),
-    "progressive_1080p_b.jpg": (102, 1080, 1920, 90),
-    "progressive_512.jpg": (103, 512, 512, 90),
+    "progressive_1080p_a.jpg": (101, 1080, 1920, 90, 0),
+    "progressive_1080p_b.jpg": (102, 1080, 1920, 90, 0),
+    "progressive_512.jpg": (103, 512, 512, 90, 0),
+    "progressive_1080p_dri.jpg": (104, 1080, 1920, 90, 1),
+    "progressive_4k.jpg": (105, 2160, 3840, 90, 0),
 }
 
 
@@ -49,23 +52,24 @@ def synthetic_photo(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
 
 def fixture(name: str) -> tuple[bytes, np.ndarray]:
     """A committed fixture's bytes and its (h, w, 3) uint8 source."""
-    seed, h, w, _ = PROGRESSIVE_FIXTURES[name]
+    seed, h, w, _, _ = PROGRESSIVE_FIXTURES[name]
     with open(os.path.join(FIXTURES_DIR, name), "rb") as f:
         blob = f.read()
     return blob, synthetic_photo(np.random.default_rng(seed), h, w)
 
 
 def write_fixtures() -> None:
-    """Encode every fixture with PIL (progressive, 4:2:0) into
-    ``fixtures/``."""
+    """Encode every fixture with PIL (progressive, 4:2:0; with a restart
+    interval, ``restart_marker_rows``) into ``fixtures/``."""
     from PIL import Image
 
     os.makedirs(FIXTURES_DIR, exist_ok=True)
-    for name, (seed, h, w, q) in PROGRESSIVE_FIXTURES.items():
+    for name, (seed, h, w, q, rows) in PROGRESSIVE_FIXTURES.items():
         buf = io.BytesIO()
+        kw = {"restart_marker_rows": rows} if rows else {}
         Image.fromarray(synthetic_photo(np.random.default_rng(seed), h, w)
                         ).save(buf, "JPEG", quality=q, progressive=True,
-                               subsampling=2)
+                               subsampling=2, **kw)
         with open(os.path.join(FIXTURES_DIR, name), "wb") as f:
             f.write(buf.getvalue())
         print(f"{name}: {len(buf.getvalue())} bytes")

@@ -842,3 +842,133 @@ def test_sharded_batch_on_card_equals_cpu(cuda_device, monkeypatch):
         if "k7_stats" in rec:
             assert rec["k7_stats"]["groups_over_budget"] == 0
             assert rec["k7_stats"]["lut_misses"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The progressive lanes (K8a-K8d)
+# ---------------------------------------------------------------------------
+
+def _prog_fixture(name):
+    from jpeg_decoder_tpu_torch.testing import photo
+
+    return photo.fixture(name)[0]
+
+
+@pytest.mark.parametrize("name", ["progressive_512.jpg",
+                                  "progressive_1080p_dri.jpg"])
+def test_prog_kernels_match_plain_per_scan(cuda_device, name):
+    """Every scan of a fixture through K8a-K8d and through their plain
+    versions on the card, from the native decoder's prior planes: planes
+    and flags equal, and equal to the native decoder's posterior.  The
+    DRI-0 512x512 fixture takes skeleton lanes, the 1080p one with restart
+    markers its segments."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+
+    hdr = parser.parse(_prog_fixture(name))
+    states = native_prog_states(hdr)
+    nzmaps: dict = {}
+    seen = set()
+    skeleton = hdr.scans[0].restart_interval == 0
+    for k, scan in enumerate(hdr.scans):
+        lane_tab = (ep.hybrid_scan_prep(hdr, scan, nzmaps, target_lanes=700)
+                    if skeleton else None)
+        args = ep.scan_inputs(hdr, scan, lane_tab, cuda_device)
+        got = {}
+        for kernel in (True, False):
+            planes = [torch.tensor(p, device=cuda_device) for p in states[k]]
+            before = {n: f.launches for n, f in k8.KERNELS.items()}
+            err = ep.launch_scan(scan, args, planes, plain=not kernel)
+            torch.cuda.synchronize()
+            after = {n: f.launches for n, f in k8.KERNELS.items()}
+            assert sum(after.values()) - sum(before.values()) == int(kernel)
+            seen |= {n for n in after if after[n] != before[n]}
+            got[kernel] = (err.cpu(), [p.cpu().numpy() for p in planes])
+        assert torch.equal(got[True][0], got[False][0])
+        assert not got[True][0].any(), f"scan {k} flagged"
+        for ci in range(len(planes)):
+            np.testing.assert_array_equal(got[True][1][ci], got[False][1][ci])
+            np.testing.assert_array_equal(got[True][1][ci], states[k + 1][ci])
+    assert seen == {"K8a", "K8b", "K8c", "K8d"}
+
+
+def test_prog_kernels_flag_corrupt_scans_as_plain(cuda_device):
+    """Scans of the 512x512 fixture with bytes flipped, decoded from the
+    skeleton lanes of the intact scans: each kernel's lane flags equal its
+    plain version's."""
+    import copy
+
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    hdr = parser.parse(_prog_fixture("progressive_512.jpg"))
+    states = native_prog_states(hdr)
+    rng = np.random.default_rng(5)
+    flagged = 0
+    nzmaps: dict = {}
+    for k, scan in enumerate(hdr.scans):
+        lane_tab = ep.hybrid_scan_prep(hdr, scan, nzmaps, target_lanes=700)
+        for _ in range(3):
+            bad = copy.copy(scan)
+            data = scan.data.copy()
+            q = int(rng.integers(0, max(1, len(data) - 4)))
+            data[q:q + 4] ^= 0x5A
+            bad.data = data
+            args = ep.scan_inputs(hdr, bad, lane_tab, cuda_device)
+            flags = []
+            for plain in (False, True):
+                planes = [torch.tensor(p, device=cuda_device)
+                          for p in states[k]]
+                flags.append(ep.launch_scan(bad, args, planes,
+                                            plain=plain).cpu())
+            assert torch.equal(flags[0], flags[1]), k
+            flagged += int(flags[0].any())
+    assert flagged > 0
+
+
+@pytest.mark.parametrize("name", ["progressive_512.jpg",
+                                  "progressive_1080p_dri.jpg"])
+@pytest.mark.parametrize("entropy", ["pallas", "jax", "hybrid"])
+def test_prog_decode_on_card_equals_native(cuda_device, name, entropy):
+    """decode() of a progressive fixture under a device backend: K8 launched,
+    planes equal to the native decoder's, strict RGB byte-equal to the CPU
+    decode."""
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.models import decoder as dec_mod
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+
+    blob = _prog_fixture(name)
+    hdr = parser.parse(blob)
+    for f in k8.KERNELS.values():
+        f.launches = 0
+    planes = dec_mod.decode_to_planes(hdr, entropy=entropy,
+                                      device=cuda_device)
+    assert all(f.launches > 0 for f in k8.KERNELS.values())
+    for a, b in zip(planes, native.decode_progressive(hdr)):
+        np.testing.assert_array_equal(a, b)
+    got = decode(blob, entropy=entropy, idct="exact", upsample="fancy",
+                 device=cuda_device).rgb
+    want = decode(blob, entropy="native", idct="exact", upsample="fancy",
+                  device="cpu").rgb
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 512, 100_000])
+def test_prog_lane_counts_on_card(cuda_device, lanes):
+    from jpeg_decoder_tpu_torch.entropy import native
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+
+    hdr = parser.parse(_prog_fixture("progressive_512.jpg"))
+    got = ep.decode_progressive_hybrid(hdr, cuda_device, target_lanes=lanes)
+    for a, b in zip(got, native.decode_progressive(hdr)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_prog_corrupt_decode_raises_on_card(cuda_device):
+    blob = bytearray(_prog_fixture("progressive_512.jpg"))
+    sos = blob.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(blob[sos + 2:sos + 4], "big")
+    blob[start:start + 24] = b"\xff\x00" * 12
+    with pytest.raises(JPEGError):
+        decode(bytes(blob), entropy="hybrid", device=cuda_device)

@@ -152,11 +152,6 @@ def _not_ported_blobs():
     }
 
 
-#: Entropy backends under which a frame kind still raises the port's
-#: not-ported error: progressive frames under pallas need the unported
-#: device lanes.
-STILL_RAISE = {"progressive": ("pallas",), "arithmetic": (),
-               "multi-scan": (), "12-bit": (), "cmyk": ()}
 #: Backends under which both packages raise JPEGError: JAX's Pallas kernel
 #: flags 12-bit size categories past the 8-bit limits, and the port's K2
 #: refuses 12-bit frames.
@@ -165,15 +160,12 @@ BOTH_RAISE = {"12-bit": ("pallas",)}
 
 @pytest.mark.parametrize("kind", list(_not_ported_blobs()))
 def test_frames_not_ported_raise(kind):
-    """Each frame kind either raises the not-ported error, raises JPEGError
-    in both packages, or decodes within the slice's tolerance of JAX (the
-    name predates the host-plane fallback and the colour port)."""
+    """Each frame kind either raises JPEGError in both packages or decodes
+    within the slice's tolerance of JAX (the name predates the host-plane
+    fallback, the colour port and the progressive lanes, which progressive
+    frames under pallas now take in both packages)."""
     blob = _not_ported_blobs()[kind]
     for entropy in ("pallas", "native"):
-        if entropy in STILL_RAISE[kind]:
-            with pytest.raises(tdecoder.NotPortedError, match="not ported"):
-                decode(blob, entropy=entropy, idct="pallas", device="cpu")
-            continue
         if entropy in BOTH_RAISE.get(kind, ()):
             with pytest.raises(JaxJPEGError):
                 jdecoder.decode(blob, entropy=entropy, idct="pallas")

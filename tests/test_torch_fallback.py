@@ -206,10 +206,15 @@ def test_decode_pixel_stage_not_ported(kind):
     np.testing.assert_array_equal(got.rgb.numpy(), ref.rgb)
 
 
-def test_progressive_under_pallas_not_ported():
-    with pytest.raises(tdecoder.NotPortedError, match="item 7"):
-        decode(KINDS["progressive"], entropy="pallas", idct="pallas",
-               device="cpu")
+@pytest.mark.parametrize("kind", ["progressive", "progressive_dri"])
+def test_progressive_under_pallas_matches_jax(kind):
+    """Under entropy="pallas" both packages decode progressive frames on
+    their device lanes (ROADMAP queue 1 item 7): RGB within the K1 bound."""
+    ref = jdecoder.decode(KINDS[kind], entropy="pallas", idct="pallas",
+                          upsample="fancy")
+    got = decode(KINDS[kind], entropy="pallas", idct="pallas",
+                 upsample="fancy", device="cpu")
+    _assert_rgb_close(got.rgb, ref.rgb)
 
 
 @pytest.fixture(scope="module")
@@ -239,17 +244,22 @@ def test_batch_isolates_not_ported_and_corrupt(mixed):
     assert got[names.index("12bit")].rgb.dtype == torch.uint16
     assert got[names.index("cmyk")].rgb.dtype == torch.uint8
     assert isinstance(got[-1].error, tdecoder.JPEGError)
-    assert not isinstance(got[-1].error, tdecoder.NotPortedError)
     assert sum(it.ok for it in got) == len(DECODABLE)
 
 
 def test_batch_isolates_progressive_under_pallas():
+    """BatchDecoder(entropy="pallas") decodes the progressive frame on the
+    device lanes through its host-plane fallback, as JAX's does; both items
+    equal JAX's."""
     blobs = [KINDS["progressive"], KINDS["sof9"]]
+    ref = jbatch.BatchDecoder(entropy="pallas", idct="pallas",
+                              upsample="fancy").decode(blobs)
     with tbatch.BatchDecoder(device="cpu", idct="pallas",
                              entropy="pallas") as bd:
         got = bd.decode(blobs)
-    assert isinstance(got[0].error, tdecoder.NotPortedError)
-    assert got[1].ok
+    for r, g in zip(ref, got):
+        assert r.ok and g.ok, g.error
+        _assert_rgb_close(g.rgb, np.asarray(r.rgb))
 
 
 @pytest.mark.parametrize("kind", ["progressive", "sof10", "multi_scan"])

@@ -110,7 +110,8 @@ def test_import_leaves_out_jax():
         "          'cli', 'utils.config', 'utils.logging',\n"
         "          'utils.profiling', 'io.writers', 'ops.idct_exact_cuda',\n"
         "          'ops.entropy_emit_cuda', 'ops.entropy_spec',\n"
-        "          'parallel.sharded'):\n"
+        "          'parallel.sharded', 'ops.entropy_prog',\n"
+        "          'ops.entropy_prog_cuda'):\n"
         "    assert 'jpeg_decoder_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

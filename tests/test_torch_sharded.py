@@ -47,6 +47,7 @@ from jpeg_decoder_tpu_torch.entropy import native as tnative  # noqa: E402
 from jpeg_decoder_tpu_torch.io import parser as tparser  # noqa: E402
 from jpeg_decoder_tpu_torch.ops import entropy_cuda  # noqa: E402
 from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda  # noqa: E402
+from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda  # noqa: E402
 from jpeg_decoder_tpu_torch.ops import entropy_spec  # noqa: E402
 from jpeg_decoder_tpu_torch.parallel import sharded  # noqa: E402
 
@@ -223,11 +224,14 @@ def test_failed_walk_falls_back_per_image(mesh, monkeypatch, case):
 def test_routes_take_the_named_kernels(monkeypatch):
     """Which kernel each group launches: a uniform DRI-0 group and a
     bucketed group K7 once each, a wide restart group K2 once, and the
-    progressive frame none (host fallback)."""
+    progressive frame the progressive lanes (K8a-K8d, once per scan of its
+    kind), not the host fallback."""
     monkeypatch.setenv("JD_RESTART_EMIT_MAX_LANES", "40")
     calls = []
     for mod, fn in ((entropy_emit_cuda, "decode_lanes_torch"),
-                    (entropy_cuda, "decode_segments_torch")):
+                    (entropy_cuda, "decode_segments_torch"),
+                    *((entropy_prog_cuda, f"{k}_torch") for k in (
+                        "dc_first", "dc_refine", "ac_first", "ac_refine"))):
         real = getattr(mod, fn)
         monkeypatch.setattr(mod, fn, lambda *a, _f=real, _n=fn, **k: (
             calls.append(_n), _f(*a, **k))[1])
@@ -236,11 +240,18 @@ def test_routes_take_the_named_kernels(monkeypatch):
              + CASES["progressive"]()[:1])
     got = sharded.decode_batch_sharded(blobs, "cpu", idct="pallas")
     assert all(it.ok for it in got)
-    routes = sorted(g["route"] for g in sharded.decode_batch_sharded
-                    .last_timing["groups"])
+    timing = sharded.decode_batch_sharded.last_timing
+    routes = sorted(g["route"] for g in timing["groups"])
     assert routes == ["dyn", "emit", "k2"]
-    assert sorted(calls) == ["decode_lanes_torch"] * 2 + [
-        "decode_segments_torch"]
+    assert (timing["progressive"], timing["progressive_fallback"],
+            timing["host_fallback"]) == (1, 0, 0)
+    kinds = [(s.ss > 0, s.ah > 0)
+             for s in tparser.parse(blobs[-1]).scans]
+    assert sorted(calls) == sorted(
+        ["decode_lanes_torch"] * 2 + ["decode_segments_torch"]
+        + [{(False, False): "dc_first_torch", (False, True):
+            "dc_refine_torch", (True, False): "ac_first_torch",
+            (True, True): "ac_refine_torch"}[k] for k in kinds])
     dyn = [g for g in sharded.decode_batch_sharded.last_timing["groups"]
            if g["route"] == "dyn"][0]
     assert dyn["images"] == 5 and dyn["table_sets"] == 3
