@@ -178,7 +178,16 @@ kernel against its plain version:
    and taken off), both at the default lane target and at JAX's 512 on
    DRI-0 frames, the byte bound, the pixel stage, ``decode()`` end to end
    under ``hybrid`` (also at 512 lanes on DRI-0 frames) and ``native`` and
-   the native host progressive decode;
+   the native host progressive decode; per AC scan K8c in both forms (a
+   warp per lane, a thread per lane) and K8d (a warp per lane) against
+   their first forms (``testing/prog_v1.py``, the same build) from the
+   same prior planes (flags and planes equal) and timed in turns the same
+   way (each form, first form, first form, each form in reverse), with the
+   scan's lanes,
+   the form the wrapper picks, its CTAs, the longest lane and the staging
+   counters (0 over budget in the picked form, 0 table misses, asserted);
+   on 1080p (a) and the restart frame ``decode()`` under
+   ``hybrid`` in turns with the first forms swapped in (best of 3 each);
 10c. CLI phase: ``python -m jpeg_decoder_tpu_torch`` in subprocesses on the
    card over a temporary directory of three frames (1080p 4:2:0, CMYK,
    12-bit) and a non-JPEG file: ``--idct exact --strict --format bmp
@@ -205,6 +214,7 @@ line.  Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -1763,6 +1773,107 @@ def _prog_bytes(scan, before, after) -> int:
     return 4 * (n_words + read + changed)
 
 
+def _ac_turns(scan, k: int, args, planes, restore) -> dict:
+    """K8c in both forms (one warp per lane, one thread per lane) or K8d
+    (one warp per lane) against the first form (``testing/prog_v1.py``) on
+    one scan's inputs: all from the same prior planes, flags and planes
+    equal and no lane flagged; then device time, 10 launches queued behind
+    a spin kernel each, in turns (each form, first form, first form, each
+    form in reverse), K8d's plane restore before each launch timed apart
+    and taken off.  Returns the scan's lanes, the form the wrapper picks and
+    its CTAs, the longest lane, staging counters and the times."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing import prog_v1
+
+    refine = scan.ah > 0
+    new = k8.ac_refine if refine else k8.ac_first
+    forms = ("warp",) if refine else ("warp", "thread")
+    fns = {f: lambda *a, f=f, **kw: k8._ac(
+        refine, *a, kw["ss"], kw["se"], kw["al"], kw["table"], form=f)
+        for f in forms}
+    fns["v1"] = prog_v1.ac_refine_v1 if refine else prog_v1.ac_first_v1
+    plane = planes[args.cis[0]]
+    kw = dict(ss=scan.ss, se=scan.se, al=scan.al, table=args.ac_table)
+    got, stats = {}, {}
+    for name, fn in fns.items():
+        restore()
+        err = fn(args.words, args.lanes, args.luts, plane, args.geom, **kw)
+        torch.cuda.synchronize()
+        got[name] = (err.cpu(), plane.cpu())
+        if name != "v1":
+            stats[name] = new.last_stats.tolist()
+    form = "thread" if k8.use_threads(refine, args.lanes) else "warp"
+    for name in forms:
+        st = stats[name]
+        # The form the wrapper picks must stage every word and probe no
+        # table in device memory; K8c's other form may read words past its
+        # budget (a warp's 32 long segment lanes), which is counted.
+        if got[name][0].any() or not torch.equal(got[name][0], got["v1"][0]) \
+                or not torch.equal(got[name][1], got["v1"][1]) \
+                or st[2] or (name == form and st[1]):
+            raise AssertionError(
+                f"prog scan {k}: K8{'d' if refine else 'c'} ({name} form) "
+                f"against its first form: flags "
+                f"{int(got[name][0].sum())} and {int(got['v1'][0].sum())}, "
+                f"{int((got[name][1] != got['v1'][1]).sum())} coefficients "
+                f"differ; lanes over budget {st[1]}, table misses {st[2]}")
+
+    def launcher(fn):
+        def run():
+            if refine:
+                restore()
+            fn(args.words, args.lanes, args.luts, plane, args.geom, **kw)
+        return run
+
+    times = {name: [] for name in fns}
+    for name in forms + ("v1", "v1") + forms[::-1]:
+        times[name].append(_queued_ms(launcher(fns[name]), n=10))
+    off = _queued_ms(restore, n=10) if refine else 0.0
+    ms = {name: statistics.mean(v) - off for name, v in times.items()}
+    return dict(scan=k, lanes=args.lanes.n, form=form,
+                ctas=k8.ac_grid(refine, args.lanes, args.ac_table.n_slots),
+                longest_blocks=args.lanes.max_units,
+                l2_slots=stats[form][0], over_budget=stats[form][1],
+                table_misses=stats[form][2], ms=ms[form],
+                v1_ms=ms["v1"],
+                forms={f: dict(ms=ms[f], over_budget=stats[f][1])
+                       for f in forms})
+
+
+def _ac_line(name: str, t, sc, info: dict) -> str:
+    """One AC scan's line of the progressive phase (see _ac_turns)."""
+    forms = ", ".join(f"{f} form {v['ms']:.4f} ms ({v['over_budget']} over "
+                      "budget)" for f, v in info["forms"].items())
+    return (f"prog {name} {'segment' if t is None else t} lanes, scan "
+            f"{info['scan']} ({_prog_kind(sc)}, band {sc.ss}..{sc.se}, al "
+            f"{sc.al}): {info['lanes']} lanes, {info['form']} form on "
+            f"{info['ctas']} CTAs, longest {info['longest_blocks']} blocks; "
+            f"l2 slots {info['l2_slots']}, lanes over budget "
+            f"{info['over_budget']}, table misses {info['table_misses']}; "
+            f"device {forms}, first form {info['v1_ms']:.4f} ms "
+            f"({info['v1_ms'] / max(info['ms'], 1e-9):.2f}x)")
+
+
+class _FirstFormAc:
+    """Inside ``with``: the progressive lanes launch K8c's and K8d's first
+    forms (``entropy_prog_cuda.ac_first``/``ac_refine`` swapped for
+    ``testing/prog_v1.py``'s); this script's comparison only."""
+
+    def __enter__(self):
+        from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+        from jpeg_decoder_tpu_torch.testing import prog_v1
+
+        self.saved = (k8.ac_first, k8.ac_refine)
+        k8.ac_first, k8.ac_refine = prog_v1.ac_first_v1, prog_v1.ac_refine_v1
+
+    def __exit__(self, *exc):
+        from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+
+        k8.ac_first, k8.ac_refine = self.saved
+
+
 def _prog_phase(dev) -> dict:
     """The progressive lanes on the card (see the module docstring).
     Returns the K8a-K8d records, without ``launches``."""
@@ -1887,6 +1998,8 @@ def _prog_phase(dev) -> dict:
         targets = (ep.target_lanes_default(), 512) if dri0 else (None,)
         walk_ms = {t: {k: 0.0 for k in PROG_KERNELS} for t in targets}
         dev_ms = {t: {k: 0.0 for k in PROG_KERNELS} for t in targets}
+        v1_ms = {t: {"K8c": 0.0, "K8d": 0.0} for t in targets}
+        ac_scans = {t: [] for t in targets}
         byts = {k: 0 for k in PROG_KERNELS}
         nzmaps: dict = {t: {} for t in targets}
         for k, scan in enumerate(hdr.scans):
@@ -1913,16 +2026,16 @@ def _prog_phase(dev) -> dict:
                     for ci in cis:
                         pl[ci].copy_(pr[ci])
 
-                def run(a=args, pl=planes, sc=scan, refine=kind == "K8d",
-                        restore=restore):
-                    if refine:
-                        restore()
-                    ep.launch_scan(sc, a, pl)
-
-                ms = _queued_ms(run, n=10)
-                if kind == "K8d":
-                    ms -= _queued_ms(restore, n=10)
-                dev_ms[t][kind] += ms
+                if kind in ("K8c", "K8d"):
+                    info = _ac_turns(scan, k, args, planes, restore)
+                    ac_scans[t].append(info)
+                    dev_ms[t][kind] += info["ms"]
+                    v1_ms[t][kind] += info["v1_ms"]
+                    continue
+                dev_ms[t][kind] += _queued_ms(
+                    lambda a=args, pl=planes, sc=scan: ep.launch_scan(sc, a,
+                                                                      pl),
+                    n=10)
         # Pixels on the lanes' planes, end to end (hybrid also at 512 lanes
         # on DRI-0 frames), the host decode.
         planes = ep.decode_progressive_lanes(hdr, dev, as_device=True)
@@ -1933,6 +2046,21 @@ def _prog_phase(dev) -> dict:
         runs = [("hybrid", None), ("native", None)]
         if dri0:
             runs.append(("hybrid", "512"))
+        if name in ("progressive_1080p_a.jpg", "progressive_1080p_dri.jpg"):
+            # decode(hybrid) with the new K8c/K8d and with their first forms
+            # swapped in, in turns (new, first form, first form, new).
+            kwd = dict(entropy="hybrid", idct="pallas", upsample="fancy",
+                       device=dev)
+            turns = {"hybrid": [], "hybrid v1": []}
+            for tag in ("hybrid", "hybrid v1", "hybrid v1", "hybrid"):
+                with (_FirstFormAc() if tag.endswith("v1")
+                      else contextlib.nullcontext()):
+                    decode(blob, **kwd)
+                    turns[tag].append(min(
+                        _wall(lambda: (decode(blob, **kwd),
+                                       torch.cuda.synchronize()))
+                        for _ in range(3)) * 1e3)
+            e2e["turns"] = turns
         for entropy, lanes_env in runs:
             kwd = dict(entropy=entropy, idct="pallas", upsample="fancy",
                        device=dev)
@@ -1959,6 +2087,25 @@ def _prog_phase(dev) -> dict:
                 host_walk_ms=walk_ms[t_def][kind] if dri0 else None,
                 ms_512_lanes=dev_ms[512][kind] if dri0 else None,
                 host_walk_ms_512_lanes=walk_ms[512][kind] if dri0 else None)
+        for kind in ("K8c", "K8d"):
+            recs[kind]["by_frame"][name].update(
+                v1_ms=v1_ms[t_def][kind],
+                v1_ms_512_lanes=v1_ms[512][kind] if dri0 else None)
+        for t in targets:
+            for info in ac_scans[t]:
+                print(_ac_line(name, t, hdr.scans[info["scan"]], info))
+            print(f"prog {name} {'segment' if t is None else t} lanes: K8c "
+                  f"{dev_ms[t]['K8c']:.4f} ms (first form "
+                  f"{v1_ms[t]['K8c']:.4f}), K8d {dev_ms[t]['K8d']:.4f} ms "
+                  f"(first form {v1_ms[t]['K8d']:.4f}; "
+                  f"{v1_ms[t]['K8d'] / max(dev_ms[t]['K8d'], 1e-9):.2f}x)")
+        if "turns" in e2e:
+            tr = e2e.pop("turns")
+            recs["K8d"]["by_frame"][name]["decode_hybrid_ms"] = tr
+            print(f"prog {name}: decode() hybrid in turns, new K8c/K8d "
+                  f"{', '.join(f'{v:.2f}' for v in tr['hybrid'])} ms, first "
+                  f"forms swapped in "
+                  f"{', '.join(f'{v:.2f}' for v in tr['hybrid v1'])} ms")
         nat_ms = native_ms[name]
         print(f"prog {name} ({hdr.width}x{hdr.height}, DRI "
               f"{hdr.scans[0].restart_interval}, {len(hdr.scans)} scans, "
@@ -1989,6 +2136,8 @@ def _prog_phase(dev) -> dict:
         rec.update(ms=rec["by_frame"][a]["ms"], plain_ms=plain_ms[kind],
                    bound_ms=rec["by_frame"][a]["bound_ms"], bound_by="bytes",
                    frame=a)
+        if "v1_ms" in rec["by_frame"][a]:
+            rec["first_form_ms"] = rec["by_frame"][a]["v1_ms"]
     recs["K8a"]["decode_counts"] = counts
     print(f"prog phase: {time.perf_counter() - t_phase:.1f} s")
     return recs

@@ -5,36 +5,107 @@
 // jpeg_decoder_tpu/ops/entropy_prog.py: decode_dc_first (:87),
 // dc_refine_bits (:152), decode_ac_first (:199) with decode_ac_first_emit
 // (:770) and _emit_global_scatter (:1083), decode_ac_refine (:317) with
-// decode_ac_refine_emit (:517) and _refine_emit_core (:897).  They compute
-// what those compute, not how: a TPU loop cannot scatter, so the JAX forms
-// emit (position, value) pairs or per-event accumulators and scatter or
-// gather them afterwards.  A CUDA thread stores directly, and the lanes of a
-// scan own disjoint blocks, so each lane adds to (or, in K8d, reads and
-// updates) its own blocks' coefficients with plain loads and stores.
+// decode_ac_refine_emit (:517), _refine_emit_prep (:876) and
+// _refine_emit_core (:897).  They compute what those compute, not how: a TPU
+// loop cannot scatter, so the JAX forms emit (position, value) pairs or
+// per-event accumulators and scatter or gather them afterwards.  Here the
+// lanes of a scan own disjoint blocks, so each lane stores into its own
+// blocks' coefficients.
 //
-// One thread per lane (K8b: one per block, its bit lies at a closed-form
-// position).  A lane is a run of consecutive MCUs (DC scans) or blocks (AC
-// scans) of one scan, from a known state: a restart segment (predictors and
-// EOB run zero) or a record of the host's skeleton walk (bit position,
-// predictors, pending EOB run).  The lane keeps a 64-bit bit position and
-// its predictors or EOB run in registers and reads the 16-bit-indexed
-// Huffman tables from device memory.
+// A lane is a run of consecutive MCUs (DC scans) or blocks (AC scans) of one
+// scan, from a known state: a restart segment (predictors and EOB run zero)
+// or a record of the host's skeleton walk (bit position, predictors, pending
+// EOB run).  K8a is one thread per lane, K8b one per block (its bit lies at
+// a closed-form position); both read the 16-bit-indexed Huffman tables and
+// the words from device memory.
+//
+// K8c and K8d share one design.  A lane is a serial chain of symbols; the
+// first forms (ac_*_kernel_v1, one thread per lane, 128-thread CTAs) loaded
+// every band position's history, every correction bit and every table probe
+// from device memory inside that chain (K8d: ~290 ns a position step,
+// 17.35 ms for the four AC refinement scans of a 1920x1080 frame with a
+// restart marker every MCU row, whose 135 luma segment lanes filled 2 CTAs:
+// 2 SMs busy; H100 80GB HBM3, 700 W, chip_smoke.py).
+//  * Warp form (ac_warp_kernel), K8d always and K8c up to WARP_LANES_MAX
+//    lanes (1,024 in ops/entropy_prog_cuda.py): one warp per lane, 32-thread
+//    CTAs persistent over the lanes (lane s on CTA s % grid), as many as fit
+//    on the card (at most 85 registers a thread and 6-8 KB of shared memory:
+//    24 an SM) and no more than the lanes.  135 segment lanes put a warp on
+//    every SM, 512 lanes about four.  Lane 0 walks; the warp builds the
+//    history masks and applies the results.
+//  * Thread form (ac_first_thread_kernel), K8c beyond WARP_LANES_MAX lanes:
+//    one thread per lane, 32-thread CTAs.  With thousands of short lanes a
+//    warp per lane fills every SM with warps that each issue one thread's
+//    chain; 32 lanes of a warp share each instruction instead.
+//    The numbers that set the choice (sums over the four scans of a kind of
+//    1920x1080 and 3840x2160 progressive frames, warp / thread form, ms;
+//    H100 80GB HBM3, 700 W, chip_smoke.py): at 4,096 lanes K8c 0.1596 /
+//    0.0450 (first form 0.0488) and 0.1846 / 0.0683; at 512 lanes K8c
+//    0.0884 / 0.1214.  K8d's thread form was never faster: 0.2768 / 0.2769
+//    and 0.7597 / 0.8898 at 4,096 lanes, 0.4500 / 1.6758 at 512 lanes,
+//    1.7028 / 6.6608 on 135 segment lanes; K8d has the warp form only,
+//    re-timed at 4,096 lanes: 0.2854 ms (1920x1080) and 0.7446 ms
+//    (3840x2160), first form 0.6842 and 2.9080, same card and script.
+//  * Tables: the host builds each AC table's compact form once (an 11-bit
+//    first level, and a 32-entry second level for each prefix of longer
+//    codes, at most 64: entropy_prog_cuda.compact_table) and uploads it
+//    with the scan's words; each CTA copies it once into shared memory
+//    with cp.async (4-8 KB).  A prefix left out when the 64 second levels
+//    run out reads the 65536-entry LUT in device memory, counted as a
+//    table miss.
+//  * Words: in shared memory, staged with 16-byte cp.async: a lane's words
+//    (warp form) or the one contiguous range of a warp's 32 consecutive
+//    lanes (thread form), from the start word to the end word plus the
+//    reader's lookahead, up to budget_words (the wrapper sizes it from the
+//    longest lane or group of 32, at most kMaxBudget).  A word outside the
+//    staged range is read from device memory and the lane counted as over
+//    budget; never a switch to the plain version.
+//  * History as bit masks (K8d): a 64-bit mask per block of the band
+//    positions with nonzero history, in zigzag order.  The walk of a
+//    block (walk_block, shared by K8c and K8d) then runs on registers and
+//    shared memory alone: a zero run of r is the (r+1)-th clear bit of the
+//    mask at or after k, the correction bits of the positions it crosses
+//    come out of one 64-bit stream window, and it records the positions
+//    whose correction bit is 1, the new coefficients' positions and their
+//    signs.  It never reads the plane.  Per chunk of 32 blocks the warp
+//    loads each row (8 bytes a thread, one coalesced 256-byte load),
+//    reduces it to the mask and ballots a map of the chunk's blocks with
+//    history (the chunk's part of JAX's nextp), so that an EOB run skips
+//    the blocks without history in O(1).  The planes must start on a
+//    16-byte boundary (the wrapper checks).
+//  * K8c skips an EOB run's blocks in O(1); the warp form keeps each
+//    block's new terms in shared memory (chunks of 8 blocks).
+//  * Apply.  Warp form: after each chunk the warp updates the touched
+//    blocks, each thread its two positions: K8d adds +-(1 << al) where a
+//    correction bit is 1 and the value's (1 << al) bit is clear and stores
+//    the new +-(1 << al); K8c adds its terms (the plain version's add,
+//    wrapping as uint32).  K8c's thread form adds its terms with atomic
+//    adds that return nothing, so its chain never waits on a store.  Either
+//    way only the elements that change are written: the DC chain writes
+//    coefficient 0 of the same rows at the same time on its own stream.
+//  * Counters, after the lane flags in the same zero-filled buffer: the
+//    second-level tables used, the lanes that read a word outside their
+//    staged range, the table probes that read device memory.
 //
 // Bound: bytes.  A scan reads its words once and touches the plane rows of
-// its blocks (K8d reads and writes them).  The serial walk of each lane is
-// latency-bound on the LUT and word loads; the design answer for now is
-// many short lanes (the host plans thousands per scan), not shared-memory
-// tables or warp-cooperative refinement, which are a later change.
+// its blocks (K8d reads the band of every block and writes what changes);
+// the serial walk of the longest lane sets the time.
 //
 // Every lane checks itself: a bad code, a size or run out of range, a block
 // row outside its plane, a position past the lane's end bit, and, for lanes
 // chained by the skeleton walk, an end state that is not exactly the next
 // lane's start (bit position and predictors or EOB run).  A failing lane
-// sets err[lane] = 1 and stops; its blocks are then unspecified.
+// sets err[lane] = 1 and stops; its blocks are then unspecified.  The
+// redesigned K8c and K8d flag exactly as their first forms and the plain
+// versions do, and leave the same planes.
 //
 // Plain versions: jpeg_decoder_tpu_torch/ops/entropy_prog_cuda.py.
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -191,12 +262,14 @@ __global__ void dc_refine_kernel(const uint32_t* __restrict__ words,
                                                   1u << al);
 }
 
-// K8c: AC first scan (Ss >= 1, Ah = 0) of one component.  A block covered
-// by the pending EOB run is skipped; otherwise run/size symbols put
+// K8c's first form, kept as the same-card baseline of ac_lane_kernel (entry
+// jd_prog_ac_v1; no path of the package launches it).  AC first scan (Ss >=
+// 1, Ah = 0) of one component, one thread per lane.  A block covered by the
+// pending EOB run is skipped; otherwise run/size symbols put
 // ``extend(bits) << al`` at natural position ZIGZAG[k] (into zero slots:
 // add equals store), ZRL advances k by 16 and an EOB run of r gives
 // (1 << r) + bits(r) blocks, this one among them.
-__global__ void ac_first_kernel(const uint32_t* __restrict__ words,
+__global__ void ac_first_kernel_v1(const uint32_t* __restrict__ words,
                                 int64_t n_words,
                                 const int64_t* __restrict__ base,
                                 const int64_t* __restrict__ end,
@@ -254,14 +327,15 @@ __global__ void ac_first_kernel(const uint32_t* __restrict__ words,
   if (bad) err[s] = 1;
 }
 
-// K8d: AC refinement (Ss >= 1, Ah > 0) of one component (T.81 G.2.3).  The
-// history of a band position is the plane's value there: a nonzero one
+// K8d's first form, the same-card baseline (entry jd_prog_ac_v1).  AC
+// refinement (Ss >= 1, Ah > 0) of one component (T.81 G.2.3), one thread per
+// lane.  The history of a band position is the plane's value there: a nonzero one
 // takes a correction bit (+-(1 << al) in its sign's direction when its
 // (1 << al) bit is clear), a zero one counts toward the symbol's zero run
 // and the new +-(1 << al) coefficient goes to the run's end.  Blocks under
 // an EOB run still take correction bits.  Lanes own their blocks, so the
 // read-modify-write of a row is the lane's alone.
-__global__ void ac_refine_kernel(const uint32_t* __restrict__ words,
+__global__ void ac_refine_kernel_v1(const uint32_t* __restrict__ words,
                                  int64_t n_words,
                                  const int64_t* __restrict__ base,
                                  const int64_t* __restrict__ end,
@@ -345,6 +419,547 @@ __global__ void ac_refine_kernel(const uint32_t* __restrict__ words,
   if (bad) err[s] = 1;
 }
 
+// ---- K8c and K8d: one warp per lane ----------------------------------------
+//
+// See the file header for the design.  A CTA is one warp; it stages the
+// compact AC table once, then walks lanes blockIdx.x, + gridDim.x, ...: per
+// lane it stages the lane's words, and per chunk of blocks the warp builds
+// the history masks (K8d), lane 0 walks the chunk's symbols on registers
+// and shared memory, and the warp applies the chunk's results.
+
+constexpr int kAcL1Bits = 11;                  // first-level index bits
+constexpr int kAcL1Size = 1 << kAcL1Bits;
+constexpr int kAcL2Bits = 16 - kAcL1Bits;
+constexpr int kAcL2Size = 1 << kAcL2Bits;
+constexpr int kAcL2Slots = 64;                 // second-level tables, most
+constexpr int kLookahead = 3;                  // words past a lane's end word
+constexpr int kMaxBudget = 4096;               // staged words per lane, most
+constexpr unsigned kFull = 0xffffffffu;
+
+__constant__ uint8_t kZigzagInv[64] = {
+    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
+    3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
+    10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+    21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Copy n 4-byte words to shared memory, 16 bytes at a time where both ends
+// allow it, thread t of nt.
+__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* src,
+                                      int64_t n, bool aligned, int t,
+                                      int nt) {
+  for (int64_t i = 4 * t; i < n; i += 4 * nt) {
+    if (aligned && i + 4 <= n) {
+      cp_async16(dst + i, src + i);
+    } else {
+      for (int q = 0; q < 4 && i + q < n; ++q)
+        cp_async4(dst + i + q, src + i + q);
+    }
+  }
+}
+
+// Zigzag positions k .. se as a mask (0 when k > se; 1 <= k, se <= 63).
+__device__ __forceinline__ uint64_t band_from(int k, int se) {
+  if (k > se) return 0;
+  const uint64_t hi = se >= 63 ? ~0ull : (1ull << (se + 1)) - 1;
+  return (~0ull << k) & hi;
+}
+
+struct AcArgs {
+  const uint32_t* words;
+  const int64_t* base;
+  const int64_t* end;
+  const int32_t* n_per;
+  const int64_t* first;
+  const int32_t* eob0;
+  const int32_t* lut;      // (65536,) for the prefixes the table left out
+  const int16_t* tab;      // l1 (kAcL1Size) then n_slots second levels
+  int32_t* plane;
+  int32_t* err;            // (n_lanes,) then 3 counters, zeroed
+  int64_t n_words, n_lanes;
+  int ss, se, al, chained, budget_words, n_slots, l2_full;
+};
+
+// A lane's words: [s_lo, s_hi) staged in shared memory from s[0], the rest
+// read from device memory (setting far; past the pool the last word: such
+// a lane is past its end and flagged).
+struct Stream {
+  const uint32_t* g;
+  const uint32_t* s;
+  int64_t s_lo, s_hi, n_words;
+  bool far;
+  // Words ci, ci + 1, ci + 2 of the last window (ci < 0: none yet): the
+  // position only grows, so most windows start in the same word or the
+  // next one and read one word or none.
+  int64_t ci;
+  uint32_t c0, c1, c2;
+
+  __device__ __forceinline__ uint32_t word(int64_t i) {
+    if (i >= s_lo && i < s_hi) return s[i - s_lo];
+    far = true;
+    if (i > n_words - 1) i = n_words - 1;
+    return __ldg(g + i);
+  }
+  // The 64 stream bits from ``p`` on (the shift by 32 - off skipped at
+  // off == 0, where it would be undefined).
+  __device__ __forceinline__ uint64_t window(int64_t p) {
+    const int64_t i = p >> 5;
+    if (i == ci + 1) {
+      c0 = c1;
+      c1 = c2;
+      c2 = word(i + 2);
+    } else if (i != ci) {
+      c0 = word(i);
+      c1 = word(i + 1);
+      c2 = word(i + 2);
+    }
+    ci = i;
+    const unsigned off = unsigned(p & 31);
+    const uint64_t hi = (uint64_t(c0) << 32) | c1;
+    return off ? (hi << off) | (c2 >> (32 - off)) : hi;
+  }
+};
+
+// The compact table in shared memory; a prefix it left out (l2_full) reads
+// the LUT in device memory, counted in misses.
+struct Probe {
+  const int16_t* l1;
+  const int16_t* l2;
+  const int32_t* lut;
+  bool l2_full;
+  uint32_t misses;
+
+  __device__ __forceinline__ int32_t operator()(uint32_t p16) {
+    const int32_t e = l1[p16 >> kAcL2Bits];
+    if (e > 0) return e;
+    if (e < 0) return l2[(-e - 1) * kAcL2Size + (p16 & (kAcL2Size - 1))];
+    if (!l2_full) return 0;
+    ++misses;
+    return __ldg(lut + p16);
+  }
+};
+
+// The correction bits of the positions ``crossed``, in increasing order
+// the next popc(crossed) stream bits: the mask of those whose bit is 1.
+// Advances pos.
+__device__ __forceinline__ uint64_t corrections(Stream& st, int64_t& pos,
+                                                uint64_t crossed) {
+  if (crossed == 0) return 0;
+  uint64_t bits = st.window(pos), out = 0;
+  pos += __popcll(crossed);
+  while (crossed) {
+    const uint64_t low = crossed & (~crossed + 1);
+    if (bits >> 63) out |= low;
+    bits <<= 1;
+    crossed ^= low;
+  }
+  return out;
+}
+
+// One block of a lane, from ``pos`` with the pending EOB run ``eob``, as
+// the first forms walk it (a block of K8c under an EOB run is the caller's
+// to skip).  K8c: each new term goes to put(k, value), its position to
+// newp.  K8d: ``nz`` holds the band positions with history; a zero run of r
+// stops at the (r+1)-th zero-history position at or after k, the
+// nonzero-history positions before it take correction bits (those that are
+// 1 go to fix), the new +-(1 << al) to the stop (newp, and neg where it is
+// negative); no stop inside the band ends the block; a block under an EOB
+// run takes a correction bit at each of its positions with history.
+// Returns false for a bad code, a size or run out of range or a position
+// past lim before a symbol (the lane is flagged; what the block recorded
+// until then stands, as in the first forms).
+template <bool kRefine, class Put>
+__device__ __forceinline__ bool walk_block(Stream& st, Probe& probe,
+                                           int64_t& pos, int64_t& eob,
+                                           int64_t lim, int ss, int se,
+                                           int al, uint64_t nz, uint64_t& fix,
+                                           uint64_t& newp, uint64_t& neg,
+                                           Put&& put) {
+  int k = ss;
+  if (eob == 0) {
+    while (k <= se) {
+      if (pos > lim) return false;
+      const uint64_t w = st.window(pos);
+      const int32_t e = probe(uint32_t(w >> 48));
+      if (e == 0) return false;
+      const int len = e & 31, sym = (e >> 5) & 0xFF;
+      const int r = sym >> 4, sz = sym & 15;
+      const uint64_t wl = w << len;   // len <= 16
+      if (!kRefine) {
+        if (sz == 0) {
+          if (r < 15) {
+            eob = (int64_t(1) << r) - 1 + (r ? int64_t(wl >> (64 - r)) : 0);
+            pos += len + r;
+            return true;
+          }
+          pos += len;
+          k += 16;   // ZRL
+          continue;
+        }
+        k += r;
+        if (k > se) return false;
+        put(k, int32_t(uint32_t(extend(uint32_t(wl >> (64 - sz)), sz))
+                       << al));
+        newp |= 1ull << k;
+        pos += len + sz;
+        ++k;
+        continue;
+      }
+      pos += len;
+      bool has_new = false, is_neg = false;
+      if (sz == 0) {
+        if (r < 15) {
+          eob = (int64_t(1) << r) + (r ? int64_t(wl >> (64 - r)) : 0);
+          pos += r;
+          break;
+        }
+        // ZRL: 16 zero-history positions, no new value.
+      } else {
+        if (sz != 1) return false;
+        has_new = true;
+        is_neg = (wl >> 63) == 0;
+        pos += 1;
+      }
+      const uint64_t from_k = band_from(k, se);
+      uint64_t z = ~nz & from_k;
+      for (int q = 0; q < r && z; ++q) z &= z - 1;
+      if (z == 0) {
+        fix |= corrections(st, pos, nz & from_k);
+        k = se + 1;
+        break;
+      }
+      const int stop = __ffsll(static_cast<long long>(z)) - 1;
+      fix |= corrections(st, pos, nz & from_k & ((1ull << stop) - 1));
+      if (has_new) {
+        newp |= 1ull << stop;
+        if (is_neg) neg |= 1ull << stop;
+      }
+      k = stop + 1;
+    }
+  }
+  if (kRefine && eob > 0) {
+    fix |= corrections(st, pos, nz & band_from(k, se));
+    --eob;
+  }
+  return true;
+}
+
+// The lane end checks of the first forms: flag a lane past its end bit,
+// and a chained lane that does not end exactly at the next one's start.
+__device__ __forceinline__ void end_lane(const AcArgs& a, int64_t s, bool bad,
+                                         int64_t pos, int64_t lim,
+                                         int64_t eob) {
+  if (!bad) bad = pos > lim;
+  if (!bad && a.chained && s + 1 < a.n_lanes)
+    bad = pos != lim || eob != a.eob0[s + 1];
+  if (bad) a.err[s] = 1;
+}
+
+// Blocks a lane walks per chunk in the warp form: K8d's history masks take
+// a warp's 32 (one bit of a ballot each); K8c keeps its chunk's terms, 64
+// int32 a block.
+__host__ __device__ constexpr int ac_chunk(bool refine) {
+  return refine ? 32 : 8;
+}
+
+// Dynamic shared memory of one CTA: the compact table, the warp form's
+// chunk masks, rows and K8c's terms, and the staged words of a lane (warp
+// form) or of the CTA's 32 lanes (thread form).
+__host__ __device__ constexpr int ac_smem_bytes(bool refine, bool threads,
+                                                int n_slots, int budget) {
+  return 2 * (kAcL1Size + n_slots * kAcL2Size) +
+         (threads ? 0
+                  : 8 * 5 * ac_chunk(refine) +
+                        (refine ? 0 : 4 * 64 * ac_chunk(refine))) +
+         4 * budget;
+}
+
+// The warp form: one warp per lane, persistent over the lanes.
+template <bool kRefine>
+__global__ void __launch_bounds__(32, 24) ac_warp_kernel(AcArgs a, Geo g) {
+  constexpr int kCh = ac_chunk(kRefine);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_l1 = reinterpret_cast<int16_t*>(smem);
+  int16_t* s_l2 = s_l1 + kAcL1Size;
+  uint64_t* s_nz =
+      reinterpret_cast<uint64_t*>(s_l2 + a.n_slots * kAcL2Size);
+  uint64_t* s_fix = s_nz + kCh;        // K8d: correction bits that are 1
+  uint64_t* s_newp = s_fix + kCh;      // new coefficients' positions
+  uint64_t* s_neg = s_newp + kCh;      // K8d: the new ones that are -p1
+  int64_t* s_row = reinterpret_cast<int64_t*>(s_neg + kCh);
+  int32_t* s_val = reinterpret_cast<int32_t*>(s_row + kCh);   // K8c
+  uint32_t* s_words =
+      reinterpret_cast<uint32_t*>(s_val + (kRefine ? 0 : 64 * kCh));
+  __shared__ uint32_t s_touch;
+
+  const int lane = threadIdx.x;
+  const int32_t p1 = 1 << a.al;
+  // This thread's two natural positions, their zigzag indices and band
+  // bits (the mask build and the apply).
+  const int n0 = 2 * lane, n1 = 2 * lane + 1;
+  const int k0 = kZigzagInv[n0], k1 = kZigzagInv[n1];
+  const uint64_t bm0 = k0 >= a.ss && k0 <= a.se ? 1ull << k0 : 0;
+  const uint64_t bm1 = k1 >= a.ss && k1 <= a.se ? 1ull << k1 : 0;
+
+  // The compact table, once per CTA.
+  stage(reinterpret_cast<uint32_t*>(s_l1),
+        reinterpret_cast<const uint32_t*>(a.tab),
+        (kAcL1Size + a.n_slots * kAcL2Size) / 2,
+        (reinterpret_cast<uintptr_t>(a.tab) & 15) == 0, lane, 32);
+  const bool words_aligned = (reinterpret_cast<uintptr_t>(a.words) & 15) == 0;
+
+  Probe probe{s_l1, s_l2, a.lut, a.l2_full != 0, 0};
+  uint32_t over = 0;
+  for (int64_t s = blockIdx.x; s < a.n_lanes; s += gridDim.x) {
+    const int64_t base = a.base[s], lim = a.end[s];
+    const int64_t n = a.n_per[s], m0 = a.first[s];
+    // Stage the lane's words [s_lo, s_hi): from its start word (rounded
+    // down to 4 words) to its end word plus the lookahead, at most the
+    // budget.  The previous lane's walk is done (the __syncwarp closing
+    // its last chunk).
+    const int64_t s_lo = (base >> 5) & ~int64_t(3);
+    int64_t s_hi = (lim >> 5) + kLookahead;
+    if (s_hi > a.n_words) s_hi = a.n_words;
+    if (s_hi - s_lo > a.budget_words) s_hi = s_lo + a.budget_words;
+    if (s_hi < s_lo) s_hi = s_lo;
+    stage(s_words, a.words + s_lo, s_hi - s_lo, words_aligned, lane, 32);
+    cp_async_wait_all();
+    __syncwarp();
+
+    // Lane 0's walk state.
+    Stream st{a.words, s_words, s_lo, s_hi, a.n_words, false, -4, 0, 0, 0};
+    int64_t pos = base, eob = a.eob0[s];
+    bool bad = false;
+
+    for (int64_t t0 = 0; t0 < n; t0 += kCh) {
+      const int nb = int(n - t0 < kCh ? n - t0 : kCh);
+      int p_unused;
+      const int64_t my_row =
+          lane < nb ? slot_row(g, m0, t0 + lane, &p_unused) : -1;
+      uint32_t any = 0;
+      if (kRefine) {
+        // History masks: block j's band positions whose value is nonzero,
+        // one coalesced 256-byte row load per block (8 bytes a thread),
+        // eight loads in flight.
+        uint64_t my_nz = 0;
+#pragma unroll
+        for (int j8 = 0; j8 < kCh; j8 += 8) {
+          int2 v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int64_t row = __shfl_sync(kFull, my_row, j8 + q);
+            v[q] = j8 + q < nb && row >= 0
+                       ? reinterpret_cast<const int2*>(a.plane + row * 64)[lane]
+                       : make_int2(0, 0);
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const uint64_t bits =
+                (v[q].x != 0 ? bm0 : 0) | (v[q].y != 0 ? bm1 : 0);
+            const uint32_t lo = __reduce_or_sync(kFull, uint32_t(bits));
+            const uint32_t hi = __reduce_or_sync(kFull, uint32_t(bits >> 32));
+            if (lane == j8 + q) my_nz = (uint64_t(hi) << 32) | lo;
+          }
+        }
+        s_nz[lane] = my_nz;
+        // The blocks a run of EOB-covered blocks cannot skip: history, or a
+        // row outside the plane (flagged when reached).
+        any = __ballot_sync(kFull, lane < nb && (my_nz != 0 || my_row < 0));
+      }
+      if (lane < kCh) s_row[lane] = my_row;
+      __syncwarp();
+
+      if (lane == 0) {
+        uint32_t touched = 0;
+        int j = 0;
+        while (j < nb && !bad) {
+          if (eob > 0) {
+            // Covered blocks: K8c skips them all; K8d those without history
+            // (their walk would take no bit).
+            int run = nb - j;
+            if (kRefine && (any >> j)) run = __ffs(any >> j) - 1;
+            if (run > eob) run = int(eob);
+            if (run > 0) {
+              eob -= run;
+              j += run;
+              continue;
+            }
+          }
+          if (s_row[j] < 0) {
+            bad = true;
+            break;
+          }
+          uint64_t fix = 0, newp = 0, neg = 0;
+          int32_t* vals = s_val + j * 64;
+          bad = !walk_block<kRefine>(
+              st, probe, pos, eob, lim, a.ss, a.se, a.al,
+              kRefine ? s_nz[j] : 0, fix, newp, neg,
+              [vals](int k, int32_t v) { vals[k] = v; });
+          s_newp[j] = newp;
+          if (kRefine) {
+            s_fix[j] = fix;
+            s_neg[j] = neg;
+          }
+          if (newp | fix) touched |= 1u << j;
+          ++j;
+        }
+        s_touch = touched;
+      }
+      __syncwarp();
+
+      // Apply: per touched block, each thread its two positions, storing
+      // only the elements that change (coefficient 0 and the band's other
+      // positions stay untouched: the DC chain may be writing them).  Up
+      // to 8 blocks at a time: their loads first, then their stores.
+      uint32_t touched = s_touch;
+      while (touched) {
+        int js[8];
+        int nj = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          js[q] = touched ? __ffs(touched) - 1 : -1;
+          if (touched) {
+            touched &= touched - 1;
+            nj = q + 1;
+          }
+        }
+        int32_t v[8][2];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (q >= nj) break;
+          const int32_t* r = a.plane + s_row[js[q]] * 64;
+          // K8d reads the values it corrects, K8c those it adds to.
+          const uint64_t rd = kRefine ? s_fix[js[q]] : s_newp[js[q]];
+          v[q][0] = (rd >> k0) & 1 ? r[n0] : 0;
+          v[q][1] = (rd >> k1) & 1 ? r[n1] : 0;
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (q >= nj) break;
+          const int j = js[q];
+          int32_t* r = a.plane + s_row[j] * 64;
+          const uint64_t newp = s_newp[j];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int nn = h ? n1 : n0, kk = h ? k1 : k0;
+            const int32_t x = v[q][h];
+            if (kRefine) {
+              if ((s_fix[j] >> kk) & 1) {
+                if ((x & p1) == 0) r[nn] = x > 0 ? x + p1 : x - p1;
+              } else if ((newp >> kk) & 1) {
+                r[nn] = ((s_neg[j] >> kk) & 1) ? -p1 : p1;
+              }
+            } else if ((newp >> kk) & 1) {
+              r[nn] = int32_t(uint32_t(x) + uint32_t(s_val[j * 64 + kk]));
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (__shfl_sync(kFull, int(bad), 0)) break;
+    }
+
+    if (lane == 0) {
+      end_lane(a, s, bad, pos, lim, eob);
+      over += st.far;
+    }
+  }
+  int32_t* stats = a.err + a.n_lanes;
+  if (lane == 0 && blockIdx.x == 0) stats[0] = a.n_slots;
+  if (lane == 0 && (over | probe.misses)) {
+    atomicAdd(stats + 1, int(over));
+    atomicAdd(stats + 2, int(probe.misses));
+  }
+}
+
+// K8c's thread form: one thread per lane, one warp per CTA; the warp
+// stages the compact table and the words of its 32 consecutive lanes (one
+// contiguous range, at most budget words).  A thread skips its EOB runs'
+// blocks and adds its terms straight into its own blocks with atomic adds
+// that return nothing (the thread does not wait on them).
+__global__ void __launch_bounds__(32) ac_first_thread_kernel(AcArgs a, Geo g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_l1 = reinterpret_cast<int16_t*>(smem);
+  int16_t* s_l2 = s_l1 + kAcL1Size;
+  uint32_t* s_words =
+      reinterpret_cast<uint32_t*>(s_l2 + a.n_slots * kAcL2Size);
+  __shared__ uint8_t s_zz[64];
+
+  const int lane = threadIdx.x;
+  s_zz[lane] = uint8_t(kZigzag[lane]);
+  s_zz[lane + 32] = uint8_t(kZigzag[lane + 32]);
+  stage(reinterpret_cast<uint32_t*>(s_l1),
+        reinterpret_cast<const uint32_t*>(a.tab),
+        (kAcL1Size + a.n_slots * kAcL2Size) / 2,
+        (reinterpret_cast<uintptr_t>(a.tab) & 15) == 0, lane, 32);
+  const int64_t s0 = int64_t(blockIdx.x) * 32;
+  const int64_t s = s0 + lane;
+  int64_t s_lo = 0, s_hi = 0;
+  if (s0 < a.n_lanes) {
+    const int64_t last = s0 + 31 < a.n_lanes ? s0 + 31 : a.n_lanes - 1;
+    s_lo = (a.base[s0] >> 5) & ~int64_t(3);
+    s_hi = (a.end[last] >> 5) + kLookahead;
+    if (s_hi > a.n_words) s_hi = a.n_words;
+    if (s_hi - s_lo > a.budget_words) s_hi = s_lo + a.budget_words;
+    if (s_hi < s_lo) s_hi = s_lo;
+    stage(s_words, a.words + s_lo, s_hi - s_lo,
+          (reinterpret_cast<uintptr_t>(a.words) & 15) == 0, lane, 32);
+  }
+  cp_async_wait_all();
+  __syncwarp();
+
+  Stream st{a.words, s_words, s_lo, s_hi, a.n_words, false, -4, 0, 0, 0};
+  Probe probe{s_l1, s_l2, a.lut, a.l2_full != 0, 0};
+  if (s < a.n_lanes) {
+    int64_t pos = a.base[s], eob = a.eob0[s];
+    const int64_t lim = a.end[s], n = a.n_per[s], m0 = a.first[s];
+    bool bad = false;
+    for (int64_t t = 0; t < n && !bad;) {
+      if (eob > 0) {   // covered blocks: nothing to do
+        const int64_t run = eob < n - t ? eob : n - t;
+        eob -= run;
+        t += run;
+        continue;
+      }
+      int p_unused;
+      const int64_t row = slot_row(g, m0, t, &p_unused);
+      if (row < 0) {
+        bad = true;
+        break;
+      }
+      int32_t* blk = a.plane + row * 64;
+      uint64_t fix = 0, newp = 0, neg = 0;
+      bad = !walk_block<false>(
+          st, probe, pos, eob, lim, a.ss, a.se, a.al, 0, fix, newp, neg,
+          [blk](int k, int32_t v) { atomicAdd(blk + s_zz[k], v); });
+      ++t;
+    }
+    end_lane(a, s, bad, pos, lim, eob);
+  }
+  const unsigned over = __reduce_add_sync(kFull, st.far ? 1u : 0u);
+  const unsigned misses = __reduce_add_sync(kFull, probe.misses);
+  int32_t* stats = a.err + a.n_lanes;
+  if (lane == 0 && blockIdx.x == 0) stats[0] = a.n_slots;
+  if (lane == 0 && (over | misses)) {
+    atomicAdd(stats + 1, int(over));
+    atomicAdd(stats + 2, int(misses));
+  }
+}
+
 Geo unpack(const int64_t* geo) {
   Geo g;
   g.bpm = geo[0];
@@ -360,6 +975,57 @@ Geo unpack(const int64_t* geo) {
 }
 
 unsigned grid_of(int64_t n) { return unsigned((n + kThreads - 1) / kThreads); }
+
+// The warp form's CTAs per SM on the current device at ``smem`` bytes of
+// shared memory, times the device's SMs: a cache per (device, kernel,
+// shared memory), so that a launch makes no occupancy query after the
+// first (cudaGetDevice reads the thread's current device).
+template <bool kRefine>
+int warp_ctas(int smem, int64_t* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int>, int64_t> cache;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return int(rc);
+  std::lock_guard<std::mutex> hold(mu);
+  const auto key = std::make_tuple(dev, smem);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *out = hit->second;
+    return 0;
+  }
+  int n_sm = 0, per_sm = 0;
+  rc = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ac_warp_kernel<kRefine>, 32, smem);
+  if (rc != cudaSuccess) return int(rc);
+  *out = cache[key] = int64_t(n_sm) * (per_sm > 0 ? per_sm : 1);
+  return 0;
+}
+
+// K8d always runs its warp form; K8c its thread form when ``threads``.
+template <bool kRefine>
+int launch_ac(const AcArgs& a, const Geo& g, bool threads,
+              cudaStream_t stream, int64_t* grid_out) {
+  if (kRefine && threads) return int(cudaErrorInvalidValue);
+  const int smem = ac_smem_bytes(kRefine, threads, a.n_slots, a.budget_words);
+  int64_t grid = (a.n_lanes + 31) / 32;
+  if (!threads) {
+    const int rc = warp_ctas<kRefine>(smem, &grid);
+    if (rc != 0) return rc;
+    if (grid > a.n_lanes) grid = a.n_lanes;
+  }
+  if (grid_out != nullptr) {
+    *grid_out = grid;
+    return 0;
+  }
+  if (threads)
+    ac_first_thread_kernel<<<unsigned(grid), 32, smem, stream>>>(a, g);
+  else
+    ac_warp_kernel<kRefine><<<unsigned(grid), 32, smem, stream>>>(a, g);
+  return int(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -404,6 +1070,68 @@ extern "C" int jd_prog_ac(int32_t refine, const uint32_t* words,
                           int64_t n_words, const int64_t* base,
                           const int64_t* end, const int32_t* n_per,
                           const int64_t* first, const int32_t* eob0,
+                          const int32_t* lut, const int16_t* tab,
+                          int32_t n_slots, int32_t l2_full, int32_t* plane,
+                          const int64_t* geo, int32_t ss, int32_t se,
+                          int32_t al, int32_t chained, int64_t n_lanes,
+                          int32_t threads, int32_t budget_words, int32_t* err,
+                          void* stream) {
+  if (n_lanes < 1) return 0;
+  if (budget_words < 4 || budget_words > kMaxBudget || budget_words % 4 ||
+      n_slots < 0 || n_slots > kAcL2Slots)
+    return int(cudaErrorInvalidValue);
+  AcArgs a;
+  a.words = words;
+  a.base = base;
+  a.end = end;
+  a.n_per = n_per;
+  a.first = first;
+  a.eob0 = eob0;
+  a.lut = lut;
+  a.tab = tab;
+  a.plane = plane;
+  a.err = err;
+  a.n_words = n_words;
+  a.n_lanes = n_lanes;
+  a.ss = ss;
+  a.se = se;
+  a.al = al;
+  a.chained = chained;
+  a.budget_words = budget_words;
+  a.n_slots = n_slots;
+  a.l2_full = l2_full;
+  const Geo g = unpack(geo);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return refine ? launch_ac<true>(a, g, threads != 0, st, nullptr)
+                : launch_ac<false>(a, g, threads != 0, st, nullptr);
+}
+
+// The CTAs jd_prog_ac launches for ``n_lanes`` lanes in the given form at
+// this table size and budget on the current device (into *grid), or a CUDA
+// error.
+extern "C" int jd_prog_ac_grid(int32_t refine, int32_t threads,
+                               int32_t n_slots, int32_t budget_words,
+                               int64_t n_lanes, int64_t* grid) {
+  AcArgs a{};
+  a.n_lanes = n_lanes;
+  a.n_slots = n_slots;
+  a.budget_words = budget_words;
+  Geo g{};
+  return refine ? launch_ac<true>(a, g, threads != 0, nullptr, grid)
+                : launch_ac<false>(a, g, threads != 0, nullptr, grid);
+}
+
+// The table layout and staging limit, held to ops/entropy_prog_cuda.py.
+extern "C" int jd_prog_ac_l1_bits() { return kAcL1Bits; }
+extern "C" int jd_prog_ac_l2_slots() { return kAcL2Slots; }
+extern "C" int jd_prog_ac_max_budget() { return kMaxBudget; }
+
+// The first forms of K8c and K8d (one thread per lane, everything read from
+// device memory), the same-card baseline; the package never launches them.
+extern "C" int jd_prog_ac_v1(int32_t refine, const uint32_t* words,
+                          int64_t n_words, const int64_t* base,
+                          const int64_t* end, const int32_t* n_per,
+                          const int64_t* first, const int32_t* eob0,
                           const int32_t* lut, int32_t* plane,
                           const int64_t* geo, int32_t ss, int32_t se,
                           int32_t al, int32_t chained, int64_t n_lanes,
@@ -411,11 +1139,11 @@ extern "C" int jd_prog_ac(int32_t refine, const uint32_t* words,
   if (n_lanes < 1) return 0;
   const Geo g = unpack(geo);
   if (refine)
-    ac_refine_kernel<<<grid_of(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
+    ac_refine_kernel_v1<<<grid_of(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
         words, n_words, base, end, n_per, first, eob0, lut, plane, g, ss, se,
         al, chained, n_lanes, err);
   else
-    ac_first_kernel<<<grid_of(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
+    ac_first_kernel_v1<<<grid_of(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
         words, n_words, base, end, n_per, first, eob0, lut, plane, g, ss, se,
         al, chained, n_lanes, err);
   return int(cudaGetLastError());

@@ -193,7 +193,7 @@ def _decode_scan_loop(hdr: FrameHeader, entropy: str) -> list[np.ndarray]:
 
 
 def decode_to_planes(hdr: FrameHeader, entropy: str = "auto",
-                     device="cpu") -> list[np.ndarray]:
+                     device=None) -> list[np.ndarray]:
     """Run entropy decode for all scans, returning per-component quantized
     coefficient planes (rows, cols, 64) int32 on the host — for every frame
     the parser takes (12-bit and CMYK/YCCK included: planes do not depend
@@ -205,7 +205,9 @@ def decode_to_planes(hdr: FrameHeader, entropy: str = "auto",
     resynchronization.  Under ``pallas``, ``jax`` and ``hybrid`` progressive
     Huffman frames take the device lanes
     (``entropy_prog.decode_progressive_lanes`` on ``device``), whose planes
-    are copied back."""
+    are copied back.  ``device`` is resolved by ``routing.resolve_device``
+    (None: the card, raising without one) for the device backends only; the
+    host backends need no card."""
     if hdr.arithmetic:
         from ..entropy import arith
         return arith.decode_to_planes(hdr)
@@ -214,7 +216,7 @@ def decode_to_planes(hdr: FrameHeader, entropy: str = "auto",
             from ..ops import entropy_prog
 
             return entropy_prog.decode_progressive_lanes(
-                hdr, torch.device(device))
+                hdr, resolve_device(device))
         from ..entropy import native, progressive
 
         if (entropy in ("auto", "native") and hdr.precision == 8
@@ -228,8 +230,9 @@ def decode_to_planes(hdr: FrameHeader, entropy: str = "auto",
         return progressive.decode_progressive(hdr)
     if needs_scan_loop(hdr):
         return _decode_scan_loop(hdr, entropy)
-    scan_coefs = _decode_scan_robust(hdr, hdr.scans[0], entropy,
-                                     torch.device(device))
+    dev = (resolve_device(device) if entropy in DEVICE_BACKENDS
+           else torch.device("cpu"))
+    scan_coefs = _decode_scan_robust(hdr, hdr.scans[0], entropy, dev)
     if isinstance(scan_coefs, torch.Tensor):
         scan_coefs = scan_coefs.cpu().numpy()
     lay = layout_mod.scan_layout(hdr)

@@ -38,11 +38,11 @@ What differs from the JAX module, and why:
 * The lockstep refine (``JD_PROG_REFINE=lockstep``) is not ported: every
   AC scan runs K8c or K8d, fed skeleton or segment lanes.
 * ``JD_PROG_LANES`` is the target lane count of a skeleton scan, as in JAX;
-  the default is :data:`DEFAULT_LANES`, more lanes than JAX's 512 because a
-  lane is one thread of the card: on an H100 (80GB HBM3, 700 W) K8a, K8c
-  and K8d ran 4-7x faster at 4096 target lanes than at 512, and a
-  3840x2160 frame's ``decode()`` 19% faster (``chip_smoke.py``'s
-  progressive phase times both).
+  the default is :data:`DEFAULT_LANES`, more lanes than JAX's 512 because
+  a lane is one serial chain on the card: on an H100 (80GB HBM3, 700 W),
+  on a 1920x1080 frame, K8a ran 5.5x faster at 4096 target lanes than at
+  512, K8c 2.3x and K8d 1.7x (their first forms 4.2x and 6.7x;
+  ``chip_smoke.py``'s progressive phase times both).
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ import torch
 
 from ..huffman import build_lut
 from ..layout import comp_dims_unpadded
+from ..models.routing import resolve_device
 from ..types import FrameHeader, JPEGError, ScanHeader
 from . import entropy_prog_cuda as k8
 
@@ -204,6 +205,7 @@ class ScanInputs(NamedTuple):
     luts: torch.Tensor           # (n, 65536) int32 tables (n = 0 for K8b)
     cis: list                    # the frame components the scan writes
     geom: k8.Geometry
+    ac_table: k8.AcTable | None = None   # an AC scan's compact table
 
 
 def scan_inputs(hdr: FrameHeader, scan: ScanHeader, lanes,
@@ -221,22 +223,32 @@ def scan_inputs(hdr: FrameHeader, scan: ScanHeader, lanes,
     else:
         base, n_per, first, eob0, pred0 = lanes
         kw = dict(eob0=eob0, pred0=pred0, chained=True)
+    compact = None
     if scan.ss == 0 and scan.ah == 0:
         tables = np.stack([build_lut(scan.dc_specs[scan.dc_table_ids[k]])
                            for k in range(nsc)])
     elif scan.ss != 0:
-        tables = build_lut(scan.ac_specs[scan.ac_table_ids[0]])[None]
+        lut = build_lut(scan.ac_specs[scan.ac_table_ids[0]])
+        tables = lut[None]
+        compact = k8.compact_table(lut)
     else:
         tables = np.zeros((0, 1 << 16), np.int32)
     pool = scan_words(scan)
+    # The pool padded to 16 bytes, so that the tables after it stay aligned
+    # for the kernels' 16-byte copies.
+    pool = np.concatenate([pool, np.zeros(-len(pool) % 4, np.uint32)])
+    parts = [pool, tables.reshape(-1).view(np.uint32)]
+    if compact is not None:
+        parts.append(compact.tab.view(np.uint32))
     words, lt = k8.lane_table(
         base, n_per, first, n_units=n, scan_bits=len(scan.data) * 8,
-        device=device,
-        words=np.concatenate([pool, tables.reshape(-1).view(np.uint32)]),
-        **kw)
-    luts = words[len(pool):].view(torch.int32).view(tables.shape)
+        device=device, words=np.concatenate(parts), **kw)
+    n_lut = len(pool) + tables.size
+    luts = words[len(pool):n_lut].view(torch.int32).view(tables.shape)
+    if compact is not None:
+        compact = compact._replace(tab=words[n_lut:].view(torch.int16))
     cis, geom = scan_geometry(hdr, scan)
-    return ScanInputs(words[:len(pool)], lt, luts, cis, geom)
+    return ScanInputs(words[:len(pool)], lt, luts, cis, geom, compact)
 
 
 def launch_scan(scan: ScanHeader, inp: ScanInputs, planes: list,
@@ -253,8 +265,9 @@ def launch_scan(scan: ScanHeader, inp: ScanInputs, planes: list,
         return fn(inp.words, inp.lanes, inp.luts, mine, inp.geom, al=scan.al)
     if scan.ss == 0:
         return fn(inp.words, inp.lanes, mine, inp.geom, al=scan.al)
+    kw = {} if plain else {"table": inp.ac_table}
     return fn(inp.words, inp.lanes, inp.luts, mine[0], inp.geom, ss=scan.ss,
-              se=scan.se, al=scan.al)
+              se=scan.se, al=scan.al, **kw)
 
 
 def apply_scan_device(hdr: FrameHeader, scan: ScanHeader, planes: list,
@@ -303,7 +316,7 @@ def _finish(planes, shapes, as_device: bool):
     return [p.cpu().numpy() for p in out]
 
 
-def decode_progressive_device(hdr: FrameHeader, device="cpu",
+def decode_progressive_device(hdr: FrameHeader, device=None,
                               as_device: bool = False,
                               err_sink: list | None = None):
     """Decode ALL scans of a progressive frame with restart segments as the
@@ -311,9 +324,11 @@ def decode_progressive_device(hdr: FrameHeader, device="cpu",
     :func:`decode_progressive_hybrid` instead).  Returns per-component
     (rows_c, cols_c, 64) int32 planes on the padded grid, equal to
     entropy/progressive.decode_progressive's: numpy arrays, or tensors on
-    ``device`` with ``as_device``.  Flags go to ``err_sink`` when given,
-    else a flagged lane raises JPEGError."""
-    dev = torch.device(device)
+    ``device`` with ``as_device``.  ``device`` is resolved by
+    ``models/routing.resolve_device``: None is the card (raising without
+    one), "cpu" runs the kernels' plain versions.  Flags go to ``err_sink``
+    when given, else a flagged lane raises JPEGError."""
+    dev = resolve_device(device)
     shapes, planes = _zero_planes(hdr, dev)
     errs: list = []
     for scan in hdr.scans:
@@ -348,7 +363,7 @@ def run_chain(hdr: FrameHeader, scans: list, planes: list, errs: list, *,
         apply_scan_device(hdr, scan, planes, lanes=lanes, err_sink=errs)
 
 
-def decode_progressive_hybrid(hdr: FrameHeader, device="cpu",
+def decode_progressive_hybrid(hdr: FrameHeader, device=None,
                               as_device: bool = False,
                               target_lanes: int | None = None,
                               err_sink: list | None = None):
@@ -358,7 +373,7 @@ def decode_progressive_hybrid(hdr: FrameHeader, device="cpu",
     states; all coefficient stores happen on the device.  The chains of
     :func:`scan_chains` run on two threads, on a CUDA device each on its own
     stream, into one set of planes.  8-bit frames with DRI-0 scans only (the
-    caller routes the rest).  Returns and flags as
+    caller routes the rest).  ``device``, returns and flags as
     :func:`decode_progressive_device`."""
     if hdr.precision != 8:
         raise JPEGError("progressive hybrid path is 8-bit only")
@@ -370,7 +385,7 @@ def decode_progressive_hybrid(hdr: FrameHeader, device="cpu",
         target_lanes = target_lanes_default()
     if target_lanes < 1:
         raise ValueError(f"target_lanes must be >= 1, got {target_lanes}")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     cuda = dev.type == "cuda"
     shapes, planes = _zero_planes(hdr, dev)
     chains = scan_chains(hdr)
@@ -404,14 +419,16 @@ def decode_progressive_hybrid(hdr: FrameHeader, device="cpu",
     return _finish(planes, shapes, as_device)
 
 
-def decode_progressive_lanes(hdr: FrameHeader, device="cpu",
+def decode_progressive_lanes(hdr: FrameHeader, device=None,
                              as_device: bool = False,
                              err_sink: list | None = None):
     """Best available device-lane progressive decode (the JAX function's
     routing): frames of another precision than 8 decode on the host
     (``entropy/progressive.py``; the kernels take the 8-bit size
     categories), DRI-0 frames with the native library take skeleton lanes,
-    the rest segment lanes."""
+    the rest segment lanes.  ``device`` as :func:`decode_progressive_device`
+    (a host-decoded frame needs it too: its planes go there)."""
+    device = resolve_device(device)
     if hdr.precision != 8:
         from ..entropy import progressive
 

@@ -12,12 +12,20 @@ coefficient planes, in place, and returns the scan's (S,) int32 lane flags.
   ctypes) on CUDA tensors, on the current stream, and count their launches
   in ``<wrapper>.launches``.  A failed build or launch raises.  On CPU
   tensors they run the plain versions; that is the only way those are
-  reached.
+  reached.  K8d runs one warp per lane, K8c too up to
+  :data:`WARP_LANES_MAX` lanes and one thread per lane beyond, with the AC
+  table's :func:`compact_table` and the lane's words staged in shared
+  memory, and K8d's history as bit masks (the design is in the source's
+  header);
+  ``ac_first.last_stats``/``ac_refine.last_stats`` hold the last launch's
+  counters.  Their first forms stay in the same build for the same-card
+  comparison (``testing/prog_v1.py``).
 * :func:`dc_first_torch`, :func:`dc_refine_torch`, :func:`ac_first_torch`
   and :func:`ac_refine_torch` are the plain PyTorch versions the kernels are
   held to, vectorised over lanes: one Python step per block slot (DC), per
   symbol or skipped EOB run (AC first) or per symbol or band position (AC
-  refine), with masks.  They run on any device.
+  refine), with masks.  They run on any device.  :func:`history_masks_torch`
+  is the plain version of K8d's mask build.
 
 Planes are ``(n_rows + 1, 64)`` int32 in natural coefficient order, the last
 row the drop row, as in the JAX package.  A scan's lanes come as a
@@ -34,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,8 +58,14 @@ LIB = CudaLib("entropy_prog.cu", "jd_entropy_prog", {
                                   _I32, _I64, _P, _P],
     "jd_prog_dc_refine": _LANES + [_P, _P, _P, _P, _P, _I32, _I64, _I64, _P,
                                    _P],
-    "jd_prog_ac": [_I32] + _LANES + [_P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                                     _I64, _P, _P],
+    "jd_prog_ac": [_I32] + _LANES + [_P, _P, _P, _I32, _I32, _P, _P, _I32,
+                                     _I32, _I32, _I32, _I64, _I32, _I32, _P,
+                                     _P],
+    "jd_prog_ac_v1": [_I32] + _LANES + [_P, _P, _P, _P, _I32, _I32, _I32,
+                                        _I32, _I64, _P, _P],
+    "jd_prog_ac_grid": [_I32, _I32, _I32, _I32, _I64, _P],
+    "jd_prog_ac_l1_bits": [], "jd_prog_ac_l2_slots": [],
+    "jd_prog_ac_max_budget": [],
     "jd_prog_geo_len": []})
 
 #: Blocks per MCU of an interleaved scan and planes per scan (T.81 B.2.3).
@@ -60,6 +75,16 @@ MAX_PLANES = 4
 PAD_WORDS = 8
 #: Length of :meth:`Geometry.pack` (the kernel's ``kGeoLen``).
 GEO_LEN = 2 + 6 * MAX_SLOTS + 2 * MAX_PLANES
+#: K8c/K8d's compact AC table (:func:`compact_table`): first-level index
+#: bits and the most second-level tables (``kAcL1Bits``, ``kAcL2Slots``).
+AC_L1_BITS = 11
+AC_L2_SLOTS = 64
+#: Most words K8c/K8d stage in shared memory per lane in their warp form,
+#: per 32 lanes in their thread form (``kMaxBudget``).
+AC_MAX_BUDGET = 4096
+#: Most lanes a scan gives K8c's warp form (one warp per lane); more take
+#: its thread form (one thread per lane).  K8d always runs its warp form.
+WARP_LANES_MAX = 1024
 
 _ZZ = torch.from_numpy(ZIGZAG.astype(np.int64))
 _count_lock = threading.Lock()
@@ -69,10 +94,53 @@ def build():
     """Compile ``csrc/entropy_prog.cu`` (once per source and flag set) and
     load it."""
     lib = LIB.load()
-    if lib.jd_prog_geo_len() != GEO_LEN:
-        raise RuntimeError(f"entropy_prog.cu geometry length "
-                           f"{lib.jd_prog_geo_len()} != {GEO_LEN}")
+    got = (lib.jd_prog_geo_len(), lib.jd_prog_ac_l1_bits(),
+           lib.jd_prog_ac_l2_slots(), lib.jd_prog_ac_max_budget())
+    want = (GEO_LEN, AC_L1_BITS, AC_L2_SLOTS, AC_MAX_BUDGET)
+    if got != want:
+        raise RuntimeError(f"entropy_prog.cu constants {got} != {want}")
     return lib
+
+
+class AcTable(NamedTuple):
+    """An AC table's compact form for K8c/K8d (:func:`compact_table`):
+    ``tab`` (2048 + 32 * n_slots,) int16, on the host or the device."""
+
+    tab: object
+    n_slots: int
+    l2_full: bool
+
+
+_compact_cache: dict = {}
+
+
+def compact_table(lut: np.ndarray) -> AcTable:
+    """The compact form of a (65536,) int32 Huffman LUT (``huffman.
+    build_lut``: entry = symbol << 5 | length): entry p of the first level
+    is the LUT's entry for every window whose top 11 bits are p when that
+    code is at most 11 bits long, -(slot + 1) when longer codes start with
+    p (their 32 entries are second-level table ``slot``), 0 when no code
+    does.  Entries keep their low 13 bits (length and symbol).  At most
+    :data:`AC_L2_SLOTS` second levels; with more, ``l2_full`` is set and
+    the prefixes left out read the LUT on the device.  Memoised per LUT
+    array (``build_lut`` returns one cached array per table)."""
+    key = id(lut)
+    hit = _compact_cache.get(key)
+    if hit is not None and hit[0] is lut:
+        return hit[1]
+    t = np.asarray(lut, np.int32).reshape(1 << AC_L1_BITS, -1)
+    head = t[:, 0]
+    short = ((head & 31) > 0) & ((head & 31) <= AC_L1_BITS)
+    longer = np.flatnonzero(~short & (t != 0).any(1))
+    used = longer[:AC_L2_SLOTS]
+    l1 = np.where(short, head & 0x1FFF, 0).astype(np.int16)
+    l1[used] = -(np.arange(len(used)) + 1)
+    tab = np.concatenate([l1, (t[used] & 0x1FFF).astype(np.int16).ravel()])
+    out = AcTable(tab, len(used), len(longer) > AC_L2_SLOTS)
+    if len(_compact_cache) > 64:
+        _compact_cache.clear()
+    _compact_cache[key] = (lut, out)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +223,10 @@ class LaneTable:
     n_units: int
     scan_bits: int
     max_units: int
+    #: The longest lane's bits, end - base, and the most bits of 32
+    #: consecutive lanes (size K8c/K8d's word staging).
+    max_bits: int = 0
+    max_group_bits: int = 0
 
     @property
     def n(self) -> int:
@@ -214,7 +286,11 @@ def lane_table(base, n_per, first, *, n_units: int, scan_bits: int,
         arrays = [words] + arrays
     got = upload(arrays, device)
     lanes = LaneTable(*got[-6:], chained=chained, n_units=n_units,
-                      scan_bits=scan_bits, max_units=int(n_per.max()))
+                      scan_bits=scan_bits, max_units=int(n_per.max()),
+                      max_bits=int((end - base).max()),
+                      max_group_bits=int((end[np.minimum(np.arange(0, s, 32)
+                                                         + 31, s - 1)]
+                                          - base[::32]).max()))
     return (got[0], lanes) if words is not None else lanes
 
 
@@ -323,42 +399,112 @@ def dc_refine(words, lanes: LaneTable, planes: list, geom: Geometry, *,
     return err
 
 
-def _ac(refine: bool, words, lanes, lut, plane, geom, ss, se, al):
+def use_threads(refine: bool, lanes: LaneTable) -> bool:
+    """Whether a launch runs ``lanes`` in the thread form: K8c beyond
+    :data:`WARP_LANES_MAX` lanes; K8d never (its thread form was slower or
+    equal in every measured workload, so it has the warp form only)."""
+    return not refine and lanes.n > WARP_LANES_MAX
+
+
+def budget_words(lanes: LaneTable, threads: bool = False) -> int:
+    """Words K8c/K8d stage: the longest lane's words (warp form) or 32
+    consecutive lanes' (thread form), its start rounded down to 4 words and
+    the reader's lookahead, as a multiple of 4, at most
+    :data:`AC_MAX_BUDGET`."""
+    bits = lanes.max_group_bits if threads else lanes.max_bits
+    need = -(-(bits // 32 + 8) // 4) * 4
+    return max(4, min(AC_MAX_BUDGET, need))
+
+
+def _ac(refine: bool, words, lanes, lut, plane, geom, ss, se, al,
+        table=None, *, form=None, budget=None):
+    """K8c or K8d; ``form`` ("warp" or "thread", K8c only) and ``budget``
+    (staged words) override the launch's own choice, for the card tests and
+    chip_smoke.py."""
     dev = _check(words, lanes, [lut], [plane], geom, al, band=(ss, se))
     if geom.bpm != 1 or lut.shape[0] != 1:
         raise ValueError("AC scans have one component and one table")
+    # K8d's warp form loads plane rows 8 bytes at a time.
+    if plane.data_ptr() % 16:
+        raise ValueError("the plane must start on a 16-byte boundary")
+    if form not in (None, "warp", "thread") or (refine and form == "thread"):
+        raise ValueError(f"no {form!r} form of K8{'d' if refine else 'c'}")
+    threads = use_threads(refine, lanes) if form is None else \
+        form == "thread"
     if dev.type == "cpu":
         fn = ac_refine_torch if refine else ac_first_torch
         return fn(words, lanes, lut, plane, geom, ss=ss, se=se, al=al)
-    err = torch.zeros(lanes.n, dtype=torch.int32, device=dev)
+    budget = budget_words(lanes, threads) if budget is None else budget
+    if not 4 <= budget <= AC_MAX_BUDGET or budget % 4:
+        raise ValueError(f"budget must be a multiple of 4 in 4.."
+                         f"{AC_MAX_BUDGET}, got {budget}")
+    if table is None:
+        raise ValueError("K8c/K8d on the card take the LUT's compact_table "
+                         "(entropy_prog.scan_inputs builds it)")
+    tab = torch.as_tensor(table.tab)
+    if tab.dtype != torch.int16 or tab.dim() != 1 or \
+            tab.numel() != (1 << AC_L1_BITS) + 32 * table.n_slots or \
+            not 0 <= table.n_slots <= AC_L2_SLOTS:
+        raise ValueError(f"bad compact table: {tab.dtype} "
+                         f"{tuple(tab.shape)}, {table.n_slots} slots")
+    tab = tab.to(dev).contiguous()
+    # The lane flags and, after them, the launch's counters: one zero fill.
+    buf = torch.zeros(lanes.n + 3, dtype=torch.int32, device=dev)
     geo = geom.pack()
     with torch.cuda.device(dev):
         rc = build().jd_prog_ac(
             int(refine), *_lane_ptrs(words, lanes), lanes.eob0.data_ptr(),
-            lut.data_ptr(), plane.data_ptr(), geo.ctypes.data, ss, se, al,
-            int(lanes.chained), lanes.n, err.data_ptr(), _stream(dev))
+            lut.data_ptr(), tab.data_ptr(), table.n_slots,
+            int(table.l2_full), plane.data_ptr(), geo.ctypes.data, ss, se,
+            al, int(lanes.chained), lanes.n, int(threads), budget,
+            buf.data_ptr(), _stream(dev))
     launch_check(rc, "jd_prog_ac")
-    _count(ac_refine if refine else ac_first)
-    return err
+    fn = ac_refine if refine else ac_first
+    fn.last_stats = buf[lanes.n:]
+    _count(fn)
+    return buf[:lanes.n]
 
 
 def ac_first(words, lanes: LaneTable, lut, plane, geom: Geometry, *,
-             ss: int, se: int, al: int) -> torch.Tensor:
+             ss: int, se: int, al: int,
+             table: AcTable | None = None) -> torch.Tensor:
     """K8c: an AC first scan (Ss >= 1, Ah = 0) of one component into
-    ``plane`` (``lut``: (1, 65536) int32).  Returns the lane flags."""
-    return _ac(False, words, lanes, lut, plane, geom, ss, se, al)
+    ``plane`` (``lut``: (1, 65536) int32; the plane on a 16-byte boundary).
+    ``table``: the LUT's :func:`compact_table` (its ``tab`` on the host or
+    the device), which CUDA tensors need and the plain version ignores.
+    The launch runs the warp or the thread form by :func:`use_threads`.
+    Returns the lane flags."""
+    return _ac(False, words, lanes, lut, plane, geom, ss, se, al, table)
 
 
 def ac_refine(words, lanes: LaneTable, lut, plane, geom: Geometry, *,
-              ss: int, se: int, al: int) -> torch.Tensor:
+              ss: int, se: int, al: int,
+              table: AcTable | None = None) -> torch.Tensor:
     """K8d: an AC refinement scan (Ss >= 1, Ah > 0) of one component; the
-    plane's band values are the history.  Returns the lane flags."""
-    return _ac(True, words, lanes, lut, plane, geom, ss, se, al)
+    plane's band values are the history.  ``table`` as for
+    :func:`ac_first`.  Returns the lane flags."""
+    return _ac(True, words, lanes, lut, plane, geom, ss, se, al, table)
+
+
+def ac_grid(refine: bool, lanes: LaneTable, n_slots: int) -> int:
+    """The CTAs K8c or K8d launches for ``lanes`` with a table of
+    ``n_slots`` second levels on the current CUDA device (one warp
+    each)."""
+    out = ctypes.c_int64(0)
+    threads = use_threads(refine, lanes)
+    launch_check(build().jd_prog_ac_grid(
+        int(refine), int(threads), n_slots, budget_words(lanes, threads),
+        lanes.n, ctypes.byref(out)), "jd_prog_ac_grid")
+    return out.value
 
 
 #: Launches of each kernel since its count was last set to 0.
 dc_first.launches = dc_refine.launches = 0
 ac_first.launches = ac_refine.launches = 0
+#: The last launch's (second-level tables used, lanes that read a word
+#: outside their staged range, table probes that read device memory): an
+#: int32 device tensor.
+ac_first.last_stats = ac_refine.last_stats = None
 KERNELS = {"K8a": dc_first, "K8b": dc_refine, "K8c": ac_first,
            "K8d": ac_refine}
 
@@ -591,3 +737,30 @@ def ac_refine_torch(words, lanes: LaneTable, lut, plane, geom: Geometry, *,
         blk = blk + done
         k = torch.where(done, ss, torch.where(run, k_next, k))
     return _ends(err, lanes, pos, eob, lanes.eob0.to(torch.int64))
+
+
+def history_masks_torch(plane, geom: Geometry, n_units: int, *, ss: int,
+                        se: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K8d's mask build: per block m of the scan (flat
+    order, the rows of ``geom``), the int64 mask of its band positions
+    ``ss..se`` whose value is nonzero (bit k for zigzag index k, bit 63 as
+    the sign bit), and ``nextp``: (n_units + 1,) int64, nextp[m] the first
+    block at or after m with a nonzero mask (n_units when none), the
+    ``nextp`` of the JAX package's ``_refine_emit_prep``.  The kernel builds
+    the masks per chunk of 32 blocks and keeps of ``nextp`` the chunk's
+    part, a 32-bit map of the blocks with history."""
+    dev = plane.device
+    m = torch.arange(n_units, device=dev)
+    _, rows = geom.rows(m, 0)
+    zz = _ZZ.to(dev)
+    vals = plane[rows.clamp(min=0)][:, zz]
+    k = torch.arange(64, device=dev)
+    band = (k >= ss) & (k <= se)
+    on = (vals != 0) & band & (rows >= 0)[:, None]
+    weights = torch.where(k == 63, torch.tensor(-(1 << 63), device=dev),
+                          torch.ones(64, dtype=torch.int64, device=dev) << k)
+    masks = (on.to(torch.int64) * weights).sum(1)
+    idx = torch.where(masks != 0, m, n_units)
+    nextp = torch.cat([idx, torch.tensor([n_units], device=dev)])
+    nextp = torch.flip(torch.cummin(torch.flip(nextp, [0]), 0).values, [0])
+    return masks, nextp

@@ -972,3 +972,238 @@ def test_prog_corrupt_decode_raises_on_card(cuda_device):
     blob[start:start + 24] = b"\xff\x00" * 12
     with pytest.raises(JPEGError):
         decode(bytes(blob), entropy="hybrid", device=cuda_device)
+
+
+# The redesigned K8c and K8d (one warp per lane, staged tables and words,
+# history as bit masks) against their plain versions and their first forms.
+
+def _ac_forms(refine: bool) -> tuple:
+    """The forms of K8c (warp, thread) or K8d (warp)."""
+    return ("warp",) if refine else ("warp", "thread")
+
+
+def _ac_all_ways(scan, args, prior, dev, budget=None):
+    """One AC scan through the kernel in each of its forms, its first form
+    and its plain version, each from ``prior``: [(flags, plane)] in that
+    order, and each form's counters (l2 slots, lanes over budget, table
+    misses) by form."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing import prog_v1
+
+    refine = scan.ah > 0
+    new = k8.ac_refine if refine else k8.ac_first
+    forms = _ac_forms(refine)
+    fns = [lambda *a, f=f, **k: k8._ac(
+               refine, *a, k["ss"], k["se"], k["al"], args.ac_table, form=f,
+               budget=budget) for f in forms]
+    fns += [prog_v1.ac_refine_v1 if refine else prog_v1.ac_first_v1,
+            k8.ac_refine_torch if refine else k8.ac_first_torch]
+    out, stats = [], {}
+    for i, fn in enumerate(fns):
+        plane = torch.tensor(prior, device=dev)
+        err = fn(args.words, args.lanes, args.luts, plane, args.geom,
+                 ss=scan.ss, se=scan.se, al=scan.al)
+        torch.cuda.synchronize()
+        out.append((err.cpu(), plane.cpu().numpy()))
+        if i < len(forms):
+            stats[forms[i]] = new.last_stats.tolist()
+    return out, stats
+
+
+@pytest.mark.parametrize("name,target", [("progressive_512.jpg", 700),
+                                         ("progressive_512.jpg", 1),
+                                         ("progressive_1080p_dri.jpg", None)])
+def test_prog_ac_kernels_match_plain_and_first_form(cuda_device, name,
+                                                    target):
+    """Every AC scan of a fixture (skeleton lanes at 700 and at 1 target
+    lanes, or the restart fixture's segment lanes: 135 luma lanes of 240
+    blocks) through K8c in both forms and K8d, their first forms and their
+    plain versions:
+    flags and planes equal, equal to the native decoder's, and no lane over
+    its staging budget nor a table probe in device memory."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    hdr = parser.parse(_prog_fixture(name))
+    states = native_prog_states(hdr)
+    nzmaps: dict = {}
+    n_ac = 0
+    for k, scan in enumerate(hdr.scans):
+        lane_tab = (ep.hybrid_scan_prep(hdr, scan, nzmaps, target_lanes=target)
+                    if target else None)
+        if scan.ss == 0:
+            continue
+        args = ep.scan_inputs(hdr, scan, lane_tab, cuda_device)
+        ci = args.cis[0]
+        got, stats = _ac_all_ways(scan, args, states[k][ci], cuda_device)
+        for err, plane in got:
+            assert torch.equal(err, got[-1][0]) and not err.any(), k
+            np.testing.assert_array_equal(plane, states[k + 1][ci])
+        if target is None and ci == 0:
+            assert args.lanes.n == 135
+        # The form the wrapper picks stages every word (unless one lane is
+        # the whole scan); no form probes the full table.
+        picked = "thread" if k8.use_threads(scan.ah > 0, args.lanes) \
+            else "warp"
+        assert stats[picked][1] == 0 or target == 1, stats
+        assert all(st[2] == 0 for st in stats.values()), stats
+        n_ac += 1
+    assert n_ac >= 4
+
+
+@pytest.mark.parametrize("kind", ["first", "refine"])
+@pytest.mark.parametrize("case", range(7))
+def test_prog_ac_band_scans_on_card(cuda_device, kind, case):
+    """testing/ac_scan.py's partial-band scans (bands 1-5, 6-63, 2-2,
+    63-63, 1-63; al 0-3; codes over 11 bits, whose decode takes the
+    second-level tables; a table with more long-code prefixes than the
+    kernels keep, whose probes then read device memory), lanes cut inside
+    EOB runs: K8c in both forms and K8d at the default budget and at 4 words
+    (lanes over budget), their first forms and plain versions all give the
+    written planes, unflagged, and the counters say so."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing import ac_scan
+
+    bands = [(1, 5, 0, "flat"), (6, 63, 1, "long"), (2, 2, 2, "flat"),
+             (63, 63, 3, "long"), (1, 63, 0, "long"), (1, 63, 3, "flat"),
+             (1, 63, 2, "wide")]
+    c = ac_scan.band_case(kind, *bands[case],
+                          seed=case + 10 * (kind == "refine"))
+    args = ep.scan_inputs(c.hdr, c.scan, c.lanes, cuda_device)
+    prior = np.concatenate([c.prior, np.zeros((1, 64), np.int32)])
+    # Lanes whose words (start word rounded down to 4, end word plus the
+    # reader's lookahead of 3) exceed a budget of 4 words.
+    lo = (args.lanes.base.cpu().numpy() >> 5) & ~3
+    hi = np.minimum((args.lanes.end.cpu().numpy() >> 5) + 3,
+                    args.words.numel())
+    n_exceed = int((hi - lo > 4).sum())
+    assert n_exceed > 0 or bands[case][:2] == (63, 63)
+    for budget in (None, 4):
+        got, stats = _ac_all_ways(c.scan, args, prior, cuda_device, budget)
+        for err, plane in got:
+            assert not err.any()
+            np.testing.assert_array_equal(plane[:-1], c.post)
+        for form, (slots, over, misses) in stats.items():
+            assert slots == args.ac_table.n_slots
+            # A 4-word budget: in the warp form at most the lanes whose own
+            # words exceed it read outside; in the thread form a warp's
+            # lanes share one 4-word range.
+            limit = 0 if budget is None else (
+                n_exceed if form == "warp" else args.lanes.n)
+            assert over <= limit
+            assert (misses > 0) == (bands[case][3] == "wide")
+
+
+def test_prog_ac_corrupt_scans_flag_as_plain_and_first_form(cuda_device):
+    """AC scans of the 512x512 fixture with bytes flipped, decoded from the
+    intact scans' skeleton lanes: K8c's (both forms) and K8d's flags equal
+    their first forms' and their plain versions', and so do the planes of a
+    scan none of them flags."""
+    import copy
+
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    hdr = parser.parse(_prog_fixture("progressive_512.jpg"))
+    states = native_prog_states(hdr)
+    rng = np.random.default_rng(9)
+    flagged = 0
+    nzmaps: dict = {}
+    for k, scan in enumerate(hdr.scans):
+        lane_tab = ep.hybrid_scan_prep(hdr, scan, nzmaps, target_lanes=300)
+        if scan.ss == 0:
+            continue
+        for _ in range(3):
+            bad = copy.copy(scan)
+            data = scan.data.copy()
+            q = int(rng.integers(0, max(1, len(data) - 4)))
+            data[q:q + 4] ^= 0x5A
+            bad.data = data
+            args = ep.scan_inputs(hdr, bad, lane_tab, cuda_device)
+            got, _ = _ac_all_ways(bad, args, states[k][args.cis[0]],
+                                  cuda_device)
+            for err, _ in got[:-1]:
+                assert torch.equal(err, got[-1][0]), k
+            flagged += int(got[0][0].any())
+            if not got[-1][0].any():   # a flagged lane's blocks: unspecified
+                for _, plane in got[:-1]:
+                    np.testing.assert_array_equal(plane, got[-1][1])
+    assert flagged > 0
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 512, 4096])
+def test_prog_ac_lane_counts_on_card(cuda_device, lanes):
+    """The 1080p (a) fixture's AC scans at 1, 3, 512 and 4,096 target
+    skeleton lanes: K8c/K8d (the form the wrapper picks, and K8c in both
+    forms) equal their first forms and the native decoder's planes (its
+    plain versions take minutes at this size)."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing import prog_v1
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    hdr = parser.parse(_prog_fixture("progressive_1080p_a.jpg"))
+    states = native_prog_states(hdr)
+    nzmaps: dict = {}
+    for k, scan in enumerate(hdr.scans):
+        lane_tab = ep.hybrid_scan_prep(hdr, scan, nzmaps, target_lanes=lanes)
+        if scan.ss == 0:
+            continue
+        args = ep.scan_inputs(hdr, scan, lane_tab, cuda_device)
+        ci = args.cis[0]
+        refine = scan.ah > 0
+        new = k8.ac_refine if refine else k8.ac_first
+        fns = [new] + [lambda *a, f=f, **kw: k8._ac(
+            refine, *a, kw["ss"], kw["se"], kw["al"], kw["table"], form=f)
+            for f in _ac_forms(refine)]
+        fns.append(prog_v1.ac_refine_v1 if refine else prog_v1.ac_first_v1)
+        for fn in fns:
+            plane = torch.tensor(states[k][ci], device=cuda_device)
+            err = fn(args.words, args.lanes, args.luts, plane, args.geom,
+                     ss=scan.ss, se=scan.se, al=scan.al,
+                     table=args.ac_table)
+            assert not err.cpu().any()
+            np.testing.assert_array_equal(plane.cpu().numpy(),
+                                          states[k + 1][ci])
+
+
+def test_prog_dc_and_ac_chains_share_planes_on_two_streams(cuda_device):
+    """A DC first scan (K8a) and an AC refinement scan (K8d) of the
+    512x512 fixture launched at once on two streams into one set of
+    planes: coefficient 0 holds the DC scan's result, the band the
+    refinement's (no store of either touches the other's elements)."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    hdr = parser.parse(_prog_fixture("progressive_512.jpg"))
+    states = native_prog_states(hdr)
+    dc = 0
+    assert hdr.scans[dc].ss == 0 and hdr.scans[dc].ah == 0
+    k_ac = max(k for k, s in enumerate(hdr.scans) if s.ss and s.ah)
+    nzmaps: dict = {}
+    lane_tabs = {}
+    for k, scan in enumerate(hdr.scans):
+        lane_tabs[k] = ep.hybrid_scan_prep(hdr, scan, nzmaps,
+                                           target_lanes=64)
+    a_dc = ep.scan_inputs(hdr, hdr.scans[dc], lane_tabs[dc], cuda_device)
+    a_ac = ep.scan_inputs(hdr, hdr.scans[k_ac], lane_tabs[k_ac], cuda_device)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for _ in range(5):
+        planes = [torch.tensor(p, device=cuda_device)
+                  for p in states[k_ac]]
+        for p in planes:
+            p[:, 0] = 0
+        torch.cuda.synchronize()
+        with torch.cuda.stream(s1):
+            e1 = ep.launch_scan(hdr.scans[dc], a_dc, planes)
+        with torch.cuda.stream(s2):
+            e2 = ep.launch_scan(hdr.scans[k_ac], a_ac, planes)
+        torch.cuda.synchronize()
+        assert not e1.cpu().any() and not e2.cpu().any()
+        for ci, p in enumerate(planes):
+            got = p.cpu().numpy()
+            np.testing.assert_array_equal(got[:, 0], states[1][ci][:, 0])
+            want = states[k_ac + 1][ci]
+            np.testing.assert_array_equal(got[:, 1:], want[:, 1:])

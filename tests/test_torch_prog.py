@@ -235,7 +235,7 @@ def test_each_scan_kind_matches_jax_and_oracle(frame):
 def test_whole_frame_segment_lanes_match_jax(frame):
     blob = FRAMES[frame]()
     th, jh = tparser.parse(blob), jparser.parse(blob)
-    got = ep.decode_progressive_device(th)
+    got = ep.decode_progressive_device(th, "cpu")
     _assert_planes(got, jep.decode_progressive_device(jh), "jax")
     _assert_planes(got, tprog.decode_progressive(th), "oracle")
     _assert_planes(got, jprog.decode_progressive(jh), "jax oracle")
@@ -254,7 +254,7 @@ def test_skeleton_lanes_any_count_match_jax(hybrid_ref, lanes):
     then chain through): planes equal to JAX's and the oracle's."""
     blob, ref = hybrid_ref
     hdr = tparser.parse(blob)
-    got = ep.decode_progressive_hybrid(hdr, target_lanes=lanes)
+    got = ep.decode_progressive_hybrid(hdr, "cpu", target_lanes=lanes)
     _assert_planes(got, ref, f"{lanes} lanes vs jax")
     _assert_planes(got, tprog.decode_progressive(hdr), "oracle")
 
@@ -286,10 +286,10 @@ def test_lanes_route_like_jax(monkeypatch):
         real = getattr(ep, name)
         monkeypatch.setattr(ep, name, lambda *a, _r=real, _n=name, **k: (
             calls.append(_n), _r(*a, **k))[1])
-    ep.decode_progressive_lanes(tparser.parse(FRAMES["dri0"]()))
-    ep.decode_progressive_lanes(tparser.parse(FRAMES["dri4"]()))
+    ep.decode_progressive_lanes(tparser.parse(FRAMES["dri0"]()), "cpu")
+    ep.decode_progressive_lanes(tparser.parse(FRAMES["dri4"]()), "cpu")
     monkeypatch.setattr(tnative, "available", lambda: False)
-    ep.decode_progressive_lanes(tparser.parse(FRAMES["dri0"]()))
+    ep.decode_progressive_lanes(tparser.parse(FRAMES["dri0"]()), "cpu")
     assert calls == ["decode_progressive_hybrid",
                      "decode_progressive_device",
                      "decode_progressive_device"]
@@ -297,7 +297,7 @@ def test_lanes_route_like_jax(monkeypatch):
     # Huffman stream): the host decoder, as in JAX.
     th, jh = (p.parse(FRAMES["dri4"]()) for p in (tparser, jparser))
     th.precision = jh.precision = 12
-    got = ep.decode_progressive_lanes(th, as_device=True)
+    got = ep.decode_progressive_lanes(th, "cpu", as_device=True)
     assert isinstance(got[0], torch.Tensor)
     _assert_planes(got, jep.decode_progressive_lanes(jh))
     assert len(calls) == 3
@@ -520,6 +520,36 @@ def test_wrappers_refuse_big_scans_and_short_pools():
                     lut, plane, geom, ss=scan.ss, se=scan.se, al=scan.al)
 
 
+@pytest.mark.parametrize("kind", ["first", "refine"])
+def test_ac_refuses_a_misaligned_plane(kind):
+    """K8c/K8d take a plane that starts on a 16-byte boundary (K8d's warp
+    form loads rows 8 bytes at a time): a contiguous view of the right
+    shape at an element offset that is not a multiple of 4 is refused
+    before any launch, and the same plane at an aligned start is taken."""
+    hdr, scan, n, bits = _scan_args()
+    lanes = k8.lane_table([0], [n], [0], n_units=n, scan_bits=bits,
+                          chained=True)
+    cis, geom = ep.scan_geometry(hdr, scan)
+    rows = geom.n_rows[0] + 1
+    lut = torch.from_numpy(build_lut(
+        scan.ac_specs[scan.ac_table_ids[0]]).copy())[None]
+    words = torch.from_numpy(ep.scan_words(scan))
+    fn = k8.ac_first if kind == "first" else k8.ac_refine
+    store = torch.zeros(rows * 64 + 4, dtype=torch.int32)
+    aligned = -(store.data_ptr() % 16) // 4 % 4
+    for off in ((aligned + d) % 4 for d in (1, 2, 3)):
+        plane = store[off:off + rows * 64].view(rows, 64)
+        assert plane.is_contiguous() and plane.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(words, lanes, lut, plane, geom, ss=scan.ss, se=scan.se,
+               al=scan.al)
+    plane = store[aligned:aligned + rows * 64].view(rows, 64)
+    assert plane.data_ptr() % 16 == 0
+    err = fn(words, lanes, lut, plane, geom, ss=scan.ss, se=scan.se,
+             al=scan.al)
+    assert err.shape == (1,)
+
+
 @pytest.mark.parametrize("field", ["eob0", "base"])
 def test_chained_lane_end_state_is_checked(field):
     """Skeleton lanes of an AC-first scan with the second lane's recorded
@@ -553,3 +583,192 @@ def test_chained_lane_end_state_is_checked(field):
         base[1] += 1
     err = run(base, eob0)
     assert err[0] == 1
+
+
+# ---------------------------------------------------------------------------
+# The device default
+# ---------------------------------------------------------------------------
+
+def test_device_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the progressive lane functions and
+    decode_to_planes under a device backend decode on the card, and raise
+    like routing.resolve_device where there is none; the host backends
+    need no card."""
+    from jpeg_decoder_tpu_torch.models import decoder as tdecoder
+    from jpeg_decoder_tpu_torch.models.routing import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    blob = FRAMES["dri0"]()
+    calls = [lambda h: ep.decode_progressive_device(h),
+             lambda h: ep.decode_progressive_hybrid(h),
+             lambda h: ep.decode_progressive_lanes(h),
+             lambda h: tdecoder.decode_to_planes(h, entropy="pallas"),
+             lambda h: tdecoder.decode_to_planes(h, entropy="hybrid")]
+    for call in calls:
+        with pytest.raises(RuntimeError) as got:
+            call(tparser.parse(blob))
+        assert str(got.value) == str(want.value)
+    ref = tprog.decode_progressive(tparser.parse(blob))
+    for entropy in ("native", "python", "auto"):
+        _assert_planes(tdecoder.decode_to_planes(tparser.parse(blob),
+                                                 entropy=entropy), ref)
+
+
+# ---------------------------------------------------------------------------
+# Single AC scans over any band (testing/ac_scan.py)
+# ---------------------------------------------------------------------------
+
+from jpeg_decoder_tpu.types import HuffmanSpec as JHuffmanSpec  # noqa: E402
+from jpeg_decoder_tpu_torch.testing import ac_scan  # noqa: E402
+from jpeg_decoder_tpu_torch.testing.encoder import \
+    encode as tencode  # noqa: E402
+
+# (ss, se, al, table): partial bands, each al 0-3, codes over 11 bits, a
+# table with more long-code prefixes than K8c/K8d keep.
+BANDS = [(1, 5, 0, "flat"), (6, 63, 1, "long"), (2, 2, 2, "flat"),
+         (63, 63, 3, "long"), (1, 63, 0, "long"), (1, 63, 3, "flat"),
+         (1, 63, 2, "wide")]
+
+
+def _band_case(kind, ss, se, al, table, seed):
+    """``testing/ac_scan.band_case`` and the same scan for JAX: ((port
+    hdr, JAX hdr), (port scan, JAX scan), prior, post, lanes, written)."""
+    case = ac_scan.band_case(kind, ss, se, al, table, seed)
+    jh = jparser.parse(tencode(np.full((72, 88), 128, np.uint8),
+                               grayscale=True, samplings=((1, 1),))[0])
+    w = case.written
+    ac_scan.set_scan(jh.scans[0], w, kind, ss, se, al,
+                     spec=JHuffmanSpec(1, 0, w.spec.counts.copy(),
+                                       w.spec.symbols.copy()))
+    return ((case.hdr, jh), (case.scan, jh.scans[0]), case.prior, case.post,
+            case.lanes, w)
+
+
+def _rows1(plane):
+    return np.concatenate([plane, np.zeros((1, 64), np.int32)])
+
+
+@pytest.mark.parametrize("kind", ["first", "refine"])
+@pytest.mark.parametrize("case", range(len(BANDS)))
+def test_band_scans_match_jax_and_oracle(kind, case):
+    """One written AC scan over a partial band (or the whole band at al
+    3), with EOB runs that cross lane edges: the port's oracle, JAX's
+    ``decode_ac_first``/``decode_ac_refine`` (through its
+    ``apply_scan_device`` with the same chained lanes), the port's plain
+    versions through ``apply_scan_device`` and the wrappers on the CPU
+    all give the planes the scan was written for, with no lane flagged."""
+    import jax.numpy as jnp
+
+    ss, se, al, table = BANDS[case]
+    (th, jh), (ts, js), prior, post, lanes, acs = _band_case(
+        kind, ss, se, al, table, seed=case + 10 * (kind == "refine"))
+    assert (acs.eobs > 0).any() and len(lanes[0]) > 2
+    rows, cols = 9, 11
+    oracle = prior.reshape(rows, cols, 64).astype(np.int64)
+    fn = tprog._ac_first_scan if kind == "first" else tprog._ac_refine_scan
+    fn(th, ts, oracle)
+    np.testing.assert_array_equal(oracle.reshape(-1, 64), post)
+    got = ep.apply_scan_device(th, ts, [torch.from_numpy(_rows1(prior))],
+                               lanes=lanes)
+    np.testing.assert_array_equal(got[0][:-1].numpy(), post)
+    errs: list = []
+    ref = jep.apply_scan_device(jh, js, [jnp.asarray(_rows1(prior))],
+                                lanes=lanes, err_sink=errs)
+    assert not any(bool(np.asarray(e).any()) for e in errs)
+    np.testing.assert_array_equal(np.asarray(ref[0])[:-1], post)
+    inp = ep.scan_inputs(th, ts, lanes, "cpu")
+    plane = torch.from_numpy(_rows1(prior))
+    wrapper = k8.ac_first if kind == "first" else k8.ac_refine
+    err = wrapper(inp.words, inp.lanes, inp.luts, plane, inp.geom, ss=ss,
+                  se=se, al=al)
+    assert not err.any()
+    np.testing.assert_array_equal(plane[:-1].numpy(), post)
+
+
+@pytest.mark.parametrize("case", [0, 1, 4])
+def test_history_masks_match_jax_nextp(case):
+    """K8d's mask build (its plain version) against JAX's
+    ``_refine_emit_prep``: each block's band positions with history and
+    ``nextp``, on a written refinement's prior plane."""
+    ss, se, al, table = BANDS[case]
+    (th, _), (ts, _), prior, _, _, _ = _band_case("refine", ss, se, al,
+                                                  table, seed=40 + case)
+    n = prior.shape[0]
+    _, geom = ep.scan_geometry(th, ts)
+    masks, nextp = k8.history_masks_torch(torch.from_numpy(_rows1(prior)),
+                                          geom, n, ss=ss, se=se)
+    zz_m, jnextp = jep._refine_emit_prep(
+        np.asarray(_rows1(prior)), ss=ss, se=se, cols_u=11, plane_cols=11,
+        n_blocks=n)
+    zz = np.asarray(zz_m)[:n, :]
+    want = np.zeros(n, np.uint64)
+    for k in range(ss, se + 1):
+        want |= (zz[:, k] != 0).astype(np.uint64) << np.uint64(k)
+    np.testing.assert_array_equal(masks.numpy().view(np.uint64), want)
+    np.testing.assert_array_equal(nextp.numpy(),
+                                  np.asarray(jnextp)[:n + 1])
+    assert (nextp.numpy()[:-1] > np.arange(n)).any()
+
+
+@pytest.mark.parametrize("table", ["flat", "long", "wide", "standard"])
+def test_compact_table_probes_like_the_lut(table):
+    """K8c/K8d's compact table (``entropy_prog_cuda.compact_table``),
+    probed as the kernels probe it, gives every 16-bit window the LUT's
+    length and symbol; the prefixes it leaves out (more long-code prefixes
+    than its second levels) are exactly the probes the kernels send to the
+    full LUT."""
+    from jpeg_decoder_tpu_torch.testing.encoder import STD_AC_LUMA
+
+    if table == "standard":
+        spec = STD_AC_LUMA
+    else:
+        spec = ac_scan.band_case("first", 1, 63, 0, table, seed=3).written.spec
+    lut = build_lut(spec)
+    got = k8.compact_table(lut)
+    assert k8.compact_table(lut) is got            # memoised per LUT
+    tab = np.asarray(got.tab).astype(np.int32)
+    l1, l2 = tab[:1 << 11], tab[1 << 11:].reshape(-1, 32)
+    assert len(l2) == got.n_slots <= k8.AC_L2_SLOTS
+    p = np.arange(1 << 16)
+    e = l1[p >> 5]
+    probe = np.where(e > 0, e, 0)
+    in_l2 = e < 0
+    probe[in_l2] = l2[-e[in_l2] - 1, p[in_l2] & 31]
+    missed = (e == 0) & (lut != 0)
+    assert bool(missed.any()) == got.l2_full == (table == "wide")
+    probe[missed] = lut[missed]
+    np.testing.assert_array_equal(probe & 0x1FFF, lut & 0x1FFF)
+
+
+def test_ac_form_and_budget_by_lane_count():
+    """K8c runs one warp per lane up to WARP_LANES_MAX lanes and one thread
+    per lane beyond, K8d one warp per lane at any count; the staging budget
+    follows the form (a lane's words, or 32 lanes' words, capped), and a
+    form the kernel lacks is refused."""
+    def lanes(n, bits_each):
+        base = np.arange(n, dtype=np.int64) * bits_each
+        return k8.lane_table(base, np.ones(n, np.int32),
+                             np.arange(n, dtype=np.int64), n_units=n,
+                             scan_bits=n * bits_each, chained=True)
+
+    few, many = lanes(k8.WARP_LANES_MAX, 64), lanes(k8.WARP_LANES_MAX + 1, 64)
+    assert not k8.use_threads(False, few) and k8.use_threads(False, many)
+    assert not k8.use_threads(True, few) and not k8.use_threads(True, many)
+    hdr, scan, n, bits = _scan_args()
+    cis, geom = ep.scan_geometry(hdr, scan)
+    one = k8.lane_table([0], [n], [0], n_units=n, scan_bits=bits,
+                        chained=True)
+    plane = torch.zeros((geom.n_rows[0] + 1, 64), dtype=torch.int32)
+    lut = torch.zeros((1, 1 << 16), dtype=torch.int32)
+    words = torch.from_numpy(ep.scan_words(scan))
+    for refine, form in ((True, "thread"), (False, "block")):
+        with pytest.raises(ValueError, match="form"):
+            k8._ac(refine, words, one, lut, plane, geom, 1, 63, 0,
+                   form=form)
+    assert k8.budget_words(few) == 12            # 64 bits: 2 words + 8
+    assert k8.budget_words(few, True) == 72      # 32 lanes: 64 words + 8
+    huge = lanes(40, 1 << 20)
+    assert k8.budget_words(huge) == k8.AC_MAX_BUDGET
+    assert k8.budget_words(huge, True) == k8.AC_MAX_BUDGET
