@@ -178,16 +178,20 @@ kernel against its plain version:
    and taken off), both at the default lane target and at JAX's 512 on
    DRI-0 frames, the byte bound, the pixel stage, ``decode()`` end to end
    under ``hybrid`` (also at 512 lanes on DRI-0 frames) and ``native`` and
-   the native host progressive decode; per AC scan K8c in both forms (a
-   warp per lane, a thread per lane) and K8d (a warp per lane) against
-   their first forms (``testing/prog_v1.py``, the same build) from the
-   same prior planes (flags and planes equal) and timed in turns the same
-   way (each form, first form, first form, each form in reverse), with the
-   scan's lanes,
-   the form the wrapper picks, its CTAs, the longest lane and the staging
-   counters (0 over budget in the picked form, 0 table misses, asserted);
-   on 1080p (a) and the restart frame ``decode()`` under
-   ``hybrid`` in turns with the first forms swapped in (best of 3 each);
+   the native host progressive decode; per DC scan K8a in both forms (a
+   warp per lane, a thread per lane) or K8b against their first forms
+   (``testing/prog_v1.py``, the same build) and their plain versions, and
+   per AC scan K8c in both forms and K8d (a warp per lane) against their
+   first forms, all from the same prior planes (flags and planes equal)
+   and timed in turns the same way (each form, first form, first form,
+   each form in reverse; every turn printed), with the scan's lanes, the
+   form the wrapper picks, its CTAs, the longest lane and the staging
+   counters (0 over budget in the picked form unless its budget is
+   capped, 0 table misses, asserted); on 1080p (a) and the restart frame
+   ``decode()`` under ``hybrid`` in turns with the first forms of K8a/K8b
+   or of K8c/K8d swapped in (best of 3 each); K8a's two forms in turns on
+   the DC first scans of 1080p (a) and 4K from 256 to 4,096 target lanes
+   (the numbers that set ``DC_WARP_LANES_MAX``);
 10c. CLI phase: ``python -m jpeg_decoder_tpu_torch`` in subprocesses on the
    card over a temporary directory of three frames (1080p 4:2:0, CMYK,
    12-bit) and a non-JPEG file: ``--idct exact --strict --format bmp
@@ -443,7 +447,8 @@ def _build_all() -> None:
                 idct_exact_cuda.LIB, entropy_emit_cuda.LIB, emit_v1.LIB,
                 entropy_prog_cuda.LIB):
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line \
+                    or "Compiling entry" in line:
                 print(f"  ptxas {os.path.basename(lib.src)}: {line.strip()}")
 
 
@@ -1837,15 +1842,173 @@ def _ac_turns(scan, k: int, args, planes, restore) -> dict:
                 longest_blocks=args.lanes.max_units,
                 l2_slots=stats[form][0], over_budget=stats[form][1],
                 table_misses=stats[form][2], ms=ms[form],
-                v1_ms=ms["v1"],
+                v1_ms=ms["v1"], turns=times,
                 forms={f: dict(ms=ms[f], over_budget=stats[f][1])
                        for f in forms})
+
+
+def _dc_turns(scan, k: int, args, planes) -> dict:
+    """K8a in both forms (one warp per lane, one thread per lane) or K8b
+    against its first form (``testing/prog_v1.py``) and its plain version
+    on one DC scan's inputs, all from the same prior planes: flags and
+    planes equal and no lane flagged, and K8a with no lane over its
+    staging budget in the form the wrapper picks (unless the budget is
+    capped) and no table probe in device memory; then device time, 10
+    launches queued behind a spin kernel each, in turns (each form, first
+    form, first form, each form in reverse), and the plain version's time
+    by CUDA events around one call.  Returns the scan's lanes, the form the
+    wrapper picks and its CTAs, the longest lane, the counters and the
+    times (each turn's too)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing import prog_v1
+
+    refine = scan.ah > 0
+    g, al, lanes = args.geom, scan.al, args.lanes
+
+    def mine(pl):
+        return [pl[ci] for ci in args.cis]
+
+    if refine:
+        forms = ("new",)
+        ways = {"new": lambda pl: k8.dc_refine(args.words, lanes, mine(pl),
+                                               g, al=al),
+                "v1": lambda pl: prog_v1.dc_refine_v1(args.words, lanes,
+                                                      mine(pl), g, al=al),
+                "plain": lambda pl: k8.dc_refine_torch(args.words, lanes,
+                                                       mine(pl), g, al=al)}
+    else:
+        forms = ("warp", "thread")
+        ways = {f: lambda pl, f=f: k8._dc_first(
+            args.words, lanes, args.luts, mine(pl), g, al, args.dc_table,
+            form=f) for f in forms}
+        ways["v1"] = lambda pl: prog_v1.dc_first_v1(
+            args.words, lanes, args.luts, mine(pl), g, al=al)
+        ways["plain"] = lambda pl: k8.dc_first_torch(
+            args.words, lanes, args.luts, mine(pl), g, al=al)
+    got, stats, plain_ms = {}, {}, None
+    for name, fn in ways.items():
+        pl = [p.clone() for p in planes]
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        err = fn(pl)
+        t1.record()
+        t1.synchronize()
+        if name == "plain":
+            plain_ms = t0.elapsed_time(t1)
+        got[name] = (err.cpu(), [p.cpu() for p in mine(pl)])
+        if name in ("warp", "thread"):
+            stats[name] = k8.dc_first.last_stats.tolist()
+    capped = False
+    if refine:
+        form, ctas = "new", -(-lanes.n_units * g.bpm // 128)
+    else:
+        threads = k8.dc_use_threads(lanes)
+        form = "thread" if threads else "warp"
+        budget = k8.dc_budget_words(lanes, threads)
+        ctas = k8.dc_grid(lanes, threads, k8.dc_resident(
+            threads, args.luts.shape[0], args.dc_table.n_slots, budget))
+        capped = budget == k8.AC_MAX_BUDGET
+    want = got["plain"]
+    for name in forms + ("v1",):
+        err, pl = got[name]
+        st = stats.get(name, [0, 0, 0])
+        if err.any() or want[0].any() or not torch.equal(err, want[0]) \
+                or any(not torch.equal(a, b) for a, b in zip(pl, want[1])) \
+                or st[2] or (name == form and st[1] and not capped):
+            raise AssertionError(
+                f"prog scan {k}: K8{'b' if refine else 'a'} ({name}) against "
+                f"its plain version: flags {int(err.sum())} and "
+                f"{int(want[0].sum())}, "
+                f"{sum(int((a != b).sum()) for a, b in zip(pl, want[1]))} "
+                f"coefficients differ; counters {st}")
+    timed = [p.clone() for p in planes]
+    times = {name: [] for name in forms + ("v1",)}
+    for name in forms + ("v1", "v1") + forms[::-1]:
+        times[name].append(_queued_ms(lambda fn=ways[name]: fn(timed),
+                                      n=10))
+    ms = {name: statistics.mean(v) for name, v in times.items()}
+    st = stats.get(form, [0, 0, 0])
+    return dict(scan=k, lanes=lanes.n, form=form, ctas=ctas,
+                longest_units=lanes.max_units, l2_slots=st[0],
+                over_budget=st[1], table_misses=st[2], ms=ms[form],
+                v1_ms=ms["v1"], plain_ms=plain_ms, turns=times,
+                forms={f: dict(ms=ms[f], over_budget=stats.get(
+                    f, [0, 0, 0])[1]) for f in forms})
+
+
+def _dc_line(name: str, t, sc, info: dict) -> str:
+    """One DC scan's line of the progressive phase (see _dc_turns)."""
+    forms = ", ".join(f"{f} form {v['ms']:.4f} ms ({v['over_budget']} over "
+                      "budget)" for f, v in info["forms"].items())
+    turns = "; ".join(f"{w} " + ", ".join(f"{x:.4f}" for x in v)
+                      for w, v in info["turns"].items())
+    return (f"prog {name} {'segment' if t is None else t} lanes, scan "
+            f"{info['scan']} ({_prog_kind(sc)}, {len(sc.comp_indices)} "
+            f"components, al {sc.al}): {info['lanes']} lanes, "
+            f"{info['form']} form on {info['ctas']} CTAs, longest "
+            f"{info['longest_units']} units; l2 slots {info['l2_slots']}, "
+            f"lanes over budget {info['over_budget']}, table misses "
+            f"{info['table_misses']}; device {forms}, first form "
+            f"{info['v1_ms']:.4f} ms "
+            f"({info['v1_ms'] / max(info['ms'], 1e-9):.2f}x); plain "
+            f"{info['plain_ms']:.2f} ms (events); turns {turns}")
+
+
+def _dc_form_sweep(dev) -> None:
+    """K8a's two forms on the DC first scan of the 1920x1080 (a) and
+    3840x2160 DRI-0 fixtures from 256 to 4,096 target lanes, the numbers
+    that set ``DC_WARP_LANES_MAX``: planes equal to the native decoder's,
+    then device time (10 launches queued behind a spin kernel) in turns
+    (warp, thread, thread, warp), one line per lane count."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing import photo
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    for name in ("progressive_1080p_a.jpg", "progressive_4k.jpg"):
+        hdr = parser.parse(photo.fixture(name)[0])
+        states = native_prog_states(hdr)
+        scan = hdr.scans[0]
+        for t in (256, 512, 768, 1024, 1536, 2048, 3072, 4096):
+            args = ep.scan_inputs(hdr, scan, ep.hybrid_scan_prep(
+                hdr, scan, {}, target_lanes=t), dev)
+            times: dict = {}
+            for form in ("warp", "thread", "thread", "warp"):
+                planes = [torch.tensor(p, device=dev) for p in states[0]]
+                mine = [planes[ci] for ci in args.cis]
+
+                def run(form=form, mine=mine):
+                    return k8._dc_first(args.words, args.lanes, args.luts,
+                                        mine, args.geom, scan.al,
+                                        args.dc_table, form=form)
+
+                err = run()
+                if err.any() or any(
+                        not np.array_equal(planes[ci].cpu().numpy(),
+                                           states[1][ci]) for ci in args.cis):
+                    raise AssertionError(f"K8a {form} form at {t} target "
+                                         f"lanes on {name}: planes differ")
+                times.setdefault(form, []).append(_queued_ms(run, n=10))
+            picked = "thread" if k8.dc_use_threads(args.lanes) else "warp"
+            print(f"prog K8a forms {name} {t} target lanes: {args.lanes.n} "
+                  f"lanes of {args.lanes.max_units} units, {picked} form "
+                  "picked; device " + "; ".join(
+                      f"{f} " + ", ".join(f"{x:.4f}" for x in v)
+                      for f, v in times.items()) + " ms")
 
 
 def _ac_line(name: str, t, sc, info: dict) -> str:
     """One AC scan's line of the progressive phase (see _ac_turns)."""
     forms = ", ".join(f"{f} form {v['ms']:.4f} ms ({v['over_budget']} over "
                       "budget)" for f, v in info["forms"].items())
+    turns = "; ".join(f"{w} " + ", ".join(f"{x:.4f}" for x in v)
+                      for w, v in info["turns"].items())
     return (f"prog {name} {'segment' if t is None else t} lanes, scan "
             f"{info['scan']} ({_prog_kind(sc)}, band {sc.ss}..{sc.se}, al "
             f"{sc.al}): {info['lanes']} lanes, {info['form']} form on "
@@ -1853,25 +2016,33 @@ def _ac_line(name: str, t, sc, info: dict) -> str:
             f"l2 slots {info['l2_slots']}, lanes over budget "
             f"{info['over_budget']}, table misses {info['table_misses']}; "
             f"device {forms}, first form {info['v1_ms']:.4f} ms "
-            f"({info['v1_ms'] / max(info['ms'], 1e-9):.2f}x)")
+            f"({info['v1_ms'] / max(info['ms'], 1e-9):.2f}x); turns {turns}")
 
 
-class _FirstFormAc:
-    """Inside ``with``: the progressive lanes launch K8c's and K8d's first
-    forms (``entropy_prog_cuda.ac_first``/``ac_refine`` swapped for
-    ``testing/prog_v1.py``'s); this script's comparison only."""
+class _FirstForms:
+    """Inside ``with``: the progressive lanes launch the first forms of
+    ``kinds`` ("dc": K8a and K8b, "ac": K8c and K8d;
+    ``entropy_prog_cuda``'s wrappers swapped for ``testing/prog_v1.py``'s);
+    this script's comparison only."""
+
+    NAMES = {"dc": ("dc_first", "dc_refine"), "ac": ("ac_first", "ac_refine")}
+
+    def __init__(self, kinds: str):
+        self.names = self.NAMES[kinds]
 
     def __enter__(self):
         from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
         from jpeg_decoder_tpu_torch.testing import prog_v1
 
-        self.saved = (k8.ac_first, k8.ac_refine)
-        k8.ac_first, k8.ac_refine = prog_v1.ac_first_v1, prog_v1.ac_refine_v1
+        self.saved = {n: getattr(k8, n) for n in self.names}
+        for n in self.names:
+            setattr(k8, n, getattr(prog_v1, n + "_v1"))
 
     def __exit__(self, *exc):
         from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
 
-        k8.ac_first, k8.ac_refine = self.saved
+        for n, fn in self.saved.items():
+            setattr(k8, n, fn)
 
 
 def _prog_phase(dev) -> dict:
@@ -1998,8 +2169,9 @@ def _prog_phase(dev) -> dict:
         targets = (ep.target_lanes_default(), 512) if dri0 else (None,)
         walk_ms = {t: {k: 0.0 for k in PROG_KERNELS} for t in targets}
         dev_ms = {t: {k: 0.0 for k in PROG_KERNELS} for t in targets}
-        v1_ms = {t: {"K8c": 0.0, "K8d": 0.0} for t in targets}
+        v1_ms = {t: {k: 0.0 for k in PROG_KERNELS} for t in targets}
         ac_scans = {t: [] for t in targets}
+        dc_scans = {t: [] for t in targets}
         byts = {k: 0 for k in PROG_KERNELS}
         nzmaps: dict = {t: {} for t in targets}
         for k, scan in enumerate(hdr.scans):
@@ -2029,13 +2201,11 @@ def _prog_phase(dev) -> dict:
                 if kind in ("K8c", "K8d"):
                     info = _ac_turns(scan, k, args, planes, restore)
                     ac_scans[t].append(info)
-                    dev_ms[t][kind] += info["ms"]
-                    v1_ms[t][kind] += info["v1_ms"]
-                    continue
-                dev_ms[t][kind] += _queued_ms(
-                    lambda a=args, pl=planes, sc=scan: ep.launch_scan(sc, a,
-                                                                      pl),
-                    n=10)
+                else:
+                    info = _dc_turns(scan, k, args, planes)
+                    dc_scans[t].append(info)
+                dev_ms[t][kind] += info["ms"]
+                v1_ms[t][kind] += info["v1_ms"]
         # Pixels on the lanes' planes, end to end (hybrid also at 512 lanes
         # on DRI-0 frames), the host decode.
         planes = ep.decode_progressive_lanes(hdr, dev, as_device=True)
@@ -2047,13 +2217,15 @@ def _prog_phase(dev) -> dict:
         if dri0:
             runs.append(("hybrid", "512"))
         if name in ("progressive_1080p_a.jpg", "progressive_1080p_dri.jpg"):
-            # decode(hybrid) with the new K8c/K8d and with their first forms
-            # swapped in, in turns (new, first form, first form, new).
+            # decode(hybrid) with the new K8a-K8d and with the first forms of
+            # K8a/K8b or of K8c/K8d swapped in, in turns (new, AC first
+            # forms, DC first forms, DC first forms, AC first forms, new).
             kwd = dict(entropy="hybrid", idct="pallas", upsample="fancy",
                        device=dev)
-            turns = {"hybrid": [], "hybrid v1": []}
-            for tag in ("hybrid", "hybrid v1", "hybrid v1", "hybrid"):
-                with (_FirstFormAc() if tag.endswith("v1")
+            turns = {"hybrid": [], "hybrid ac v1": [], "hybrid dc v1": []}
+            for tag in ("hybrid", "hybrid ac v1", "hybrid dc v1",
+                        "hybrid dc v1", "hybrid ac v1", "hybrid"):
+                with (_FirstForms(tag.split()[1]) if tag.endswith("v1")
                       else contextlib.nullcontext()):
                     decode(blob, **kwd)
                     turns[tag].append(min(
@@ -2087,25 +2259,30 @@ def _prog_phase(dev) -> dict:
                 host_walk_ms=walk_ms[t_def][kind] if dri0 else None,
                 ms_512_lanes=dev_ms[512][kind] if dri0 else None,
                 host_walk_ms_512_lanes=walk_ms[512][kind] if dri0 else None)
-        for kind in ("K8c", "K8d"):
+        for kind in PROG_KERNELS:
             recs[kind]["by_frame"][name].update(
                 v1_ms=v1_ms[t_def][kind],
                 v1_ms_512_lanes=v1_ms[512][kind] if dri0 else None)
         for t in targets:
+            for info in dc_scans[t]:
+                print(_dc_line(name, t, hdr.scans[info["scan"]], info))
             for info in ac_scans[t]:
                 print(_ac_line(name, t, hdr.scans[info["scan"]], info))
-            print(f"prog {name} {'segment' if t is None else t} lanes: K8c "
-                  f"{dev_ms[t]['K8c']:.4f} ms (first form "
-                  f"{v1_ms[t]['K8c']:.4f}), K8d {dev_ms[t]['K8d']:.4f} ms "
-                  f"(first form {v1_ms[t]['K8d']:.4f}; "
-                  f"{v1_ms[t]['K8d'] / max(dev_ms[t]['K8d'], 1e-9):.2f}x)")
+            print(f"prog {name} {'segment' if t is None else t} lanes: "
+                  + ", ".join(
+                      f"{k} {dev_ms[t][k]:.4f} ms (first form "
+                      f"{v1_ms[t][k]:.4f}; "
+                      f"{v1_ms[t][k] / max(dev_ms[t][k], 1e-9):.2f}x)"
+                      for k in PROG_KERNELS))
         if "turns" in e2e:
             tr = e2e.pop("turns")
-            recs["K8d"]["by_frame"][name]["decode_hybrid_ms"] = tr
-            print(f"prog {name}: decode() hybrid in turns, new K8c/K8d "
-                  f"{', '.join(f'{v:.2f}' for v in tr['hybrid'])} ms, first "
-                  f"forms swapped in "
-                  f"{', '.join(f'{v:.2f}' for v in tr['hybrid v1'])} ms")
+            recs["K8a"]["by_frame"][name]["decode_hybrid_ms"] = tr
+            print(f"prog {name}: decode() hybrid in turns, new K8a-K8d "
+                  f"{', '.join(f'{v:.2f}' for v in tr['hybrid'])} ms, "
+                  "K8a/K8b first forms swapped in "
+                  f"{', '.join(f'{v:.2f}' for v in tr['hybrid dc v1'])} ms, "
+                  "K8c/K8d first forms swapped in "
+                  f"{', '.join(f'{v:.2f}' for v in tr['hybrid ac v1'])} ms")
         nat_ms = native_ms[name]
         print(f"prog {name} ({hdr.width}x{hdr.height}, DRI "
               f"{hdr.scans[0].restart_interval}, {len(hdr.scans)} scans, "
@@ -2131,13 +2308,13 @@ def _prog_phase(dev) -> dict:
               + f", native {e2e['native']:.2f} ms; native host "
               f"progressive decode {nat_ms:.2f} ms")
         del planes
+    _dc_form_sweep(dev)
     a = "progressive_1080p_a.jpg"
     for kind, rec in recs.items():
         rec.update(ms=rec["by_frame"][a]["ms"], plain_ms=plain_ms[kind],
                    bound_ms=rec["by_frame"][a]["bound_ms"], bound_by="bytes",
                    frame=a)
-        if "v1_ms" in rec["by_frame"][a]:
-            rec["first_form_ms"] = rec["by_frame"][a]["v1_ms"]
+        rec["first_form_ms"] = rec["by_frame"][a]["v1_ms"]
     recs["K8a"]["decode_counts"] = counts
     print(f"prog phase: {time.perf_counter() - t_phase:.1f} s")
     return recs

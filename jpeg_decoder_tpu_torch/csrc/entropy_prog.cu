@@ -15,9 +15,62 @@
 // A lane is a run of consecutive MCUs (DC scans) or blocks (AC scans) of one
 // scan, from a known state: a restart segment (predictors and EOB run zero)
 // or a record of the host's skeleton walk (bit position, predictors, pending
-// EOB run).  K8a is one thread per lane, K8b one per block (its bit lies at
-// a closed-form position); both read the 16-bit-indexed Huffman tables and
-// the words from device memory.
+// EOB run).
+//
+// K8a (DC first) is a serial chain of DC differences per lane.  Its first
+// form (dc_first_kernel_v1, one thread per lane, 128-thread CTAs) probed
+// each component's 65536-entry LUT and read two words from device memory
+// per symbol, divided in 64 bits three times a block and added into
+// coefficient 0 with a load: on a 1920x1080 frame with a restart marker
+// every MCU row (a DC first scan of three interleaved components, DRI 120:
+// 68 segment lanes of 720 blocks) all 68 lanes sat in one CTA on one SM,
+// 0.5923 ms (~820 ns a symbol); a DRI-0 1920x1080 frame at 4,096 target
+// lanes gave 4,080 lanes of 12 blocks in 32 CTAs, 0.0167 ms (H100 80GB
+// HBM3, 700 W, chip_smoke.py).  Now:
+//  * Tables: each component's compact table (entropy_prog_cuda.dc_tables:
+//    the 11-bit first level of K8c's, where DC codes of up to 11 bits
+//    resolve, then the components' second levels) is built once on the
+//    host, uploaded with the scan's words and staged per CTA with cp.async
+//    (4 KB a component); a prefix left out reads the LUT, counted as a
+//    table miss.  Words are staged as K8c's (a lane's, or one range for 32
+//    lanes), a word outside counted as over budget.
+//  * Warp form (dc_warp_kernel), up to DC_WARP_LANES_MAX lanes: one warp
+//    per lane, persistent 32-thread CTAs (lane s on CTA s % grid).  Per
+//    chunk of 32 blocks lane 0 walks the symbols (a shared-memory probe
+//    and shifts of a window held in registers; the slot cycles 0..bpm-1 as
+//    a counter) and records each block's difference in shared memory;
+//    then each thread takes one block: its slot and unit from counters
+//    that advance 32 blocks a chunk (a division only where a row wraps),
+//    its predictor by a per-component prefix sum over the warp
+//    (__shfl_up_sync, wrapping as uint32), and a 4-byte store of
+//    ``pred << al`` into coefficient 0, which is zero entering the scan (no
+//    load).  68 segment lanes put a warp on 68 SMs.
+//  * Thread form (dc_thread_kernel), beyond: one thread per lane, 32-thread
+//    CTAs (4,080 lanes: 128 CTAs), the predictors in registers, the same
+//    probe and store.
+//    The numbers that set DC_WARP_LANES_MAX = 1,024 (ops/entropy_prog_cuda.py;
+//    device ms of a DC first scan, warp / thread form, 10 launches queued
+//    behind a spin kernel; H100 80GB HBM3, 700 W, chip_smoke.py's "prog
+//    K8a forms" lines): 1920x1080 at 510 lanes of 16 MCUs 0.0159 / 0.0275,
+//    742 of 11 0.0184 / 0.0216, 1,020 of 8 0.0173 / 0.0178, 1,360 of 6
+//    0.0250 / 0.0154, 4,080 of 2 0.0270 / 0.0107; 3840x2160 at 1,013 of 32
+//    0.0348 / 0.0467, 1,473 of 22 0.0455 / 0.0346, 4,050 of 8 0.0524 /
+//    0.0180; 68 segment lanes of 120 MCUs 0.0521 / 0.1534.  The forms cross
+//    between 1,020 and 1,360 lanes on both frames.  Same run, first form:
+//    0.0162 (1920x1080, 4,080 lanes), 0.0574 (3840x2160, 4,050), 0.5977
+//    (68 segment lanes).
+//  * The slot geometry comes in 32 bits with each slot's plane pointer and
+//    size (DcGeo), copied once per CTA into shared memory.
+// K8b (DC refinement): block t of a lane takes the bit at base + t.  Its
+// first form (dc_refine_kernel_v1) ran one thread per (lane, slot) over the
+// lanes times the longest lane, with 64-bit divisions and a word load each.
+// Now one thread per block of the scan (a flat grid, 32-bit indices): the
+// lane by a division where the lanes have one length (restart segments, a
+// single lane), else by a binary search of the lanes' first units, the bit
+// from the warp's one word pair (__shfl_sync), and only a thread whose bit
+// is 1 touches its row, with a reduction that returns nothing.  It runs at
+// the launch floor either way: 0.0062 ms against the first form's 0.0064
+// on a 1920x1080 frame, 0.0075 against 0.0090 on 3840x2160 (same run).
 //
 // K8c and K8d share one design.  A lane is a serial chain of symbols; the
 // first forms (ac_*_kernel_v1, one thread per lane, 128-thread CTAs) loaded
@@ -88,15 +141,16 @@
 //    staged range, the table probes that read device memory.
 //
 // Bound: bytes.  A scan reads its words once and touches the plane rows of
-// its blocks (K8d reads the band of every block and writes what changes);
-// the serial walk of the longest lane sets the time.
+// its blocks (K8d reads the band of every block and writes what changes,
+// K8a writes coefficient 0 of every block, K8b those whose bit is 1); the
+// serial walk of the longest lane sets the time.
 //
 // Every lane checks itself: a bad code, a size or run out of range, a block
 // row outside its plane, a position past the lane's end bit, and, for lanes
 // chained by the skeleton walk, an end state that is not exactly the next
 // lane's start (bit position and predictors or EOB run).  A failing lane
 // sets err[lane] = 1 and stops; its blocks are then unspecified.  The
-// redesigned K8c and K8d flag exactly as their first forms and the plain
+// redesigned kernels flag exactly as their first forms and the plain
 // versions do, and leave the same planes.
 //
 // Plain versions: jpeg_decoder_tpu_torch/ops/entropy_prog_cuda.py.
@@ -187,11 +241,14 @@ __device__ __forceinline__ void add_to(int32_t* dst, uint32_t v) {
   *dst = int32_t(uint32_t(*dst) + v);
 }
 
-// K8a: DC first scan (Ss = 0, Ah = 0).  Block t of a lane is slot t % bpm
-// of its MCU; its component's predictor takes the extended difference and
-// coefficient 0 of its row gets ``pred << al`` (it is zero entering the
-// scan, so the add is the store of entropy/progressive.py).
-__global__ void dc_first_kernel(const uint32_t* __restrict__ words,
+// K8a's first form, kept as the same-card baseline of dc_warp_kernel and
+// dc_thread_kernel (entry jd_prog_dc_v1; no path of the package launches
+// it).  DC first scan (Ss = 0, Ah = 0), one thread per lane.  Block t of a
+// lane is slot t % bpm of its MCU; its component's predictor takes the
+// extended difference and coefficient 0 of its row gets ``pred << al`` (it
+// is zero entering the scan, so the add is the store of
+// entropy/progressive.py).
+__global__ void dc_first_kernel_v1(const uint32_t* __restrict__ words,
                                 int64_t n_words,
                                 const int64_t* __restrict__ base,
                                 const int64_t* __restrict__ end,
@@ -232,12 +289,14 @@ __global__ void dc_first_kernel(const uint32_t* __restrict__ words,
   if (bad) err[s] = 1;
 }
 
-// K8b: DC refinement (Ss = 0, Ah > 0).  Block t of lane s reads the bit at
-// base[s] + t and adds ``bit << al`` to coefficient 0 (the bit is zero
-// entering the scan, so the add is the |= of entropy/progressive.py).
-// One thread per (lane, slot); slot 0 checks that the lane's bits lie
-// before its end.
-__global__ void dc_refine_kernel(const uint32_t* __restrict__ words,
+// K8b's first form, the same-card baseline of dc_refine_kernel (entry
+// jd_prog_dc_v1).  DC refinement (Ss = 0, Ah > 0): block t of lane s reads
+// the bit at base[s] + t and adds ``bit << al`` to coefficient 0 (the bit
+// is zero entering the scan, so the add is the |= of
+// entropy/progressive.py).  One thread per (lane, slot) over the lanes
+// times the longest lane; slot 0 checks that the lane's bits lie before
+// its end.
+__global__ void dc_refine_kernel_v1(const uint32_t* __restrict__ words,
                                  int64_t n_words,
                                  const int64_t* __restrict__ base,
                                  const int64_t* __restrict__ end,
@@ -433,6 +492,7 @@ constexpr int kAcL2Bits = 16 - kAcL1Bits;
 constexpr int kAcL2Size = 1 << kAcL2Bits;
 constexpr int kAcL2Slots = 64;                 // second-level tables, most
 constexpr int kLookahead = 3;                  // words past a lane's end word
+constexpr int kDcLookahead = 7;                // the same for K8a (dc_range)
 constexpr int kMaxBudget = 4096;               // staged words per lane, most
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -960,6 +1020,640 @@ __global__ void __launch_bounds__(32) ac_first_thread_kernel(AcArgs a, Geo g) {
   }
 }
 
+// ---- K8a and K8b ------------------------------------------------------------
+//
+// See the file header for the design.  Both take the slot geometry in 32
+// bits with each slot's plane pointer and plane size folded in (dc_geo on
+// the host), copied once per CTA into shared memory.
+
+struct SlotGeo {
+  int32_t* dst;                 // the slot's plane
+  int32_t v, jv, h, jh, comp, pcols, n_rows;
+};
+struct DcGeo {
+  int32_t bpm, mx_div;
+  SlotGeo slot[kMaxSlots];
+};
+
+__device__ __forceinline__ void load_slots(const DcGeo& g, SlotGeo* s) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < kMaxSlots; ++j) s[j] = g.slot[j];
+  }
+}
+
+// Each slot's component, two bits a slot: the walk's table and predictor
+// for slot j without a load.
+__device__ __forceinline__ uint32_t slot_comps(const DcGeo& g) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxSlots; ++j) out |= uint32_t(g.slot[j].comp & 3)
+                                             << (2 * j);
+  return out;
+}
+
+// Plane row of unit (mx, my)'s slot; -1 when outside the plane.
+__device__ __forceinline__ int64_t dc_row(const SlotGeo& sg, int mx, int my) {
+  const int64_t row = (int64_t(my) * sg.v + sg.jv) * sg.pcols +
+                      int64_t(mx) * sg.h + sg.jh;
+  return (row < 0 || row >= sg.n_rows) ? -1 : row;
+}
+
+struct DcArgs {
+  const uint32_t* words;
+  const int64_t* base;
+  const int64_t* end;
+  const int32_t* n_per;
+  const int64_t* first;
+  const int32_t* pred0;    // (n_lanes, nsc)
+  const int32_t* luts;     // (nsc, 65536) for the prefixes the tables left out
+  const int16_t* tab;      // nsc first levels, then n_slots second levels
+  int32_t* err;            // (n_lanes,) then 3 counters, zeroed
+  int64_t n_words, n_lanes;
+  int nsc, al, chained, budget_words, n_slots, l2_full;   // l2_full: bit c
+  DcGeo g;
+};
+
+// The compact DC tables in shared memory: component c's first level at
+// c * kAcL1Size; a prefix left out of component c's second levels (bit c of
+// l2_full) reads its LUT in device memory, counted in misses.
+struct DcProbe {
+  const int16_t* l1;
+  const int16_t* l2;
+  const int32_t* lut;
+  int l2_full;
+  uint32_t misses;
+
+  // The entry of the 16-bit window p16 of component c, given its
+  // first-level entry e: e itself when positive, else its second level or
+  // (a prefix left out) its LUT, or 0 for no code.
+  __device__ __forceinline__ int32_t resolve(int32_t e, int c, uint32_t p16) {
+    if (e > 0) return e;
+    if (e < 0) return l2[(-e - 1) * kAcL2Size + (p16 & (kAcL2Size - 1))];
+    if (!((l2_full >> c) & 1)) return 0;
+    ++misses;
+    return __ldg(lut + (int64_t(c) << 16) + p16);
+  }
+};
+
+// A DC first-level entry that needs nothing more: a code of at most 11 bits
+// whose size is at most 11 (0 < e <= 11 << 5 | 31).
+__device__ __forceinline__ bool dc_short(int32_t e) {
+  return unsigned(e - 1) < unsigned((11 << 5) | 31);
+}
+
+// The bit reader of a walk whose every read lies in the staged words (the
+// staging reaches kDcLookahead words past the end bit: a walk stops at
+// most four symbols past it): a 32-bit position from the staging's first
+// word, the two words under the window and the next one in registers.  A
+// DC symbol takes at most 27 bits, so a step moves on by one word at most,
+// and the word the window then needs was loaded before: every step loads
+// the word after the next one again (the same word unless the step
+// crossed one) straight into its register, so nothing waits on that load
+// until the next crossing, and the window is a funnel shift of registers.
+struct StagedBits {
+  static constexpr bool kGroups = true;   // four symbols without a branch
+  const uint32_t* s;
+  uint32_t p, c0, c1, c2;
+
+  __device__ __forceinline__ StagedBits(const uint32_t* s_, uint32_t p_)
+      : s(s_), p(p_) {
+    c0 = s[p >> 5];
+    c1 = s[(p >> 5) + 1];
+    c2 = s[(p >> 5) + 2];
+  }
+  // The 32 stream bits from p on (the funnel shift takes p & 31).
+  __device__ __forceinline__ uint32_t window() const {
+    return __funnelshift_l(c1, c0, p);
+  }
+  __device__ __forceinline__ void skip(int n) {
+    const uint32_t q = p + unsigned(n);
+    const bool cross = (q ^ p) >> 5;
+    c0 = cross ? c1 : c0;
+    c1 = cross ? c2 : c1;
+    c2 = s[(q >> 5) + 2];
+    p = q;
+  }
+  __device__ __forceinline__ bool past(uint32_t lim) const { return p > lim; }
+  __device__ __forceinline__ bool far() const { return false; }
+};
+
+// The bit reader of a walk that may leave its staged words (K8c's Stream:
+// a word outside is read from device memory and marks the walk far).
+struct FarBits {
+  static constexpr bool kGroups = false;
+  Stream st;
+  uint32_t p;   // bits from the staging's first word
+
+  __device__ __forceinline__ uint32_t window() {
+    return uint32_t(st.window(st.s_lo * 32 + p) >> 32);
+  }
+  __device__ __forceinline__ void skip(int n) { p += unsigned(n); }
+  __device__ __forceinline__ bool past(uint32_t lim) const { return p > lim; }
+  __device__ __forceinline__ bool far() const { return st.far; }
+};
+
+// One DC symbol of component c at the reader's position, as the first
+// form decodes it: false for a bad code or a size over 11, and when the
+// symbol ends past ``lim`` (the first form then flags the lane before the
+// next symbol or at its end); else pred[c] takes the difference and *v
+// gets ``pred[c] << al``.  The reader's position must be at most lim.
+template <class Bits>
+__device__ __forceinline__ bool dc_step(Bits& bits, DcProbe& probe,
+                                        uint32_t lim, int c, uint32_t* pred,
+                                        int al, int32_t* v) {
+  const uint32_t w = bits.window();
+  int32_t e = probe.l1[c * kAcL1Size + int(w >> (32 - kAcL1Bits))];
+  if (!dc_short(e)) {
+    e = probe.resolve(e, c, w >> 16);
+    if (e == 0 || (e >> 5) > 11) return false;
+  }
+  const int len = e & 31, size = e >> 5;
+  bits.skip(len + size);
+  const uint32_t d =
+      size ? uint32_t(extend((w << len) >> (32 - size), size)) : 0u;
+#pragma unroll
+  for (int k = 0; k < kMaxPlanes; ++k) {
+    if (k == c) {
+      pred[k] += d;
+      *v = int32_t(pred[k] << al);
+    }
+  }
+  return !bits.past(lim);
+}
+
+// Walk up to n DC symbols of a lane from slot jw on, recording each
+// symbol's 32-bit window and table entry in rec[q] for the warp to decode
+// (dc_value): the walker's chain is only the probe and the position.
+// Stops as dc_step does (the reader's position must be at most lim);
+// *done counts the symbols recorded.  With Bits::kGroups it walks four
+// symbols at a time without a branch while each is a short code and the
+// four end at most at lim, and otherwise walks them again one at a time
+// with every check.
+template <class Bits>
+__device__ __forceinline__ bool dc_walk_rec(Bits& bits, DcProbe& probe,
+                                            uint32_t lim, uint32_t comps,
+                                            int bpm, int& jw, int n,
+                                            uint2* rec, int* done) {
+  int q = 0;
+  bool ok = true;
+  while (q < n) {
+    if (Bits::kGroups && q + 4 <= n) {
+      const Bits keep = bits;
+      int jg = jw;
+      bool fine = true;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = (comps >> (2 * jg)) & 3;
+        const uint32_t w = bits.window();
+        const int32_t e =
+            probe.l1[c * kAcL1Size + int(w >> (32 - kAcL1Bits))];
+        const bool short_code = dc_short(e);
+        fine &= short_code;
+        bits.skip(short_code ? (e & 31) + (e >> 5) : 0);
+        rec[q + u] = make_uint2(w, uint32_t(e));
+        jg = jg + 1 == bpm ? 0 : jg + 1;
+      }
+      if (fine && !bits.past(lim)) {
+        q += 4;
+        jw = jg;
+        continue;
+      }
+      bits = keep;
+    }
+    const int c = (comps >> (2 * jw)) & 3;
+    const uint32_t w = bits.window();
+    int32_t e = probe.l1[c * kAcL1Size + int(w >> (32 - kAcL1Bits))];
+    if (!dc_short(e)) {
+      e = probe.resolve(e, c, w >> 16);
+      if (e == 0 || (e >> 5) > 11) {
+        ok = false;
+        break;
+      }
+    }
+    bits.skip((e & 31) + (e >> 5));
+    rec[q++] = make_uint2(w, uint32_t(e));
+    jw = jw + 1 == bpm ? 0 : jw + 1;
+    if (bits.past(lim)) {
+      ok = false;
+      break;
+    }
+  }
+  *done = q;
+  return ok;
+}
+
+// The DC difference of a recorded symbol (window w, entry e).
+__device__ __forceinline__ uint32_t dc_value(uint32_t w, int32_t e) {
+  const int len = e & 31, size = e >> 5;
+  return size ? uint32_t(extend((w << len) >> (32 - size), size)) : 0u;
+}
+
+// The end checks of the first form for a lane that decoded without fault:
+// past its end bit, or (chained) not ending exactly at the next lane's
+// start bit with its predictors.
+__device__ __forceinline__ bool dc_end_bad(const DcArgs& a, int64_t s,
+                                           int64_t pos, int64_t lim,
+                                           const uint32_t* pred) {
+  if (pos > lim) return true;
+  if (!a.chained || s + 1 >= a.n_lanes) return false;
+  bool bad = pos != lim;
+#pragma unroll
+  for (int c = 0; c < kMaxPlanes; ++c)
+    if (c < a.nsc) bad |= pred[c] != uint32_t(a.pred0[(s + 1) * a.nsc + c]);
+  return bad;
+}
+
+// The words from ``lo`` (rounded down to 4) through ``hi``'s end bit and
+// the reader's lookahead, at most ``budget``: [*s_lo, *s_hi); true when
+// that is all of them (the walk needs no device read, StagedBits).
+__device__ __forceinline__ bool dc_range(int64_t lo, int64_t hi,
+                                         int64_t n_words, int budget,
+                                         int64_t* s_lo, int64_t* s_hi) {
+  *s_lo = (lo >> 5) & ~int64_t(3);
+  int64_t need = (hi >> 5) + kDcLookahead;
+  if (need > n_words) need = n_words;
+  if (need < *s_lo) need = *s_lo;
+  *s_hi = need - *s_lo > budget ? *s_lo + budget : need;
+  return *s_hi == need;
+}
+
+// Dynamic shared memory of one CTA of K8a: the compact tables, the warp
+// form's 32 symbol records, and the staged words of a lane (warp form) or
+// of the CTA's 32 lanes (thread form).
+__host__ __device__ constexpr int dc_smem_bytes(bool threads, int nsc,
+                                                int n_slots, int budget) {
+  return 2 * (nsc * kAcL1Size + n_slots * kAcL2Size) + (threads ? 0 : 8 * 32) +
+         4 * budget;
+}
+
+// One lane of K8a's warp form: per chunk of 32 blocks lane 0 walks the
+// symbols, recording them in s_rec; then each thread takes one block: its
+// difference (dc_value), its predictor by a per-component prefix sum over
+// the warp (``pred`` carries each component's across chunks, the same in
+// every thread) and a store into coefficient 0 of its row (a row outside
+// its plane flags the lane).
+template <class Bits>
+__device__ __forceinline__ void dc_warp_lane(const DcArgs& a, int64_t s,
+                                             Bits& bits, uint32_t lim,
+                                             const SlotGeo* s_slot,
+                                             uint2* s_rec, DcProbe& probe,
+                                             uint32_t comps, int j_lane,
+                                             int d_lane, int q32, int r32,
+                                             uint32_t* pred, bool& bad) {
+  const int lane = threadIdx.x;
+  const int bpm = a.g.bpm, mx_div = a.g.mx_div;
+  const int nb = a.n_per[s] * bpm;
+  // This thread's block of the chunk: slot j of unit (mx, my).
+  int j = j_lane;
+  const int m = int(a.first[s]) + d_lane;
+  int my = m / mx_div, mx = m - my * mx_div;
+  int jw = 0;
+  for (int t0 = 0; t0 < nb; t0 += 32) {
+    const int nbc = nb - t0 < 32 ? nb - t0 : 32;
+    int n_ok = 0;
+    if (lane == 0)
+      bad = !dc_walk_rec(bits, probe, lim, comps, bpm, jw, nbc, s_rec, &n_ok);
+    n_ok = __shfl_sync(kFull, n_ok, 0);
+    bool stop = __shfl_sync(kFull, int(bad), 0);
+    __syncwarp();
+    const SlotGeo& sg = s_slot[j];
+    uint32_t d = 0;
+    if (lane < n_ok) {
+      const uint2 r = s_rec[lane];
+      d = dc_value(r.x, int32_t(r.y));
+    }
+    // All four components' sums at once (a component the scan lacks sums
+    // zeros), so that their shuffles interleave.
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < kMaxPlanes; ++c) {
+      uint32_t x = sg.comp == c ? d : 0u;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, x, off);
+        if (lane >= off) x += y;
+      }
+      if (sg.comp == c) v = pred[c] + x;
+      pred[c] += __shfl_sync(kFull, x, 31);
+    }
+    if (lane < nbc) {
+      const int64_t row = dc_row(sg, mx, my);
+      if (row < 0)
+        stop = true;
+      else if (lane < n_ok)
+        sg.dst[row * 64] = int32_t(v << a.al);
+    }
+    if (__any_sync(kFull, stop)) {
+      bad = true;
+      return;
+    }
+    // The next chunk's block: 32 blocks on.
+    j += r32;
+    int dm = q32;
+    if (j >= bpm) {
+      j -= bpm;
+      ++dm;
+    }
+    mx += dm;
+    if (mx >= mx_div) {
+      const int k = mx / mx_div;
+      my += k;
+      mx -= k * mx_div;
+    }
+    __syncwarp();
+  }
+}
+
+// K8a's warp form: one warp per lane, persistent over the lanes.
+__global__ void __launch_bounds__(32) dc_warp_kernel(DcArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_l1 = reinterpret_cast<int16_t*>(smem);
+  int16_t* s_l2 = s_l1 + a.nsc * kAcL1Size;
+  uint2* s_rec = reinterpret_cast<uint2*>(s_l2 + a.n_slots * kAcL2Size);
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_rec + 32);
+  __shared__ SlotGeo s_slot[kMaxSlots];
+
+  const int lane = threadIdx.x;
+  load_slots(a.g, s_slot);
+  stage(reinterpret_cast<uint32_t*>(s_l1),
+        reinterpret_cast<const uint32_t*>(a.tab),
+        (a.nsc * kAcL1Size + a.n_slots * kAcL2Size) / 2,
+        (reinterpret_cast<uintptr_t>(a.tab) & 15) == 0, lane, 32);
+  const bool words_aligned = (reinterpret_cast<uintptr_t>(a.words) & 15) == 0;
+  const int bpm = a.g.bpm;
+  // 32 blocks are q32 units and r32 slots; thread i's first block of a lane
+  // is slot i % bpm of unit i / bpm.
+  const int q32 = 32 / bpm, r32 = 32 - q32 * bpm;
+  const int j_lane = lane % bpm, d_lane = lane / bpm;
+  const uint32_t comps = slot_comps(a.g);
+
+  DcProbe probe{s_l1, s_l2, a.luts, a.l2_full, 0};
+  uint32_t over = 0;
+  for (int64_t s = blockIdx.x; s < a.n_lanes; s += gridDim.x) {
+    const int64_t base = a.base[s], lim = a.end[s];
+    // Stage the lane's words (the previous lane's walk is done: the
+    // __syncwarp closing it).
+    int64_t s_lo, s_hi;
+    const bool all = dc_range(base, lim, a.n_words, a.budget_words, &s_lo,
+                              &s_hi);
+    stage(s_words, a.words + s_lo, s_hi - s_lo, words_aligned, lane, 32);
+    cp_async_wait_all();
+    __syncwarp();
+    uint32_t pred[kMaxPlanes];
+#pragma unroll
+    for (int c = 0; c < kMaxPlanes; ++c)
+      pred[c] = c < a.nsc ? uint32_t(a.pred0[s * a.nsc + c]) : 0u;
+    const uint32_t p0 = uint32_t(base - s_lo * 32);
+    const uint32_t plim = uint32_t(lim - s_lo * 32);
+    bool bad = false;
+    int64_t pos;
+    if (all) {
+      StagedBits bits(s_words, p0);
+      dc_warp_lane(a, s, bits, plim, s_slot, s_rec, probe, comps, j_lane,
+                   d_lane, q32, r32, pred, bad);
+      pos = s_lo * 32 + bits.p;
+    } else {
+      FarBits bits{{a.words, s_words, s_lo, s_hi, a.n_words, false, -4, 0, 0,
+                    0},
+                   p0};
+      dc_warp_lane(a, s, bits, plim, s_slot, s_rec, probe, comps, j_lane,
+                   d_lane, q32, r32, pred, bad);
+      pos = s_lo * 32 + bits.p;
+      over += bits.far();
+    }
+    if (lane == 0 && (bad || dc_end_bad(a, s, pos, lim, pred))) a.err[s] = 1;
+    __syncwarp();
+  }
+  int32_t* stats = a.err + a.n_lanes;
+  if (lane == 0 && blockIdx.x == 0) stats[0] = a.n_slots;
+  if (lane == 0 && (over | probe.misses)) {
+    atomicAdd(stats + 1, int(over));
+    atomicAdd(stats + 2, int(probe.misses));
+  }
+}
+
+// One lane of K8a's thread form: the thread walks its blocks and stores
+// each value into coefficient 0 of its row, four symbols at a time as
+// dc_walk_rec's groups (without a branch, so that the warp's 32 walks stay
+// converged) and one at a time where a group cannot.
+template <class Bits>
+__device__ __forceinline__ bool dc_thread_lane(const DcArgs& a, int64_t s,
+                                               Bits& bits, uint32_t lim,
+                                               const SlotGeo* s_slot,
+                                               DcProbe& probe, uint32_t comps,
+                                               uint32_t* pred) {
+  const int bpm = a.g.bpm, mx_div = a.g.mx_div;
+  const int nb = a.n_per[s] * bpm;
+  const int m0 = int(a.first[s]);
+  int j = 0, my = m0 / mx_div, mx = m0 - my * mx_div;
+  // Block t's row and the next block's slot and unit.
+  auto row_next = [&](int64_t* row) {
+    *row = dc_row(s_slot[j], mx, my);
+    if (++j == bpm) {
+      j = 0;
+      if (++mx == mx_div) {
+        mx = 0;
+        ++my;
+      }
+    }
+  };
+  for (int t = 0; t < nb;) {
+    if (Bits::kGroups && t + 4 <= nb) {
+      const Bits keep = bits;
+      uint2 rec[4];
+      int jg = j;
+      bool fine = true;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = (comps >> (2 * jg)) & 3;
+        const uint32_t w = bits.window();
+        const int32_t e =
+            probe.l1[c * kAcL1Size + int(w >> (32 - kAcL1Bits))];
+        const bool short_code = dc_short(e);
+        fine &= short_code;
+        bits.skip(short_code ? (e & 31) + (e >> 5) : 0);
+        rec[u] = make_uint2(w, uint32_t(e));
+        jg = jg + 1 == bpm ? 0 : jg + 1;
+      }
+      if (fine && !bits.past(lim)) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = (comps >> (2 * j)) & 3;
+          int32_t* dst = s_slot[j].dst;
+          int64_t row;
+          row_next(&row);
+          if (row < 0) return false;
+          const uint32_t d = dc_value(rec[u].x, int32_t(rec[u].y));
+          uint32_t v = 0;
+#pragma unroll
+          for (int k = 0; k < kMaxPlanes; ++k) {
+            if (k == c) {
+              pred[k] += d;
+              v = pred[k];
+            }
+          }
+          dst[row * 64] = int32_t(v << a.al);
+        }
+        t += 4;
+        continue;
+      }
+      bits = keep;
+    }
+    const int c = (comps >> (2 * j)) & 3;
+    int32_t* dst = s_slot[j].dst;
+    int64_t row;
+    row_next(&row);
+    int32_t v;
+    if (row < 0 || !dc_step(bits, probe, lim, c, pred, a.al, &v))
+      return false;
+    dst[row * 64] = v;
+    ++t;
+  }
+  return true;
+}
+
+// K8a's thread form: one thread per lane, one warp per CTA; the warp stages
+// the compact tables and the words of its 32 consecutive lanes (one
+// contiguous range, at most budget words).
+__global__ void __launch_bounds__(32) dc_thread_kernel(DcArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_l1 = reinterpret_cast<int16_t*>(smem);
+  int16_t* s_l2 = s_l1 + a.nsc * kAcL1Size;
+  uint32_t* s_words =
+      reinterpret_cast<uint32_t*>(s_l2 + a.n_slots * kAcL2Size);
+  __shared__ SlotGeo s_slot[kMaxSlots];
+
+  const int64_t s0 = int64_t(blockIdx.x) * 32;
+  if (s0 >= a.n_lanes) return;
+  const int64_t s = s0 + threadIdx.x;
+  const int lane = threadIdx.x;
+  load_slots(a.g, s_slot);
+  stage(reinterpret_cast<uint32_t*>(s_l1),
+        reinterpret_cast<const uint32_t*>(a.tab),
+        (a.nsc * kAcL1Size + a.n_slots * kAcL2Size) / 2,
+        (reinterpret_cast<uintptr_t>(a.tab) & 15) == 0, lane, 32);
+  const int64_t last = s0 + 31 < a.n_lanes ? s0 + 31 : a.n_lanes - 1;
+  int64_t s_lo, s_hi;
+  const bool all = dc_range(a.base[s0], a.end[last], a.n_words,
+                            a.budget_words, &s_lo, &s_hi);
+  stage(s_words, a.words + s_lo, s_hi - s_lo,
+        (reinterpret_cast<uintptr_t>(a.words) & 15) == 0, lane, 32);
+  cp_async_wait_all();
+  __syncwarp();
+
+  DcProbe probe{s_l1, s_l2, a.luts, a.l2_full, 0};
+  bool far = false;
+  if (s < a.n_lanes) {
+    const int64_t lim = a.end[s];
+    uint32_t pred[kMaxPlanes];
+#pragma unroll
+    for (int c = 0; c < kMaxPlanes; ++c)
+      pred[c] = c < a.nsc ? uint32_t(a.pred0[s * a.nsc + c]) : 0u;
+    const uint32_t p0 = uint32_t(a.base[s] - s_lo * 32);
+    const uint32_t plim = uint32_t(lim - s_lo * 32);
+    const uint32_t comps = slot_comps(a.g);
+    bool ok;
+    int64_t pos;
+    if (all) {
+      StagedBits bits(s_words, p0);
+      ok = dc_thread_lane(a, s, bits, plim, s_slot, probe, comps, pred);
+      pos = s_lo * 32 + bits.p;
+    } else {
+      FarBits bits{{a.words, s_words, s_lo, s_hi, a.n_words, false, -4, 0, 0,
+                    0},
+                   p0};
+      ok = dc_thread_lane(a, s, bits, plim, s_slot, probe, comps, pred);
+      pos = s_lo * 32 + bits.p;
+      far = bits.far();
+    }
+    if (!ok || dc_end_bad(a, s, pos, lim, pred)) a.err[s] = 1;
+  }
+  const unsigned over = __reduce_add_sync(kFull, far ? 1u : 0u);
+  const unsigned misses = __reduce_add_sync(kFull, probe.misses);
+  int32_t* stats = a.err + a.n_lanes;
+  if (lane == 0 && blockIdx.x == 0) stats[0] = a.n_slots;
+  if (lane == 0 && (over | misses)) {
+    atomicAdd(stats + 1, int(over));
+    atomicAdd(stats + 2, int(misses));
+  }
+}
+
+struct DcRefineArgs {
+  const uint32_t* words;
+  const int64_t* base;
+  const int64_t* end;
+  const int32_t* n_per;
+  const int64_t* first;
+  int32_t* err;
+  int64_t n_words;
+  int n_lanes, n_blocks, al;
+  int stride;   // units of every lane but the last when all equal, else 0
+  DcGeo g;
+};
+
+// K8b: one thread per block of the scan, in flat order (block b is slot
+// b % bpm of unit b / bpm), 32-bit index arithmetic.  A thread finds its
+// lane by a division where the lanes have one length (restart segments,
+// the skeleton's strides), else by a binary search of the lanes' first
+// units; it reads its bit from the
+// warp's one word pair (or, where the warp spans lanes whose bits lie
+// apart, its own word) and, where the bit is 1, adds ``1 << al`` to
+// coefficient 0 of its row with a reduction that returns nothing.  The
+// thread of a lane's first block checks that the lane's bits lie before
+// its end; a row outside its plane flags its lane.
+__global__ void __launch_bounds__(kThreads) dc_refine_kernel(DcRefineArgs a) {
+  __shared__ SlotGeo s_slot[kMaxSlots];
+  load_slots(a.g, s_slot);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool on = b < a.n_blocks;
+  const int bpm = a.g.bpm;
+  int s = 0, m = 0, j = 0;
+  uint32_t bit_pos = 0;
+  if (on) {
+    m = b / bpm;
+    j = b - m * bpm;
+    // The lane holding unit m: the last whose first unit is at most m (an
+    // empty lane shares its first unit with the next one).
+    int hi = a.n_lanes - 1;
+    if (a.stride > 0) s = hi = min(m / a.stride, hi);
+    while (s < hi) {
+      const int mid = (s + hi + 1) >> 1;
+      if (a.first[mid] <= m)
+        s = mid;
+      else
+        hi = mid - 1;
+    }
+    const int t = b - int(a.first[s]) * bpm;
+    bit_pos = uint32_t(a.base[s]) + uint32_t(t);
+    if (t == 0 && a.base[s] + int64_t(a.n_per[s]) * bpm > a.end[s])
+      a.err[s] = 1;
+  }
+  const int64_t last = a.n_words - 1;
+  const uint32_t wi = bit_pos >> 5;
+  const uint32_t w0 = __shfl_sync(kFull, wi, 0);
+  uint32_t pair0 = 0, pair1 = 0;
+  if (lane == 0 && on) {
+    pair0 = __ldg(a.words + (w0 < last ? w0 : last));
+    pair1 = __ldg(a.words + (w0 + 1 < last ? w0 + 1 : last));
+  }
+  pair0 = __shfl_sync(kFull, pair0, 0);
+  pair1 = __shfl_sync(kFull, pair1, 0);
+  if (!on) return;
+  const uint32_t word =
+      wi == w0 ? pair0
+               : wi == w0 + 1 ? pair1 : __ldg(a.words + (wi < last ? wi : last));
+  const SlotGeo& sg = s_slot[j];
+  const int my = m / a.g.mx_div;
+  const int64_t row = dc_row(sg, m - my * a.g.mx_div, my);
+  if (row < 0)
+    a.err[s] = 1;
+  else if ((word >> (31 - (bit_pos & 31))) & 1u)
+    atomicAdd(sg.dst + row * 64, 1 << a.al);
+}
+
 Geo unpack(const int64_t* geo) {
   Geo g;
   g.bpm = geo[0];
@@ -976,19 +1670,19 @@ Geo unpack(const int64_t* geo) {
 
 unsigned grid_of(int64_t n) { return unsigned((n + kThreads - 1) / kThreads); }
 
-// The warp form's CTAs per SM on the current device at ``smem`` bytes of
-// shared memory, times the device's SMs: a cache per (device, kernel,
-// shared memory), so that a launch makes no occupancy query after the
-// first (cudaGetDevice reads the thread's current device).
-template <bool kRefine>
-int warp_ctas(int smem, int64_t* out) {
+// CTAs of 32 threads that fit on the current device at once with ``smem``
+// bytes of shared memory each (CTAs per SM times the SMs): a cache per
+// (device, kernel, shared memory), so that a launch makes no occupancy
+// query after the first and one shape never sets another's limit
+// (cudaGetDevice reads the thread's current device).
+int resident_ctas(const void* kernel, int smem, int64_t* out) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int>, int64_t> cache;
+  static std::map<std::tuple<int, const void*, int>, int64_t> cache;
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return int(rc);
   std::lock_guard<std::mutex> hold(mu);
-  const auto key = std::make_tuple(dev, smem);
+  const auto key = std::make_tuple(dev, kernel, smem);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *out = hit->second;
@@ -997,8 +1691,8 @@ int warp_ctas(int smem, int64_t* out) {
   int n_sm = 0, per_sm = 0;
   rc = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ac_warp_kernel<kRefine>, 32, smem);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32,
+                                                       smem);
   if (rc != cudaSuccess) return int(rc);
   *out = cache[key] = int64_t(n_sm) * (per_sm > 0 ? per_sm : 1);
   return 0;
@@ -1012,7 +1706,8 @@ int launch_ac(const AcArgs& a, const Geo& g, bool threads,
   const int smem = ac_smem_bytes(kRefine, threads, a.n_slots, a.budget_words);
   int64_t grid = (a.n_lanes + 31) / 32;
   if (!threads) {
-    const int rc = warp_ctas<kRefine>(smem, &grid);
+    const int rc = resident_ctas(
+        reinterpret_cast<const void*>(ac_warp_kernel<kRefine>), smem, &grid);
     if (rc != 0) return rc;
     if (grid > a.n_lanes) grid = a.n_lanes;
   }
@@ -1027,6 +1722,28 @@ int launch_ac(const AcArgs& a, const Geo& g, bool threads,
   return int(cudaGetLastError());
 }
 
+// The slot geometry of K8a/K8b: Geo in 32 bits, each slot with its plane's
+// pointer, block columns and rows.
+DcGeo dc_geo(const int64_t* geo, int32_t* const planes[kMaxPlanes]) {
+  const Geo g = unpack(geo);
+  DcGeo d{};
+  d.bpm = int32_t(g.bpm);
+  d.mx_div = int32_t(g.mx_div);
+  for (int j = 0; j < kMaxSlots; ++j) {
+    const int p = int(g.plane[j]);
+    d.slot[j] = SlotGeo{planes[p],          int32_t(g.v[j]),
+                        int32_t(g.jv[j]),   int32_t(g.h[j]),
+                        int32_t(g.jh[j]),   int32_t(g.comp[j]),
+                        int32_t(g.pcols[p]), int32_t(g.n_rows[p])};
+  }
+  return d;
+}
+
+const void* dc_kernel(bool threads) {
+  return threads ? reinterpret_cast<const void*>(dc_thread_kernel)
+                 : reinterpret_cast<const void*>(dc_warp_kernel);
+}
+
 }  // namespace
 
 // Host entry points: one launch each on ``stream``; ``geo`` is a HOST array
@@ -1034,35 +1751,91 @@ int launch_ac(const AcArgs& a, const Geo& g, bool threads,
 // cudaGetLastError() after its launch (0: launched).
 extern "C" int jd_prog_geo_len() { return kGeoLen; }
 
-extern "C" int jd_prog_dc_first(const uint32_t* words, int64_t n_words,
-                                const int64_t* base, const int64_t* end,
-                                const int32_t* n_per, const int64_t* first,
-                                const int32_t* pred0, int32_t nsc,
-                                const int32_t* luts, int32_t* p0, int32_t* p1,
-                                int32_t* p2, int32_t* p3, const int64_t* geo,
-                                int32_t al, int32_t chained, int64_t n_lanes,
-                                int32_t* err, void* stream) {
+// K8a in the warp form (threads == 0) or the thread form on ``grid`` CTAs
+// (ops/entropy_prog_cuda.dc_launch_shape: the thread form needs one CTA per
+// 32 lanes, the warp form any number); ``tab`` holds the nsc compact
+// first levels and n_slots second levels (dc_tables).
+extern "C" int jd_prog_dc_first(
+    const uint32_t* words, int64_t n_words, const int64_t* base,
+    const int64_t* end, const int32_t* n_per, const int64_t* first,
+    const int32_t* pred0, int32_t nsc, const int32_t* luts,
+    const int16_t* tab, int32_t n_slots, int32_t l2_full, int32_t* p0,
+    int32_t* p1, int32_t* p2, int32_t* p3, const int64_t* geo, int32_t al,
+    int32_t chained, int64_t n_lanes, int32_t threads, int32_t budget_words,
+    int64_t grid, int32_t* err, void* stream) {
   if (n_lanes < 1) return 0;
-  Planes pl{{p0, p1, p2, p3}};
-  dc_first_kernel<<<grid_of(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
-      words, n_words, base, end, n_per, first, pred0, nsc, luts, pl,
-      unpack(geo), al, chained, n_lanes, err);
+  if (budget_words < 4 || budget_words > kMaxBudget || budget_words % 4 ||
+      n_slots < 0 || n_slots > kAcL2Slots || nsc < 1 || nsc > kMaxPlanes ||
+      grid < 1 || grid > 0x7fffffff || (threads && grid * 32 < n_lanes))
+    return int(cudaErrorInvalidValue);
+  int32_t* const planes[kMaxPlanes] = {p0, p1, p2, p3};
+  DcArgs a;
+  a.words = words;
+  a.base = base;
+  a.end = end;
+  a.n_per = n_per;
+  a.first = first;
+  a.pred0 = pred0;
+  a.luts = luts;
+  a.tab = tab;
+  a.err = err;
+  a.n_words = n_words;
+  a.n_lanes = n_lanes;
+  a.nsc = nsc;
+  a.al = al;
+  a.chained = chained;
+  a.budget_words = budget_words;
+  a.n_slots = n_slots;
+  a.l2_full = l2_full;
+  a.g = dc_geo(geo, planes);
+  const int smem = dc_smem_bytes(threads != 0, nsc, n_slots, budget_words);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (threads)
+    dc_thread_kernel<<<unsigned(grid), 32, smem, st>>>(a);
+  else
+    dc_warp_kernel<<<unsigned(grid), 32, smem, st>>>(a);
   return int(cudaGetLastError());
 }
 
+// The CTAs of K8a's form that fit on the current device at once at this
+// table and budget size (into *out), or a CUDA error.
+extern "C" int jd_prog_dc_resident(int32_t threads, int32_t nsc,
+                                   int32_t n_slots, int32_t budget_words,
+                                   int64_t* out) {
+  return resident_ctas(dc_kernel(threads != 0),
+                       dc_smem_bytes(threads != 0, nsc, n_slots, budget_words),
+                       out);
+}
+
+// K8b over the scan's n_units * bpm blocks (fewer than 2^31); ``stride``:
+// LaneTable.stride.
 extern "C" int jd_prog_dc_refine(const uint32_t* words, int64_t n_words,
                                  const int64_t* base, const int64_t* end,
                                  const int32_t* n_per, const int64_t* first,
                                  int32_t* p0, int32_t* p1, int32_t* p2,
                                  int32_t* p3, const int64_t* geo, int32_t al,
-                                 int64_t n_lanes, int64_t max_blocks,
-                                 int32_t* err, void* stream) {
-  if (n_lanes < 1 || max_blocks < 1) return 0;
-  Planes pl{{p0, p1, p2, p3}};
-  dc_refine_kernel<<<grid_of(n_lanes * max_blocks), kThreads, 0,
-                     (cudaStream_t)stream>>>(
-      words, n_words, base, end, n_per, first, pl, unpack(geo), al, n_lanes,
-      max_blocks, err);
+                                 int64_t n_lanes, int64_t n_units,
+                                 int64_t stride, int32_t* err, void* stream) {
+  if (n_lanes < 1 || n_units < 1) return 0;
+  int32_t* const planes[kMaxPlanes] = {p0, p1, p2, p3};
+  DcRefineArgs a;
+  a.words = words;
+  a.base = base;
+  a.end = end;
+  a.n_per = n_per;
+  a.first = first;
+  a.err = err;
+  a.n_words = n_words;
+  a.g = dc_geo(geo, planes);
+  const int64_t n_blocks = n_units * a.g.bpm;
+  if (n_lanes > 0x7fffffff || n_blocks > 0x7fffffff)
+    return int(cudaErrorInvalidValue);
+  a.n_lanes = int(n_lanes);
+  a.n_blocks = int(n_blocks);
+  a.al = al;
+  a.stride = stride > 0 && stride <= 0x7fffffff ? int(stride) : 0;
+  dc_refine_kernel<<<grid_of(n_blocks), kThreads, 0, (cudaStream_t)stream>>>(
+      a);
   return int(cudaGetLastError());
 }
 
@@ -1125,6 +1898,7 @@ extern "C" int jd_prog_ac_grid(int32_t refine, int32_t threads,
 extern "C" int jd_prog_ac_l1_bits() { return kAcL1Bits; }
 extern "C" int jd_prog_ac_l2_slots() { return kAcL2Slots; }
 extern "C" int jd_prog_ac_max_budget() { return kMaxBudget; }
+extern "C" int jd_prog_dc_lookahead() { return kDcLookahead; }
 
 // The first forms of K8c and K8d (one thread per lane, everything read from
 // device memory), the same-card baseline; the package never launches them.
@@ -1146,5 +1920,33 @@ extern "C" int jd_prog_ac_v1(int32_t refine, const uint32_t* words,
     ac_first_kernel_v1<<<grid_of(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
         words, n_words, base, end, n_per, first, eob0, lut, plane, g, ss, se,
         al, chained, n_lanes, err);
+  return int(cudaGetLastError());
+}
+
+// The first forms of K8a and K8b (one thread per lane, or per lane and
+// slot up to the longest lane, everything read from device memory), the
+// same-card baseline; the package never launches them.
+extern "C" int jd_prog_dc_v1(int32_t refine, const uint32_t* words,
+                             int64_t n_words, const int64_t* base,
+                             const int64_t* end, const int32_t* n_per,
+                             const int64_t* first, const int32_t* pred0,
+                             int32_t nsc, const int32_t* luts, int32_t* p0,
+                             int32_t* p1, int32_t* p2, int32_t* p3,
+                             const int64_t* geo, int32_t al, int32_t chained,
+                             int64_t n_lanes, int64_t max_blocks,
+                             int32_t* err, void* stream) {
+  if (n_lanes < 1) return 0;
+  Planes pl{{p0, p1, p2, p3}};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (refine) {
+    if (max_blocks < 1) return 0;
+    dc_refine_kernel_v1<<<grid_of(n_lanes * max_blocks), kThreads, 0, st>>>(
+        words, n_words, base, end, n_per, first, pl, unpack(geo), al,
+        n_lanes, max_blocks, err);
+  } else {
+    dc_first_kernel_v1<<<grid_of(n_lanes), kThreads, 0, st>>>(
+        words, n_words, base, end, n_per, first, pred0, nsc, luts, pl,
+        unpack(geo), al, chained, n_lanes, err);
+  }
   return int(cudaGetLastError());
 }

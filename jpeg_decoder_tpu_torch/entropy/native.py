@@ -545,8 +545,9 @@ def prog_skeleton_dc(hdr: FrameHeader, scan: ScanHeader, stride: int):
     n_lanes = -(-n_mcus // stride)
     bits = np.zeros(n_lanes, np.int64)
     preds = np.zeros((n_lanes, nsc), np.int32)
+    data = _padded(scan)   # alive across the call: it may be a new copy
     rc = lib.jd_prog_skeleton_dc(
-        _padded(scan).ctypes.data, int(scan.seg_offsets[0]), len(scan.data),
+        data.ctypes.data, int(scan.seg_offsets[0]), len(scan.data),
         nsc, h.ctypes.data, v.ctypes.data, _ptrs(dc_luts), int(nsc > 1),
         n_mcus, stride, bits.ctypes.data, preds.ctypes.data)
     if rc != 0:
@@ -578,8 +579,9 @@ def prog_skeleton_ac(hdr: FrameHeader, scan: ScanHeader, stride: int,
     bits = np.zeros(n_lanes, np.int64)
     eob = np.zeros(n_lanes, np.int32)
     syms = np.zeros(n_blocks, np.int32) if want_syms else None
+    data = _padded(scan)   # alive across the call: it may be a new copy
     rc = lib.jd_prog_skeleton_ac(
-        _padded(scan).ctypes.data, int(scan.seg_offsets[0]), len(scan.data),
+        data.ctypes.data, int(scan.seg_offsets[0]), len(scan.data),
         int(scan.ah == 0), scan.ss, scan.se, lut.ctypes.data,
         nzmap.ctypes.data, n_blocks, stride, bits.ctypes.data,
         eob.ctypes.data, syms.ctypes.data if want_syms else None)

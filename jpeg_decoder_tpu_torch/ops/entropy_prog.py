@@ -206,6 +206,7 @@ class ScanInputs(NamedTuple):
     cis: list                    # the frame components the scan writes
     geom: k8.Geometry
     ac_table: k8.AcTable | None = None   # an AC scan's compact table
+    dc_table: k8.DcTables | None = None  # a DC first scan's compact tables
 
 
 def scan_inputs(hdr: FrameHeader, scan: ScanHeader, lanes,
@@ -225,8 +226,10 @@ def scan_inputs(hdr: FrameHeader, scan: ScanHeader, lanes,
         kw = dict(eob0=eob0, pred0=pred0, chained=True)
     compact = None
     if scan.ss == 0 and scan.ah == 0:
-        tables = np.stack([build_lut(scan.dc_specs[scan.dc_table_ids[k]])
-                           for k in range(nsc)])
+        dc = [build_lut(scan.dc_specs[scan.dc_table_ids[k]])
+              for k in range(nsc)]
+        tables = np.stack(dc)
+        compact = k8.dc_tables(dc)
     elif scan.ss != 0:
         lut = build_lut(scan.ac_specs[scan.ac_table_ids[0]])
         tables = lut[None]
@@ -248,7 +251,8 @@ def scan_inputs(hdr: FrameHeader, scan: ScanHeader, lanes,
     if compact is not None:
         compact = compact._replace(tab=words[n_lut:].view(torch.int16))
     cis, geom = scan_geometry(hdr, scan)
-    return ScanInputs(words[:len(pool)], lt, luts, cis, geom, compact)
+    ac, dc = (None, compact) if scan.ss == 0 else (compact, None)
+    return ScanInputs(words[:len(pool)], lt, luts, cis, geom, ac, dc)
 
 
 def launch_scan(scan: ScanHeader, inp: ScanInputs, planes: list,
@@ -262,7 +266,9 @@ def launch_scan(scan: ScanHeader, inp: ScanInputs, planes: list,
         else ("ac_first" if scan.ah == 0 else "ac_refine")
     fn = getattr(k8, kind + ("_torch" if plain else ""))
     if scan.ss == 0 and scan.ah == 0:
-        return fn(inp.words, inp.lanes, inp.luts, mine, inp.geom, al=scan.al)
+        kw = {} if plain else {"table": inp.dc_table}
+        return fn(inp.words, inp.lanes, inp.luts, mine, inp.geom, al=scan.al,
+                  **kw)
     if scan.ss == 0:
         return fn(inp.words, inp.lanes, mine, inp.geom, al=scan.al)
     kw = {} if plain else {"table": inp.ac_table}

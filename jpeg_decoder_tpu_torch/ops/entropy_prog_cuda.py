@@ -12,14 +12,17 @@ coefficient planes, in place, and returns the scan's (S,) int32 lane flags.
   ctypes) on CUDA tensors, on the current stream, and count their launches
   in ``<wrapper>.launches``.  A failed build or launch raises.  On CPU
   tensors they run the plain versions; that is the only way those are
-  reached.  K8d runs one warp per lane, K8c too up to
+  reached.  K8a runs one warp per lane up to :data:`DC_WARP_LANES_MAX`
+  lanes and one thread per lane beyond, with the DC tables'
+  :func:`dc_tables` and the lanes' words staged in shared memory; K8b one
+  thread per block of the scan.  K8d runs one warp per lane, K8c too up to
   :data:`WARP_LANES_MAX` lanes and one thread per lane beyond, with the AC
   table's :func:`compact_table` and the lane's words staged in shared
   memory, and K8d's history as bit masks (the design is in the source's
-  header);
-  ``ac_first.last_stats``/``ac_refine.last_stats`` hold the last launch's
-  counters.  Their first forms stay in the same build for the same-card
-  comparison (``testing/prog_v1.py``).
+  header); ``dc_first.last_stats``, ``ac_first.last_stats`` and
+  ``ac_refine.last_stats`` hold the last launch's counters.  Their first
+  forms stay in the same build for the same-card comparison
+  (``testing/prog_v1.py``).
 * :func:`dc_first_torch`, :func:`dc_refine_torch`, :func:`ac_first_torch`
   and :func:`ac_refine_torch` are the plain PyTorch versions the kernels are
   held to, vectorised over lanes: one Python step per block slot (DC), per
@@ -54,10 +57,14 @@ from .staging import upload
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _LANES = [_P, _I64, _P, _P, _P, _P]   # words, n_words, base, end, n_per, first
 LIB = CudaLib("entropy_prog.cu", "jd_entropy_prog", {
-    "jd_prog_dc_first": _LANES + [_P, _I32, _P, _P, _P, _P, _P, _P, _I32,
-                                  _I32, _I64, _P, _P],
-    "jd_prog_dc_refine": _LANES + [_P, _P, _P, _P, _P, _I32, _I64, _I64, _P,
-                                   _P],
+    "jd_prog_dc_first": _LANES + [_P, _I32, _P, _P, _I32, _I32, _P, _P, _P,
+                                  _P, _P, _I32, _I32, _I64, _I32, _I32, _I64,
+                                  _P, _P],
+    "jd_prog_dc_resident": [_I32, _I32, _I32, _I32, _P],
+    "jd_prog_dc_refine": _LANES + [_P, _P, _P, _P, _P, _I32, _I64, _I64,
+                                   _I64, _P, _P],
+    "jd_prog_dc_v1": [_I32] + _LANES + [_P, _I32, _P, _P, _P, _P, _P, _P,
+                                        _I32, _I32, _I64, _I64, _P, _P],
     "jd_prog_ac": [_I32] + _LANES + [_P, _P, _P, _I32, _I32, _P, _P, _I32,
                                      _I32, _I32, _I32, _I64, _I32, _I32, _P,
                                      _P],
@@ -65,7 +72,7 @@ LIB = CudaLib("entropy_prog.cu", "jd_entropy_prog", {
                                         _I32, _I64, _P, _P],
     "jd_prog_ac_grid": [_I32, _I32, _I32, _I32, _I64, _P],
     "jd_prog_ac_l1_bits": [], "jd_prog_ac_l2_slots": [],
-    "jd_prog_ac_max_budget": [],
+    "jd_prog_ac_max_budget": [], "jd_prog_dc_lookahead": [],
     "jd_prog_geo_len": []})
 
 #: Blocks per MCU of an interleaved scan and planes per scan (T.81 B.2.3).
@@ -79,12 +86,20 @@ GEO_LEN = 2 + 6 * MAX_SLOTS + 2 * MAX_PLANES
 #: bits and the most second-level tables (``kAcL1Bits``, ``kAcL2Slots``).
 AC_L1_BITS = 11
 AC_L2_SLOTS = 64
-#: Most words K8c/K8d stage in shared memory per lane in their warp form,
-#: per 32 lanes in their thread form (``kMaxBudget``).
+#: Most words K8a/K8c/K8d stage in shared memory per lane in their warp
+#: form, per 32 lanes in their thread form (``kMaxBudget``).
 AC_MAX_BUDGET = 4096
+#: Words past a lane's end word that K8c/K8d's reader may take
+#: (``kLookahead``), and K8a's (``kDcLookahead``: its walker runs four
+#: symbols before it checks the end bit).
+LOOKAHEAD = 3
+DC_LOOKAHEAD = 7
 #: Most lanes a scan gives K8c's warp form (one warp per lane); more take
 #: its thread form (one thread per lane).  K8d always runs its warp form.
 WARP_LANES_MAX = 1024
+#: Most lanes a DC first scan gives K8a's warp form; more take its thread
+#: form (the numbers that set it are in ``csrc/entropy_prog.cu``'s header).
+DC_WARP_LANES_MAX = 1024
 
 _ZZ = torch.from_numpy(ZIGZAG.astype(np.int64))
 _count_lock = threading.Lock()
@@ -95,8 +110,9 @@ def build():
     load it."""
     lib = LIB.load()
     got = (lib.jd_prog_geo_len(), lib.jd_prog_ac_l1_bits(),
-           lib.jd_prog_ac_l2_slots(), lib.jd_prog_ac_max_budget())
-    want = (GEO_LEN, AC_L1_BITS, AC_L2_SLOTS, AC_MAX_BUDGET)
+           lib.jd_prog_ac_l2_slots(), lib.jd_prog_ac_max_budget(),
+           lib.jd_prog_dc_lookahead())
+    want = (GEO_LEN, AC_L1_BITS, AC_L2_SLOTS, AC_MAX_BUDGET, DC_LOOKAHEAD)
     if got != want:
         raise RuntimeError(f"entropy_prog.cu constants {got} != {want}")
     return lib
@@ -140,6 +156,53 @@ def compact_table(lut: np.ndarray) -> AcTable:
     if len(_compact_cache) > 64:
         _compact_cache.clear()
     _compact_cache[key] = (lut, out)
+    return out
+
+
+class DcTables(NamedTuple):
+    """A DC first scan's tables in compact form for K8a (:func:`dc_tables`):
+    ``tab`` (nsc * 2048 + 32 * n_slots,) int16 on the host or the device,
+    each component's first level and then the second levels of all;
+    ``l2_full`` has bit c set where component c's table left prefixes out
+    (their probes read its LUT in device memory)."""
+
+    tab: object
+    n_slots: int
+    l2_full: int
+
+
+_dc_cache: dict = {}
+
+
+def dc_tables(luts: list) -> DcTables:
+    """The compact forms of a DC scan's (65536,) int32 LUTs, one per
+    component in scan order (:func:`compact_table` each), in one array:
+    component c's first level at c * 2048, its second-level references moved
+    past the earlier components' second levels.  At most
+    :data:`AC_L2_SLOTS` second levels in all: a table whose second levels
+    do not fit leaves them all out (``l2_full``).  Memoised per tuple of
+    LUT arrays."""
+    key = tuple(id(t) for t in luts)
+    hit = _dc_cache.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], luts)):
+        return hit[1]
+    l1s, l2s, used, full = [], [], 0, 0
+    for c, lut in enumerate(luts):
+        one = compact_table(lut)
+        l1 = one.tab[:1 << AC_L1_BITS].copy()
+        if used + one.n_slots <= AC_L2_SLOTS:
+            l1[l1 < 0] -= used
+            l2s.append(one.tab[1 << AC_L1_BITS:])
+            used += one.n_slots
+            full |= int(one.l2_full) << c
+        else:
+            l1[l1 < 0] = 0
+            full |= 1 << c
+        l1s.append(l1)
+    out = DcTables(np.concatenate(l1s + l2s), used, full)
+    if len(_dc_cache) > 64:
+        _dc_cache.clear()
+    _dc_cache[key] = (tuple(luts), out)
     return out
 
 
@@ -224,9 +287,13 @@ class LaneTable:
     scan_bits: int
     max_units: int
     #: The longest lane's bits, end - base, and the most bits of 32
-    #: consecutive lanes (size K8c/K8d's word staging).
+    #: consecutive lanes (size K8a/K8c/K8d's word staging).
     max_bits: int = 0
     max_group_bits: int = 0
+    #: The units of every lane when all but the last have the same count
+    #: (lane s then starts at unit s * stride: K8b finds a block's lane by
+    #: a division), else 0.
+    stride: int = 0
 
     @property
     def n(self) -> int:
@@ -290,7 +357,10 @@ def lane_table(base, n_per, first, *, n_units: int, scan_bits: int,
                       max_bits=int((end - base).max()),
                       max_group_bits=int((end[np.minimum(np.arange(0, s, 32)
                                                          + 31, s - 1)]
-                                          - base[::32]).max()))
+                                          - base[::32]).max()),
+                      stride=int(n_per[0]) if n_per[0] > 0 and (
+                          n_per[:-1] == n_per[0]).all() and
+                      n_per[-1] <= n_per[0] else 0)
     return (got[0], lanes) if words is not None else lanes
 
 
@@ -355,45 +425,111 @@ def _lane_ptrs(words, lanes: LaneTable) -> tuple:
             lanes.first.data_ptr())
 
 
-def dc_first(words, lanes: LaneTable, luts, planes: list, geom: Geometry,
-             *, al: int) -> torch.Tensor:
-    """K8a: a DC first scan (Ss = 0, Ah = 0) over ``lanes`` into ``planes``
-    (coefficient 0; one plane per component of the scan, in the order of
-    ``geom``'s planes).  ``luts``: (nsc, 65536) int32 DC tables in scan
-    component order.  Returns the (S,) int32 lane flags."""
+def dc_use_threads(lanes: LaneTable, form: str | None = None) -> bool:
+    """Whether K8a runs ``lanes`` in its thread form (one thread per lane):
+    beyond :data:`DC_WARP_LANES_MAX` lanes, else the warp form (one warp
+    per lane); ``form`` ("warp" or "thread") overrides the choice."""
+    if form not in (None, "warp", "thread"):
+        raise ValueError(f"no {form!r} form of K8a")
+    return lanes.n > DC_WARP_LANES_MAX if form is None else form == "thread"
+
+
+def dc_grid(lanes: LaneTable, threads: bool, resident: int) -> int:
+    """K8a's CTAs: one per 32 lanes in the thread form; in the warp form
+    one per lane, at most ``resident`` (what fits on the card at once: the
+    CTAs then walk the lanes in turn)."""
+    return -(-lanes.n // 32) if threads else max(1, min(lanes.n, resident))
+
+
+def dc_resident(threads: bool, nsc: int, n_slots: int, budget: int) -> int:
+    """CTAs of K8a's form that fit on the current CUDA device at once with
+    ``nsc`` first levels, ``n_slots`` second levels and ``budget`` staged
+    words (cached per device and shared-memory size in the library)."""
+    out = ctypes.c_int64(0)
+    launch_check(build().jd_prog_dc_resident(
+        int(threads), nsc, n_slots, budget, ctypes.byref(out)),
+        "jd_prog_dc_resident")
+    return out.value
+
+
+def _dc_first(words, lanes: LaneTable, luts, planes: list, geom: Geometry,
+              al: int, table: DcTables | None = None, *, form=None,
+              budget=None):
+    """K8a; ``form`` ("warp" or "thread") and ``budget`` (staged words)
+    override the launch's own choice, for the card tests and
+    chip_smoke.py."""
     dev = _check(words, lanes, [luts], planes, geom, al)
-    if lanes.pred0.shape[1] != luts.shape[0] or any(
-            not 0 <= s[5] < luts.shape[0] for s in geom.slots):
+    nsc = luts.shape[0]
+    if lanes.pred0.shape[1] != nsc or any(
+            not 0 <= s[5] < nsc for s in geom.slots):
         raise ValueError("pred0, luts and the slots' components disagree")
+    if lanes.n_units * geom.bpm >= 1 << 31:
+        raise ValueError("K8a takes scans of fewer than 2^31 blocks")
+    threads = dc_use_threads(lanes, form)
     if dev.type == "cpu":
         return dc_first_torch(words, lanes, luts, planes, geom, al=al)
-    err = torch.zeros(lanes.n, dtype=torch.int32, device=dev)
+    if table is None:
+        raise ValueError("K8a on the card takes the LUTs' dc_tables "
+                         "(entropy_prog.scan_inputs builds them)")
+    tab = torch.as_tensor(table.tab)
+    if tab.dtype != torch.int16 or tab.dim() != 1 or \
+            tab.numel() != nsc * (1 << AC_L1_BITS) + 32 * table.n_slots or \
+            not 0 <= table.n_slots <= AC_L2_SLOTS:
+        raise ValueError(f"bad DC tables: {tab.dtype} {tuple(tab.shape)}, "
+                         f"{table.n_slots} slots for {nsc} components")
+    tab = tab.to(dev).contiguous()
     geo = geom.pack()
+    budget = dc_budget_words(lanes, threads) if budget is None else budget
+    if not 4 <= budget <= AC_MAX_BUDGET or budget % 4:
+        raise ValueError(f"budget must be a multiple of 4 in 4.."
+                         f"{AC_MAX_BUDGET}, got {budget}")
     with torch.cuda.device(dev):
+        grid = dc_grid(lanes, threads,
+                       dc_resident(threads, nsc, table.n_slots, budget))
+        # The lane flags and, after them, the launch's counters.
+        buf = torch.zeros(lanes.n + 3, dtype=torch.int32, device=dev)
         rc = build().jd_prog_dc_first(
-            *_lane_ptrs(words, lanes), lanes.pred0.data_ptr(),
-            luts.shape[0], luts.data_ptr(), *_plane_ptrs(planes),
-            geo.ctypes.data, al, int(lanes.chained), lanes.n,
-            err.data_ptr(), _stream(dev))
+            *_lane_ptrs(words, lanes), lanes.pred0.data_ptr(), nsc,
+            luts.data_ptr(), tab.data_ptr(), table.n_slots,
+            table.l2_full, *_plane_ptrs(planes), geo.ctypes.data, al,
+            int(lanes.chained), lanes.n, int(threads), budget, grid,
+            buf.data_ptr(), _stream(dev))
     launch_check(rc, "jd_prog_dc_first")
+    dc_first.last_stats = buf[lanes.n:]
     _count(dc_first)
-    return err
+    return buf[:lanes.n]
+
+
+def dc_first(words, lanes: LaneTable, luts, planes: list, geom: Geometry,
+             *, al: int, table: DcTables | None = None) -> torch.Tensor:
+    """K8a: a DC first scan (Ss = 0, Ah = 0) over ``lanes`` into ``planes``
+    (coefficient 0, which must be zero entering the scan; one plane per
+    component of the scan, in the order of ``geom``'s planes).  ``luts``:
+    (nsc, 65536) int32 DC tables in scan component order; ``table``: their
+    :func:`dc_tables` (``tab`` on the host or the device), which CUDA
+    tensors need and the plain version ignores.  The launch runs the warp
+    or the thread form by :func:`dc_use_threads`.  Returns the (S,) int32
+    lane flags."""
+    return _dc_first(words, lanes, luts, planes, geom, al, table)
 
 
 def dc_refine(words, lanes: LaneTable, planes: list, geom: Geometry, *,
               al: int) -> torch.Tensor:
     """K8b: a DC refinement scan (Ss = 0, Ah > 0): block t of a lane adds
-    ``bit(base + t) << al`` to coefficient 0.  Returns the lane flags."""
+    ``bit(base + t) << al`` to coefficient 0, one thread per block of the
+    scan.  Returns the lane flags."""
     dev = _check(words, lanes, [], planes, geom, al)
     if dev.type == "cpu":
         return dc_refine_torch(words, lanes, planes, geom, al=al)
+    if lanes.n_units * geom.bpm >= 1 << 31:
+        raise ValueError("K8b takes scans of fewer than 2^31 blocks")
     err = torch.zeros(lanes.n, dtype=torch.int32, device=dev)
     geo = geom.pack()
     with torch.cuda.device(dev):
         rc = build().jd_prog_dc_refine(
-            *_lane_ptrs(words, lanes), *_plane_ptrs(planes),
-            geo.ctypes.data, al, lanes.n, lanes.max_units * geom.bpm,
-            err.data_ptr(), _stream(dev))
+            *_lane_ptrs(words, lanes), *_plane_ptrs(planes), geo.ctypes.data,
+            al, lanes.n, lanes.n_units, lanes.stride, err.data_ptr(),
+            _stream(dev))
     launch_check(rc, "jd_prog_dc_refine")
     _count(dc_refine)
     return err
@@ -406,14 +542,20 @@ def use_threads(refine: bool, lanes: LaneTable) -> bool:
     return not refine and lanes.n > WARP_LANES_MAX
 
 
-def budget_words(lanes: LaneTable, threads: bool = False) -> int:
-    """Words K8c/K8d stage: the longest lane's words (warp form) or 32
+def budget_words(lanes: LaneTable, threads: bool = False,
+                 lookahead: int = LOOKAHEAD) -> int:
+    """Words K8a/K8c/K8d stage: the longest lane's words (warp form) or 32
     consecutive lanes' (thread form), its start rounded down to 4 words and
-    the reader's lookahead, as a multiple of 4, at most
-    :data:`AC_MAX_BUDGET`."""
+    the reader's ``lookahead`` (:data:`DC_LOOKAHEAD` for K8a), as a
+    multiple of 4, at most :data:`AC_MAX_BUDGET`."""
     bits = lanes.max_group_bits if threads else lanes.max_bits
-    need = -(-(bits // 32 + 8) // 4) * 4
+    need = -(-(bits // 32 + 5 + lookahead) // 4) * 4
     return max(4, min(AC_MAX_BUDGET, need))
+
+
+def dc_budget_words(lanes: LaneTable, threads: bool) -> int:
+    """Words K8a stages (:func:`budget_words` with its lookahead)."""
+    return budget_words(lanes, threads, DC_LOOKAHEAD)
 
 
 def _ac(refine: bool, words, lanes, lut, plane, geom, ss, se, al,
@@ -504,7 +646,7 @@ ac_first.launches = ac_refine.launches = 0
 #: The last launch's (second-level tables used, lanes that read a word
 #: outside their staged range, table probes that read device memory): an
 #: int32 device tensor.
-ac_first.last_stats = ac_refine.last_stats = None
+dc_first.last_stats = ac_first.last_stats = ac_refine.last_stats = None
 KERNELS = {"K8a": dc_first, "K8b": dc_refine, "K8c": ac_first,
            "K8d": ac_refine}
 

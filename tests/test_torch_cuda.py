@@ -1169,6 +1169,238 @@ def test_prog_ac_lane_counts_on_card(cuda_device, lanes):
                                           states[k + 1][ci])
 
 
+# The redesigned K8a (a warp or a thread per lane, staged tables and words)
+# and K8b (a thread per block) against their plain versions and their first
+# forms.
+
+DC_FIXTURES = ("progressive_512.jpg", "progressive_1080p_a.jpg",
+               "progressive_gray.jpg", "progressive_422.jpg")
+#: The longest lane, in block slots, that the plain K8a walks in a test
+#: (one Python step per slot).
+DC_PLAIN_SLOTS = 10_000
+
+
+def _dc_lanes(hdr, scan, target):
+    """A DC scan's lane table at ``target`` lanes: K8a's skeleton lanes,
+    or K8b's bits cut into chained lanes of ceil(units / target) units (a
+    refinement's bit of block t lies at bit t); None: restart segments."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+
+    if target is None:
+        return None
+    if scan.ah == 0:
+        return ep.hybrid_scan_prep(hdr, scan, {}, target_lanes=target)
+    n = ep.scan_units(hdr, scan)
+    stride = max(1, -(-n // target))
+    first = np.arange(0, n, stride, dtype=np.int64)
+    n_per = np.minimum(stride, n - first).astype(np.int32)
+    bpm = ep.scan_geometry(hdr, scan)[1].bpm
+    return (first * bpm, n_per, first, np.zeros(len(first), np.int32),
+            np.zeros((len(first), len(scan.comp_indices)), np.int32))
+
+
+def _dc_all_ways(scan, args, prior, dev, budget=None, plain=True):
+    """One DC scan through K8a in both forms (or K8b), its first form and,
+    unless ``plain`` is false or the longest lane is over
+    DC_PLAIN_SLOTS, its plain version, each from ``prior`` (the frame's
+    planes): {way: (flags, the scan's planes)}, and K8a's counters (l2
+    slots, lanes over budget, table misses) by form."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing import prog_v1
+
+    g, al = args.geom, scan.al
+    if scan.ah == 0:
+        ways = {f: lambda w, l, pl, f=f: k8._dc_first(
+            w, l, args.luts, pl, g, al, args.dc_table, form=f,
+            budget=budget) for f in ("warp", "thread")}
+        ways["v1"] = lambda w, l, pl: prog_v1.dc_first_v1(
+            w, l, args.luts, pl, g, al=al)
+        ways["plain"] = lambda w, l, pl: k8.dc_first_torch(
+            w, l, args.luts, pl, g, al=al)
+    else:
+        ways = {"new": lambda w, l, pl: k8.dc_refine(w, l, pl, g, al=al),
+                "v1": lambda w, l, pl: prog_v1.dc_refine_v1(w, l, pl, g,
+                                                            al=al),
+                "plain": lambda w, l, pl: k8.dc_refine_torch(w, l, pl, g,
+                                                             al=al)}
+    if not plain or (scan.ah == 0 and
+                     args.lanes.max_units * g.bpm > DC_PLAIN_SLOTS):
+        del ways["plain"]
+    out, stats = {}, {}
+    for name, fn in ways.items():
+        planes = [torch.tensor(p, device=dev) for p in prior]
+        err = fn(args.words, args.lanes, [planes[ci] for ci in args.cis])
+        torch.cuda.synchronize()
+        out[name] = (err.cpu(), [planes[ci].cpu().numpy() for ci in args.cis])
+        if name in ("warp", "thread"):
+            stats[name] = k8.dc_first.last_stats.tolist()
+    return out, stats
+
+
+@pytest.mark.parametrize("name,target",
+                         [(n, t) for n in DC_FIXTURES
+                          for t in (1, 3, 512, 4096, 1_000_000)]
+                         + [("progressive_1080p_dri.jpg", None)])
+def test_prog_dc_kernels_match_plain_and_first_form(cuda_device, name,
+                                                    target):
+    """Every DC scan of a fixture (4:2:0, gray: one block per unit, 4:2:2:
+    four per MCU) at 1, 3, 512, 4,096 and more lanes than units, or the
+    restart fixture's 68 segment lanes of 120 MCUs: K8a in both forms (K8b),
+    the first forms and the plain versions give equal flags and planes,
+    none flagged, equal to the native decoder's; K8a's form the wrapper
+    picks reads no word outside its staging (unless the budget is capped)
+    and no form probes a table in device memory."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    hdr = parser.parse(_prog_fixture(name))
+    states = native_prog_states(hdr)
+    n_dc = 0
+    for k, scan in enumerate(hdr.scans):
+        if scan.ss:
+            continue
+        args = ep.scan_inputs(hdr, scan, _dc_lanes(hdr, scan, target),
+                              cuda_device)
+        if target is None:
+            assert args.lanes.n == 68 and args.lanes.max_units == 120
+        got, stats = _dc_all_ways(scan, args, states[k], cuda_device)
+        for way, (err, planes) in got.items():
+            assert not err.any(), (k, way)
+            for ci, plane in zip(args.cis, planes):
+                np.testing.assert_array_equal(plane, states[k + 1][ci],
+                                              err_msg=f"scan {k} {way}")
+        if scan.ah == 0:
+            assert "plain" in got or args.lanes.n < 4
+            picked = "thread" if k8.dc_use_threads(args.lanes) else "warp"
+            capped = k8.dc_budget_words(
+                args.lanes, picked == "thread") == k8.AC_MAX_BUDGET
+            for form, (slots, over, misses) in stats.items():
+                assert slots == args.dc_table.n_slots and misses == 0
+                assert over == 0 or capped or form != picked, stats
+        n_dc += 1
+    assert n_dc == 2
+
+
+@pytest.mark.parametrize("kind", ["long", "wide"])
+def test_prog_dc_long_tables_on_card(cuda_device, kind):
+    """The DC first scans of the 512x512 and 4:2:2 fixtures written anew
+    with codes over 11 bits (testing/dc_scan.py; "wide": more long-code
+    prefixes than K8a keeps), at 64 and 4,096 lanes: K8a in both forms, its
+    first form and its plain version give the native planes, and only the
+    wide table's probes read the LUT in device memory."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing import dc_scan
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    spec = dc_scan.dc_spec(kind)
+    for name in ("progressive_512.jpg", "progressive_422.jpg"):
+        hdr = parser.parse(_prog_fixture(name))
+        states = native_prog_states(hdr)
+        k = 0
+        scan = dc_scan.rewrite_dc_first(hdr, hdr.scans[k], states[k + 1],
+                                        spec)
+        for target in (64, 4096):
+            args = ep.scan_inputs(hdr, scan, _dc_lanes(hdr, scan, target),
+                                  cuda_device)
+            assert bool(args.dc_table.l2_full) == (kind == "wide")
+            got, stats = _dc_all_ways(scan, args, states[k], cuda_device)
+            for way, (err, planes) in got.items():
+                assert not err.any(), (name, target, way)
+                for ci, plane in zip(args.cis, planes):
+                    np.testing.assert_array_equal(plane, states[k + 1][ci])
+            for slots, over, misses in stats.values():
+                assert slots == args.dc_table.n_slots > 0 and over == 0
+                assert (misses > 0) == (kind == "wide")
+
+
+def test_prog_dc_corrupt_scans_flag_as_plain_and_first_form(cuda_device):
+    """DC scans of the 512x512 fixture with bytes flipped (skeleton lanes
+    of the intact scans, and K8b's lanes), a skeleton lane's start moved on
+    by one bit, and its recorded luma predictor off by one: K8a's (both
+    forms) and K8b's flags equal their first forms' and their plain
+    versions', and so do the planes of a scan none of them flags."""
+    import copy
+
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    hdr = parser.parse(_prog_fixture("progressive_512.jpg"))
+    states = native_prog_states(hdr)
+    rng = np.random.default_rng(11)
+    flagged = 0
+
+    def all_agree(scan, lanes, k):
+        args = ep.scan_inputs(hdr, scan, lanes, cuda_device)
+        got, _ = _dc_all_ways(scan, args, states[k], cuda_device)
+        ref = got.pop("plain")
+        for way, (err, planes) in got.items():
+            assert torch.equal(err, ref[0]), (k, way)
+            if not ref[0].any():   # a flagged lane's blocks: unspecified
+                for a, b in zip(planes, ref[1]):
+                    np.testing.assert_array_equal(a, b)
+        return int(ref[0].any())
+
+    for k, scan in enumerate(hdr.scans):
+        if scan.ss:
+            continue
+        lanes = _dc_lanes(hdr, scan, 300)
+        for _ in range(4):
+            bad = copy.copy(scan)
+            data = scan.data.copy()
+            q = int(rng.integers(0, max(1, len(data) - 4)))
+            data[q:q + 4] ^= 0x5A
+            bad.data = data
+            flagged += all_agree(bad, lanes, k)
+        if scan.ah:
+            continue
+        for field in ("base", "pred0"):
+            base, n_per, first, eob0, pred0 = (np.asarray(a).copy()
+                                               for a in lanes)
+            if field == "base":
+                base[1] += 1
+            else:
+                pred0[1, 0] += 1
+            assert all_agree(scan, (base, n_per, first, eob0, pred0), k)
+            flagged += 1
+    assert flagged > 2
+
+
+def test_prog_dc_shapes_in_any_order(cuda_device):
+    """K8a launches whose shared memory grows, shrinks and grows again (one
+    table or three, a staging budget of 4 words, the default or the most,
+    each form), from the per-shape occupancy cache, all run and give the
+    native planes: one shape never sets another's limit."""
+    from jpeg_decoder_tpu_torch.ops import entropy_prog as ep
+    from jpeg_decoder_tpu_torch.ops import entropy_prog_cuda as k8
+    from jpeg_decoder_tpu_torch.testing.prog_states import native_prog_states
+
+    cases = {}
+    for name in ("progressive_gray.jpg", "progressive_512.jpg"):
+        hdr = parser.parse(_prog_fixture(name))
+        scan = hdr.scans[0]
+        cases[name] = (native_prog_states(hdr), ep.scan_inputs(
+            hdr, scan, _dc_lanes(hdr, scan, 64), cuda_device), scan.al)
+    order = [("progressive_512.jpg", "warp", k8.AC_MAX_BUDGET),
+             ("progressive_gray.jpg", "warp", 4),
+             ("progressive_512.jpg", "thread", None),
+             ("progressive_gray.jpg", "thread", k8.AC_MAX_BUDGET),
+             ("progressive_512.jpg", "warp", 4),
+             ("progressive_512.jpg", "warp", k8.AC_MAX_BUDGET),
+             ("progressive_gray.jpg", "warp", None)]
+    for name, form, budget in order:
+        states, args, al = cases[name]
+        planes = [torch.tensor(p, device=cuda_device) for p in states[0]]
+        err = k8._dc_first(args.words, args.lanes, args.luts,
+                           [planes[ci] for ci in args.cis], args.geom, al,
+                           args.dc_table, form=form, budget=budget)
+        torch.cuda.synchronize()
+        assert not err.cpu().any(), (name, form, budget)
+        for ci in args.cis:
+            np.testing.assert_array_equal(planes[ci].cpu().numpy(),
+                                          states[1][ci])
+
+
 def test_prog_dc_and_ac_chains_share_planes_on_two_streams(cuda_device):
     """A DC first scan (K8a) and an AC refinement scan (K8d) of the
     512x512 fixture launched at once on two streams into one set of

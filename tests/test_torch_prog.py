@@ -167,6 +167,37 @@ def test_skeleton_bindings_match_jax(stride):
     assert walked == {"dc-first", "ac-first", "ac-refine"}
 
 
+def test_skeleton_walks_read_replaced_scan_data():
+    """Scans whose ``data`` was replaced by a copy (so that the parser's
+    padded buffer no longer aliases it, and the walk pads a new one): the
+    port's skeleton walks give JAX's lane records on every scan of the
+    512x512 fixture (the padded copy must outlive the C call)."""
+    import copy
+
+    from jpeg_decoder_tpu_torch.testing import photo
+
+    blob = photo.fixture("progressive_512.jpg")[0]
+    th, jh = tparser.parse(blob), jparser.parse(blob)
+    nz_t, nz_j = {}, {}
+    for ts, js in zip(th.scans, jh.scans):
+        if ts.ss == 0 and ts.ah:
+            continue
+        ts = copy.copy(ts)
+        ts.data = ts.data.copy()
+        if ts.ss == 0:
+            got = tnative.prog_skeleton_dc(th, ts, 5)
+            want = jnative.prog_skeleton_dc(jh, js, 5)
+        else:
+            n = ep.scan_units(th, ts)
+            ci = ts.comp_indices[0]
+            got = tnative.prog_skeleton_ac(
+                th, ts, 3, nz_t.setdefault(ci, np.zeros(n, np.uint64)))
+            want = jnative.prog_skeleton_ac(
+                jh, js, 3, nz_j.setdefault(ci, np.zeros(n, np.uint64)))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, np.asarray(b))
+
+
 def test_skeleton_guards():
     """JAX's guards and the lane guards: restart scans, a bad band bitmap,
     scans of 2^31 bits or more and lane bits out of order raise."""
@@ -550,38 +581,50 @@ def test_ac_refuses_a_misaligned_plane(kind):
     assert err.shape == (1,)
 
 
-@pytest.mark.parametrize("field", ["eob0", "base"])
+@pytest.mark.parametrize("field", ["eob0", "base", "dc_pred0", "dc_base"])
 def test_chained_lane_end_state_is_checked(field):
     """Skeleton lanes of an AC-first scan with the second lane's recorded
-    EOB run or start bit off by one: the first lane is flagged (it cannot
-    end at the next lane's start), which JAX's lanes do not check."""
+    EOB run or start bit off by one, and of the DC first scan with its
+    recorded luma predictor or start bit off by one: the first lane is
+    flagged (it cannot end at the next lane's start), which JAX's lanes do
+    not check."""
     hdr = tparser.parse(FRAMES["420_dri0"]())
+    dc = field.startswith("dc_")
     nzmaps: dict = {}
     for scan in hdr.scans:
         lanes = ep.hybrid_scan_prep(hdr, scan, nzmaps, target_lanes=6)
-        if scan.ss and scan.ah == 0:
+        if (scan.ss == 0) == dc and scan.ah == 0:
             break
     base, n_per, first, eob0, pred0 = (a.copy() for a in lanes)
     n = ep.scan_units(hdr, scan)
     cis, geom = ep.scan_geometry(hdr, scan)
     args = dict(n_units=n, scan_bits=len(scan.data) * 8, chained=True)
     words = torch.from_numpy(ep.scan_words(scan))
-    lut = torch.from_numpy(build_lut(
-        scan.ac_specs[scan.ac_table_ids[0]]).copy())[None]
+    if dc:
+        luts = torch.from_numpy(np.stack([build_lut(
+            scan.dc_specs[t]) for t in scan.dc_table_ids]))
+    else:
+        lut = torch.from_numpy(build_lut(
+            scan.ac_specs[scan.ac_table_ids[0]]).copy())[None]
 
-    def run(b, e):
-        plane = torch.zeros((geom.n_rows[0] + 1, 64), dtype=torch.int32)
-        return k8.ac_first(words, k8.lane_table(b, n_per, first, eob0=e,
-                                                **args),
-                           lut, plane, geom, ss=scan.ss, se=scan.se,
-                           al=scan.al)
+    def run(b, e, p):
+        lt = k8.lane_table(b, n_per, first, eob0=e, pred0=p, **args)
+        planes = [torch.zeros((geom.n_rows[i] + 1, 64), dtype=torch.int32)
+                  for i in range(len(cis))]
+        if dc:
+            return k8.dc_first(words, lt, luts, planes, geom, al=scan.al)
+        return k8.ac_first(words, lt, lut, planes[0], geom, ss=scan.ss,
+                           se=scan.se, al=scan.al)
 
-    assert not run(base, eob0).any()
+    assert len(base) > 2
+    assert not run(base, eob0, pred0).any()
     if field == "eob0":
         eob0[1] += 1
+    elif field == "dc_pred0":
+        pred0[1, 0] += 1
     else:
         base[1] += 1
-    err = run(base, eob0)
+    err = run(base, eob0, pred0)
     assert err[0] == 1
 
 
@@ -712,15 +755,61 @@ def test_history_masks_match_jax_nextp(case):
     assert (nextp.numpy()[:-1] > np.arange(n)).any()
 
 
-@pytest.mark.parametrize("table", ["flat", "long", "wide", "standard"])
+def _dc_frame_luts():
+    """Every DC table of the FRAMES fixtures' DC first scans, per scan."""
+    out = []
+    for make in FRAMES.values():
+        hdr = tparser.parse(make())
+        out += [[build_lut(s.dc_specs[t]) for t in s.dc_table_ids]
+                for s in hdr.scans if s.ss == 0 and s.ah == 0]
+    return out
+
+
+def _probe_compact(l1, l2, full: bool, lut):
+    """Every 16-bit window probed as K8a/K8c/K8d probe their compact
+    tables: the first level, a second level, or (``full``: prefixes left
+    out) the LUT; with the mask of the probes that read the LUT."""
+    p = np.arange(1 << 16)
+    e = l1[p >> 5]
+    probe = np.where(e > 0, e, 0)
+    in_l2 = e < 0
+    probe[in_l2] = l2[-e[in_l2] - 1, p[in_l2] & 31]
+    missed = (e == 0) & (lut != 0)
+    if full:
+        probe[missed] = lut[missed]
+    return probe, missed
+
+
+@pytest.mark.parametrize("table", ["flat", "long", "wide", "standard",
+                                   "dc_frames", "dc_long", "dc_wide"])
 def test_compact_table_probes_like_the_lut(table):
-    """K8c/K8d's compact table (``entropy_prog_cuda.compact_table``),
-    probed as the kernels probe it, gives every 16-bit window the LUT's
-    length and symbol; the prefixes it leaves out (more long-code prefixes
-    than its second levels) are exactly the probes the kernels send to the
-    full LUT."""
+    """K8c/K8d's compact table (``entropy_prog_cuda.compact_table``) and
+    K8a's set of a scan's DC tables (``dc_tables``: every DC table of the
+    FRAMES fixtures, and dc_scan.py's long and wide tables for three
+    components), probed as the kernels probe them, give every 16-bit window
+    the LUT's length and symbol; the prefixes they leave out (more
+    long-code prefixes than the second levels) are exactly the probes the
+    kernels send to the full LUT."""
+    from jpeg_decoder_tpu_torch.testing import dc_scan
     from jpeg_decoder_tpu_torch.testing.encoder import STD_AC_LUMA
 
+    if table.startswith("dc_"):
+        sets = _dc_frame_luts() if table == "dc_frames" else \
+            [[build_lut(dc_scan.dc_spec(table[3:]))] * 3]
+        for luts in sets:
+            got = k8.dc_tables(luts)
+            assert k8.dc_tables(luts) is got        # memoised per LUT set
+            tab = np.asarray(got.tab).astype(np.int32)
+            nsc = len(luts)
+            l2 = tab[nsc << 11:].reshape(-1, 32)
+            assert len(l2) == got.n_slots <= k8.AC_L2_SLOTS
+            for c, lut in enumerate(luts):
+                full = bool(got.l2_full >> c & 1)
+                probe, missed = _probe_compact(
+                    tab[c << 11:(c + 1) << 11], l2, full, lut)
+                assert bool(missed.any()) == full == (table == "dc_wide")
+                np.testing.assert_array_equal(probe & 0x1FFF, lut & 0x1FFF)
+        return
     if table == "standard":
         spec = STD_AC_LUMA
     else:
@@ -731,15 +820,100 @@ def test_compact_table_probes_like_the_lut(table):
     tab = np.asarray(got.tab).astype(np.int32)
     l1, l2 = tab[:1 << 11], tab[1 << 11:].reshape(-1, 32)
     assert len(l2) == got.n_slots <= k8.AC_L2_SLOTS
-    p = np.arange(1 << 16)
-    e = l1[p >> 5]
-    probe = np.where(e > 0, e, 0)
-    in_l2 = e < 0
-    probe[in_l2] = l2[-e[in_l2] - 1, p[in_l2] & 31]
-    missed = (e == 0) & (lut != 0)
+    probe, missed = _probe_compact(l1, l2, True, lut)
     assert bool(missed.any()) == got.l2_full == (table == "wide")
-    probe[missed] = lut[missed]
     np.testing.assert_array_equal(probe & 0x1FFF, lut & 0x1FFF)
+
+
+@pytest.mark.parametrize("kind", ["long", "wide"])
+def test_dc_scan_writer_matches_jax_and_oracle(kind):
+    """testing/dc_scan.py's DC first scans with codes over 11 bits (the
+    "wide" table with more long-code prefixes than K8a keeps): the port's
+    lanes (segment and skeleton), JAX's ``apply_scan_device`` and the
+    oracle's posterior planes are equal."""
+    import jax.numpy as jnp
+
+    from jpeg_decoder_tpu_torch.testing import dc_scan
+
+    blob = FRAMES["420_dri0"]()
+    th, jh = tparser.parse(blob), jparser.parse(blob)
+    k = 0
+    assert th.scans[k].ss == 0 and th.scans[k].ah == 0
+    before = _flat(_oracle_after(th, k))
+    after = _flat(_oracle_after(th, k + 1))
+    spec = dc_scan.dc_spec(kind)
+    scan = dc_scan.rewrite_dc_first(th, th.scans[k], after, spec)
+    jscan = jh.scans[k]
+    jscan.data, jscan.seg_offsets = scan.data, scan.seg_offsets
+    jscan.data_padded = None
+    jscan.dc_specs = {t: JHuffmanSpec(0, t, spec.counts, spec.symbols)
+                      for t in jscan.dc_table_ids}
+    ref = jep.apply_scan_device(jh, jscan, [jnp.asarray(p) for p in before])
+    _assert_planes([np.asarray(r)[:-1] for r in ref],
+                   [a[:-1] for a in after], "jax")
+    for lanes in (None, ep.hybrid_scan_prep(th, scan, {}, target_lanes=7)):
+        got = ep.apply_scan_device(
+            th, scan, [torch.from_numpy(p.copy()) for p in before],
+            lanes=lanes)
+        _assert_planes(got, after, "port")
+    assert k8.dc_tables([build_lut(spec)] * 3).l2_full == (
+        0b111 if kind == "wide" else 0)
+
+
+def test_dc_form_and_budget_by_lane_count():
+    """K8a runs one warp per lane up to DC_WARP_LANES_MAX lanes and one
+    thread per lane beyond: one lane, the restart fixture's 68 segment
+    lanes (120 MCUs of six blocks each) and 1080p (a)'s 4,080 skeleton
+    lanes at 4,096 target lanes (two MCUs each), and lanes with empty ones
+    among them; its grid is a CTA per lane up to what fits on the card
+    (then the CTAs walk the lanes in turn) or a CTA per 32 lanes; its
+    staging budget follows the form; a form it lacks is refused."""
+    from jpeg_decoder_tpu_torch.testing import photo
+
+    def dc_lanes(name, target):
+        hdr = tparser.parse(photo.fixture(name)[0])
+        scan = hdr.scans[0]
+        assert scan.ss == 0 and scan.ah == 0 and len(scan.comp_indices) == 3
+        lanes = None if target is None else \
+            ep.hybrid_scan_prep(hdr, scan, {}, target_lanes=target)
+        return ep.scan_inputs(hdr, scan, lanes, "cpu").lanes
+
+    one = dc_lanes("progressive_1080p_a.jpg", 1)
+    seg = dc_lanes("progressive_1080p_dri.jpg", None)
+    many = dc_lanes("progressive_1080p_a.jpg", 4096)
+    assert (one.n, seg.n, many.n) == (1, 68, 4080)
+    assert seg.max_units == 120 and many.max_units == 2
+    assert not seg.chained and many.chained
+    resident = 132 * 24
+    for lanes, threads, grid in ((one, False, 1), (seg, False, 68),
+                                 (many, True, 128)):
+        assert k8.dc_use_threads(lanes) == threads
+        assert k8.dc_grid(lanes, threads, resident) == grid
+        assert k8.dc_budget_words(lanes, threads) == min(
+            k8.AC_MAX_BUDGET, -(-((lanes.max_group_bits if threads
+                                   else lanes.max_bits) // 32 + 12) // 4) * 4)
+    assert k8.dc_grid(many, False, resident) == resident   # CTAs walk lanes
+    assert k8.dc_budget_words(one, False) == k8.AC_MAX_BUDGET  # one long lane
+    assert not k8.dc_use_threads(many, "warp")
+    assert k8.dc_use_threads(seg, "thread")
+    # Empty lanes (no units, no bits) among lanes of one unit each.
+    n = k8.DC_WARP_LANES_MAX + 1
+    n_per = np.arange(n, dtype=np.int32) % 2
+    first = np.concatenate([[0], np.cumsum(n_per)[:-1]]).astype(np.int64)
+    base = first * 16
+    empty = k8.lane_table(base, n_per, first, n_units=int(n_per.sum()),
+                          scan_bits=int(n_per.sum()) * 16, chained=True)
+    assert k8.dc_use_threads(empty)
+    assert k8.dc_grid(empty, True, resident) == -(-n // 32)
+    assert k8.dc_budget_words(empty, True) == 20   # 32 lanes: 8 words + 12
+    hdr = tparser.parse(FRAMES["dri0"]())
+    scan = hdr.scans[0]
+    args = ep.scan_inputs(hdr, scan, None, "cpu")
+    planes = [torch.zeros((g + 1, 64), dtype=torch.int32)
+              for g in args.geom.n_rows]
+    with pytest.raises(ValueError, match="form"):
+        k8._dc_first(args.words, args.lanes, args.luts, planes, args.geom,
+                     scan.al, args.dc_table, form="block")
 
 
 def test_ac_form_and_budget_by_lane_count():
