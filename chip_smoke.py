@@ -160,6 +160,28 @@ kernel against its plain version:
    ``BatchDecoder``'s, MP/s in turns; the
    8192x6144 frame: RGB equal to ``decode(entropy="hybrid")``, peak device
    memory;
+10b''''. mesh phase (``parallel/mesh.py``, ``parallel/multihost.py``, the
+   ('data', 'seg') split of ``parallel/sharded.py`` and the progressive
+   lanes): first K7c (``csrc/emit_carry.cu``, the DC carry across ranks)
+   against its plain version ``add_carry_torch`` on what the (1, 2) grid
+   gives rank 1 for the batch's 24 DRI-0 1080p images (K7 on each rank's
+   share of the lanes, the ranks' DC totals), rank 1's carried blocks
+   equal to one K7 launch over every lane, timed by CUDA events with its
+   byte bound; then ``testing/mesh_worker.py`` in one process per rank on
+   cuda:0, per grid: (1,1) NCCL, one rank, the batch of 32, the mixed
+   frames and the bucketed group; (1,2) gloo (NCCL refuses two ranks on
+   one GPU) the batch of 32, the 1080p (a) and the restart progressive
+   fixtures' planes and ``decode_scan_sharded`` of (a); (2,1) gloo the
+   batch of 32 and the mixed frames; every item (after
+   ``allgather_items``), plane and coefficient of every rank equal by
+   SHA-256 to the one-GPU route's, no item in error, each rank's counts
+   (zeroed just before its checked call) showing K1, K2, K7 (and K7c on
+   the (1,2) grid's rank 1) and K8a-K8d where its route reaches them; per
+   grid the batch of 32's wall time per call (best of 3 after a warm-up,
+   the slowest rank of each call) beside the one-GPU route's in the same
+   run, and per group of rank 0's checked call its host plan, device
+   decode, collective and pixel times and the bytes its collectives
+   gathered;
 10d. progressive lanes phase (K8a-K8d, ``csrc/entropy_prog.cu``, under
    ``ops/entropy_prog.py``; run after 10b''): every scan of the 512x512
    and 1080p (a) progressive fixtures through each kernel and its plain
@@ -423,7 +445,8 @@ def _build_all() -> None:
     """Build the native library and every CUDA source at once (one
     compiler process each); prints the times and ptxas's resource lines."""
     from jpeg_decoder_tpu_torch.entropy import native
-    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
+    from jpeg_decoder_tpu_torch.ops import (emit_carry_cuda, entropy_cuda,
+                                            entropy_emit_cuda,
                                             entropy_prog_cuda, idct_cuda,
                                             idct_exact_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
@@ -435,7 +458,8 @@ def _build_all() -> None:
             "idct_exact.cu": idct_exact_cuda.build,
             "entropy_emit.cu": entropy_emit_cuda.build,
             "entropy_emit_v1.cu (baseline)": emit_v1.build,
-            "entropy_prog.cu": entropy_prog_cuda.build}
+            "entropy_prog.cu": entropy_prog_cuda.build,
+            "emit_carry.cu": emit_carry_cuda.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(_wall, fn) for name, fn in jobs.items()}
@@ -445,7 +469,7 @@ def _build_all() -> None:
           + "; nvcc for sm_90a)")
     for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB,
                 idct_exact_cuda.LIB, entropy_emit_cuda.LIB, emit_v1.LIB,
-                entropy_prog_cuda.LIB):
+                entropy_prog_cuda.LIB, emit_carry_cuda.LIB):
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
@@ -3232,6 +3256,278 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
     return rec
 
 
+# The mesh phase: (grid, backend, phases) of each worker run, on cuda:0.
+MESH_GRIDS = (((1, 1), "nccl", "collectives,batch:b32,batch:mixed,"
+                               "batch:bucket"),
+              ((1, 2), "gloo", "collectives,batch:b32,prog:prog_a,"
+                               "prog:prog_dri,scan:cam"),
+              ((2, 1), "gloo", "collectives,batch:b32,batch:mixed"))
+MESH_TIMEOUT = 300   # seconds, each grid's worker run
+MESH_REPEAT = 3      # timed calls of the batch of 32 after a warm-up
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    a = t.detach().cpu().numpy() if hasattr(t, "detach") else t
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _carry_check(dev, batch: list) -> dict:
+    """K7c (``csrc/emit_carry.cu``) against its plain version on the
+    inputs the (1, 2) grid gives rank 1 for the batch's 24 DRI-0 1080p
+    images: K7 on each rank's share of the lanes, the ranks' DC totals,
+    then the carry on rank 1's blocks; those blocks, carried, equal to one
+    K7 launch over every lane.  Timed by CUDA events (median of 20), with
+    the byte bound."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import emit_carry_cuda as k7c
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, entropy_spec
+    from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+    from jpeg_decoder_tpu_torch.parallel import sharded
+
+    blobs = [b for b in batch if parser.parse(b).width == 1920
+             and not parser.parse(b).scans[0].restart_interval]
+    hdrs = [parser.parse(b) for b in blobs]
+    hdr = hdrs[0]
+    scans = [h.scans[0] for h in hdrs]
+    (pools, starts, nm, lane_off, t_sym, _, _, seg_first,
+     ok) = entropy_spec.device_plan(hdr, scans)
+    luts, l1 = entropy_cuda.device_tables(hdr, scans[0], dev)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (pools, starts, nm, lane_off, seg_first)] + [luts]
+    bc = entropy_spec._block_comp(hdr)
+    bpm = len(bc)
+    n_mcus = hdr.mcus_x * hdr.mcus_y
+    kw = dict(block_comp=bc, n_comps=3, n_mcus=n_mcus, trips=t_sym,
+              precision=8, l1=l1)
+    cuts, m_a, m_b = sharded.share_mcus(nm, lane_off, bpm, 2)
+    shares = [k7.decode_lanes(*args, **kw, lanes=cut) for cut in cuts]
+    whole, _ = k7.decode_lanes(*args, **kw)
+    tot = torch.stack([sharded.dc_totals(out, m_b[q], bc)
+                       for q, (out, _) in enumerate(shares)])
+    w, lo, hi = sharded.carry_plan(m_a, m_b, 1, [0] * len(blobs),
+                                   [n_mcus] * len(blobs), bpm)
+    base = shares[1][0]
+    plain = k7c.add_carry_torch(base.clone(), tot, w, lo, hi, block_comp=bc)
+    got = k7c.add_carry(base.clone(), tot, w, lo, hi, block_comp=bc)
+    rows = [(b, int(m_a[1][b]) * bpm, int(m_b[1][b]) * bpm)
+            for b in range(len(blobs))]
+    err = max(int((got[b, r0:r1] - plain[b, r0:r1]).abs().max())
+              for b, r0, r1 in rows)
+    if err or any(not torch.equal(got[b, r0:r1], whole[b, r0:r1])
+                  for b, r0, r1 in rows):
+        raise AssertionError(f"K7c: {err} off its plain version, or rank "
+                             "1's carried blocks differ from one K7 launch")
+    work = base.clone()
+    ms = statistics.median(_cuda_ms(lambda: k7c.add_carry(
+        work, tot, w, lo, hi, block_comp=bc), 20))
+    ms_plain = statistics.median(_cuda_ms(lambda: k7c.add_carry_torch(
+        work, tot, w, lo, hi, block_comp=bc), 20))
+    n_rows = int((hi - lo).sum())
+    nbytes = 8 * n_rows + 4 * (tot.numel() + w.size) + 16 * len(blobs)
+    rec = {"name": "K7c emit carry across ranks", "route": "cuda",
+           "source": "jpeg_decoder_tpu_torch/csrc/emit_carry.cu",
+           "replaces": "jpeg_decoder_tpu/parallel/sharded.py:630",
+           "max_abs_err": err, "ms": ms, "plain_ms": ms_plain,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None, "rows": n_rows, "images": len(blobs)}
+    print(f"K7c (the (1,2) grid's rank 1, {len(blobs)} 1080p DRI-0 images, "
+          f"{n_rows} block rows carried): equal to add_carry_torch and, "
+          f"carried, rank 1's blocks equal to one K7 launch over every "
+          f"lane; {ms:.4f} ms with the plan's copy to the card (plain "
+          f"{ms_plain:.4f}, bound "
+          f"{rec['bound_ms'] * 1e3:.3f} us, bytes)")
+    return rec
+
+
+def _mesh_refs(dev, sets: dict) -> dict:
+    """Digests of what the one-GPU route gives for every worker phase:
+    ``decode_batch_sharded(blobs, dev, idct="pallas")`` item RGB, the
+    progressive lanes' planes, ``decode_scan_sharded``'s coefficients."""
+    from jpeg_decoder_tpu_torch import decode_batch_sharded
+    from jpeg_decoder_tpu_torch.io import parser
+    from jpeg_decoder_tpu_torch.ops import entropy_prog
+    from jpeg_decoder_tpu_torch.parallel import sharded
+
+    refs = {}
+    for name, blobs in sets.items():
+        if name in ("b32", "mixed", "bucket"):
+            items = decode_batch_sharded(blobs, dev, idct="pallas")
+            for k, it in enumerate(items):
+                if not it.ok:
+                    raise AssertionError(f"mesh refs: {name} item {k} "
+                                         f"failed: {it.error}")
+                refs[f"{name}/rgb/{k}"] = _digest(it.rgb)
+        elif name.startswith("prog"):
+            planes = entropy_prog.decode_progressive_lanes(
+                parser.parse(blobs[0]), dev, as_device=True)
+            for c, p in enumerate(planes):
+                refs[f"{name}/plane/0/{c}"] = _digest(p)
+        else:
+            hdr = parser.parse(blobs[0])
+            refs[f"{name}/coef/0"] = _digest(
+                sharded.decode_scan_sharded(hdr, hdr.scans[0], dev))
+    return refs
+
+
+def _mesh_phase(dev, batch: list, mixed: list, dyn: list,
+                blob_cam: bytes) -> dict:
+    """The mesh route on the card (see the module docstring): each grid of
+    ``MESH_GRIDS`` runs ``testing/mesh_worker.py`` in one process per rank
+    on cuda:0 (NCCL for one rank; gloo for two, which NCCL refuses on one
+    GPU), every item, plane and coefficient of every rank (after
+    ``allgather_items``) equal to the one-GPU route, the kernels of each
+    route launched on every rank.  Returns the launches of each kernel by
+    grid (each rank's checked calls, counts zeroed just before, summed)."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode_batch_sharded
+    from jpeg_decoder_tpu_torch.testing.photo import FIXTURES_DIR
+
+    def fixture(name):
+        with open(os.path.join(FIXTURES_DIR, name), "rb") as f:
+            return f.read()
+
+    sets = {"b32": batch, "mixed": mixed, "bucket": dyn,
+            "prog_a": [fixture("progressive_1080p_a.jpg")],
+            "prog_dri": [fixture("progressive_1080p_dri.jpg")],
+            "cam": [blob_cam]}
+    refs = _mesh_refs(dev, sets)
+    one_gpu = []
+    decode_batch_sharded(batch, dev, idct="pallas")
+    for _ in range(MESH_REPEAT):
+        one_gpu.append(_wall(lambda: (decode_batch_sharded(
+            batch, dev, idct="pallas"), torch.cuda.synchronize())))
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "in.npz"), **{
+            f"{n}/{k}": np.frombuffer(b, np.uint8)
+            for n, blobs in sets.items() for k, b in enumerate(blobs)})
+        for grid, backend, phases in MESH_GRIDS:
+            world = grid[0] * grid[1]
+            out = os.path.join(d, f"{grid[0]}x{grid[1]}")
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{sock.getsockname()[1]}"
+            sock.close()
+            cmd = [sys.executable, "-m",
+                   "jpeg_decoder_tpu_torch.testing.mesh_worker",
+                   "--world", str(world), "--addr", addr, "--grid",
+                   *map(str, grid), "--device-type", dev.type, "--backend",
+                   backend, "--local", "1", "--inputs",
+                   os.path.join(d, "in.npz"), "--out", out, "--phases",
+                   phases, "--idct", "pallas", "--save", "digest",
+                   "--repeat", str(MESH_REPEAT), "--timed", "b32"]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=repo,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for r in range(world)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=MESH_TIMEOUT))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+            for p, (_, err) in zip(procs, logs):
+                if p.returncode:
+                    raise AssertionError(f"mesh {grid} {backend}: a rank "
+                                         f"failed:\n{err[-3000:]}")
+            facts = []
+            for r in range(world):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    facts.append(json.load(f))
+            _mesh_check(grid, backend, phases, facts, refs, sets)
+            for r, f in enumerate(facts):
+                for phase in phases.split(","):
+                    for k, n in f[phase]["counts"].items():
+                        by = launches.setdefault(k, {})
+                        key = f"mesh {grid} {backend}"
+                        by[key] = by.get(key, 0) + n
+            calls = [max(f["batch:b32"]["calls"][i]["wall_s"]
+                         for f in facts) for i in range(MESH_REPEAT)]
+            _mesh_lines(grid, backend, facts, calls, min(one_gpu),
+                        time.perf_counter() - t0)
+    return launches
+
+
+def _mesh_check(grid, backend, phases, facts, refs, sets) -> None:
+    """Every rank of a grid: every digest equal to the one-GPU route's, no
+    item in error, each phase's kernels launched on every rank (K7c where a
+    rank's first segment needs a carry), and the collectives' transport
+    checked on the grid's backend (the worker fails a rank whose gathers or
+    sums differ from what was sent)."""
+    prog = tuple(PROG_KERNELS)
+    need = {"b32": ("K1", "K2", "K7"), "mixed": prog + ("K1",),
+            "bucket": ("K1", "K7"), "prog_a": prog, "prog_dri": prog,
+            "cam": ("K2",)}
+    for r, f in enumerate(facts):
+        dg = f["digests"]
+        for key, want in refs.items():
+            name = key.split("/", 1)[0]
+            kinds = [p for p in phases.split(",")
+                     if p.partition(":")[2] == name]
+            for phase in kinds:
+                got = dg.get(f"{phase}/{key.split('/', 1)[1]}")
+                if got is None or got[0] != want:
+                    raise AssertionError(f"mesh {grid} {backend} rank {r}: "
+                                         f"{phase} {key} differs from the "
+                                         "one-GPU route")
+        for phase in phases.split(","):
+            name = phase.partition(":")[2]
+            if phase == "collectives":
+                if not f[phase]["checked"] or f[phase]["backend"] != backend:
+                    raise AssertionError(f"mesh {grid} rank {r}: the "
+                                         f"collectives were not checked on "
+                                         f"{backend}")
+                continue
+            if phase.startswith("batch") and any(f[phase]["errors"]):
+                raise AssertionError(f"mesh {grid} rank {r}: {phase} "
+                                     f"errors {f[phase]['errors']}")
+            zero = [k for k in need[name] if not f[phase]["counts"][k]]
+            if grid[1] == 2 and name == "b32" and r == 1:
+                zero += [] if f[phase]["counts"]["K7c"] else ["K7c"]
+            if zero:
+                raise AssertionError(f"mesh {grid} rank {r}: {phase} "
+                                     f"launched none of {zero}")
+
+
+def _mesh_lines(grid, backend, facts, calls, one_gpu_s, run_s) -> None:
+    """A grid's wall per call of the batch of 32, its exchanged bytes and
+    the decode / collective / pixels split per group (rank 0, the checked
+    call)."""
+    def ms(x):
+        return "none" if x is None else f"{x:.4f} ms"
+
+    f = facts[0]
+    groups = f["batch:b32"]["timing"]["groups"]
+    split = "; ".join(
+        f"{g['route']} x{g['images']}: host plan {g['host_s'] * 1e3:.2f} ms"
+        f", device decode {ms(g.get('entropy_ms'))}, collective "
+        f"{ms(g.get('exchange_ms'))} (host {g['exchange_s'] * 1e3:.2f} ms)"
+        f", pixels {ms(g.get('pixels_ms'))}, exchanged "
+        f"{g['exchange_bytes'] / 1e6:.2f} MB" for g in groups)
+    print(f"mesh {grid} {backend} ({len(facts)} rank(s) on cuda:0): every "
+          "item, plane and coefficient equal to the one-GPU route; batch of "
+          f"32 {min(calls) * 1e3:.1f} ms a call (best of {len(calls)} after "
+          f"a warm-up: {', '.join(f'{c * 1e3:.1f}' for c in calls)}), the "
+          f"one-GPU route {one_gpu_s * 1e3:.1f} ms; rank 0's checked call: "
+          f"{split}; launches {[x['batch:b32']['counts'] for x in facts]}; "
+          f"collectives: {f['collectives']['checked']} transport checks over "
+          f"{f['collectives']['backend']} on rank 0's lines "
+          f"{f['collectives']['lines']}, every one exact; worker run "
+          f"{run_s:.1f} s")
+
 
 def _cli_phase(dev, frames: dict) -> None:
     """``python -m jpeg_decoder_tpu_torch`` in subprocesses on the card over
@@ -3397,10 +3693,13 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
           "more waited for here (set-up)")
     k7["big_frame"] = _big_frame_phase(dev, big_blob)
     torch.cuda.empty_cache()
-    k7["sharded_bucket"] = _sharded_phase(
-        dev, batch, mp, mixed_batch, [f.result() for f in dyn_futs],
-        big_blob)
+    dyn = [f.result() for f in dyn_futs]
+    k7["sharded_bucket"] = _sharded_phase(dev, batch, mp, mixed_batch, dyn,
+                                          big_blob)
     sharded = k7["sharded_bucket"].pop("launches")
+    torch.cuda.empty_cache()
+    k7c = _carry_check(dev, batch)
+    mesh = _mesh_phase(dev, batch, mixed_batch, dyn, images["a"][0])
     pool.shutdown()
     del big_blob
     torch.cuda.empty_cache()
@@ -3449,14 +3748,18 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
         "decode jax/hybrid": lanes_counts["K7"],
         **{f"decode_batch_sharded {k}": v["K7"] for k, v in sharded.items()
            if k != "e2e_mp_per_s"}}
-    k7["launches"] = sum(k7["launches_by_path"].values())
     decode_counts = k8["K8a"].pop("decode_counts")
     for key, rec in k8.items():
         rec["launches_by_path"] = {
             "decode/decode_to_planes pallas, jax, hybrid": decode_counts[key],
             "decode_batch_sharded mixed": sharded["mixed"][key]}
+    # The mesh route's launches, each grid's ranks summed.
+    for key, rec in (("K1", k1), ("K2", k2), ("K5", k5), ("K7", k7),
+                     ("K7c", k7c), *k8.items()):
+        rec.setdefault("launches_by_path", {}).update(mesh.get(key, {}))
         rec["launches"] = sum(rec["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7, *k8.values()]}))
+    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7, k7c,
+                                  *k8.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

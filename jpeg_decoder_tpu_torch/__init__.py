@@ -26,7 +26,11 @@ progressive scan kernels K8a-K8d (``csrc/entropy_prog.cu``: DC first, DC
 refinement, AC first, AC refinement); ``csrc/lut_probe.cu`` holds the
 LUT-probe kernels K3/K4 (``probes/lut_probe.py``).  Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs every kernel's
-plain PyTorch version.  The package imports torch and numpy, never jax or
+plain PyTorch version.  ``decode_batch_sharded`` and the other functions of
+``parallel/sharded.py`` also take a ``torch.distributed`` ``DeviceMesh``
+(``parallel/mesh.py``, ``parallel/multihost.py``: one process per GPU),
+each rank decoding its share with the same kernels and K7c
+(``csrc/emit_carry.cu``) carrying DC across ranks.  The package imports torch and numpy, never jax or
 ``jpeg_decoder_tpu``; importing it builds nothing (the native library and
 the kernels are built at first use under ``.cache/torch/``).
 """

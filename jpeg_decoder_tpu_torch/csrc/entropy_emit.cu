@@ -128,6 +128,7 @@ struct Params {
   int64_t n_img, n_words, n_mcus, rows, trips, n_groups;
   uint64_t comp_code;         // component of block k in bits 4k..4k+3
   int lanes_per_img, groups_per_img, n_tables, n_stack, bpm, max_dc, max_ac;
+  int lane_lo, lane_hi;       // the lanes of each image this launch decodes
   int budget_words;           // staged words per group, a multiple of 4
 };
 
@@ -302,8 +303,9 @@ __device__ __forceinline__ int64_t run_key(const Params& p, int64_t b,
 __device__ __forceinline__ void window(const Params& p, int64_t b, int x,
                                        int64_t& s_lo, int64_t& s_hi) {
   const int64_t row = b * p.lanes_per_img;
-  const int j0 = x * static_cast<int>(blockDim.x);
-  const int j1 = j0 + static_cast<int>(blockDim.x);
+  const int j0 = p.lane_lo + x * static_cast<int>(blockDim.x);
+  int j1 = j0 + static_cast<int>(blockDim.x);
+  j1 = j1 < p.lane_hi ? j1 : p.lane_hi;
   s_lo = static_cast<int64_t>(p.starts[row + j0]) >> 5;
   s_lo = s_lo < 0 ? 0 : (s_lo > p.n_words ? p.n_words : s_lo);
   if (p.nm[row + j0] <= 0) {   // no lane in the group: nothing to stage
@@ -422,8 +424,8 @@ __global__ void __launch_bounds__(kMaxLanes) emit_kernel(Params p) {
     if (t >= p.n_groups) break;
     const int64_t b = t / p.groups_per_img;
     const int x = static_cast<int>(t % p.groups_per_img);
-    const int j = x * static_cast<int>(blockDim.x) + tid;
-    const bool in = j < p.lanes_per_img;
+    const int j = p.lane_lo + x * static_cast<int>(blockDim.x) + tid;
+    const bool in = j < p.lane_hi;
     const int64_t g = b * p.lanes_per_img + j;
 
     // Rows past the image's blocks (all of them for an image without
@@ -588,7 +590,7 @@ __global__ void __launch_bounds__(kMaxLanes) emit_kernel(Params p) {
 
     // Carry: segmented inclusive scan of the lane sums over the group.
     const int64_t key = m_lo >= 0 ? seg_start(p, b, m_lo) : -1;
-    int h = !in || j == 0 || key < 0 || key != run_key(p, b, j - 1);
+    int h = !in || j == p.lane_lo || key < 0 || key != run_key(p, b, j - 1);
     const bool lane_head = h;
     const uint32_t own[4] = {run0, run1, run2, run3};
     uint32_t v[4];
@@ -712,9 +714,10 @@ bool fill(Params& p, const void* pools, const void* starts, const void* nm,
           int64_t n_words, int64_t lanes_per_img, int64_t n_mcus,
           int64_t rows, int64_t trips, int n_tables, int n_stack, int bpm,
           uint64_t comp_code, int precision, int group_lanes,
-          int budget_words) {
+          int budget_words, int64_t lane_lo, int64_t lane_hi) {
   if (n_img < 1 || n_words < 1 || lanes_per_img < 1 ||
-      lanes_per_img > 0x7fffffff || n_mcus < 1 || rows < n_mcus * bpm ||
+      lanes_per_img > 0x7fffffff || lane_lo < 0 || lane_hi <= lane_lo ||
+      lane_hi > lanes_per_img || n_mcus < 1 || rows < n_mcus * bpm ||
       trips < 0 || n_tables < 2 || n_tables > kMaxTables ||
       n_stack < n_tables || bpm < 1 || bpm > 16 ||
       (precision != 8 && precision != 12) || group_lanes < 32 ||
@@ -737,8 +740,10 @@ bool fill(Params& p, const void* pools, const void* starts, const void* nm,
   p.n_img = n_img;
   p.n_words = n_words;
   p.lanes_per_img = static_cast<int>(lanes_per_img);
-  p.groups_per_img =
-      static_cast<int>((lanes_per_img + group_lanes - 1) / group_lanes);
+  p.lane_lo = static_cast<int>(lane_lo);
+  p.lane_hi = static_cast<int>(lane_hi);
+  p.groups_per_img = static_cast<int>(
+      (lane_hi - lane_lo + group_lanes - 1) / group_lanes);
   p.n_groups = n_img * p.groups_per_img;
   p.n_mcus = n_mcus;
   p.rows = rows;
@@ -789,13 +794,17 @@ extern "C" int jd_emit_ctas_per_sm(int group_lanes, int budget_words,
 // n_tables tables, tables 2c (DC) and 2c+1 (AC) of component c, and l1 their
 // first levels (csrc/entropy.cu's jd_build_l1); out (n_img, rows, 64) int32,
 // rows >= n_mcus * bpm, 16-byte aligned, not initialised; err (n_img,)
-// int32 and scratch (8 + 16 * n_img * ceil(lanes_per_img / group_lanes))
-// uint32, both zero-filled; trips: the symbols a lane may decode;
+// int32 and scratch (8 + 16 * n_img * ceil((lane_hi - lane_lo) /
+// group_lanes)) uint32, both zero-filled; trips: the symbols a lane may decode;
 // comp_code: the component of within-MCU block k in bits 4k..4k+3;
 // precision: 8 or 12; group_lanes: lanes per group = threads per CTA (32,
 // 64, 96 or 128); budget_words: words a group stages (a multiple of 4);
 // grid: the persistent CTAs, at most jd_emit_ctas_per_sm's count times the
-// SMs (that call, made first on this device, set the shared memory limit).
+// SMs (that call, made first on this device, set the shared memory limit);
+// [lane_lo, lane_hi): the lanes of every image this launch decodes (all of
+// them, 0 .. lanes_per_img, on one GPU; a rank's share of them on a mesh,
+// whose DC carry then starts from 0 at lane_lo: csrc/emit_carry.cu adds
+// the ranks before it).  The plan is checked against the whole table.
 // After the launch scratch[1..4] hold the groups that read only shared
 // memory, the groups that read stream words from device memory, the probes
 // that read the full tables, and the table sets staged.  All on the current device (the
@@ -812,12 +821,13 @@ extern "C" int jd_emit_lanes(const void* pools, const void* starts,
                              int n_tables, int n_stack, int bpm,
                              uint64_t comp_code, int precision,
                              int group_lanes, int budget_words, int grid,
+                             int64_t lane_lo, int64_t lane_hi,
                              void* stream) {
   Params p;
   if (!fill(p, pools, starts, nm, lane_off, seg_first, lut_base, n_mcus_img,
             ri, luts, l1, out, err, scratch, n_img, n_words, lanes_per_img,
             n_mcus, rows, trips, n_tables, n_stack, bpm, comp_code, precision,
-            group_lanes, budget_words) ||
+            group_lanes, budget_words, lane_lo, lane_hi) ||
       grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ctas = grid < p.n_groups ? grid : p.n_groups;

@@ -367,8 +367,12 @@ class BatchItem:
     header: FrameHeader | None
     # (B, H, W, 3) group output: uint8, or uint16 for 12-bit frames.
     rgb_batch: torch.Tensor | None
-    batch_index: int        # this image's row in rgb_batch
+    batch_index: int        # this image's row in the (whole) batch
     error: Exception | None = None  # per-image failure isolation
+    # On a mesh, the rows [lo, hi) of a 'data'-sharded batch that
+    # rgb_batch holds on this rank (rgb_batch[0] is row lo); None when it
+    # holds the whole batch.
+    rows: tuple[int, int] | None = None
 
     @property
     def ok(self) -> bool:
@@ -377,9 +381,19 @@ class BatchItem:
     @property
     def rgb(self) -> torch.Tensor:
         """This image's (H, W, 3) RGB: its row of ``rgb_batch`` cropped
-        to the image (rows carry geometry-bucket padding)."""
-        row = self.rgb_batch[self.batch_index]
-        return row[: self.header.height, : self.header.width]
+        to the image (rows carry geometry-bucket padding).  Raises
+        IndexError when the row lies on another rank of a mesh
+        (``parallel/multihost.process_allgather`` rebuilds the batch)."""
+        row = self.batch_index
+        if self.rows is not None:
+            lo, hi = self.rows
+            if not lo <= row < hi:
+                raise IndexError(
+                    f"image {self.index} is row {row} of a batch sharded "
+                    f"over 'data'; this rank holds rows {lo}..{hi - 1} "
+                    "(gather the batch with multihost.process_allgather)")
+            row -= lo
+        return self.rgb_batch[row][: self.header.height, : self.header.width]
 
 
 @dataclasses.dataclass

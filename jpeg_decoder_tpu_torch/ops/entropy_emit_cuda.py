@@ -57,6 +57,7 @@ _ARGS = [
     ctypes.c_int, ctypes.c_uint64,      # bpm, comp_code
     ctypes.c_int, ctypes.c_int,         # precision, group_lanes
     ctypes.c_int, ctypes.c_int,         # budget_words, grid
+    ctypes.c_int64, ctypes.c_int64,     # lane_lo, lane_hi
     ctypes.c_void_p,                    # stream
 ]
 LIB = CudaLib("entropy_emit.cu", "jd_entropy_emit", {
@@ -109,24 +110,25 @@ def staging_words(group_lanes: int, n_words: int, lanes_per_img: int) -> int:
 
 
 def schedule(n_img: int, n_words: int, lanes_per_img: int, n_tables: int,
-             n_sms: int) -> tuple[int, int]:
-    """(group_lanes, budget_words) of a launch.
+             n_sms: int, lanes: int | None = None) -> tuple[int, int]:
+    """(group_lanes, budget_words) of a launch of ``lanes`` of each
+    image's ``lanes_per_img`` (all of them by default).
 
     The largest group in :data:`GROUP_LANES` that still gives half the SMs
-    a group (``n_img * ceil(C / L) >= n_sms / 2``; the smallest
+    a group (``n_img * ceil(lanes / L) >= n_sms / 2``; the smallest
     otherwise), whose :func:`staging_words` fit the CTA's shared memory: a
     CTA pays for its table copy once, so a few large groups beat many
     one-warp ones (chip_smoke.py's group-size readings on an H100,
     PERF.md)."""
-    c = max(1, lanes_per_img)
+    c = max(1, lanes_per_img if lanes is None else lanes)
     need = cap = 0
-    for lanes in GROUP_LANES:
-        need = staging_words(lanes, n_words, c)
-        cap = (SMEM_LIMIT - smem_bytes(lanes, 0, n_tables)) // 16 * 4
-        fills = (2 * n_img * -(-c // lanes) >= n_sms
-                 or lanes == GROUP_LANES[-1])
+    for group in GROUP_LANES:
+        need = staging_words(group, n_words, max(1, lanes_per_img))
+        cap = (SMEM_LIMIT - smem_bytes(group, 0, n_tables)) // 16 * 4
+        fills = (2 * n_img * -(-c // group) >= n_sms
+                 or group == GROUP_LANES[-1])
         if fills and need <= cap:
-            return lanes, need
+            return group, need
     return GROUP_LANES[-1], min(need, cap)
 
 
@@ -199,7 +201,8 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
                  l1: torch.Tensor | None = None,
                  lut_base: torch.Tensor | None = None,
                  n_mcus_img: torch.Tensor | None = None,
-                 ri: torch.Tensor | None = None, rows: int | None = None):
+                 ri: torch.Tensor | None = None, rows: int | None = None,
+                 lanes: tuple[int, int] | None = None):
     """Decode B images of C lanes each to scan-order natural-order blocks.
 
     pools: (B, W) uint32, each image's scan bytes as big-endian words (zero
@@ -222,6 +225,11 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
     bucket's); ``ri``, each image's restart interval, whose segments start
     at multiples of it (with ``seg_first`` None).  ``rows`` (at least
     ``n_mcus * bpm``, the default) is the rows of each image's output.
+    ``lanes`` = (lo, hi) decodes only lanes lo .. hi-1 of every image (a
+    rank's share on a mesh; all C by default): the plan is still checked
+    against the whole table, the DC carry starts from 0 at lane lo, and
+    only those lanes' rows (and the zero rows past each image's blocks) are
+    written.
 
     The lanes of an image must tile its MCUs in order, each inside one
     restart segment; a plan that does not is flagged, and so is an
@@ -235,6 +243,10 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
     rows = n_mcus * len(block_comp) if rows is None else rows
     _check(pools, starts, nm_lane, lane_off, seg_first, luts, block_comp,
            n_comps, n_mcus, trips, per_img, rows)
+    lanes = (0, starts.shape[1]) if lanes is None else tuple(lanes)
+    if not 0 <= lanes[0] < lanes[1] <= starts.shape[1]:
+        raise ValueError(f"lanes {lanes} outside the plan's "
+                         f"{starts.shape[1]}")
     entropy_cuda.size_limits(precision)
     dev = pools.device
     kw = dict(block_comp=block_comp, n_comps=n_comps, n_mcus=n_mcus,
@@ -242,7 +254,7 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
     if dev.type == "cpu":
         return decode_lanes_torch(pools, starts, nm_lane, lane_off,
                                   seg_first, luts, **kw, **per_img,
-                                  rows=rows)
+                                  rows=rows, lanes=lanes)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     if l1 is None:
@@ -253,12 +265,12 @@ def decode_lanes(pools: torch.Tensor, starts: torch.Tensor,
         raise TypeError(f"l1 must be ({luts.shape[0]}, "
                         f"{1 << entropy_cuda.L1_BITS}) int16 on {dev}")
     sched = schedule(pools.shape[0], pools.shape[1], starts.shape[1],
-                     2 * n_comps, _n_sms(dev))
+                     2 * n_comps, _n_sms(dev), lanes=lanes[1] - lanes[0])
     out, scratch = buffers(pools, starts, n_mcus, len(block_comp), sched[0],
-                           rows=rows)
+                           rows=rows, lanes=lanes[1] - lanes[0])
     launch((pools, starts, nm_lane, lane_off, seg_first, luts, l1), out,
            scratch, group_lanes=sched[0], budget_words=sched[1], **kw,
-           **per_img)
+           **per_img, lanes=lanes)
     with _count_lock:
         decode_lanes.launches += 1
     n = pools.shape[0]
@@ -282,14 +294,15 @@ def _n_sms(dev: torch.device) -> int:
 
 
 def buffers(pools: torch.Tensor, starts: torch.Tensor, n_mcus: int,
-            bpm: int, group_lanes: int,
-            rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+            bpm: int, group_lanes: int, rows: int | None = None,
+            lanes: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The (B, rows, 64) int32 blocks (``rows`` n_mcus*bpm by default), left
     uninitialised (the kernel writes every element of an unflagged image),
     and the zero-filled int32 scratch: the (B,) error flags, then the
     kernel's ticket, its :data:`STATS` counters and each lane group's carry
-    status."""
+    status (``lanes`` lanes of each image launched, all by default)."""
     b, c = starts.shape
+    c = c if lanes is None else lanes
     dev = pools.device
     n_groups = b * -(-c // group_lanes)
     rows = n_mcus * bpm if rows is None else rows
@@ -329,19 +342,22 @@ def launch(args: tuple, out: torch.Tensor, scratch: torch.Tensor, *,
            trips: int, precision: int, group_lanes: int, budget_words: int,
            lut_base: torch.Tensor | None = None,
            n_mcus_img: torch.Tensor | None = None,
-           ri: torch.Tensor | None = None) -> None:
+           ri: torch.Tensor | None = None,
+           lanes: tuple[int, int] | None = None) -> None:
     """One kernel launch on the current stream: ``args`` the tensors pools,
     starts, nm_lane, lane_off, seg_first (or None), luts and l1, and the
     per-image ``lut_base``, ``n_mcus_img`` and ``ri``, checked by
     :func:`decode_lanes`; ``out`` and ``scratch`` from :func:`buffers` (the
-    scratch zero-filled).  Counts nothing (the phases' own timing and the
-    tests that force a staging budget call it)."""
+    scratch zero-filled, for the same ``lanes``).  Counts nothing (the
+    phases' own timing and the tests that force a staging budget call
+    it)."""
     lib = build()
     pools, starts, seg_first, luts, l1 = (args[0], args[1], args[4], args[5],
                                           args[6])
     comp_code = sum(c << (4 * k) for k, c in enumerate(block_comp))
     dev = pools.device
     n = pools.shape[0]
+    lanes = (0, starts.shape[1]) if lanes is None else lanes
     grid = ctas_per_sm(group_lanes, budget_words, 2 * n_comps,
                        dev) * _n_sms(dev)
     with torch.cuda.device(dev):
@@ -353,7 +369,7 @@ def launch(args: tuple, out: torch.Tensor, scratch: torch.Tensor, *,
             scratch.data_ptr() + 4 * n, n, pools.shape[1], starts.shape[1],
             n_mcus, out.shape[1], trips, 2 * n_comps, luts.shape[0],
             len(block_comp), comp_code, precision, group_lanes,
-            budget_words, grid, stream)
+            budget_words, grid, lanes[0], lanes[1], stream)
     launch_check(rc, "jd_emit_lanes")
 
 
@@ -389,7 +405,8 @@ def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
                        lut_base: torch.Tensor | None = None,
                        n_mcus_img: torch.Tensor | None = None,
                        ri: torch.Tensor | None = None,
-                       rows: int | None = None):
+                       rows: int | None = None,
+                       lanes: tuple[int, int] | None = None):
     """Plain PyTorch version of :func:`decode_lanes`, the same contract.
 
     Lanes in lockstep: each of at most ``trips`` steps decodes one symbol of
@@ -402,6 +419,7 @@ def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
     kernel's sums wrap."""
     dev = pools.device
     b, c = starts.shape
+    lo, hi = (0, c) if lanes is None else lanes
     s = b * c
     bpm = len(block_comp)
     rows = n_mcus * bpm if rows is None else rows
@@ -423,6 +441,7 @@ def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
     nm = nm_lane.reshape(-1).to(torch.int64)
     off = lane_off.reshape(-1).to(torch.int64)
     active = nm > 0
+    mine = (j >= lo) & (j < hi)
 
     def seg(m):            # first MCU of the restart segment of lane MCU m
         if seg_first is not None:
@@ -443,8 +462,8 @@ def decode_lanes_torch(pools: torch.Tensor, starts: torch.Tensor,
     bad_plan = active & (malformed | torch.where(j == 0, m_lo != 0, ~prv_on)
                          | torch.where(nxt_on, end != torch.roll(m_lo, -1),
                                        end != n_lane)
-                         | (seg(last) != seg(m_lo)) | bad_img[img])
-    nm = torch.where(bad_plan, 0, nm)
+                         | (seg(last) != seg(m_lo)) | bad_img[img]) & mine
+    nm = torch.where(bad_plan | ~mine, 0, nm)
     n_blk = nm * bpm
     nb = rows
 

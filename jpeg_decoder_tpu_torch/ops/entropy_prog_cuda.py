@@ -286,6 +286,8 @@ class LaneTable:
     n_units: int
     scan_bits: int
     max_units: int
+    #: The units the lanes tile, (0, n_units) but for a mesh rank's share.
+    units: tuple = (0, 0)
     #: The longest lane's bits, end - base, and the most bits of 32
     #: consecutive lanes (size K8a/K8c/K8d's word staging).
     max_bits: int = 0
@@ -302,7 +304,8 @@ class LaneTable:
 
 def lane_table(base, n_per, first, *, n_units: int, scan_bits: int,
                chained: bool, end=None, eob0=None, pred0=None,
-               device="cpu", words: np.ndarray | None = None):
+               device="cpu", words: np.ndarray | None = None,
+               units: tuple[int, int] | None = None):
     """Check a scan's lanes on the host and copy them to ``device``.
 
     ``base``: (S,) start bits in the scan's data; ``n_per``: units (MCUs of
@@ -312,11 +315,16 @@ def lane_table(base, n_per, first, *, n_units: int, scan_bits: int,
     for the last, the default); ``eob0``, ``pred0``: pending EOB runs and
     (S, nsc) predictors entering each lane (zeros by default).  With
     ``words`` (the scan's word pool) the pool and the tables go in one
-    copy, and the pool comes back first.
+    copy, and the pool comes back first.  ``units`` = (lo, hi): the lanes
+    tile units lo .. hi-1 of the scan's ``n_units`` (a mesh rank's share
+    of a scan's lanes, K8a, K8c and K8d; all of them by default); the last
+    lane of a chained share that is not the scan's last is the next share's
+    first lane with no units, so that the share's last real lane is held to
+    the next one's start state as every inner lane is.
 
     Raises :class:`JPEGError` for a scan of 2^31 bits or more, and
-    ValueError unless the lanes tile units 0 .. n_units-1 in order and
-    their bits lie in order inside the scan."""
+    ValueError unless the lanes tile their units in order and their bits
+    lie in order inside the scan."""
     if scan_bits >= 1 << 31:
         raise JPEGError(f"progressive lanes take scans under 2^31 bits, got "
                         f"{scan_bits}")
@@ -337,11 +345,12 @@ def lane_table(base, n_per, first, *, n_units: int, scan_bits: int,
             pred0.ndim != 2 or pred0.shape[0] != s or not \
             1 <= pred0.shape[1] <= MAX_PLANES:
         raise ValueError(f"lane tables of {s} lanes disagree in shape")
-    if (n_per < 0).any() or first[0] != 0 or (
-            first[1:] != first[:-1] + n_per[:-1]).any() or \
-            first[-1] + n_per[-1] != n_units:
-        raise ValueError(f"lanes do not tile the scan's {n_units} units in "
-                         "order")
+    lo, hi = (0, n_units) if units is None else units
+    if not 0 <= lo <= hi <= n_units or (n_per < 0).any() or \
+            first[0] != lo or (first[1:] != first[:-1] + n_per[:-1]).any() \
+            or first[-1] + n_per[-1] != hi:
+        raise ValueError(f"lanes do not tile units {lo}..{hi - 1} of the "
+                         f"scan's {n_units} in order")
     if (base < 0).any() or (np.diff(base) < 0).any() or \
             (end < base).any() or (end > scan_bits).any() or \
             (eob0 < 0).any():
@@ -354,6 +363,7 @@ def lane_table(base, n_per, first, *, n_units: int, scan_bits: int,
     got = upload(arrays, device)
     lanes = LaneTable(*got[-6:], chained=chained, n_units=n_units,
                       scan_bits=scan_bits, max_units=int(n_per.max()),
+                      units=(lo, hi),
                       max_bits=int((end - base).max()),
                       max_group_bits=int((end[np.minimum(np.arange(0, s, 32)
                                                          + 31, s - 1)]
@@ -519,6 +529,9 @@ def dc_refine(words, lanes: LaneTable, planes: list, geom: Geometry, *,
     ``bit(base + t) << al`` to coefficient 0, one thread per block of the
     scan.  Returns the lane flags."""
     dev = _check(words, lanes, [], planes, geom, al)
+    if lanes.units != (0, lanes.n_units):
+        raise ValueError("K8b takes lanes that tile the whole scan (a mesh "
+                         "rank's share is a scan of its own rows)")
     if dev.type == "cpu":
         return dc_refine_torch(words, lanes, planes, geom, al=al)
     if lanes.n_units * geom.bpm >= 1 << 31:

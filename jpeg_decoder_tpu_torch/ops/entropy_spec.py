@@ -178,8 +178,34 @@ class GroupPlan:
     width: int
 
 
+def bucket_order(hdrs: list, scans: list) -> tuple[list, list, list]:
+    """The table sets of a geometry-bucketed group and the order of its
+    plan's rows: (order, each image's set index, (hdr, scan) of each set).
+    Sets are de-duplicated by their bytes and numbered in order of first
+    appearance; ``order`` sorts the images by set (stable).  Host work of
+    the headers alone (a mesh's ranks use it to find another rank's rows)."""
+    set_of: dict[tuple, int] = {}
+    sets: list = []
+    set_idx = []
+    for hdr, scan in zip(hdrs, scans):
+        key = entropy_cuda.table_key(hdr, scan)
+        if key not in set_of:
+            set_of[key] = len(sets)
+            sets.append((hdr, scan))
+        set_idx.append(set_of[key])
+    return sorted(range(len(hdrs)), key=lambda k: set_idx[k]), set_idx, sets
+
+
+def bucket_dims(hdrs: list) -> tuple[int, int]:
+    """The MCU grid (mcus_x, mcus_y) of the bucket that holds ``hdrs``:
+    each axis's maximum rounded up to an eighth of its power of two."""
+    return (_eighth(max(h.mcus_x for h in hdrs)),
+            _eighth(max(h.mcus_y for h in hdrs)))
+
+
 def plan_bucket_group(hdrs: list, scans: list, *,
-                      threads: int | None = None) -> GroupPlan:
+                      threads: int | None = None,
+                      bucket: tuple[int, int] | None = None) -> GroupPlan:
     """Host plan of a geometry-bucketed group: frames of one sampling,
     colour space and precision whose sizes, restart intervals and Huffman
     tables may differ (the JAX package's ``_hybrid_group_dispatch_dyn``,
@@ -190,16 +216,17 @@ def plan_bucket_group(hdrs: list, scans: list, *,
     bucketed as :func:`_bucket_T` (as JAX does); the lanes the most any
     image has.  Each image's walk runs on a pool of ``threads`` (min(4, B))
     threads; an image whose plan fails keeps no lanes and ``skel_ok``
-    False.  Table sets are de-duplicated by their bytes, numbered in order
-    of first appearance, and each image's ``lut_base`` is its set's first
-    table, set * 2 * n_comps."""
+    False.  Table sets and the rows' order are :func:`bucket_order`'s, and
+    each image's ``lut_base`` is its set's first table, set * 2 * n_comps.
+    ``bucket`` (mcus_x, mcus_y) overrides the bucket (a mesh's 'data' ranks
+    plan their shares of one group at the whole group's
+    :func:`bucket_dims`)."""
     b_n = len(hdrs)
     hdr0 = hdrs[0]
     comp_hv = tuple((c.h, c.v) for c in hdr0.components)
     h_max = max(h for h, _ in comp_hv)
     v_max = max(v for _, v in comp_hv)
-    mxb = _eighth(max(h.mcus_x for h in hdrs))
-    myb = _eighth(max(h.mcus_y for h in hdrs))
+    mxb, myb = bucket_dims(hdrs) if bucket is None else bucket
 
     preps: list = [None] * b_n
 
@@ -218,16 +245,7 @@ def plan_bucket_group(hdrs: list, scans: list, *,
         for k in range(b_n):
             prep_one(k)
 
-    set_of: dict[tuple, int] = {}
-    sets: list = []
-    set_idx = []
-    for hdr, scan in zip(hdrs, scans):
-        key = entropy_cuda.table_key(hdr, scan)
-        if key not in set_of:
-            set_of[key] = len(sets)
-            sets.append((hdr, scan))
-        set_idx.append(set_of[key])
-    order = sorted(range(b_n), key=lambda k: set_idx[k])
+    order, set_idx, sets = bucket_order(hdrs, scans)
 
     live = [p for p in preps if p is not None]
     w = _bucket_T(max((p[0].shape[1] for p in live), default=64))

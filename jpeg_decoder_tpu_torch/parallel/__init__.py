@@ -1,2 +1,3 @@
-"""Device-entropy batch decode (``sharded.py``): one GPU for now; the mesh
-(``torch.distributed``, one process per card) is still to port."""
+"""Device-entropy batch decode (``sharded.py``) on one GPU or over a
+``('data', 'seg')`` mesh of ranks (``mesh.py``, ``multihost.py``: one
+process per GPU, ``torch.distributed``)."""

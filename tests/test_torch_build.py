@@ -12,9 +12,9 @@ import pytest
 
 from jpeg_decoder_tpu_torch import _build
 from jpeg_decoder_tpu_torch.entropy import native
-from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
-                                        entropy_prog_cuda, idct_cuda,
-                                        idct_exact_cuda)
+from jpeg_decoder_tpu_torch.ops import (emit_carry_cuda, entropy_cuda,
+                                        entropy_emit_cuda, entropy_prog_cuda,
+                                        idct_cuda, idct_exact_cuda)
 from jpeg_decoder_tpu_torch.probes import lut_probe
 from jpeg_decoder_tpu_torch.testing import emit_v1
 
@@ -24,7 +24,8 @@ CUDA_LIBS = {"idct": idct_cuda.LIB, "entropy": entropy_cuda.LIB,
              "lut_probe": lut_probe.LIB, "idct_exact": idct_exact_cuda.LIB,
              "entropy_emit": entropy_emit_cuda.LIB,
              "entropy_emit_v1": emit_v1.LIB,
-             "entropy_prog": entropy_prog_cuda.LIB}
+             "entropy_prog": entropy_prog_cuda.LIB,
+             "emit_carry": emit_carry_cuda.LIB}
 
 
 def test_every_cuda_source_has_a_build():

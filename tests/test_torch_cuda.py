@@ -544,6 +544,64 @@ def test_emit_kernel_matches_plain_and_native(cuda_device, ri, precision):
         out[0].cpu().numpy(), native.decode_scan_baseline(hdr, hdr.scans[0]))
 
 
+@pytest.mark.parametrize("ri", [0, 8])
+def test_emit_lane_share_matches_plain(cuda_device, ri):
+    """K7 on a rank's share of the lanes (``lanes=``, the mesh route): the
+    rows those lanes own and the flag equal to decode_lanes_torch's on the
+    same share (whose carry also starts from 0 at the share), and past the
+    share's first restart segment equal to one launch over every lane."""
+    blob = encode(_rgb(90 + ri, 480, 640), quality=90,
+                  restart_interval=ri)[0]
+    hdr, args, kw, l1 = _lane_inputs(blob, cuda_device)
+    bpm = len(kw["block_comp"])
+    c = args[1].shape[1]
+    off = args[3][0].cpu().numpy() // (64 * bpm)
+    whole, _ = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1)
+    for lo, hi in ((0, c // 2), (c // 2, c), (c // 3, 2 * c // 3)):
+        out, err = entropy_emit_cuda.decode_lanes(*args, **kw, l1=l1,
+                                                  lanes=(lo, hi))
+        ref, ref_err = entropy_emit_cuda.decode_lanes_torch(
+            *args, **kw, lanes=(lo, hi))
+        m0, m1 = int(off[lo]), int(off[hi]) if hi < c else kw["n_mcus"]
+        assert int(err[0]) == int(ref_err[0]) == 0
+        assert torch.equal(out[0, m0 * bpm:m1 * bpm],
+                           ref[0, m0 * bpm:m1 * bpm].to(cuda_device))
+        if ri:
+            m = min((m0 // ri + 1) * ri, m1)
+            assert torch.equal(out[0, m * bpm:m1 * bpm],
+                               whole[0, m * bpm:m1 * bpm])
+
+
+@pytest.mark.parametrize("ranks,b,rows,comps", [
+    (2, 24, 48960, (0, 0, 0, 0, 1, 2)), (4, 3, 1000, (0, 1, 2)),
+    (3, 2, 777, (0,))])
+def test_emit_carry_matches_plain(cuda_device, ranks, b, rows, comps):
+    """K7c, the DC carry across ranks, equal to add_carry_torch on random
+    blocks, totals, rank masks and row ranges (int32 wrap included); one
+    launch counted."""
+    from jpeg_decoder_tpu_torch.ops import emit_carry_cuda
+
+    g = torch.Generator().manual_seed(ranks * 100 + b)
+    out = torch.randint(-2**31, 2**31 - 1, (b, rows, 64), dtype=torch.int32,
+                        generator=g)
+    tot = torch.randint(-2**31, 2**31 - 1, (ranks, b, max(comps) + 1),
+                        dtype=torch.int32, generator=g)
+    w = torch.randint(0, 2, (ranks, b), dtype=torch.int32, generator=g)
+    lo = torch.randint(0, rows, (b,), generator=g)
+    hi = torch.minimum(lo + torch.randint(0, rows, (b,), generator=g),
+                       torch.tensor(rows))
+    w, lo, hi = (t.numpy() for t in (w, lo, hi))
+    ref = emit_carry_cuda.add_carry_torch(out.clone(), tot, w, lo, hi,
+                                          block_comp=comps)
+    before = emit_carry_cuda.add_carry.launches
+    got = emit_carry_cuda.add_carry(
+        out.to(cuda_device), tot.to(cuda_device), w, lo, hi,
+        block_comp=comps)
+    torch.cuda.synchronize()
+    assert emit_carry_cuda.add_carry.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
 def test_emit_kernel_flags_as_plain(cuda_device):
     """Corrupt words in one lane, and a plan with a gap between two lanes:
     both flag the image in the kernel and in the plain version."""

@@ -86,7 +86,8 @@ PROGRESSIVE = len(ENCODER_CASES)        # index of the PIL progressive blob
 def test_import_leaves_out_jax():
     """Importing every module of the port (the single-image decoder, the
     kernels' wrappers, the LUT probes, the progressive and arithmetic
-    decoders, the CLI, the writers and the utilities among them; not
+    decoders, the CLI, the writers, the utilities, the collectives, the
+    mesh, multi-host and mesh-worker modules among them; not
     ``__main__``, which runs the CLI) and running the encoder (arithmetic
     paths included) loads neither jax nor the JAX package (fresh
     interpreter)."""
@@ -111,7 +112,9 @@ def test_import_leaves_out_jax():
         "          'utils.profiling', 'io.writers', 'ops.idct_exact_cuda',\n"
         "          'ops.entropy_emit_cuda', 'ops.entropy_spec',\n"
         "          'parallel.sharded', 'ops.entropy_prog',\n"
-        "          'ops.entropy_prog_cuda'):\n"
+        "          'ops.entropy_prog_cuda', 'parallel.mesh',\n"
+        "          'parallel.multihost', 'testing.mesh_worker',\n"
+        "          'ops.emit_carry_cuda', 'collectives'):\n"
         "    assert 'jpeg_decoder_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -200,11 +203,11 @@ def test_port_never_opens_jax_package_paths():
         "        importlib.import_module(m.name)\n"
         "from jpeg_decoder_tpu_torch.entropy import native\n"
         "from jpeg_decoder_tpu_torch.ops import entropy_cuda, idct_cuda,"
-        " idct_exact_cuda, entropy_emit_cuda\n"
+        " idct_exact_cuda, entropy_emit_cuda, emit_carry_cuda\n"
         "from jpeg_decoder_tpu_torch.probes import lut_probe\n"
         "native._load()\n"
         "for lib in (entropy_cuda.LIB, idct_cuda.LIB, idct_exact_cuda.LIB,"
-        " lut_probe.LIB, entropy_emit_cuda.LIB):\n"
+        " lut_probe.LIB, entropy_emit_cuda.LIB, emit_carry_cuda.LIB):\n"
         "    lib.path()\n"
         "bad = [s for s in seen if os.path.abspath(s).startswith(\n"
         f"    {JAX_PKG + os.sep!r})]\n"
