@@ -163,13 +163,16 @@ kernel against its plain version:
 10b''''. mesh phase (``parallel/mesh.py``, ``parallel/multihost.py``, the
    ('data', 'seg') split of ``parallel/sharded.py`` and the progressive
    lanes): first K7c (``csrc/emit_carry.cu``, the DC carry across ranks)
-   against its plain version ``add_carry_torch`` on what the (1, 2) grid
-   gives rank 1 for the batch's 24 DRI-0 1080p images (K7 on each rank's
-   share of the lanes, the ranks' DC totals), rank 1's carried blocks
-   equal to one K7 launch over every lane, timed by CUDA events with its
-   byte bound; then ``testing/mesh_worker.py`` in one process per rank on
-   cuda:0, per grid: (1,1) NCCL, one rank, the batch of 32, the mixed
-   frames and the bucketed group; (1,2) gloo (NCCL refuses two ranks on
+   on what the (1, 2) grid gives rank 1 for the batch's 24 DRI-0 1080p
+   images (K7 on each rank's share of the lanes, the ranks' DC totals,
+   ``sharded.carry_plan``): the carry-and-pack form's send buffer and
+   carried blocks equal to ``carry_pack_torch``, to the first form
+   followed by the gather and the pad, and to one K7 launch over every
+   lane; both forms timed in turns by device time (queued) and by the
+   whole call (CUDA events), beside ``index_select`` of the owned rows,
+   with their byte bounds; then ``testing/mesh_worker.py`` in one process
+   per rank on cuda:0, per grid: (1,1) NCCL, one rank, the batch of 32, the
+   mixed frames and the bucketed group; (1,2) gloo (NCCL refuses two ranks on
    one GPU) the batch of 32, the 1080p (a) and the restart progressive
    fixtures' planes and ``decode_scan_sharded`` of (a); (2,1) gloo the
    batch of 32 and the mixed frames; every item (after
@@ -180,8 +183,8 @@ kernel against its plain version:
    grid the batch of 32's wall time per call (best of 3 after a warm-up,
    the slowest rank of each call) beside the one-GPU route's in the same
    run, and per group of rank 0's checked call its host plan, device
-   decode, collective and pixel times and the bytes its collectives
-   gathered;
+   decode, collective (of it, for K7, the totals and the carry and pack)
+   and pixel times and the bytes its collectives gathered;
 10d. progressive lanes phase (K8a-K8d, ``csrc/entropy_prog.cu``, under
    ``ops/entropy_prog.py``; run after 10b''): every scan of the 512x512
    and 1080p (a) progressive fixtures through each kernel and its plain
@@ -3273,19 +3276,26 @@ def _digest(t) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-def _carry_check(dev, batch: list) -> dict:
-    """K7c (``csrc/emit_carry.cu``) against its plain version on the
-    inputs the (1, 2) grid gives rank 1 for the batch's 24 DRI-0 1080p
-    images: K7 on each rank's share of the lanes, the ranks' DC totals,
-    then the carry on rank 1's blocks; those blocks, carried, equal to one
-    K7 launch over every lane.  Timed by CUDA events (median of 20), with
-    the byte bound."""
+def _carry_check(dev, batch: list) -> tuple[dict, dict]:
+    """K7c (``csrc/emit_carry.cu``) on the inputs the (1, 2) grid gives
+    rank 1 for the batch's 24 DRI-0 1080p images: K7 on each rank's share
+    of the lanes, the ranks' DC totals, rank 1's plan
+    (``sharded.carry_plan``).  The carry-and-pack form's send buffer and
+    carried blocks equal to its plain version ``carry_pack_torch``, to the
+    first form followed by the gather of the owned rows and the pad (the
+    path it replaced), and to one K7 launch over every lane.  Both forms
+    timed in turns two ways: device time (20 launches queued behind a spin
+    kernel, the plan already on the card, median of 3 rounds) and the whole
+    call with its plan (CUDA events around the host call, median of 20 a
+    round); beside them ``torch.index_select`` of the owned rows, the pack
+    alone.  Returns the records of the new form and of the first form."""
     import torch
 
     from jpeg_decoder_tpu_torch.io import parser
     from jpeg_decoder_tpu_torch.ops import emit_carry_cuda as k7c
     from jpeg_decoder_tpu_torch.ops import entropy_cuda, entropy_spec
     from jpeg_decoder_tpu_torch.ops import entropy_emit_cuda as k7
+    from jpeg_decoder_tpu_torch.ops.staging import upload
     from jpeg_decoder_tpu_torch.parallel import sharded
 
     blobs = [b for b in batch if parser.parse(b).width == 1920
@@ -3301,6 +3311,7 @@ def _carry_check(dev, batch: list) -> dict:
     bc = entropy_spec._block_comp(hdr)
     bpm = len(bc)
     n_mcus = hdr.mcus_x * hdr.mcus_y
+    rows = n_mcus * bpm
     kw = dict(block_comp=bc, n_comps=3, n_mcus=n_mcus, trips=t_sym,
               precision=8, l1=l1)
     cuts, m_a, m_b = sharded.share_mcus(nm, lane_off, bpm, 2)
@@ -3308,39 +3319,137 @@ def _carry_check(dev, batch: list) -> dict:
     whole, _ = k7.decode_lanes(*args, **kw)
     tot = torch.stack([sharded.dc_totals(out, m_b[q], bc)
                        for q, (out, _) in enumerate(shares)])
-    w, lo, hi = sharded.carry_plan(m_a, m_b, 1, [0] * len(blobs),
-                                   [n_mcus] * len(blobs), bpm)
+
+    def make_plan():
+        return sharded.carry_plan(m_a, m_b, 1, [0] * len(blobs),
+                                  [n_mcus] * len(blobs), bpm, rows, dev)
+
+    plan = make_plan()
     base = shares[1][0]
-    plain = k7c.add_carry_torch(base.clone(), tot, w, lo, hi, block_comp=bc)
-    got = k7c.add_carry(base.clone(), tot, w, lo, hi, block_comp=bc)
-    rows = [(b, int(m_a[1][b]) * bpm, int(m_b[1][b]) * bpm)
-            for b in range(len(blobs))]
-    err = max(int((got[b, r0:r1] - plain[b, r0:r1]).abs().max())
-              for b, r0, r1 in rows)
-    if err or any(not torch.equal(got[b, r0:r1], whole[b, r0:r1])
-                  for b, r0, r1 in rows):
-        raise AssertionError(f"K7c: {err} off its plain version, or rank "
-                             "1's carried blocks differ from one K7 launch")
+    mine = sharded._ranges(plan.own_lo, plan.own_hi, rows, dev)
+    pad = plan.n_send - plan.n_own
+
+    def first_form_path(out, on_card=None, index=None):
+        # The first form's path: the carry, the index gather, the pad.
+        if on_card is None:
+            k7c.add_carry(out, tot, plan.w, plan.lo, plan.hi, block_comp=bc)
+        else:
+            k7c._launch_v1(out, tot, *on_card, bc, max_span)
+        if index is None:
+            index = sharded._ranges(plan.own_lo, plan.own_hi, rows, dev)
+        t = out.view(-1, 64)[index]
+        return torch.cat([t, t.new_zeros(pad, 64)]) if pad else t
+
+    got_blocks = base.clone()
+    got = k7c.carry_pack(got_blocks, tot, plan, block_comp=bc)
+    plain_blocks = base.clone()
+    plain = k7c.carry_pack_torch(plain_blocks, tot, plan, block_comp=bc)
+    v1_blocks = base.clone()
+    v1 = first_form_path(v1_blocks)
+    ref = torch.cat([whole[b, lo:hi] for b, (lo, hi) in
+                     enumerate(zip(plan.own_lo, plan.own_hi))])
+    ref = torch.cat([ref, ref.new_zeros(pad, 64)])
+    err = int((got - plain).abs().max())
+    at = mine.view(-1)
+    if err or not (torch.equal(got, plain) and torch.equal(got, v1)
+                   and torch.equal(got, ref)
+                   and torch.equal(got_blocks, plain_blocks)
+                   and torch.equal(got_blocks.view(-1, 64)[at],
+                                   whole.view(-1, 64)[at])):
+        raise AssertionError(f"K7c: the send buffer {err} off its plain "
+                             "version, or it or the carried blocks differ "
+                             "from the first form's path or one K7 launch")
+    v1_err = int((v1_blocks - plain_blocks).abs().max())
+    if v1_err:
+        raise AssertionError(f"K7c first form: {v1_err} off the plain "
+                             "version")
+
+    max_span = int(np.maximum(plan.hi - plan.lo, 0).max())
+    on_card = upload([plan.w.astype(np.int32), plan.lo, plan.hi], dev)
     work = base.clone()
-    ms = statistics.median(_cuda_ms(lambda: k7c.add_carry(
-        work, tot, w, lo, hi, block_comp=bc), 20))
-    ms_plain = statistics.median(_cuda_ms(lambda: k7c.add_carry_torch(
-        work, tot, w, lo, hi, block_comp=bc), 20))
-    n_rows = int((hi - lo).sum())
-    nbytes = 8 * n_rows + 4 * (tot.numel() + w.size) + 16 * len(blobs)
-    rec = {"name": "K7c emit carry across ranks", "route": "cuda",
+    flat = work.view(-1, 64)
+    device = {  # device time, the plan already on the card
+        "new": lambda: k7c.carry_pack(work, tot, plan, block_comp=bc),
+        "v1 kernel": lambda: k7c._launch_v1(work, tot, *on_card, bc,
+                                            max_span),
+        "v1 path": lambda: first_form_path(work, on_card, mine),
+        "index_select": lambda: flat.index_select(0, mine)}
+    call = {  # CUDA events around the host call
+        "new": lambda: k7c.carry_pack(work, tot, plan, block_comp=bc),
+        "new with plan": lambda: k7c.carry_pack(work, tot, make_plan(),
+                                                block_comp=bc),
+        "v1 kernel": lambda: k7c.add_carry(work, tot, plan.w, plan.lo,
+                                           plan.hi, block_comp=bc),
+        "v1 path": lambda: first_form_path(work)}
+    dev_ms = {k: [] for k in device}
+    call_ms = {k: [] for k in call}
+    for turn in range(4):
+        order = list(device) if turn % 2 == 0 else list(device)[::-1]
+        for k in order:
+            dev_ms[k].append(_queued_ms(device[k], 20))
+        order = list(call) if turn % 2 == 0 else list(call)[::-1]
+        for k in order:
+            call_ms[k].append(statistics.median(_cuda_ms(call[k], 20)))
+    dev_med = {k: statistics.median(v) for k, v in dev_ms.items()}
+    call_med = {k: statistics.median(v) for k, v in call_ms.items()}
+    ms_plain = statistics.median(_cuda_ms(lambda: k7c.carry_pack_torch(
+        work, tot, plan, block_comp=bc), 10))
+    ms_plain_v1 = statistics.median(_cuda_ms(lambda: k7c.add_carry_torch(
+        work, tot, plan.w, plan.lo, plan.hi, block_comp=bc), 10))
+
+    n_carried = int(np.maximum(plan.hi - plan.lo, 0).sum())
+    small = 4 * tot.numel()
+    nbytes = (256 * plan.n_own + 256 * plan.n_send + 4 * n_carried + small
+              + plan.table.nbytes)
+    nbytes_v1 = 8 * n_carried + small + 4 * plan.w.size + 16 * len(blobs)
+    rec = {"name": "K7c emit carry and pack across ranks", "route": "cuda",
            "source": "jpeg_decoder_tpu_torch/csrc/emit_carry.cu",
            "replaces": "jpeg_decoder_tpu/parallel/sharded.py:630",
-           "max_abs_err": err, "ms": ms, "plain_ms": ms_plain,
+           "max_abs_err": err, "ms": dev_med["new"], "plain_ms": ms_plain,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "library_ms": None, "rows": n_rows, "images": len(blobs)}
+           "library_ms": dev_med["index_select"],
+           "call_ms": call_med["new"],
+           "call_with_plan_ms": call_med["new with plan"],
+           "first_form_path_device_ms": dev_med["v1 path"],
+           "first_form_path_call_ms": call_med["v1 path"],
+           "turns": {"device": dev_ms, "call": call_ms},
+           "rows_owned": plan.n_own, "rows_sent": plan.n_send,
+           "rows_carried": n_carried, "images": len(blobs),
+           "plan_in_parameters": plan.on_card is None}
+    rec_v1 = {"name": "K7c v1 emit carry (first form, baseline)",
+              "route": "cuda",
+              "source": "jpeg_decoder_tpu_torch/csrc/emit_carry.cu",
+              "replaces": "jpeg_decoder_tpu/parallel/sharded.py:630",
+              "max_abs_err": v1_err, "ms": dev_med["v1 kernel"],
+              "plain_ms": ms_plain_v1,
+              "bound_ms": nbytes_v1 / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "library_ms": None,
+              "call_ms": call_med["v1 kernel"]}
     print(f"K7c (the (1,2) grid's rank 1, {len(blobs)} 1080p DRI-0 images, "
-          f"{n_rows} block rows carried): equal to add_carry_torch and, "
-          f"carried, rank 1's blocks equal to one K7 launch over every "
-          f"lane; {ms:.4f} ms with the plan's copy to the card (plain "
-          f"{ms_plain:.4f}, bound "
-          f"{rec['bound_ms'] * 1e3:.3f} us, bytes)")
-    return rec
+          f"{plan.n_own} block rows owned, {n_carried} carried, send buffer "
+          f"{plan.n_send} rows, plan in the launch's parameters: "
+          f"{plan.on_card is None}): the send buffer and the carried blocks "
+          "equal to carry_pack_torch, to the first form + gather + pad and "
+          "to one K7 launch over every lane")
+    def turns(by):
+        return {k: [round(x, 4) for x in v] for k, v in by.items()}
+
+    print(f"K7c device ms (queued, 20 launches, median of 4 turns; turns "
+          f"{turns(dev_ms)}): "
+          f"carry and pack {dev_med['new']:.4f}, first form kernel "
+          f"{dev_med['v1 kernel']:.4f}, first form + gather + pad "
+          f"{dev_med['v1 path']:.4f}, index_select of the owned rows (the "
+          f"pack alone) {dev_med['index_select']:.4f}; bound "
+          f"{rec['bound_ms'] * 1e3:.3f} us (first form "
+          f"{rec_v1['bound_ms'] * 1e3:.3f} us), bytes")
+    print(f"K7c call ms (CUDA events, median of 20, median of 4 turns; "
+          f"turns {turns(call_ms)}): carry and pack {call_med['new']:.4f} "
+          f"({call_med['new with plan']:.4f} with carry_plan), first form "
+          f"add_carry with its plan copy "
+          f"{call_med['v1 kernel']:.4f}, first form + index + gather + pad "
+          f"{call_med['v1 path']:.4f}; plain carry_pack_torch "
+          f"{ms_plain:.4f}, add_carry_torch {ms_plain_v1:.4f}")
+    return rec, rec_v1
 
 
 def _mesh_refs(dev, sets: dict) -> dict:
@@ -3514,7 +3623,8 @@ def _mesh_lines(grid, backend, facts, calls, one_gpu_s, run_s) -> None:
     split = "; ".join(
         f"{g['route']} x{g['images']}: host plan {g['host_s'] * 1e3:.2f} ms"
         f", device decode {ms(g.get('entropy_ms'))}, collective "
-        f"{ms(g.get('exchange_ms'))} (host {g['exchange_s'] * 1e3:.2f} ms)"
+        f"{ms(g.get('exchange_ms'))} (of it totals + carry and pack "
+        f"{ms(g.get('pack_ms'))}; host {g['exchange_s'] * 1e3:.2f} ms)"
         f", pixels {ms(g.get('pixels_ms'))}, exchanged "
         f"{g['exchange_bytes'] / 1e6:.2f} MB" for g in groups)
     print(f"mesh {grid} {backend} ({len(facts)} rank(s) on cuda:0): every "
@@ -3698,7 +3808,7 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
                                           big_blob)
     sharded = k7["sharded_bucket"].pop("launches")
     torch.cuda.empty_cache()
-    k7c = _carry_check(dev, batch)
+    k7c, k7c_v1 = _carry_check(dev, batch)
     mesh = _mesh_phase(dev, batch, mixed_batch, dyn, images["a"][0])
     pool.shutdown()
     del big_blob
@@ -3755,10 +3865,10 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
             "decode_batch_sharded mixed": sharded["mixed"][key]}
     # The mesh route's launches, each grid's ranks summed.
     for key, rec in (("K1", k1), ("K2", k2), ("K5", k5), ("K7", k7),
-                     ("K7c", k7c), *k8.items()):
+                     ("K7c", k7c), ("K7c v1", k7c_v1), *k8.items()):
         rec.setdefault("launches_by_path", {}).update(mesh.get(key, {}))
         rec["launches"] = sum(rec["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7, k7c,
+    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7, k7c, k7c_v1,
                                   *k8.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,9 @@ arguments and launches the same kernels as on one GPU, on its share:
   to a multiple of ``seg`` as JAX pads them; the ranks of a ``seg`` line
   all-gather the blocks each decoded (its own row ranges only: K7 leaves
   the rows of other ranks' lanes unwritten) and K7's DC carry crosses the
-  ranks through ``ops/emit_carry_cuda.add_carry``; the pixels of a row run
-  on every ``seg`` rank of its ``data`` coordinate, as JAX replicates them
-  over ``seg``;
+  ranks through ``ops/emit_carry_cuda.carry_pack``, which also packs the
+  rows a rank sends; the pixels of a row run on every ``seg`` rank of its
+  ``data`` coordinate, as JAX replicates them over ``seg``;
 * a progressive frame's lanes split over the whole mesh
   (``ops/entropy_prog.py``), its RGB replicated on every rank, as is the
   host fallback's.
@@ -296,24 +296,32 @@ def share_mcus(nm_lane, lane_off, bpm: int, n_seg: int):
     cuts = [mesh_mod.split(c, n_seg, q) for q in range(n_seg)]
     m_a = np.zeros((n_seg, b), np.int64)
     m_b = np.zeros((n_seg, b), np.int64)
+    big = np.iinfo(np.int64).max
     for q, (j0, j1) in enumerate(cuts):
         mine = on[:, j0:j1]
         has = mine.any(1)
-        lo = np.where(mine, m_lo[:, j0:j1], np.iinfo(np.int64).max).min(1)
-        hi = np.where(mine, m_lo[:, j0:j1] + nm_lane[:, j0:j1], 0).max(1)
+        # initial=: a rank past the last lane (C < n_seg) has no columns.
+        lo = np.where(mine, m_lo[:, j0:j1], big).min(1, initial=big)
+        hi = np.where(mine, m_lo[:, j0:j1] + nm_lane[:, j0:j1], 0).max(
+            1, initial=0)
         m_a[q] = np.where(has, lo, 0)
         m_b[q] = np.where(has, hi, 0)
     return cuts, m_a, m_b
 
 
-def carry_plan(m_a, m_b, s: int, intervals, img_mcus, bpm: int):
-    """The cross-rank DC carry of rank ``s`` (``emit_carry_cuda.
-    add_carry``'s ``w``, ``lo``, ``hi``): w[q, b] = 1 for the ranks q < s
-    whose last MCU of image b lies in the restart segment of rank s's first
-    MCU; [lo, hi) the rows of rank s from its first MCU to the end of that
-    segment or of its share (empty where no rank carries in).
-    ``intervals``/``img_mcus`` (B,): each image's restart interval and
-    MCUs."""
+def carry_plan(m_a, m_b, s: int, intervals, img_mcus, bpm: int, rows: int,
+               device=None) -> emit_carry_cuda.PackPlan:
+    """Rank ``s``'s carry and pack (``emit_carry_cuda.carry_pack``'s plan),
+    reckoned on the host from ``m_a``/``m_b`` (:func:`share_mcus`): w[q, b]
+    = 1 for the ranks q < s whose last MCU of image b lies in the restart
+    segment of rank s's first MCU; the carried rows [lo, hi) of rank s,
+    from its first MCU to the end of that segment or of its share (empty
+    where no rank carries in); its owned rows [m_a * bpm, m_b * bpm) of
+    each image, their offsets in the send buffer, which holds the most rows
+    any rank owns.  ``intervals``/``img_mcus`` (B,): each image's restart
+    interval and MCUs; ``rows``: the blocks' rows an image.  On a CUDA
+    ``device`` a plan too large for the kernel's parameters is copied to
+    the card here (``emit_carry_cuda.pack_plan``)."""
     ri = np.asarray(intervals, np.int64)
     rs = np.maximum(ri, 1)
 
@@ -328,7 +336,9 @@ def carry_plan(m_a, m_b, s: int, intervals, img_mcus, bpm: int):
     seg_end = np.where(ri > 0, head + rs, np.asarray(img_mcus, np.int64))
     lo = m_a[s] * bpm
     hi = np.where(w.any(0), np.minimum(seg_end, m_b[s]) * bpm, lo)
-    return w, lo, hi
+    return emit_carry_cuda.pack_plan(
+        w, lo, hi, m_a[s] * bpm, m_b[s] * bpm, rows=rows, bpm=bpm,
+        n_send=max(int(((m_b - m_a) * bpm).sum(1).max()), 1), device=device)
 
 
 def _k7_shared(args, rec, place: _Place, nm_lane, lane_off, intervals,
@@ -339,19 +349,23 @@ def _k7_shared(args, rec, place: _Place, nm_lane, lane_off, intervals,
 
     ``nm_lane``/``lane_off`` (B, C) are the host plan, ``intervals`` (B,)
     the images' restart intervals and ``img_mcus`` (B,) their MCUs.  Each
-    rank owns the MCUs its lanes tile (:func:`share_mcus`).  The ranks
+    rank owns the MCUs its lanes tile (:func:`share_mcus`).  The carry's
+    plan (:func:`carry_plan`) is made before K7's launch.  The ranks
     all-gather, per (image, component), the DC total of the segment open at
-    their last MCU; :func:`emit_carry_cuda.add_carry` adds the totals of the
-    ranks before this one in its first segment to that segment's blocks
-    (:func:`carry_plan`); then the ranks all-gather the row ranges they
-    own, so every rank holds every image's blocks.  Returns (blocks, flags)
-    as ``decode_lanes``, the flags of this rank's lanes only (the caller
-    ORs them over 'seg')."""
+    their last MCU; :func:`emit_carry_cuda.carry_pack` adds the totals of
+    the ranks before this one in its first segment to that segment's blocks
+    and packs the rows this rank owns into the send buffer, which the ranks
+    all-gather as it is; each rank then writes the others' rows into its
+    blocks, so every rank holds every image's blocks.  Returns (blocks,
+    flags) as ``decode_lanes``, the flags of this rank's lanes only (the
+    caller ORs them over 'seg')."""
     bpm = len(block_comp)
     n_comps = max(block_comp) + 1
     b = nm_lane.shape[0]
     dev = args[0].device
     cuts, m_a, m_b = share_mcus(nm_lane, lane_off, bpm, place.n_seg)
+    plan = carry_plan(m_a, m_b, place.s, intervals, img_mcus, bpm, rows,
+                      dev)
     j0, j1 = cuts[place.s]
     if j1 > j0:
         blocks, err = _k7(args, rec, block_comp=block_comp, rows=rows,
@@ -366,18 +380,16 @@ def _k7_shared(args, rec, place: _Place, nm_lane, lane_off, intervals,
     tot = dc_totals(blocks, m_b[place.s], block_comp)
     tot = torch.stack(_exchange(rec, lambda: mesh_mod.all_gather(
         tot, place.mesh, "seg"), 4 * b * n_comps * place.n_seg))
-    emit_carry_cuda.add_carry(
-        blocks, tot, *carry_plan(m_a, m_b, place.s, intervals, img_mcus, bpm),
-        block_comp=block_comp)
+    send = emit_carry_cuda.carry_pack(blocks, tot, plan,
+                                      block_comp=block_comp)
+    _mark(rec, "pack")
 
     # The blocks: every rank's own row ranges.
     counts = [int(((m_b[q] - m_a[q]) * bpm).sum())
               for q in range(place.n_seg)]
-    flat = blocks.view(-1, 64)
-    mine = _ranges(m_a[place.s] * bpm, m_b[place.s] * bpm, rows, dev)
     parts = _exchange(rec, lambda: mesh_mod.all_gather_rows(
-        flat[mine], place.mesh, "seg", counts),
-        256 * max(counts + [1]) * place.n_seg)
+        send, place.mesh, "seg", counts), 256 * plan.n_send * place.n_seg)
+    flat = blocks.view(-1, 64)
     for q, part in enumerate(parts):
         if q != place.s and counts[q]:
             flat[_ranges(m_a[q] * bpm, m_b[q] * bpm, rows, dev)] = part
@@ -749,7 +761,9 @@ def decode_batch_sharded(blobs, device="cuda", *, idct="kron",
     ``prepare_scan``) and, on the card, its device milliseconds from the
     end of the host plan (CUDA events on its stream): ``entropy_ms`` (copy,
     tables and the entropy kernel), on a mesh ``exchange_ms`` (the carry
-    and the all-gathers of the blocks), ``pixels_ms`` (plane gather and
+    and the all-gathers of the blocks) and, for K7, ``pack_ms`` (its first
+    part: the DC totals' all-gather and K7c's carry and pack, before the
+    blocks' collective), ``pixels_ms`` (plane gather and
     the pixel pipeline) and their sum ``device_ms``; ``exchange_s`` and
     ``exchange_bytes``, the host seconds of its collectives and the bytes
     they gathered here; and K7's counters.
@@ -966,6 +980,8 @@ def decode_batch_sharded(blobs, device="cuda", *, idct="kron",
             if "exchange" in marks and "entropy" in marks:
                 rec["exchange_ms"] = marks["entropy"].elapsed_time(
                     marks["exchange"])
+            if "pack" in marks and "entropy" in marks:
+                rec["pack_ms"] = marks["entropy"].elapsed_time(marks["pack"])
             rec["pixels_ms"] = stage.elapsed_time(marks["pixels"])
             rec["device_ms"] = marks["plan"].elapsed_time(marks["pixels"])
         if rec.get("k7_stats") is not None:

@@ -78,7 +78,7 @@ KERNELS = {"K1": idct_cuda.fused_dequant_idct,
            "K2": entropy_cuda.decode_segments,
            "K5": idct_exact_cuda.dequant_idct_exact,
            "K7": entropy_emit_cuda.decode_lanes,
-           "K7c": emit_carry_cuda.add_carry,
+           "K7c": emit_carry_cuda.carry_pack,
            **entropy_prog_cuda.KERNELS}
 
 

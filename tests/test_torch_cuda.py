@@ -17,9 +17,10 @@ from jpeg_decoder_tpu_torch import JPEGError, decode
 from jpeg_decoder_tpu_torch.entropy import python_ref
 from jpeg_decoder_tpu_torch.io import parser
 from jpeg_decoder_tpu_torch.models import batch as tbatch
-from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
-                                        entropy_spec, idct_cuda,
-                                        idct_exact_cuda, pixel, scan_prep)
+from jpeg_decoder_tpu_torch.ops import (emit_carry_cuda, entropy_cuda,
+                                        entropy_emit_cuda, entropy_spec,
+                                        idct_cuda, idct_exact_cuda, pixel,
+                                        scan_prep)
 from jpeg_decoder_tpu_torch.probes import lut_probe
 from jpeg_decoder_tpu_torch.testing.encoder import encode
 
@@ -600,6 +601,79 @@ def test_emit_carry_matches_plain(cuda_device, ranks, b, rows, comps):
     torch.cuda.synchronize()
     assert emit_carry_cuda.add_carry.launches == before + 1
     assert torch.equal(got.cpu(), ref)
+
+
+def _pack_case(seed, ranks, b, rows, comps, dev):
+    """Random blocks (full int32 range), totals and a carry_pack plan:
+    owned MCU ranges (some empty), carried rows from each image's first
+    owned row, random rank masks, a random pad."""
+    bpm = len(comps)
+    rng = np.random.default_rng(seed)
+    ends = np.sort(rng.integers(0, rows // bpm + 1, (b, 2)), axis=1) * bpm
+    own_lo, own_hi = ends[:, 0], ends[:, 1]
+    hi = own_lo + ((own_hi - own_lo) * rng.random(b)).astype(np.int64)
+    span = int((own_hi - own_lo).sum())
+    plan = emit_carry_cuda.pack_plan(
+        rng.integers(0, 2, (ranks, b)), own_lo, hi, own_lo, own_hi,
+        rows=rows, bpm=bpm, n_send=span + int(rng.integers(0, 40)) or 1,
+        device=dev)
+    blocks = torch.from_numpy(rng.integers(-2**31, 2**31, (b, rows, 64),
+                                           dtype=np.int64).astype(np.int32))
+    tot = torch.from_numpy(rng.integers(-2**31, 2**31,
+                                        (ranks, b, max(comps) + 1),
+                                        dtype=np.int64).astype(np.int32))
+    return plan, blocks, tot
+
+
+@pytest.mark.parametrize("ranks,b,rows,comps", [
+    (2, 24, 48960, (0, 0, 0, 0, 1, 2)), (4, 3, 1000, (0, 1, 2)),
+    (3, 2, 777, (0,)), (2, 300, 60, (0, 1, 2)), (64, 5, 96, (0, 0, 1, 2))])
+def test_carry_pack_matches_plain(cuda_device, ranks, b, rows, comps):
+    """K7c's carry-and-pack form equal to carry_pack_torch, and to the
+    first form followed by the gather and the pad, on random plans (the
+    same shapes as test_emit_carry_matches_plain, a plan of 300 images
+    read from the card, 64 ranks); send buffer and the blocks' carried DC
+    bit for bit; one launch counted."""
+    plan, blocks, tot = _pack_case(ranks * 100 + b, ranks, b, rows, comps,
+                                   cuda_device)
+    assert (plan.on_card is not None) == (b > emit_carry_cuda.INLINE_IMAGES)
+    ref_blocks = blocks.clone()
+    ref = emit_carry_cuda.carry_pack_torch(ref_blocks, tot, plan,
+                                           block_comp=comps)
+    got_blocks, tot_d = blocks.to(cuda_device), tot.to(cuda_device)
+    before = emit_carry_cuda.carry_pack.launches
+    got = emit_carry_cuda.carry_pack(got_blocks, tot_d, plan,
+                                     block_comp=comps)
+    torch.cuda.synchronize()
+    assert emit_carry_cuda.carry_pack.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got_blocks.cpu(), ref_blocks)
+    v1 = emit_carry_cuda.add_carry(blocks.to(cuda_device), tot_d, plan.w,
+                                   plan.lo, plan.hi, block_comp=comps)
+    mine = v1.view(-1, 64)[torch.from_numpy(
+        emit_carry_cuda.owned_rows(plan)).to(cuda_device)]
+    assert torch.equal(got[:plan.n_own], mine)
+    assert not got[plan.n_own:].any()
+
+
+def test_carry_pack_refuses(cuda_device):
+    """A blocks tensor off a 16-byte boundary, and a plan of more images
+    than the launch's parameters hold that was not put on the card: both
+    refused before any launch."""
+    plan, blocks, tot = _pack_case(1, 2, 4, 30, (0, 1, 2), cuda_device)
+    raw = torch.zeros(blocks.numel() + 4, dtype=torch.int32,
+                      device=cuda_device)
+    shifted = raw[1:1 + blocks.numel()].view(blocks.shape)
+    before = emit_carry_cuda.carry_pack.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        emit_carry_cuda.carry_pack(shifted, tot.to(cuda_device), plan,
+                                   block_comp=(0, 1, 2))
+    big, blocks, tot = _pack_case(2, 2, 130, 30, (0, 1, 2), None)
+    with pytest.raises(ValueError, match="on cuda"):
+        emit_carry_cuda.carry_pack(blocks.to(cuda_device),
+                                   tot.to(cuda_device), big,
+                                   block_comp=(0, 1, 2))
+    assert emit_carry_cuda.carry_pack.launches == before
 
 
 def test_emit_kernel_flags_as_plain(cuda_device):
