@@ -25,9 +25,11 @@ kernel against its plain version:
    with GB/s and the share of HBM bandwidth; then once more on JPEG
    coefficients (the native decoder's blocks of image (d) below);
 4. batch path (``BatchDecoder``: native entropy to the nibble wire, pow-2
-   geometry groups, unpack, plane gather, K1, fancy upsample, YCbCr->RGB) on
+   geometry groups, K6a's unpack, K6b's pass from blocks to RGB: closed-form
+   plane geometry, K1's arithmetic, fancy upsample, YCbCr->RGB) on
    32 seeded 1920x1080-class images, with every kernel count set to 0 just
-   before and read just after; checks every item, K1's launches, one image
+   before and read just after; checks every item, K6a and K6b once per
+   group and K1 never, one image
    of each group against the port's CPU decode (plain twins: max |diff| <=
    2, since a +-1 IDCT rounding difference can reach the colour transform
    x1.402, and >= 99.99% of samples equal) and PSNR >= 30 dB against the
@@ -35,20 +37,22 @@ kernel against its plain version:
    per-stage times;
 5. wires: the same 32 images through ``BatchDecoder(wire=w)`` for each of
    ``nibble``, ``sparse``, ``packed`` and ``slots``: every wire's unpacked
-   blocks and RGB must equal the nibble wire's bit for bit, and K1 must
-   launch 9 times (3 groups x 3 components); per wire the MB copied, host
+   blocks and RGB must equal the nibble wire's bit for bit, K6b must
+   launch 3 times (one a group), K6a 3 times on the nibble wire (0 on the
+   others), K1 never; per wire the MB copied, host
    entropy, group+pad, copy, the device unpack (profiler), the pixel stage
    (CUDA events) and end-to-end MP/s;
 6. the batch under ``entropy="pallas"``: K2 once per image (32), RGB
    bit-identical to ``entropy="native"``'s; end-to-end MP/s;
 6b. the batch under ``entropy="hybrid"`` (K7, ``csrc/entropy_emit.cu``, on
    the 28 DRI-0 images, K2 on the 4 DRI-8 ones) and ``entropy="jax"`` (K2 on
-   all 32), ``idct="pallas"``: RGB bit-identical to ``entropy="native"``'s;
+   all 32), ``idct="pallas"``: RGB bit-identical to ``entropy="native"``'s,
+   K6b 3 times and K1 never;
    each distinct DRI-0 image's K7 launch staging every lane group;
    launches, host stage ms and end-to-end MP/s;
 7. waves: 192 images (the batch six times), ``decode(blobs, wave=64)``
    against three back-to-back ``decode(blobs[i:i+64])`` calls, in turns:
-   bit-identical and in input order; both MP/s, host entropy and device
+   bit-identical and in input order, K6a and K6b 9 times, K1 never; both MP/s, host entropy and device
    worker ms, the busy share under the profiler, peak device memory;
 8. mixed frames: 32 frames of 1920x1080 (8 baseline DRI 0, 8 progressive
    Huffman from the committed PIL fixtures, 4 SOF9 and 4 SOF10 arithmetic,
@@ -61,8 +65,9 @@ kernel against its plain version:
    Pillow's cmyk2rgb of the stored planes); host ms per frame kind; then on
    a 512x512 frame of each kind the native planes must equal the
    pure-Python oracle's;
-8b. the 32-image batch through ``BatchDecoder(idct="exact")``: K5 (the
-   strict AAN dequant+IDCT, ``csrc/idct_exact.cu``) 9 times and K1 never,
+8b. the 32-image batch through ``BatchDecoder(idct="exact")``: K6b (with
+   K5's strict AAN dequant+IDCT, ``csrc/idct_common.cuh``) 3 times, K5 and
+   K1 never,
    one image of each group equal to the port's CPU ``decode(idct="exact",
    upsample="fancy")`` byte for byte; MP/s beside the nibble wire's
    ``idct="pallas"`` figure;
@@ -143,8 +148,13 @@ kernel against its plain version:
    ``"exact"`` and ``"kron"``, each RGB equal to the nibble wire's
    ``BatchDecoder`` under the same IDCT, K7 twice (the 24 DRI-0 1080p
    images, the 4 1000x750 ones: two uniform groups) and K2 once (the 4
-   DRI-8 4:4:4 images' 16,200 segments), K1 or K5 9 times, no row patched
-   by the per-image fallback, no K7 lane group over budget nor LUT miss;
+   DRI-8 4:4:4 images' 16,200 segments), K6b 3 times (the header's
+   geometry) and K1 and K5 never, no row patched by the per-image
+   fallback, no K7 lane group over budget nor LUT miss; the ``exact``
+   probe: the 24-image group's enqueue and pixel ms and the caching
+   allocator's cudaMalloc/cudaFree calls and retries per call, three calls
+   after a warm-up, with the parent's pixel route swapped in and with K6b,
+   in turns;
    end-to-end MP/s (best of 3) in turns with the nibble wire and
    ``BatchDecoder(entropy="hybrid")``, parse, host plan and device ms per
    group, ``prepare_scan`` of (b); a bucketed group of six web-size frames
@@ -179,12 +189,30 @@ kernel against its plain version:
    ``allgather_items``), plane and coefficient of every rank equal by
    SHA-256 to the one-GPU route's, no item in error, each rank's counts
    (zeroed just before its checked call) showing K1, K2, K7 (and K7c on
-   the (1,2) grid's rank 1) and K8a-K8d where its route reaches them; per
+   the (1,2) grid's rank 1), K6b and K8a-K8d where its route reaches them;
+   per
    grid the batch of 32's wall time per call (best of 3 after a warm-up,
    the slowest rank of each call) beside the one-GPU route's in the same
    run, and per group of rank 0's checked call its host plan, device
    decode, collective (of it, for K7, the totals and the carry and pack)
    and pixel times and the bytes its collectives gathered;
+10e. K6 phase (``csrc/pixels.cu``; run after 10b'''): the groups of the
+   batch of 32, the mixed frames, the bucketed group and the 8192x6144
+   frame as ``BatchDecoder`` pads them: K6a equal to the plain
+   ``unpack_nibble`` on every element, K6b equal over the whole RGB tensor,
+   padding included, to the route it replaces on the card
+   (``rgb_from_blocks_torch``: the plane gather, K1 or K5 and torch ops)
+   under ``pallas`` (fancy and nn) and ``exact``, and on the batch of 32
+   within the +-1 IDCT bound under ``kron`` and ``fast`` (the torch product
+   on the scan-order blocks is a GEMM of another shape than the route's,
+   so its sums may round otherwise; the bytes that differ are printed);
+   on the batch of 32 each kernel's device
+   time (5 calls a group queued behind a spin kernel, CUDA events, groups
+   summed, median of 2 turns), every function's by CUDA events around one
+   call (the plain routes' host work stalls the card, so they cannot be
+   queued), K6b at six output tiles, the byte bounds (and the floor on the
+   true blocks and RGB), and the pixel stage (unpack and pixels of every
+   group) before and after by CUDA events around it, in turns;
 10d. progressive lanes phase (K8a-K8d, ``csrc/entropy_prog.cu``, under
    ``ops/entropy_prog.py``; run after 10b''): every scan of the 512x512
    and 1080p (a) progressive fixtures through each kernel and its plain
@@ -231,7 +259,8 @@ kernel against its plain version:
    launch (50 queued behind a spin, CUDA events) beside ``torch.take``'s
    and an empty kernel's (the same way), and the wrappers
    timed beside their twins and ``torch.take`` by CUDA events;
-12. a torch.profiler breakdown of the batch path's device pixel stage, one
+12. a torch.profiler breakdown of the batch path's device pixel stage (K6a
+   and K6b), one
    whole batch decode and one ``decode()`` of each image, and host entropy
    against the host thread pool's size;
 13. prints the kernel table as one JSON line, then as the last line
@@ -414,34 +443,31 @@ def _close_to_cpu(what: str, gpu, cpu) -> None:
                              "samples differ")
 
 
-def _zero_counts() -> None:
+def _kernel_fns() -> dict:
+    """Every counted wrapper of a kernel on a path, by name."""
     from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
                                             entropy_prog_cuda, idct_cuda,
-                                            idct_exact_cuda)
+                                            idct_exact_cuda, pixels_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
 
-    for fn in (idct_cuda.fused_dequant_idct, entropy_cuda.decode_segments,
-               lut_probe.lut_chain_probe, lut_probe.lut_gather,
-               idct_exact_cuda.dequant_idct_exact,
-               entropy_emit_cuda.decode_lanes,
-               *entropy_prog_cuda.KERNELS.values()):
+    return {"K1": idct_cuda.fused_dequant_idct,
+            "K2": entropy_cuda.decode_segments,
+            "K3": lut_probe.lut_chain_probe,
+            "K4": lut_probe.lut_gather,
+            "K5": idct_exact_cuda.dequant_idct_exact,
+            "K6a": pixels_cuda.unpack_nibble,
+            "K6b": pixels_cuda.blocks_to_rgb,
+            "K7": entropy_emit_cuda.decode_lanes,
+            **entropy_prog_cuda.KERNELS}
+
+
+def _zero_counts() -> None:
+    for fn in _kernel_fns().values():
         fn.launches = 0
 
 
 def _counts() -> dict:
-    from jpeg_decoder_tpu_torch.ops import (entropy_cuda, entropy_emit_cuda,
-                                            entropy_prog_cuda, idct_cuda,
-                                            idct_exact_cuda)
-    from jpeg_decoder_tpu_torch.probes import lut_probe
-
-    return {"K1": idct_cuda.fused_dequant_idct.launches,
-            "K2": entropy_cuda.decode_segments.launches,
-            "K3": lut_probe.lut_chain_probe.launches,
-            "K4": lut_probe.lut_gather.launches,
-            "K5": idct_exact_cuda.dequant_idct_exact.launches,
-            "K7": entropy_emit_cuda.decode_lanes.launches,
-            **{k: fn.launches
-               for k, fn in entropy_prog_cuda.KERNELS.items()}}
+    return {k: fn.launches for k, fn in _kernel_fns().items()}
 
 
 def _build_all() -> None:
@@ -451,7 +477,7 @@ def _build_all() -> None:
     from jpeg_decoder_tpu_torch.ops import (emit_carry_cuda, entropy_cuda,
                                             entropy_emit_cuda,
                                             entropy_prog_cuda, idct_cuda,
-                                            idct_exact_cuda)
+                                            idct_exact_cuda, pixels_cuda)
     from jpeg_decoder_tpu_torch.probes import lut_probe
     from jpeg_decoder_tpu_torch.testing import emit_v1
 
@@ -462,7 +488,8 @@ def _build_all() -> None:
             "entropy_emit.cu": entropy_emit_cuda.build,
             "entropy_emit_v1.cu (baseline)": emit_v1.build,
             "entropy_prog.cu": entropy_prog_cuda.build,
-            "emit_carry.cu": emit_carry_cuda.build}
+            "emit_carry.cu": emit_carry_cuda.build,
+            "pixels.cu": pixels_cuda.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(_wall, fn) for name, fn in jobs.items()}
@@ -472,7 +499,7 @@ def _build_all() -> None:
           + "; nvcc for sm_90a)")
     for lib in (idct_cuda.LIB, entropy_cuda.LIB, lut_probe.LIB,
                 idct_exact_cuda.LIB, entropy_emit_cuda.LIB, emit_v1.LIB,
-                entropy_prog_cuda.LIB, emit_carry_cuda.LIB):
+                entropy_prog_cuda.LIB, emit_carry_cuda.LIB, pixels_cuda.LIB):
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
@@ -603,8 +630,8 @@ def _idct_jpeg_phase(dev, blob: bytes) -> dict:
             "max_abs_err": err, "gb_per_s": gbs}
 
 
-def _batch_phase(dev, rng) -> tuple[int, list, list]:
-    """The batch path (see the module docstring).  Returns K1's launches in
+def _batch_phase(dev, rng) -> tuple[dict, list, list]:
+    """The batch path (see the module docstring).  Returns the launches in
     the checked run and the blobs and sources of the batch's 8 images."""
     import torch
 
@@ -638,16 +665,18 @@ def _batch_phase(dev, rng) -> tuple[int, list, list]:
         items = bd.decode(batch)
         torch.cuda.synchronize()
         counts = _counts()
-        launches = counts["K1"]
         bad = [(it.index, it.error) for it in items if not it.ok]
         if bad:
             raise AssertionError(f"items failed: {bad}")
         n_groups = len({id(it.rgb_batch) for it in items})
         print(f"slice: {n_groups} groups, kernel launches in the run "
               f"{counts}")
-        if launches < 3 * n_groups:
-            raise AssertionError(
-                f"kernel launched {launches} < {3 * n_groups} times")
+        # Per group one K6a (the nibble wire) and one K6b (K1's arithmetic
+        # inside); K1 itself no more.
+        if (counts["K6a"], counts["K6b"], counts["K1"]) != (
+                n_groups, n_groups, 0):
+            raise AssertionError(f"slice: launches {counts}, {n_groups} "
+                                 "groups")
         psnrs = []
         for it, src in zip(items, batch_src):
             rgb = it.rgb
@@ -712,7 +741,7 @@ def _batch_phase(dev, rng) -> tuple[int, list, list]:
               f"host pool of {bd.host_threads} threads on "
               f"{os.cpu_count()} host cores")
         _profile_batch(bd, batch, dev)
-    return launches, blobs, sources
+    return counts, blobs, sources
 
 
 def _scan_inputs(blob, dev):
@@ -1106,7 +1135,7 @@ def _profile_batch(bd, batch: list[bytes], dev) -> None:
         f"device pixel stage, {len(groups)} groups":
             lambda: [bd.pixels(g, t) for g, t in zip(groups, tensors)],
         "whole decode": lambda: bd.decode(batch),
-    }, ("fused_dequant_idct",))
+    }, ("fused_dequant_idct", "nibble_", "blocks_to_rgb_kernel"))
     for k in (1, 2, 4, 8):
         with BatchDecoder(device=dev, idct="pallas",
                           host_threads=k) as pool_bd:
@@ -1145,8 +1174,9 @@ def _e2e(bd, blobs, n: int = 3, **kw) -> list[float]:
 
 def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
     """The 32-image batch through every wire: each wire's unpacked blocks
-    and RGB must equal the nibble wire's bit for bit and K1 must launch 9
-    times (3 groups x 3 components); per wire the wire MB copied, the host
+    and RGB must equal the nibble wire's bit for bit, K6b must launch 3
+    times (one a group), K6a 3 times on the nibble wire and 0 on the
+    others, K1 never; per wire the wire MB copied, the host
     stages, the device unpack (profiler), the pixel stage (CUDA events) and
     end-to-end MP/s.  Returns the per-wire records and the nibble wire's
     items."""
@@ -1162,12 +1192,14 @@ def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
             _zero_counts()
             items = bd.decode(batch)
             torch.cuda.synchronize()
-            k1 = _counts()["K1"]
+            c = _counts()
+            k1 = {k: c[k] for k in ("K1", "K6a", "K6b")}
             bad = [(it.index, it.error) for it in items if not it.ok]
             n_groups = len({id(it.rgb_batch) for it in items})
-            if bad or n_groups != 3 or k1 != 9:
+            want = {"K1": 0, "K6a": 3 if wire == "nibble" else 0, "K6b": 3}
+            if bad or n_groups != 3 or k1 != want:
                 raise AssertionError(f"wire {wire}: failed {bad}, "
-                                     f"{n_groups} groups, K1 {k1}")
+                                     f"{n_groups} groups, launches {k1}")
             groups = bd.group(bd.host_stage(batch))
             tensors = [bd.to_device(g) for g in groups]
             blocks = [bd.unpack(g, t) for g, t in zip(groups, tensors)]
@@ -1213,7 +1245,7 @@ def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
             del groups, tensors
         rec = {k: min(v) for k, v in st.items()}
         rec.update({"wire_mb": wire_mb, "device_unpack_ms": unpack_ms,
-                    "mp_per_s": mp / min(e2e), "k1_launches": k1})
+                    "mp_per_s": mp / min(e2e), "launches": c})
         recs[wire] = rec
         print(f"wire {wire}: {wire_mb:.2f} MB copied; host entropy "
               f"{rec['host entropy']:.1f} ms, group+pad "
@@ -1221,7 +1253,7 @@ def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
               f"device unpack {_fmt_ms(unpack_ms)} ms (profiler, mean of 5), "
               f"pixel stage {rec['pixel stage']:.1f} ms (events; stages best "
               f"of 2); end to end {[round(t, 4) for t in e2e]} s -> "
-              f"{rec['mp_per_s']:.1f} MP/s (best of 3); K1 launches {k1}; "
+              f"{rec['mp_per_s']:.1f} MP/s (best of 3); launches {k1}; "
               f"blocks and RGB equal to the nibble wire's")
     return recs, ref_items
 
@@ -1303,7 +1335,8 @@ def _lanes_batch_phase(dev, batch: list[bytes], ref_items,
             n_rgb = _n_rgb_differ(ref_items, items)
             bad = [it.index for it in items if not it.ok]
             got = {k: counts[k] for k in want[entropy]}
-            if bad or n_rgb or got != want[entropy] or counts["K1"] != 9:
+            if (bad or n_rgb or got != want[entropy] or counts["K6b"] != 3
+                    or counts["K1"]):
                 raise AssertionError(f"entropy={entropy} batch: failed "
                                      f"{bad}, launches {counts}, {n_rgb} "
                                      "images differ")
@@ -2533,7 +2566,7 @@ def _mixed_phase(dev, blobs: list, sources: list,
                  futs: dict) -> tuple[int, dict, list]:
     """32 frames of every kind through one ``BatchDecoder`` (see the module
     docstring); ``futs`` the encode pool's jobs of :data:`MIXED_JOBS`.
-    Returns K1's launches in the checked run, the encoded frames (blob,
+    Returns the launches in the checked run, the encoded frames (blob,
     pixels) by kind and the 32 blobs."""
     import torch
 
@@ -2623,13 +2656,13 @@ def _mixed_phase(dev, blobs: list, sources: list,
               f"{t3 - t2:.1f} s)")
         if n_diff or len(nat) != len(ref):
             raise AssertionError(f"planes ({kind}): native != python")
-    return counts["K1"], enc, batch
+    return counts, enc, batch
 
 
 def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
     """192 images (the batch six times): ``decode(blobs, wave=64)`` against
     three back-to-back ``decode(blobs[i:i + 64])`` calls, in turns; the
-    results bit-identical and in input order.  Returns K1's launches in
+    results bit-identical and in input order.  Returns the launches in
     the checked waved run."""
     import torch
 
@@ -2651,11 +2684,12 @@ def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
         _zero_counts()
         got = bd.decode(blobs, wave=64)
         torch.cuda.synchronize()
-        k1 = _counts()["K1"]
+        c = _counts()
+        k1 = {k: c[k] for k in ("K1", "K6a", "K6b")}
         peak = torch.cuda.max_memory_allocated() / 2**30
         if [it.index for it in got] != list(range(len(blobs))) or not all(
-                it.ok for it in got) or k1 != 27:
-            raise AssertionError(f"waves: order, failures or K1 {k1}")
+                it.ok for it in got) or k1 != {"K1": 0, "K6a": 9, "K6b": 9}:
+            raise AssertionError(f"waves: order, failures or launches {k1}")
         n_rgb = _n_rgb_differ(ref, got)
         if n_rgb:
             raise AssertionError(f"waves: {n_rgb} images differ")
@@ -2692,7 +2726,7 @@ def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
                      if e.device_type == DeviceType.CUDA) / 1e3
     best = {k: min(v) for k, v in times.items()}
     print(f"waves: 192 images ({mp_all:.2f} MP) bit-identical to three "
-          f"single passes and in input order; K1 launches {k1}; "
+          f"single passes and in input order; launches {k1}; "
           f"three decode(blobs[i:i+64]) {[round(t, 4) for t in times['single']]}"
           f" s -> {mp_all / best['single']:.1f} MP/s; decode(blobs, wave=64) "
           f"{[round(t, 4) for t in times['waves']]} s -> "
@@ -2707,7 +2741,7 @@ def _waves_phase(dev, batch: list[bytes], mp: float) -> int:
           f"{dev_ms:.1f} ms of device time in {wall_ms:.1f} ms "
           f"({dev_ms / wall_ms:.3f}; two streams may overlap); peak device "
           f"memory {peak:.2f} GiB")
-    return k1
+    return c
 
 
 def _idct_exact_phase(dev, rng, blob_d: bytes) -> dict:
@@ -2892,10 +2926,10 @@ def _strict_phase(dev, images: dict, frames: dict) -> tuple[dict, dict]:
 
 def _batch_exact_phase(dev, batch: list[bytes], mp: float,
                        nibble_mp_s: float) -> int:
-    """The 32-image batch through ``BatchDecoder(idct="exact")``: K5 9
-    times, one image of each group equal to the port's CPU
-    ``decode(idct="exact", upsample="fancy")`` byte for byte.  Returns K5's
-    launches."""
+    """The 32-image batch through ``BatchDecoder(idct="exact")``: K6b 3
+    times (K5's arithmetic inside), K5 and K1 never, one image of each
+    group equal to the port's CPU ``decode(idct="exact",
+    upsample="fancy")`` byte for byte.  Returns the launches."""
     import torch
 
     from jpeg_decoder_tpu_torch import BatchDecoder, decode
@@ -2907,7 +2941,8 @@ def _batch_exact_phase(dev, batch: list[bytes], mp: float,
         items = bd.decode(batch)
         torch.cuda.synchronize()
         c = _counts()
-        if c["K5"] != 9 or c["K1"] or not all(it.ok for it in items):
+        if (c["K6b"] != 3 or c["K5"] or c["K1"]
+                or not all(it.ok for it in items)):
             raise AssertionError(f"batch exact: launches {c}")
         for k in CPU_CHECKED:
             cpu = decode(batch[k], idct="exact", upsample="fancy",
@@ -2922,7 +2957,237 @@ def _batch_exact_phase(dev, batch: list[bytes], mp: float,
           f"{[round(t, 4) for t in e2e]} s -> {mp / min(e2e):.1f} MP/s "
           f"(best of 3), beside idct=pallas on the nibble wire "
           f"{nibble_mp_s:.1f} MP/s")
-    return c["K5"]
+    return c
+
+
+def _k6_bytes(group, tensors, out) -> tuple[int, int, int, int]:
+    """Bytes K6a and K6b must move for one group (each input read once,
+    each output written once), the true blocks' and the wire's: K6a reads the
+    wire and writes the whole (B, n_blk + 1, 64) int32 blocks; K6b reads
+    the blocks each row's geometry covers (padding rows included, as the
+    kernel computes them), the tables and the geometry, and writes the
+    whole RGB tensor."""
+    geom = tensors[-1].cpu().numpy().astype(np.int64)
+    bpm = sum(h * v for h, v in group.comp_hv)
+    covered = int((geom[:, 0] * geom[:, 1]).sum()) * bpm * 256
+    true = sum(h.mcus_x * h.mcus_y for h in group.headers) * bpm * 256
+    b, n1 = tensors[0].shape[0], tensors[0].shape[1] + 1
+    wire = sum(t.numel() * t.element_size() for t in tensors[:-2])
+    k6a = wire + b * n1 * 64 * 4
+    k6b = (covered + tensors[-2].numel() * 4 + tensors[-1].numel() * 4
+           + out.numel() * out.element_size())
+    return k6a, k6b, true, wire
+
+
+def _k6_phase(dev, batch: list, mixed: list, dyn: list,
+              big_blob: bytes) -> tuple[dict, dict]:
+    """K6a and K6b against the route they replace, on the card (see the
+    module docstring).  Returns the records of K6a and K6b (without
+    launches)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder
+    from jpeg_decoder_tpu_torch.models import batch as tb
+    from jpeg_decoder_tpu_torch.ops import pixels_cuda as k6
+
+    med = statistics.median
+    err_a = err_b = 0
+    sets = (("batch of 32", batch, ("pallas", "exact", "kron", "fast")),
+            ("mixed frames", mixed, ("pallas", "exact")),
+            ("bucketed group", dyn, ("pallas", "exact")),
+            (f"{BIG[0]}x{BIG[1]}", [big_blob], ("pallas", "exact")))
+    timed = None
+    for label, blobs, idcts in sets:
+        with BatchDecoder(device=dev, idct="pallas") as bd:
+            groups = bd.group(bd.host_stage(blobs))
+            tensors = [bd.to_device(g) for g in groups]
+        line = []
+        for g, t in zip(groups, tensors):
+            got_a = k6.unpack_nibble(*t[:-2])
+            ref_a = tb.unpack_nibble(*t[:-2])
+            n_a = int((got_a != ref_a).sum())
+            err_a = max(err_a, int((got_a - ref_a).abs().max()))
+            diffs = []
+            for idct in idcts:
+                for up in (("fancy", "nn") if idct == "pallas"
+                           else ("fancy",)):
+                    kw = dict(comp_shapes=g.comp_shapes, comp_hv=g.comp_hv,
+                              height=g.height, width=g.width,
+                              samplings=g.samplings, idct=idct, upsample=up,
+                              color=g.color, precision=g.precision)
+                    got = k6.blocks_to_rgb(got_a, t[-2], t[-1], **kw)
+                    ref = tb.rgb_from_blocks_torch(got_a, t[-2], t[-1], **kw)
+                    if got.shape != ref.shape or got.dtype != ref.dtype:
+                        raise AssertionError(f"K6b {label}: {got.shape} "
+                                             f"{got.dtype}, route "
+                                             f"{ref.shape} {ref.dtype}")
+                    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+                    n_b, d_max = int((d != 0).sum()), int(d.max())
+                    diffs.append(f"{idct}/{up} {n_b} (max {d_max})")
+                    if idct in ("kron", "fast"):
+                        # The torch product on the scan-order blocks is a
+                        # GEMM of another shape than the route's per-plane
+                        # one: the +-1 IDCT bound.
+                        if d_max > TOL_SLICE or \
+                                n_b > (1 - MIN_EQUAL) * d.numel():
+                            raise AssertionError(f"K6b {label} {idct}: "
+                                                 f"{n_b} bytes differ, max "
+                                                 f"{d_max}")
+                    else:
+                        err_b = max(err_b, d_max)
+                    del got, ref, d
+            line.append(f"{len(g.idxs)} x {g.width}x{g.height} "
+                        f"{''.join(map(str, g.comp_hv))} {g.color} "
+                        f"{g.precision}-bit: K6a {n_a} of {got_a.numel()} "
+                        f"elements differ; K6b bytes differing "
+                        f"{', '.join(diffs)}")
+            del got_a, ref_a
+        print(f"K6 {label}: {len(groups)} groups: " + "; ".join(line))
+        if err_a or err_b:
+            raise AssertionError(f"K6 {label}: K6a max |diff| {err_a}, K6b "
+                                 f"{err_b}")
+        if label == "batch of 32":
+            timed = (groups, tensors)
+        else:
+            del groups, tensors
+        torch.cuda.empty_cache()
+
+    # Device time on the batch of 32, per group summed: each kernel and its
+    # plain route (queued behind a spin, CUDA events), in turns.
+    groups, tensors = timed
+    blocks = [k6.unpack_nibble(*t[:-2]) for t in tensors]
+    outs = []
+
+    def kw(g, idct):
+        return dict(comp_shapes=g.comp_shapes, comp_hv=g.comp_hv,
+                    height=g.height, width=g.width, samplings=g.samplings,
+                    idct=idct, upsample="fancy", color=g.color,
+                    precision=g.precision)
+
+    # Kernels: device time queued behind a spin; every function also by
+    # CUDA events around one call (its plain route's host work, the
+    # caching allocator's cudaMalloc calls included, stalls the card
+    # there, so a queued plain route overruns any spin).
+    kern = {"K6a": lambda t, a, g: k6.unpack_nibble(*t[:-2])}
+    for idct in ("pallas", "exact"):
+        kern[f"K6b {idct}"] = (lambda t, a, g, i=idct: k6.blocks_to_rgb(
+            a, t[-2], t[-1], **kw(g, i)))
+    fns = {**kern,
+           "K6b fast": lambda t, a, g: k6.blocks_to_rgb(
+               a, t[-2], t[-1], **kw(g, "fast")),
+           "unpack_nibble (plain)": lambda t, a, g: tb.unpack_nibble(
+               *t[:-2])}
+    for idct in ("pallas", "exact", "fast"):
+        fns[f"route {idct}"] = (lambda t, a, g, i=idct:
+                                tb.rgb_from_blocks_torch(
+                                    a, t[-2], t[-1], **kw(g, i)))
+    queued = {k: [] for k in kern}
+    events = {k: [] for k in fns}
+    order = list(fns)
+    for turn in (order, order[::-1]):
+        for name in turn:
+            calls = [lambda f=fns[name], t=t, a=a, g=g: f(t, a, g)
+                     for t, a, g in zip(tensors, blocks, groups)]
+            if name in kern:
+                queued[name].append(sum(_queued_ms(c, 5) for c in calls))
+            events[name].append(sum(med(_cuda_ms(c, 3, warmup=1))
+                                    for c in calls))
+    queued = {k: med(v) for k, v in queued.items()}
+    events = {k: med(v) for k, v in events.items()}
+    ms = queued
+    # K6b's output tile (whole MCUs): the committed one and others, queued.
+    tiles, committed = {}, k6.TILE
+    try:
+        for tile in ((64, 64), (32, 64), (16, 64), (32, 32), (32, 128),
+                     (64, 128)):
+            k6.TILE = tile
+            tiles[tile] = sum(_queued_ms(
+                lambda t=t, a=a, g=g: k6.blocks_to_rgb(
+                    a, t[-2], t[-1], **kw(g, "pallas")), 5)
+                for t, a, g in zip(tensors, blocks, groups))
+    finally:
+        k6.TILE = committed
+    n_a = n_b = n_true = n_wire = 0
+    for g, t, a in zip(groups, tensors, blocks):
+        out = k6.blocks_to_rgb(a, t[-2], t[-1], **kw(g, "pallas"))
+        ba, bb, tr, wi = _k6_bytes(g, t, out)
+        n_a, n_b, n_true, n_wire = n_a + ba, n_b + bb, n_true + tr, \
+            n_wire + wi
+        outs.append(out)
+    rgb_true = sum(h.width * h.height * 3 for g in groups
+                   for h in g.headers)
+    bound_a = n_a / HBM_BYTES_PER_S * 1e3
+    bound_b = n_b / HBM_BYTES_PER_S * 1e3
+    floor_a = (n_wire + n_true) / HBM_BYTES_PER_S * 1e3
+    floor_b = (n_true + rgb_true) / HBM_BYTES_PER_S * 1e3
+    # The stage before and after: every group's unpack and pixels, CUDA
+    # events around the whole stage, in turns (replaced, new, new,
+    # replaced), twice.
+    stage = {"replaced": [], "K6a + K6b": []}
+
+    def replaced():
+        return [tb.rgb_from_blocks_torch(tb.unpack_nibble(*t[:-2]), t[-2],
+                                         t[-1], **kw(g, "pallas"))
+                for g, t in zip(groups, tensors)]
+
+    def new():
+        return [k6.blocks_to_rgb(k6.unpack_nibble(*t[:-2]), t[-2], t[-1],
+                                 **kw(g, "pallas"))
+                for g, t in zip(groups, tensors)]
+
+    for _ in range(2):
+        for name in ("replaced", "K6a + K6b", "K6a + K6b", "replaced"):
+            fn = replaced if name == "replaced" else new
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            ev[1].synchronize()
+            stage[name].append(ev[0].elapsed_time(ev[1]))
+    print("K6 batch of 32 device ms (queued behind a spin, 5 calls a "
+          "group, groups summed, median of 2 turns): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in queued.items())
+          + "; ms by CUDA events around one call (median of 3, groups "
+          "summed, median of 2 turns): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in events.items())
+          + "; K6b pallas by output tile (queued): " + ", ".join(
+              f"{h}x{w} {v:.4f}" for (h, w), v in tiles.items())
+          + f"; bounds (bytes at 3.35 TB/s): K6a {bound_a:.4f} ms "
+          f"({n_a / 1e6:.1f} MB: wire in, every block out), K6b "
+          f"{bound_b:.4f} ms ({n_b / 1e6:.1f} MB: the blocks the geometry "
+          f"covers in, the whole RGB out); floors on the true blocks and "
+          f"RGB: K6a {floor_a:.4f} ms, K6b {floor_b:.4f} ms; K6a at "
+          f"{bound_a / ms['K6a']:.3f} of its bound, K6b pallas at "
+          f"{bound_b / ms['K6b pallas']:.3f}")
+    print("K6 batch of 32 pixel stage (unpack + pixels of every group, "
+          "idct=pallas, CUDA events around the stage, 4 turns): "
+          + ", ".join(f"{k} median {med(v):.3f} ms (min {min(v):.3f})"
+                      for k, v in stage.items()))
+    del blocks, outs, tensors, groups
+    torch.cuda.empty_cache()
+    rec_a = {"name": "unpack_nibble", "route": "cuda",
+             "source": "jpeg_decoder_tpu_torch/csrc/pixels.cu",
+             "replaces": "jpeg_decoder_tpu/models/batch.py:256",
+             "max_abs_err": err_a, "ms": ms["K6a"],
+             "plain_ms": events["unpack_nibble (plain)"],
+             "ms_by_events": events["K6a"], "bound_ms": bound_a,
+             "bound_by": "bytes", "library_ms": None,
+             "true_blocks_floor_ms": floor_a}
+    rec_b = {"name": "blocks_to_rgb", "route": "cuda",
+             "source": "jpeg_decoder_tpu_torch/csrc/pixels.cu",
+             "replaces": "jpeg_decoder_tpu/models/batch.py:52",
+             "max_abs_err": err_b, "ms": ms["K6b pallas"],
+             "plain_ms": events["route pallas"], "bound_ms": bound_b,
+             "bound_by": "bytes", "library_ms": None,
+             "true_floor_ms": floor_b,
+             "ms_by_events": {i: events[f"K6b {i}"]
+                              for i in ("pallas", "exact", "fast")},
+             "route_ms_by_events": {i: events[f"route {i}"]
+                                    for i in ("pallas", "exact", "fast")},
+             "ms_by_tile": {f"{h}x{w}": v for (h, w), v in tiles.items()},
+             "stage_ms": {k: med(v) for k, v in stage.items()}}
+    return rec_a, rec_b
 
 
 # Sizes of the bucketed group of the sharded phase: web-photo sizes of one
@@ -3058,6 +3323,54 @@ def _restage_cost(dev, batch: list) -> dict:
     return {"restage": rec}
 
 
+def _exact_stall_probe(dev, batch: list) -> dict:
+    """The ``idct="exact"`` sharded calls of the batch of 32 with the
+    parent's pixel route (``sharded._pixels_torch``: the scan layout's
+    gather, K5 and torch ops, in ``sharded._pixels``' place) and with K6b,
+    in turns (parent, K6b, K6b, parent), each turn as
+    the sharded phase checks a route: a ``BatchDecoder(idct="exact")``
+    decode, a warm-up call, then three calls; per call the 24-image
+    group's enqueue and pixels ms and the caching allocator's cudaMalloc
+    and cudaFree calls and retries (``torch.cuda.memory_stats``)."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder, decode_batch_sharded
+    from jpeg_decoder_tpu_torch.parallel import sharded
+
+    keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+    res = {"parent": [], "K6b": []}
+    own = sharded._pixels
+    for route in ("parent", "K6b", "K6b", "parent"):
+        sharded._pixels = (sharded._pixels_torch if route == "parent"
+                           else own)
+        try:
+            with BatchDecoder(device=dev, idct="exact") as bd:
+                bd.decode(batch)
+            decode_batch_sharded(batch, dev, idct="exact")
+            for _ in range(3):
+                torch.cuda.synchronize()
+                st0 = torch.cuda.memory_stats(dev)
+                decode_batch_sharded(batch, dev, idct="exact")
+                torch.cuda.synchronize()
+                st1 = torch.cuda.memory_stats(dev)
+                g = [x for x in decode_batch_sharded.last_timing["groups"]
+                     if x["images"] == 24][0]
+                res[route].append(
+                    {"enqueue_ms": (g["dispatch_s"] - g["host_s"]) * 1e3,
+                     "pixels_ms": g.get("pixels_ms"),
+                     **{k: st1.get(k, 0) - st0.get(k, 0) for k in keys}})
+        finally:
+            sharded._pixels = own
+    for route, calls in res.items():
+        print(f"sharded exact probe, {route} pixel route (24-image group, "
+              "per call: enqueue ms / pixels ms / cudaMalloc / cudaFree / "
+              "allocator retries): " + "; ".join(
+                  f"{c['enqueue_ms']:.2f} / {_fmt_ms(c['pixels_ms'])} / "
+                  f"{c['num_device_alloc']} / {c['num_device_free']} / "
+                  f"{c['num_alloc_retries']}" for c in calls))
+    return res
+
+
 def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
                    big_blob: bytes) -> dict:
     """``decode_batch_sharded`` on the card (see the module docstring):
@@ -3087,9 +3400,8 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
             n_rgb = _n_rgb_differ(ref, items)
             bad = [it.index for it in items if not it.ok]
             got = {k: counts[k] for k in want}
-            idct_k = {"pallas": "K1", "exact": "K5"}.get(idct)
             if (bad or n_rgb or got != want or timing["fallback_rows"]
-                    or (idct_k and counts[idct_k] != 9)):
+                    or counts["K6b"] != 3 or counts["K1"] or counts["K5"]):
                 raise AssertionError(
                     f"sharded batch {idct}: failed {bad}, {n_rgb} images "
                     f"differ from the nibble wire, launches {counts}, "
@@ -3123,6 +3435,7 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
                 launches["e2e_mp_per_s"] = {k: mp / min(v)
                                             for k, v in turns.items()}
         print(line)
+    exact_probe = _exact_stall_probe(dev, batch)
     hdr_b = parser.parse(batch[6])
     prep = min(_wall(lambda: scan_prep.prepare_scan(hdr_b, hdr_b.scans[0]))
                for _ in range(3))
@@ -3135,7 +3448,7 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
     g = timing["groups"]
     if (counts["K7"] != 1 or counts["K2"] or len(g) != 1
             or g[0]["route"] != "dyn" or g[0]["table_sets"] < 2
-            or timing["fallback_rows"]):
+            or timing["fallback_rows"] or counts["K6b"] != 1 or counts["K1"]):
         raise AssertionError(f"sharded bucket: launches {counts}, groups "
                              f"{g}, {timing['fallback_rows']} rows patched")
     for it, blob in zip(items, dyn):
@@ -3246,7 +3559,7 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
     one = decode(big_blob, entropy="hybrid", idct="pallas", upsample="fancy",
                  device=dev).rgb
     if not items[0].ok or not torch.equal(items[0].rgb, one) or \
-            counts["K7"] != 1:
+            counts["K7"] != 1 or counts["K6b"] != 1 or counts["K1"]:
         raise AssertionError(f"sharded {BIG}: differs from decode(hybrid) "
                              f"or launches {counts}")
     launches["big"] = counts
@@ -3256,6 +3569,7 @@ def _sharded_phase(dev, batch: list, mp: float, mixed: list, dyn: list,
           f"after the others); peak device memory {peak / 2**20:.1f} MiB; "
           f"{_group_line(timing)}")
     rec["launches"] = launches
+    rec["exact_probe"] = exact_probe
     return rec
 
 
@@ -3577,8 +3891,8 @@ def _mesh_check(grid, backend, phases, facts, refs, sets) -> None:
     checked on the grid's backend (the worker fails a rank whose gathers or
     sums differ from what was sent)."""
     prog = tuple(PROG_KERNELS)
-    need = {"b32": ("K1", "K2", "K7"), "mixed": prog + ("K1",),
-            "bucket": ("K1", "K7"), "prog_a": prog, "prog_dri": prog,
+    need = {"b32": ("K6b", "K2", "K7"), "mixed": prog + ("K6b",),
+            "bucket": ("K6b", "K7"), "prog_a": prog, "prog_dri": prog,
             "cam": ("K2",)}
     for r, f in enumerate(facts):
         dg = f["digests"]
@@ -3744,7 +4058,7 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     rng = np.random.default_rng(SEED)
     k1 = _idct_phase(dev, rng)
     torch.cuda.empty_cache()
-    k1_batch, blobs, sources = _batch_phase(dev, rng)
+    slice_counts, blobs, sources = _batch_phase(dev, rng)
     batch = blobs * 4
     mp = sum(im.shape[0] * im.shape[1] for im in sources * 4) / 1e6
     wires, nibble_items = _wires_phase(dev, batch, mp)
@@ -3752,12 +4066,13 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     lanes_batch = _lanes_batch_phase(dev, batch, nibble_items, mp)
     del nibble_items
     torch.cuda.empty_cache()
-    k1_waves = _waves_phase(dev, batch, mp)
+    waves_counts = _waves_phase(dev, batch, mp)
     torch.cuda.empty_cache()
-    k1_mixed, enc, mixed_batch = _mixed_phase(dev, blobs, sources,
-                                              mixed_futs)
+    mixed_counts, enc, mixed_batch = _mixed_phase(dev, blobs, sources,
+                                                  mixed_futs)
     torch.cuda.empty_cache()
-    k5_batch = _batch_exact_phase(dev, batch, mp, wires["nibble"]["mp_per_s"])
+    exact_counts = _batch_exact_phase(dev, batch, mp,
+                                      wires["nibble"]["mp_per_s"])
     torch.cuda.empty_cache()
 
     # Images of the entropy and single-image phases: (a) and (d) are 4K
@@ -3807,7 +4122,10 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     k7["sharded_bucket"] = _sharded_phase(dev, batch, mp, mixed_batch, dyn,
                                           big_blob)
     sharded = k7["sharded_bucket"].pop("launches")
+    exact_probe = k7["sharded_bucket"].pop("exact_probe")
     torch.cuda.empty_cache()
+    k6a, k6b = _k6_phase(dev, batch, mixed_batch, dyn, big_blob)
+    k6b["sharded_exact_probe"] = exact_probe
     k7c, k7c_v1 = _carry_check(dev, batch)
     mesh = _mesh_phase(dev, batch, mixed_batch, dyn, images["a"][0])
     pool.shutdown()
@@ -3821,19 +4139,22 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
              ("fused_dequant_idct",
               *(k for keys in K2_PHASES.values() for k in keys)))
 
-    k1["launches_by_path"] = {
-        "BatchDecoder": k1_batch,
-        **{f"BatchDecoder wire={w}": r["k1_launches"]
-           for w, r in wires.items()},
-        "BatchDecoder entropy=pallas": pallas_counts["K1"],
-        "BatchDecoder mixed frames": k1_mixed,
-        "BatchDecoder wave=64": k1_waves, "decode": counts["K1"],
-        "decode CMYK entropy=pallas idct=pallas": strict_counts["K1"],
-        "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K1"],
-        "BatchDecoder entropy=jax": lanes_batch["jax"]["K1"],
-        "decode jax/hybrid": lanes_counts["K1"],
-        **{f"decode_batch_sharded {k}": v["K1"] for k, v in sharded.items()
+    # Every checked run of a path, counts zeroed just before it.
+    paths = {
+        "BatchDecoder": slice_counts,
+        **{f"BatchDecoder wire={w}": r["launches"] for w, r in wires.items()},
+        "BatchDecoder entropy=pallas": pallas_counts,
+        "BatchDecoder mixed frames": mixed_counts,
+        "BatchDecoder wave=64": waves_counts,
+        "BatchDecoder idct=exact": exact_counts, "decode": counts,
+        "decode strict": strict_counts,
+        "BatchDecoder entropy=hybrid": lanes_batch["hybrid"],
+        "BatchDecoder entropy=jax": lanes_batch["jax"],
+        "decode jax/hybrid": lanes_counts,
+        **{f"decode_batch_sharded {k}": v for k, v in sharded.items()
            if k != "e2e_mp_per_s"}}
+    for key, rec in (("K1", k1), ("K5", k5), ("K6a", k6a), ("K6b", k6b)):
+        rec["launches_by_path"] = {p: c[key] for p, c in paths.items()}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {
         "BatchDecoder entropy=pallas": pallas_counts["K2"],
@@ -3847,11 +4168,6 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     k2["by_image"].update(k2_12)
     for rec, key in zip(probes, ("K3", "K4")):
         rec["launches"] = counts[key]   # on no path: 0
-    k5["launches_by_path"] = {"decode strict": strict_counts["K5"],
-                              "BatchDecoder idct=exact": k5_batch,
-                              "decode jax/hybrid": lanes_counts["K5"],
-                              "decode_batch_sharded batch exact":
-                                  sharded["batch exact"]["K5"]}
     k5["launches"] = sum(k5["launches_by_path"].values())
     k7["launches_by_path"] = {
         "BatchDecoder entropy=hybrid": lanes_batch["hybrid"]["K7"],
@@ -3864,12 +4180,13 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
             "decode/decode_to_planes pallas, jax, hybrid": decode_counts[key],
             "decode_batch_sharded mixed": sharded["mixed"][key]}
     # The mesh route's launches, each grid's ranks summed.
-    for key, rec in (("K1", k1), ("K2", k2), ("K5", k5), ("K7", k7),
-                     ("K7c", k7c), ("K7c v1", k7c_v1), *k8.items()):
+    for key, rec in (("K1", k1), ("K2", k2), ("K5", k5), ("K6a", k6a),
+                     ("K6b", k6b), ("K7", k7), ("K7c", k7c),
+                     ("K7c v1", k7c_v1), *k8.items()):
         rec.setdefault("launches_by_path", {}).update(mesh.get(key, {}))
         rec["launches"] = sum(rec["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1, k2, *probes, k5, k7, k7c, k7c_v1,
-                                  *k8.values()]}))
+    print(json.dumps({"kernels": [k1, k2, *probes, k5, k6a, k6b, k7, k7c,
+                                  k7c_v1, *k8.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@ kernels (nvcc), go through :func:`shared_lib`.  The library's name carries a
 hash of the source bytes and the compiler flags, so an edited source or a
 changed flag set never loads a stale build, whatever the files' mtimes say.
 :class:`CudaLib` builds one ``csrc/*.cu`` file with nvcc for sm_90a at first
-use and binds its plain C entry points with ctypes.
+use and binds its plain C entry points with ctypes.  A source may include
+headers of ``csrc/`` (``#include "name.cuh"``): every compile gets ``-I
+csrc``, and the hash covers those headers' bytes too.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,11 +35,22 @@ class KernelBuildFailure(RuntimeError):
     """nvcc is missing or refused a ``csrc/*.cu`` source."""
 
 
+def _local_headers(code: bytes) -> list[str]:
+    """The ``csrc/`` headers a source names in ``#include "..."`` lines."""
+    return [os.path.join(CSRC, m.decode()) for m in
+            re.findall(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', code,
+                       re.M)]
+
+
 def lib_path(src: str, flags: Sequence[str], subdir: str, stem: str) -> str:
-    """``.cache/torch/<subdir>/lib<stem>_<hash>.so`` for this source and
-    flag set."""
+    """``.cache/torch/<subdir>/lib<stem>_<hash>.so`` for this source, the
+    ``csrc/`` headers it includes and the flag set."""
     with open(src, "rb") as f:
-        key = f.read() + "\0".join(flags).encode()
+        key = f.read()
+    for header in _local_headers(key):
+        with open(header, "rb") as f:
+            key += b"\0" + f.read()
+    key += "\0".join(flags).encode()
     tag = hashlib.sha256(key).hexdigest()[:16]
     return os.path.join(CACHE, subdir, f"lib{stem}_{tag}.so")
 
@@ -53,8 +67,9 @@ def shared_lib(compiler: str, flags: Sequence[str], src: str, subdir: str,
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     try:
-        proc = subprocess.run([compiler, *flags, "-o", tmp, src],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [compiler, *flags, "-I", CSRC, "-o", tmp, src],
+            capture_output=True, text=True)
     except FileNotFoundError as e:
         raise error(f"{compiler} not found: {e}") from e
     log = proc.stdout + proc.stderr

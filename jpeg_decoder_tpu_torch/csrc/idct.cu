@@ -36,11 +36,15 @@
 // uniform +-512 * q<40 blocks, none in 19.2M of the +-256 * q90 blocks
 // chip_smoke.py times); each stays within the +-1 bound.  A smaller eps
 // costs time: testing/idct_variants.py.  No TF32: it would break the +-1 bound and buys
-// nothing when bytes are the limit.
+// nothing when bytes are the limit.  The per-block arithmetic (the basis,
+// both passes, eps, the Kronecker recheck) lives in idct_common.cuh, which
+// K6b (pixels.cu) shares, so that its `pallas` samples are K1's.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "idct_common.cuh"   // kS, kEpsScale, the passes, k1_kron
 
 namespace {
 
@@ -51,29 +55,6 @@ constexpr int kVecPerThread = kTile * 16 / kThreads;  // int4 copies
 constexpr int kPad = 72;                    // floats per block, padded
 constexpr int kWarps = kThreads / 32;
 constexpr int kQueue = 4 * 64;              // samples of a warp's 4 blocks
-constexpr unsigned kFull = 0xffffffffu;
-// eps = sum|deq| * 2^-25 = (sum|deq| / 8) * 2^-22.
-constexpr float kEpsScale = 0x1p-25f;
-
-// S[p][u] = float32(sqrt(8) * IDCT_M[p][u]): ops/idct_cuda.py:IDCT_S.
-__constant__ float kS[8][8] = {
-    {0x1p+0f, 0x1.63150cp+0f, 0x1.4e7aeap+0f, 0x1.2d062ep+0f, 0x1p+0f,
-     0x1.92469cp-1f, 0x1.1517a8p-1f, 0x1.1a855ep-2f},
-    {0x1p+0f, 0x1.2d062ep+0f, 0x1.1517a8p-1f, -0x1.1a855ep-2f, -0x1p+0f,
-     -0x1.63150cp+0f, -0x1.4e7aeap+0f, -0x1.92469cp-1f},
-    {0x1p+0f, 0x1.92469cp-1f, -0x1.1517a8p-1f, -0x1.63150cp+0f, -0x1p+0f,
-     0x1.1a855ep-2f, 0x1.4e7aeap+0f, 0x1.2d062ep+0f},
-    {0x1p+0f, 0x1.1a855ep-2f, -0x1.4e7aeap+0f, -0x1.92469cp-1f, 0x1p+0f,
-     0x1.2d062ep+0f, -0x1.1517a8p-1f, -0x1.63150cp+0f},
-    {0x1p+0f, -0x1.1a855ep-2f, -0x1.4e7aeap+0f, 0x1.92469cp-1f, 0x1p+0f,
-     -0x1.2d062ep+0f, -0x1.1517a8p-1f, 0x1.63150cp+0f},
-    {0x1p+0f, -0x1.92469cp-1f, -0x1.1517a8p-1f, 0x1.63150cp+0f, -0x1p+0f,
-     -0x1.1a855ep-2f, 0x1.4e7aeap+0f, -0x1.2d062ep+0f},
-    {0x1p+0f, -0x1.2d062ep+0f, 0x1.1517a8p-1f, 0x1.1a855ep-2f, -0x1p+0f,
-     0x1.63150cp+0f, -0x1.4e7aeap+0f, 0x1.92469cp-1f},
-    {0x1p+0f, -0x1.63150cp+0f, 0x1.4e7aeap+0f, -0x1.2d062ep+0f, 0x1p+0f,
-     -0x1.92469cp-1f, 0x1.1517a8p-1f, -0x1.1a855ep-2f},
-};
 
 // Start the copy of tile `tile` (image tile / tpi, blocks from
 // (tile % tpi) * kTile) into `dst`; blocks past n_blk are zero-filled.
@@ -97,28 +78,6 @@ __device__ __forceinline__ void issue_tile(int32_t* dst,
                  : "memory");
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Row r of a block as 8 values: two 16-byte accesses, rows 4..7 taking
-// their halves in the other order so that the 8 rows of a block hit
-// distinct banks in each access (the layout stays natural).
-template <class V, class T>
-__device__ __forceinline__ void load_row(const T* base, int r, V& lo, V& hi) {
-  const V* row = reinterpret_cast<const V*>(base + r * 8);
-  const int h = (r >> 2) & 1;
-  const V a = row[h], b = row[h ^ 1];
-  lo = h ? b : a;
-  hi = h ? a : b;
-}
-
-__device__ __forceinline__ void store_row(float* base, int r,
-                                          const float (&v)[8]) {
-  float4* row = reinterpret_cast<float4*>(base + r * 8);
-  const int h = (r >> 2) & 1;
-  const float4 lo = make_float4(v[0], v[1], v[2], v[3]);
-  const float4 hi = make_float4(v[4], v[5], v[6], v[7]);
-  row[h] = h ? hi : lo;
-  row[h ^ 1] = h ? lo : hi;
 }
 
 // Dynamic shared memory: the ring, then the dequantised blocks, the blocks
@@ -186,61 +145,34 @@ __global__ void __launch_bounds__(kThreads)
     }
     int4 clo, chi;
     load_row(tile_in + blk * 64, r, clo, chi);
-    float x[8] = {static_cast<float>(clo.x * q[0]),
-                  static_cast<float>(clo.y * q[1]),
-                  static_cast<float>(clo.z * q[2]),
-                  static_cast<float>(clo.w * q[3]),
-                  static_cast<float>(chi.x * q[4]),
-                  static_cast<float>(chi.y * q[5]),
-                  static_cast<float>(chi.z * q[6]),
-                  static_cast<float>(chi.w * q[7])};
+    float x[8];
+    k1_dequant_row(clo, chi, q, x);
     float* xb = s_x + blk * kPad;
     float* tb = s_t + blk * kPad;
     store_row(xb, r, x);
-    float asum = fabsf(x[0]);
-#pragma unroll
-    for (int v = 1; v < 8; ++v) asum += fabsf(x[v]);
-    asum += __shfl_xor_sync(kFull, asum, 1);
-    asum += __shfl_xor_sync(kFull, asum, 2);
-    asum += __shfl_xor_sync(kFull, asum, 4);
+    const float eps = k1_eps(x);
 
     // Row pass: t[u][c] = sum_v x[u][v] S[c][v], this thread's u = r.
     float t[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float a = x[0] * kS[c][0];
-#pragma unroll
-      for (int v = 1; v < 8; ++v) a = fmaf(x[v], kS[c][v], a);
-      t[c] = a;
-    }
+    k1_row_pass(x, t);
     store_row(tb, r, t);
     __syncwarp();
     // Column pass on column c = r: o[p] = sum_u S[p][u] t[u][c] / 8.
     float col[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) col[u] = tb[u * 8 + r];
-    const float eps = asum * kEpsScale;
-    unsigned near = 0;
     int32_t res[8];
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      float a = kS[p][0] * col[0];
-#pragma unroll
-      for (int u = 1; u < 8; ++u) a = fmaf(kS[p][u], col[u], a);
-      const float o = a * 0.125f;   // exact
-      res[p] = __float2int_rn(o);   // half to even
-      if (fabsf(o - floorf(o) - 0.5f) < eps) near |= 1u << p;
-    }
+    const unsigned near = k1_col_pass(col, eps, res);
     // Queue the near-half samples of the warp, then spread them over its
     // lanes, each recomputed as the twin computes it.
     const int n_near = __popc(near);
     int incl = n_near;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, off);
+      const int y = __shfl_up_sync(kFullMask, incl, off);
       if (lane >= off) incl += y;
     }
-    const int total = __shfl_sync(kFull, incl, 31);
+    const int total = __shfl_sync(kFullMask, incl, 31);
     int slot = incl - n_near;
 #pragma unroll
     for (int p = 0; p < 8; ++p)
@@ -258,19 +190,8 @@ __global__ void __launch_bounds__(kThreads)
       const int b = item >> 6, idx = item & 63;
       const int64_t gbb = (tile - img * tpi) * kTile + b;
       if (gbb >= n_blk) continue;
-      const float4* d4 = reinterpret_cast<const float4*>(s_x + b * kPad);
-      const float4* w4 = reinterpret_cast<const float4*>(kron + idx * 64);
-      float acc = 0.0f;
-#pragma unroll
-      for (int k4 = 0; k4 < 16; ++k4) {
-        const float4 d = d4[k4];
-        const float4 w = __ldg(w4 + k4);
-        acc = fmaf(d.x, w.x, acc);
-        acc = fmaf(d.y, w.y, acc);
-        acc = fmaf(d.z, w.z, acc);
-        acc = fmaf(d.w, w.w, acc);
-      }
-      out[(img * n_blk + gbb) * 64 + idx] = __float2int_rn(acc);
+      out[(img * n_blk + gbb) * 64 + idx] =
+          k1_kron(s_x + b * kPad, kron, idx);
     }
     __syncwarp();   // the warp's blocks in s_x, s_t and its queue are reused
   }

@@ -1,0 +1,656 @@
+// K6a and K6b: the device pixel stage of the batch routes, hand-written for
+// Hopper (sm_90a), bound to PyTorch through plain C entry points and ctypes.
+//
+// K6a, the nibble wire to blocks.  Replaces the XLA code of
+// jpeg_decoder_tpu/models/batch.py:256 _batched_from_nibble (its `one`,
+// :266): decode each entry byte e (g = e >> 4, v = e & 15; advance 16 g
+// where v == 0, else g), prefix-sum the advances into positions (minus 1),
+// take v == 8's value from the overflow stream at the rank given by a second
+// prefix sum, ADD every value at its position (a 0x00 filler re-adds 0 at
+// the last real position: a store would wipe the value there), drop the
+// positions outside [0, n_blk * 64), then SET the escapes, then set DC of
+// blocks [0, n_blk); block n_blk stays 0 (the fill block).
+//   Bound: bytes.  It reads the wire once and writes the (B, n_blk + 1, 64)
+// int32 blocks once, zeros included.
+//   Design: four launches on the caller's stream.  (0) The whole output is
+// written once with coalesced 16-byte stores: zeros, and each block's DC
+// in its slot (DC is set last in the reference, so no later write may
+// touch a DC slot of a block below n_blk: the adds and escapes that land
+// on one are skipped, which leaves the reference's result).  The entries
+// of a row are cut into chunks of 4,096 (256 threads x 16, one 16-byte
+// load a thread); (1) each chunk's advance and overflow totals; (2) each
+// chunk sums the totals of the chunks before it in its row (the two prefix
+// sums cross chunks, so they take this second pass over the bytes, which
+// are 7% of the traffic), scans its threads' totals, and each thread walks
+// its 16 entries, adding every nonzero value with a 32-bit atomic (real
+// values land on distinct positions, so the atomics do not contend; zero
+// values are skipped, which leaves the same sums); (3) the escapes set.
+// No int64 index tensor is built; positions are 64-bit in registers.
+//
+// K6b, scan-order blocks to RGB in one pass.  Replaces
+// jpeg_decoder_tpu/models/batch.py:52 _planes_from_blocks_dyn and :82
+// _rgb_one_dyn, i.e. ops/pixel.py:325 pixel_pipeline_impl: dequantise and
+// IDCT (:55 dequantize with K1's arithmetic, idct_pallas.py:55, under
+// `pallas`, or K5's, pixel.py:123, under `exact`), crop each component to
+// its unpadded sample grid at the bucket's dims, upsample (:200
+// upsample_fancy, edge replication at each image's true edge; :157
+// upsample_nn, and for ratios outside {1, 2}), colour (:253 _ycbcr_channels,
+// :283 gray_to_rgb, :289 _level_shift_u8, :293 cmyk_to_rgb, :307
+// decoded_to_cmyk) into the whole (B, H, W, 3) output, padding included.
+// Under `kron` and `fast` the product stays a torch matmul (the JAX package
+// leaves it to XLA's dot); the kernel's kSamples form then reads the int32
+// samples in scan order and skips its IDCT.
+//   Bound: bytes.  It reads the blocks each image's geometry covers once and
+// writes the output once; the IDCT is some 32 FLOP a sample.
+//   Design: one CTA of 256 threads per output tile of about 64 x 64 pixels
+// (whole MCUs; the wrapper picks it, ops/pixels_cuda.py:TILE) of one image.  Phase 1 computes, for each component, the
+// samples of every block that the tile's pixels reach, the fancy filter's
+// one-sample halo included (those halo blocks are computed again by the
+// neighbouring tile), into a window of int32 samples in shared memory: eight
+// threads a block, one block row each, in rounds of 32 blocks; each block's
+// source row comes from the image's geometry in closed form, and a cell
+// outside the geometry is a zero block.  No plane is written to device
+// memory; a tile whose windows reach no block of the geometry (bucket
+// padding) skips phase 1, its pixels all the colour of zero samples.
+// Phase 2 gives each thread pixels of the tile: the upsampled
+// sample of each component from the windows, the colour transform in the
+// reference's float32 op order with uncontracted __fmul_rn / __fadd_rn,
+// clamp, truncate, store.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "idct_common.cuh"   // K1's and K5's per-block arithmetic
+
+namespace {
+
+// ---- K6a: nibble wire -> blocks ---------------------------------------
+
+constexpr int kUnpackThreads = 256;
+constexpr int kPerThread = 16;                          // one 16-byte load
+constexpr int kChunk = kUnpackThreads * kPerThread;    // entries per chunk
+constexpr int kWarpsPerCta = kUnpackThreads / 32;
+
+struct NibbleArgs {
+  const int16_t* dc16;    // (B, n_blk)
+  const uint8_t* e;       // (B, K)
+  const int8_t* ov;       // (B, O)
+  const int32_t* esc_idx;  // (B, E)
+  const int16_t* esc_val;  // (B, E)
+  int32_t* out;           // (B, n_blk + 1, 64)
+  int32_t* agg;           // (B, n_chunks, 2): advance, overflow totals
+  int64_t n_blk, k, o, n_esc, n_chunks;
+  int vec;                // rows start on 16-byte boundaries
+};
+
+// This thread's 16 entries of chunk `chunk` of row b (0 past the row's end:
+// a 0x00 filler advances 0 and adds 0).
+__device__ __forceinline__ void load_entries(const NibbleArgs& a, int64_t b,
+                                             int64_t chunk,
+                                             uint8_t (&v)[kPerThread]) {
+  const int64_t first =
+      chunk * kChunk + static_cast<int64_t>(threadIdx.x) * kPerThread;
+  const uint8_t* row = a.e + b * a.k;
+  if (a.vec && first + kPerThread <= a.k) {
+    const int4 w = *reinterpret_cast<const int4*>(row + first);
+    const int32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i)
+      v[i] = static_cast<uint8_t>(words[i >> 2] >> (8 * (i & 3)));
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i)
+      v[i] = first + i < a.k ? row[first + i] : 0;
+  }
+}
+
+__device__ __forceinline__ int advance(uint8_t e) {
+  const int g = e >> 4, vc = e & 15;
+  return vc == 0 ? g * 16 : g;
+}
+
+// Block-wide exclusive scan of two ints (each CTA's own totals fit int32:
+// at most 4,096 x 240).  Returns the CTA's totals.  Every thread calls it.
+__device__ __forceinline__ int2 block_scan2(int a, int b, int& ea, int& eb) {
+  __shared__ int2 warp_tot[kWarpsPerCta];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int ia = a, ib = b;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ya = __shfl_up_sync(kFullMask, ia, off);
+    const int yb = __shfl_up_sync(kFullMask, ib, off);
+    if (lane >= off) ia += ya, ib += yb;
+  }
+  if (lane == 31) warp_tot[warp] = make_int2(ia, ib);
+  __syncthreads();
+  int pa = 0, pb = 0, ta = 0, tb = 0;
+#pragma unroll
+  for (int w = 0; w < kWarpsPerCta; ++w) {
+    const int2 t = warp_tot[w];
+    if (w < warp) pa += t.x, pb += t.y;
+    ta += t.x, tb += t.y;
+  }
+  __syncthreads();   // warp_tot is reused by the next call
+  ea = pa + ia - a;
+  eb = pb + ib - b;
+  return make_int2(ta, tb);
+}
+
+// Pass 0: zeros and DC, the whole (n_blk + 1, 64) row of each image in
+// 16-byte stores.  grid (ceil(units / 1024), B), four stores a thread.
+__global__ void __launch_bounds__(kUnpackThreads)
+    nibble_fill(NibbleArgs a) {
+  const int64_t b = blockIdx.y;
+  const int64_t units = (a.n_blk + 1) * 16;     // int4s of a row
+  int4* out = reinterpret_cast<int4*>(a.out + b * (a.n_blk + 1) * 64);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int64_t u = (static_cast<int64_t>(blockIdx.x) * 4 + k) *
+                          kUnpackThreads + threadIdx.x;
+    if (u >= units) break;
+    const int64_t blk = u >> 4;
+    int4 v = make_int4(0, 0, 0, 0);
+    if ((u & 15) == 0 && blk < a.n_blk) v.x = a.dc16[b * a.n_blk + blk];
+    out[u] = v;
+  }
+}
+
+// Pass 1: each chunk's advance and overflow totals.  grid (n_chunks, B).
+__global__ void __launch_bounds__(kUnpackThreads)
+    nibble_totals(NibbleArgs a) {
+  const int64_t b = blockIdx.y, chunk = blockIdx.x;
+  uint8_t v[kPerThread];
+  load_entries(a, b, chunk, v);
+  int adv = 0, n_ov = 0;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    adv += advance(v[i]);
+    n_ov += (v[i] & 15) == 8;
+  }
+  int ea, eb;
+  const int2 tot = block_scan2(adv, n_ov, ea, eb);
+  if (threadIdx.x == 0) {
+    a.agg[(b * a.n_chunks + chunk) * 2] = tot.x;
+    a.agg[(b * a.n_chunks + chunk) * 2 + 1] = tot.y;
+  }
+}
+
+// Pass 2: positions and ranks, then the adds.  grid (n_chunks, B).
+__global__ void __launch_bounds__(kUnpackThreads)
+    nibble_scatter(NibbleArgs a) {
+  __shared__ long long base_sum[2][kWarpsPerCta];
+  const int64_t b = blockIdx.y, chunk = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // The totals of the row's chunks before this one.
+  long long pos = 0, rank = 0;
+  for (int64_t k = threadIdx.x; k < chunk; k += kUnpackThreads) {
+    pos += a.agg[(b * a.n_chunks + k) * 2];
+    rank += a.agg[(b * a.n_chunks + k) * 2 + 1];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    pos += __shfl_xor_sync(kFullMask, pos, off);
+    rank += __shfl_xor_sync(kFullMask, rank, off);
+  }
+  if (lane == 0) base_sum[0][warp] = pos, base_sum[1][warp] = rank;
+  __syncthreads();
+  pos = 0, rank = 0;
+#pragma unroll
+  for (int w = 0; w < kWarpsPerCta; ++w)
+    pos += base_sum[0][w], rank += base_sum[1][w];
+
+  uint8_t v[kPerThread];
+  load_entries(a, b, chunk, v);
+  int adv = 0, n_ov = 0;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    adv += advance(v[i]);
+    n_ov += (v[i] & 15) == 8;
+  }
+  int ea, eb;
+  block_scan2(adv, n_ov, ea, eb);
+  pos += ea;
+  rank += eb;
+  const int64_t n_coef = a.n_blk * 64;
+  int32_t* out = a.out + b * (a.n_blk + 1) * 64;
+  const int8_t* ov = a.ov + b * a.o;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int vc = v[i] & 15;
+    pos += advance(v[i]);
+    int val;
+    if (vc == 8) {
+      const long long r = rank < 0 ? 0 : (rank >= a.o ? a.o - 1 : rank);
+      val = a.o > 0 ? ov[r] : 0;
+      ++rank;
+    } else {
+      val = ((vc + 8) & 15) - 8;
+    }
+    const long long idx = pos - 1;
+    if (val != 0 && idx >= 0 && idx < n_coef && (idx & 63) != 0)
+      atomicAdd(out + idx, val);
+  }
+}
+
+// Pass 3: escapes set (off the DC slots).  grid (ceil(E / 256), B).
+__global__ void __launch_bounds__(kUnpackThreads)
+    nibble_escapes(NibbleArgs a) {
+  const int64_t b = blockIdx.y;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kUnpackThreads + threadIdx.x;
+  int32_t* out = a.out + b * (a.n_blk + 1) * 64;
+  if (i < a.n_esc) {
+    const int64_t idx = a.esc_idx[b * a.n_esc + i];
+    if (idx >= 0 && idx < a.n_blk * 64 && (idx & 63) != 0)
+      out[idx] = a.esc_val[b * a.n_esc + i];
+  }
+}
+
+// ---- K6b: scan-order blocks -> RGB ------------------------------------
+
+constexpr int kPixThreads = 256;
+constexpr int kOctets = kPixThreads / 8;   // blocks per round of phase 1
+constexpr int kMaxComps = 4;
+constexpr int kPad = 72;                   // floats per block, padded
+
+enum Mode { kPallas = 0, kExact = 1, kSamples = 2 };
+enum Colour { kGray = 0, kYCbCr = 1, kRGB = 2, kYCCK = 3, kCMYK = 4 };
+enum Up { kNone = 0, kNN = 1, kFancy = 2 };
+
+// Scratch of an octet in phase 1: K1's dequantised block and its row pass.
+constexpr int kScratchFloats = 2 * kPad;
+
+struct CompGeo {
+  int h, v;          // sampling factors: the closed-form source
+  int k0;            // the component's first block in an MCU
+  int n_r, n_c;      // sample rows / columns the upsampler sees
+  int vy, vx;        // upsampling factors
+  int up;            // Up
+  int win_w;         // window columns (capacity)
+  int off;           // window's first int in the sample area
+};
+
+struct PixArgs {
+  const int32_t* blocks;   // (B, n_rows, 64): coefficients or samples
+  const int32_t* qt;       // (B, n_comps, 64)
+  const int32_t* geom;     // (B, 4): mcus_x, mcus_y, height, width
+  const float* kron;       // (64, 64) KRON, for K1's recheck
+  void* out;               // (B, out_h, out_w, 3) uint8 or uint16
+  int64_t n_rows;
+  int n_comps, bpm;
+  int out_h, out_w;
+  int tile_h, tile_w, tiles_x;
+  int colour, center, maxv;
+  CompGeo c[kMaxComps];
+};
+
+// The tile's window of component c: sample rows [r0, r1], columns [c0, c1].
+struct Window {
+  int r0, r1, c0, c1;
+};
+
+__device__ __forceinline__ void span(int lo_out, int hi_out, int f, int up,
+                                     int n, int& lo, int& hi) {
+  if (up == kNone) {
+    lo = lo_out, hi = hi_out;
+  } else if (up == kNN || f == 1) {
+    lo = lo_out / f, hi = hi_out / f;
+  } else {   // fancy at 2: the sample and its neighbours
+    lo = max(lo_out / 2 - 1, 0);
+    hi = min(hi_out / 2 + 1, n - 1);
+  }
+}
+
+__device__ __forceinline__ float ycc_r(float y, float cr, float center) {
+  return __fadd_rn(__fadd_rn(y, __fmul_rn(0x1.66e978p+0f, cr)), center);
+}
+__device__ __forceinline__ float ycc_g(float y, float cb, float cr,
+                                       float center) {
+  return __fadd_rn(__fsub_rn(__fsub_rn(y, __fmul_rn(0x1.60418ap-2f, cb)),
+                             __fmul_rn(0x1.6d9168p-1f, cr)),
+                   center);
+}
+__device__ __forceinline__ float ycc_b(float y, float cb, float center) {
+  return __fadd_rn(__fadd_rn(y, __fmul_rn(0x1.c5a1cap+0f, cb)), center);
+}
+
+// Clamp to [0, maxv] in float32, then truncate (pixel.py:_ycbcr_channels).
+__device__ __forceinline__ int clamp_trunc(float x, float maxv) {
+  return __float2int_rz(fminf(fmaxf(x, 0.0f), maxv));
+}
+
+__device__ __forceinline__ int clamp_i(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// int32 3 a + b + k, wrapping as the torch ops do.
+__device__ __forceinline__ int mul3_add(int a, int b, int k = 0) {
+  return static_cast<int>(3u * static_cast<unsigned>(a) +
+                          static_cast<unsigned>(b) + static_cast<unsigned>(k));
+}
+
+// Pillow's cmyk2rgb on one channel: nk - MULDIV255(c, nk), nk = 255 - K.
+__device__ __forceinline__ int cmyk_channel(int c, int nk) {
+  const int t = c * nk + 128;
+  return clamp_i(nk - ((t + (t >> 8)) >> 8), 0, 255);
+}
+
+template <int kMode, typename OutT>
+__global__ void __launch_bounds__(kPixThreads)
+    blocks_to_rgb_kernel(const PixArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // The octets' scratch (ops/pixels_cuda.py:SCRATCH), then the windows.
+  constexpr int kScratchBytes =
+      kMode == kPallas ? kOctets * kScratchFloats * 4
+                       : (kMode == kExact ? kOctets * kBlockStride * 4 : 0);
+  float* scratch = reinterpret_cast<float*>(smem);
+  int32_t* win = reinterpret_cast<int32_t*>(smem + kScratchBytes);
+  const int tid = threadIdx.x, oct = tid >> 3, r = tid & 7;
+  const int64_t b = blockIdx.y;
+  const int ty = blockIdx.x / a.tiles_x;
+  const int tx = blockIdx.x - ty * a.tiles_x;
+  const int y0 = ty * a.tile_h, x0 = tx * a.tile_w;
+  const int y1 = min(y0 + a.tile_h, a.out_h) - 1;   // last row, inclusive
+  const int x1 = min(x0 + a.tile_w, a.out_w) - 1;
+  const int mcus_x = a.geom[b * 4], mcus_y = a.geom[b * 4 + 1];
+  const int true_h = a.geom[b * 4 + 2], true_w = a.geom[b * 4 + 3];
+
+  Window w[kMaxComps];
+  int br0[kMaxComps], bc0[kMaxComps], nbc[kMaxComps], first[kMaxComps + 1];
+  first[0] = 0;
+  bool any_valid = false;   // a window reaches a block of the geometry
+#pragma unroll
+  for (int c = 0; c < kMaxComps; ++c) {
+    int jobs = 0;
+    if (c < a.n_comps) {
+      const CompGeo& g = a.c[c];
+      span(y0, y1, g.vy, g.up, g.n_r, w[c].r0, w[c].r1);
+      span(x0, x1, g.vx, g.up, g.n_c, w[c].c0, w[c].c1);
+      br0[c] = w[c].r0 >> 3;
+      bc0[c] = w[c].c0 >> 3;
+      nbc[c] = (w[c].c1 >> 3) - bc0[c] + 1;
+      jobs = ((w[c].r1 >> 3) - br0[c] + 1) * nbc[c];
+      any_valid |= br0[c] < mcus_y * g.v && bc0[c] < mcus_x * g.h;
+    }
+    first[c + 1] = first[c] + jobs;
+  }
+
+  // Phase 1: the samples of every block the tile reaches, one block an
+  // octet a round; the loop is uniform over the CTA (the shuffles of K1's
+  // eps need every lane).  A tile whose windows reach no block of the
+  // geometry (bucket padding) has only zero samples, so every pixel is the
+  // colour of zeros: phase 1 is skipped and phase 2 reads no window.
+  const int n_jobs = any_valid ? first[a.n_comps] : 0;
+  for (int base = 0; base < n_jobs; base += kOctets) {
+    const int j = base + oct;
+    const bool active = j < n_jobs;
+    int c = 0;
+#pragma unroll
+    for (int k = 1; k < kMaxComps; ++k)
+      if (k < a.n_comps && j >= first[k]) c = k;
+    const CompGeo& g = a.c[c];
+    const int jj = active ? j - first[c] : 0;
+    const int br = br0[c] + jj / nbc[c];
+    const int bc = bc0[c] + jj % nbc[c];
+    const int64_t src =
+        (static_cast<int64_t>(br / g.v) * mcus_x + bc / g.h) * a.bpm + g.k0 +
+        (br % g.v) * g.h + bc % g.h;
+    const bool valid = active && br < mcus_y * g.v && bc < mcus_x * g.h &&
+                       src < a.n_rows;
+    const int32_t* blk = a.blocks + (b * a.n_rows + src) * 64;
+    int s[8];
+    bool by_column;   // s holds column r of the block, else row r
+    if (kMode == kSamples) {
+      int4 lo = make_int4(0, 0, 0, 0), hi = lo;
+      if (valid) load_row(blk, r, lo, hi);
+      s[0] = lo.x, s[1] = lo.y, s[2] = lo.z, s[3] = lo.w;
+      s[4] = hi.x, s[5] = hi.y, s[6] = hi.z, s[7] = hi.w;
+      by_column = false;
+    } else {
+      int4 clo = make_int4(0, 0, 0, 0), chi = clo, qlo, qhi;
+      if (valid) load_row(blk, r, clo, chi);
+      load_row(a.qt + (b * a.n_comps + c) * 64, r, qlo, qhi);
+      const int32_t q[8] = {qlo.x, qlo.y, qlo.z, qlo.w,
+                            qhi.x, qhi.y, qhi.z, qhi.w};
+      if (kMode == kPallas) {
+        float x[8];
+        k1_dequant_row(clo, chi, q, x);
+        float* xb = scratch + oct * kScratchFloats;
+        float* tb = xb + kPad;
+        store_row(xb, r, x);
+        const float eps = k1_eps(x);
+        float t[8];
+        k1_row_pass(x, t);
+        store_row(tb, r, t);
+        __syncwarp();
+        float col[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) col[u] = tb[u * 8 + r];
+        int32_t res[8];
+        const unsigned near = k1_col_pass(col, eps, res);
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+          s[p] = (near >> p & 1u) ? k1_kron(xb, a.kron, p * 8 + r) : res[p];
+        by_column = true;
+      } else {
+        int* t = reinterpret_cast<int*>(scratch) + oct * kBlockStride;
+        const int cv[8] = {clo.x, clo.y, clo.z, clo.w,
+                           chi.x, chi.y, chi.z, chi.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          t[r * kRowStride + k] = k5_dequant(cv[k], q[k]);
+        __syncwarp();
+        k5_col_pass(t, r);
+        __syncwarp();
+        k5_row_pass(t, r, s);
+        by_column = false;
+      }
+      __syncwarp();   // the octet's scratch is reused next round
+    }
+    if (active) {
+      const Window& wc = w[c];
+      int32_t* dst = win + g.off;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int sr = br * 8 + (by_column ? k : r);
+        const int sc = bc * 8 + (by_column ? r : k);
+        if (sr >= wc.r0 && sr <= wc.r1 && sc >= wc.c0 && sc <= wc.c1)
+          dst[(sr - wc.r0) * g.win_w + (sc - wc.c0)] = s[k];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: the tile's pixels.
+  const int tile_w = x1 - x0 + 1;
+  const int n_pix = (y1 - y0 + 1) * tile_w;
+  OutT* out = static_cast<OutT*>(a.out);
+  const float center = static_cast<float>(a.center);
+  const float maxv = static_cast<float>(a.maxv);
+  for (int p = tid; p < n_pix; p += kPixThreads) {
+    const int y = y0 + p / tile_w, x = x0 + p % tile_w;
+    int v[kMaxComps] = {0, 0, 0, 0};
+#pragma unroll
+    for (int c = 0; c < kMaxComps; ++c) {
+      if (c >= a.n_comps || !any_valid) break;
+      const CompGeo& g = a.c[c];
+      const Window& wc = w[c];
+      const int32_t* ws = win + g.off;
+#define S(i, j) ws[((i) - wc.r0) * g.win_w + ((j) - wc.c0)]
+      if (g.up == kNone) {
+        v[c] = S(y, x);
+      } else if (g.up == kNN) {
+        v[c] = S(y / g.vy, x / g.vx);
+      } else {
+        // Edge replication at the image's true edge (pixel.py:_shift_down,
+        // _shift_right); a row or column past it takes its own value.
+        const int e_r = (true_h + g.vy - 1) / g.vy;
+        const int e_c = (true_w + g.vx - 1) / g.vx;
+        if (g.vy == 2 && g.vx == 2) {
+          const int i = y >> 1, j = x >> 1;
+          const int ni = (y & 1) ? (i + 1 >= e_r ? i : min(i + 1, g.n_r - 1))
+                                 : max(i - 1, 0);
+          const int nj = (x & 1) ? (j + 1 >= e_c ? j : min(j + 1, g.n_c - 1))
+                                 : max(j - 1, 0);
+          const int col_j = mul3_add(S(i, j), S(ni, j));
+          const int col_n = mul3_add(S(i, nj), S(ni, nj));
+          v[c] = mul3_add(col_j, col_n, (x & 1) ? 7 : 8) >> 4;
+        } else if (g.vy == 2) {
+          const int i = y >> 1;
+          const int ni = (y & 1) ? (i + 1 >= e_r ? i : min(i + 1, g.n_r - 1))
+                                 : max(i - 1, 0);
+          v[c] = mul3_add(S(i, x), S(ni, x), (y & 1) ? 2 : 1) >> 2;
+        } else {
+          const int j = x >> 1;
+          const int nj = (x & 1) ? (j + 1 >= e_c ? j : min(j + 1, g.n_c - 1))
+                                 : max(j - 1, 0);
+          v[c] = mul3_add(S(y, j), S(y, nj), (x & 1) ? 2 : 1) >> 2;
+        }
+      }
+#undef S
+    }
+    int rgb[3];
+    if (a.colour == kGray) {
+      const int gv = clamp_i(mul3_add(0, v[0], a.center), 0, a.maxv);
+      rgb[0] = rgb[1] = rgb[2] = gv;
+    } else if (a.colour == kRGB) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rgb[k] = clamp_i(v[k] + 128, 0, 255);
+    } else {
+      int cmy[3], kk;
+      if (a.colour == kCMYK) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cmy[k] = 255 - clamp_i(v[k] + 128, 0, 255);
+        kk = 255 - clamp_i(v[3] + 128, 0, 255);
+      } else {
+        const float yf = __int2float_rn(v[0]), cb = __int2float_rn(v[1]);
+        const float cr = __int2float_rn(v[2]);
+        cmy[0] = clamp_trunc(ycc_r(yf, cr, center), maxv);
+        cmy[1] = clamp_trunc(ycc_g(yf, cb, cr, center), maxv);
+        cmy[2] = clamp_trunc(ycc_b(yf, cb, center), maxv);
+        kk = a.colour == kYCCK ? 255 - clamp_i(v[3] + 128, 0, 255) : 0;
+      }
+      if (a.colour == kYCbCr) {
+        rgb[0] = cmy[0], rgb[1] = cmy[1], rgb[2] = cmy[2];
+      } else {   // PIL-convention CMYK to RGB
+        const int nk = 255 - kk;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) rgb[k] = cmyk_channel(cmy[k], nk);
+      }
+    }
+    OutT* o =
+        out + ((b * a.out_h + y) * static_cast<int64_t>(a.out_w) + x) * 3;
+    o[0] = static_cast<OutT>(rgb[0]);
+    o[1] = static_cast<OutT>(rgb[1]);
+    o[2] = static_cast<OutT>(rgb[2]);
+  }
+}
+
+template <int kMode, typename OutT>
+int launch_rgb(const PixArgs& a, int64_t n_img, int64_t n_tiles,
+               size_t smem, cudaStream_t stream) {
+  auto kernel = blocks_to_rgb_kernel<kMode, OutT>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(static_cast<unsigned>(n_tiles),
+                  static_cast<unsigned>(n_img));
+  kernel<<<grid, kPixThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K6a.  dc16 (B, n_blk) int16, e (B, K) uint8, ov (B, O) int8, esc_idx
+// (B, E) int32, esc_val (B, E) int16, out (B, n_blk + 1, 64) int32, agg
+// (B, ceil(K / 4096), 2) int32 scratch; all contiguous on the current
+// device (the wrapper checks this).  Launches on `stream`; returns
+// cudaGetLastError() (0 = launched).
+extern "C" int jd_unpack_nibble(const void* dc16, const void* e,
+                                const void* ov, const void* esc_idx,
+                                const void* esc_val, void* out, void* agg,
+                                int64_t n_img, int64_t n_blk, int64_t k,
+                                int64_t o, int64_t n_esc, void* stream) {
+  if (n_img <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  NibbleArgs a;
+  a.dc16 = static_cast<const int16_t*>(dc16);
+  a.e = static_cast<const uint8_t*>(e);
+  a.ov = static_cast<const int8_t*>(ov);
+  a.esc_idx = static_cast<const int32_t*>(esc_idx);
+  a.esc_val = static_cast<const int16_t*>(esc_val);
+  a.out = static_cast<int32_t*>(out);
+  a.agg = static_cast<int32_t*>(agg);
+  a.n_blk = n_blk, a.k = k, a.o = o, a.n_esc = n_esc;
+  a.n_chunks = (k + kChunk - 1) / kChunk;
+  a.vec = reinterpret_cast<uintptr_t>(e) % 16 == 0 && k % 16 == 0;
+  const unsigned ny = static_cast<unsigned>(n_img);
+  const int64_t units = (n_blk + 1) * 16;
+  nibble_fill<<<dim3(static_cast<unsigned>(
+                         (units + 4 * kUnpackThreads - 1) /
+                         (4 * kUnpackThreads)),
+                     ny),
+                kUnpackThreads, 0, s>>>(a);
+  if (a.n_chunks > 0) {
+    const dim3 grid(static_cast<unsigned>(a.n_chunks), ny);
+    nibble_totals<<<grid, kUnpackThreads, 0, s>>>(a);
+    nibble_scatter<<<grid, kUnpackThreads, 0, s>>>(a);
+  }
+  if (n_esc > 0) {
+    const dim3 grid(
+        static_cast<unsigned>((n_esc + kUnpackThreads - 1) / kUnpackThreads),
+        ny);
+    nibble_escapes<<<grid, kUnpackThreads, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6b.  `geo`: per component 10 int32 (h, v, k0, n_r, n_c, vy, vx, up,
+// win_w, off: CompGeo); `dims`: n_comps, bpm, out_h, out_w, tile_h, tile_w,
+// tiles_x, colour, center, maxv, mode (0 pallas, 1 exact, 2 samples),
+// out_bytes (1 uint8, 2 uint16); the pointers as in PixArgs, contiguous
+// and 16-byte aligned on the current device.  `smem` is the dynamic shared
+// memory of a CTA: the octets' scratch (mode 0: 32 x 144 floats, mode 1:
+// 32 x 72 ints, mode 2: none) and then the windows.
+extern "C" int jd_blocks_to_rgb(const void* blocks, const void* qt,
+                                const void* geom, const void* kron,
+                                void* out, int64_t n_img, int64_t n_rows,
+                                const int32_t* dims, const int32_t* geo,
+                                int64_t n_tiles, int64_t smem,
+                                void* stream) {
+  if (n_img <= 0 || n_tiles <= 0) return 0;
+  PixArgs a;
+  a.blocks = static_cast<const int32_t*>(blocks);
+  a.qt = static_cast<const int32_t*>(qt);
+  a.geom = static_cast<const int32_t*>(geom);
+  a.kron = static_cast<const float*>(kron);
+  a.out = out;
+  a.n_rows = n_rows;
+  a.n_comps = dims[0], a.bpm = dims[1];
+  a.out_h = dims[2], a.out_w = dims[3];
+  a.tile_h = dims[4], a.tile_w = dims[5], a.tiles_x = dims[6];
+  a.colour = dims[7], a.center = dims[8], a.maxv = dims[9];
+  const int mode = dims[10], out_bytes = dims[11];
+  if (a.n_comps < 1 || a.n_comps > kMaxComps) return -1;
+  for (int c = 0; c < a.n_comps; ++c) {
+    const int32_t* g = geo + c * 10;
+    a.c[c] = CompGeo{g[0], g[1], g[2], g[3], g[4],
+                     g[5], g[6], g[7], g[8], g[9]};
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  if (out_bytes == 1) {
+    if (mode == kPallas) return launch_rgb<kPallas, uint8_t>(a, n_img, n_tiles,
+                                                             sm, s);
+    if (mode == kExact) return launch_rgb<kExact, uint8_t>(a, n_img, n_tiles,
+                                                           sm, s);
+    return launch_rgb<kSamples, uint8_t>(a, n_img, n_tiles, sm, s);
+  }
+  if (mode == kPallas) return launch_rgb<kPallas, uint16_t>(a, n_img, n_tiles,
+                                                            sm, s);
+  if (mode == kExact) return launch_rgb<kExact, uint16_t>(a, n_img, n_tiles,
+                                                          sm, s);
+  return launch_rgb<kSamples, uint16_t>(a, n_img, n_tiles, sm, s);
+}

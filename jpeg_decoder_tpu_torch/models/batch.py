@@ -52,6 +52,7 @@ from .. import layout as layout_mod
 from ..entropy import native
 from ..io import parser
 from ..ops import pixel as pixel_ops
+from ..ops import pixels_cuda
 from ..types import FrameHeader
 from . import decoder as decoder_mod
 from . import routing
@@ -346,12 +347,30 @@ def planes_from_blocks_dyn(blocks, geom, *, comp_shapes, comp_hv):
 def rgb_from_blocks_dyn(blocks, qtables, geom, *, comp_shapes, comp_hv,
                         height, width, samplings, idct, upsample, color,
                         precision) -> torch.Tensor:
-    """Pixels of a geometry bucket: :func:`planes_from_blocks_dyn`, then the
-    pixel pipeline at the bucket's dims with each image's true edge (the
-    JAX package's ``_rgb_one_dyn``, batched).  ``qtables``: (B, n_comps, 64)
-    int32; ``geom``: (B, 4) int.  Returns (B, height, width, 3) RGB whose
-    pixels inside each image's (geom height, width) are exact; the rest is
-    padding that :attr:`BatchItem.rgb` crops."""
+    """Pixels of a geometry bucket (the JAX package's ``_rgb_one_dyn``,
+    batched).  ``blocks``: (B, N, 64) int32 scan-order blocks;
+    ``qtables``: (B, n_comps, 64) int32; ``geom``: (B, 4) int32 (mcus_x,
+    mcus_y, height, width).  On a CUDA tensor one launch of the kernel K6b
+    (``ops/pixels_cuda.blocks_to_rgb``; under ``kron``/``fast`` after the
+    product on the scan-order blocks), which raises if it cannot launch; on
+    a CPU tensor the plain route :func:`rgb_from_blocks_torch`.  Returns
+    (B, height, width, 3) RGB whose pixels inside each image's (geom
+    height, width) are exact; the rest is padding that
+    :attr:`BatchItem.rgb` crops."""
+    return pixels_cuda.blocks_to_rgb(
+        blocks, qtables, geom, comp_shapes=comp_shapes, comp_hv=comp_hv,
+        height=height, width=width, samplings=samplings, idct=idct,
+        upsample=upsample, color=color, precision=precision)
+
+
+def rgb_from_blocks_torch(blocks, qtables, geom, *, comp_shapes, comp_hv,
+                          height, width, samplings, idct, upsample, color,
+                          precision) -> torch.Tensor:
+    """The plain route K6b replaces: :func:`planes_from_blocks_dyn`, then
+    the pixel pipeline at the bucket's dims with each image's true edge
+    (K1 or K5 and torch ops on a CUDA tensor, their twins on the CPU).
+    ``blocks`` must hold a zero fill row last (:class:`_Blocks`); arguments
+    and result as :func:`rgb_from_blocks_dyn`."""
     planes = planes_from_blocks_dyn(blocks, geom, comp_shapes=comp_shapes,
                                     comp_hv=comp_hv)
     qts = tuple(qtables[:, i].contiguous() for i in range(len(comp_shapes)))
@@ -457,12 +476,15 @@ class BatchDecoder:
     raises (pass ``device="cpu"`` to decode on the CPU).  The other defaults
     are the JAX package's: ``entropy="auto"`` (the native host decoder,
     ``python`` where the native library does not build) and ``idct="fast"``
-    (torch contractions).  On a CUDA device the dequant+IDCT step is the
-    hand-written kernel K1 under ``idct="pallas"`` or K5 under
-    ``idct="exact"``; under ``entropy="pallas"`` and ``"jax"`` each image's
-    Huffman decode is K2, under ``"hybrid"`` K7 for a DRI=0 stream and K2
-    otherwise (the blocks come back to the host and ride the wire, as in
-    the JAX package); on the CPU all are their plain twins.
+    (torch contractions).  On a CUDA device the nibble wire's unpack is the
+    hand-written kernel K6a and each group's pixels one launch of K6b
+    (``ops/pixels_cuda.py``), which carries K1's arithmetic under
+    ``idct="pallas"`` and K5's under ``idct="exact"`` and takes the torch
+    product's samples under ``kron`` and ``fast``; under
+    ``entropy="pallas"`` and ``"jax"`` each image's Huffman decode is K2,
+    under ``"hybrid"`` K7 for a DRI=0 stream and K2 otherwise (the blocks
+    come back to the host and ride the wire, as in the JAX package); on the
+    CPU all are their plain twins.
 
     ``entropy``: ``auto``, ``native``, ``python``, ``speculative``,
     ``pallas``, ``jax`` or ``hybrid``;
@@ -711,7 +733,12 @@ class BatchDecoder:
         return out
 
     def unpack(self, group: Group, tensors) -> torch.Tensor:
-        """The group's (B, n_blk + 1, 64) int32 blocks from its wire."""
+        """The group's (B, n_blk + 1, 64) int32 blocks from its wire: the
+        nibble wire through ``ops/pixels_cuda.unpack_nibble`` (the kernel
+        K6a on the card, the plain :func:`unpack_nibble` on the CPU), the
+        other wires through their torch unpack."""
+        if group.wire == "nibble":
+            return pixels_cuda.unpack_nibble(*tensors[:-2])
         return UNPACK[group.wire](*tensors[:-2])
 
     def pixels(self, group: Group, tensors) -> torch.Tensor:

@@ -1,0 +1,547 @@
+"""The batch routes' device pixel stage: K6a and K6b, hand-written CUDA
+kernels (``csrc/pixels.cu``), and the plain versions they are held to.
+
+* K6a, :func:`unpack_nibble`: the nibble wire to (B, n_blk + 1, 64) int32
+  scan-order blocks.  It replaces the XLA code of the JAX package's
+  ``models/batch.py:256 _batched_from_nibble``.  On a CUDA tensor it
+  launches the kernel (four launches: zeros and DC written over the whole
+  output, chunk totals, the chunked double prefix sum with the adds, the
+  escapes)
+  and counts ``unpack_nibble.launches``; on a CPU tensor it runs the plain
+  version ``models.batch.unpack_nibble``.
+* K6b, :func:`blocks_to_rgb`: scan-order blocks to the group's whole
+  (B, H, W, 3) RGB in one pass, padding included.  It replaces the JAX
+  package's ``models/batch.py:52 _planes_from_blocks_dyn`` and ``:82
+  _rgb_one_dyn`` (dequantise, IDCT, upsample, colour).  Under ``pallas``
+  and ``exact`` the kernel carries K1's or K5's arithmetic
+  (``csrc/idct_common.cuh``); under ``kron`` and ``fast`` the product stays
+  ``torch.matmul`` or the einsum on the scan-order blocks
+  (:func:`scan_samples`) and the kernel's samples form skips its IDCT.  On a
+  CUDA tensor it launches the kernel or raises and counts
+  ``blocks_to_rgb.launches``; on a CPU tensor it runs the plain version
+  ``models.batch.rgb_from_blocks_torch``.
+
+The kernels' decompositions have plain models here, for the CPU tests:
+:func:`unpack_nibble_chunked` (zeros and DC first, chunk totals, the
+prefix over chunks, the threads' scan, each thread's walk, adds of nonzero
+values off the DC slots, escapes off the DC slots) and
+:func:`rgb_tiles_torch` (output tiles, each component's window of samples
+with the fancy filter's halo, blocks from the closed-form geometry, zero
+blocks outside it, the per-pixel upsampling).  No path runs them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+
+from .._build import CudaLib, launch_check
+from . import idct_cuda, pixel
+
+__all__ = ["blocks_to_rgb", "build", "rgb_plan", "rgb_tiles_torch",
+           "scan_samples", "unpack_nibble", "unpack_nibble_chunked"]
+
+LIB = CudaLib("pixels.cu", "jd_pixels", {
+    "jd_unpack_nibble": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dc16, e, ov
+        ctypes.c_void_p, ctypes.c_void_p,                   # esc idx, val
+        ctypes.c_void_p, ctypes.c_void_p,                   # out, agg
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,     # B, n_blk, K
+        ctypes.c_int64, ctypes.c_int64,                     # O, E
+        ctypes.c_void_p],                                   # stream
+    "jd_blocks_to_rgb": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # blocks, qt, geom
+        ctypes.c_void_p, ctypes.c_void_p,                   # kron, out
+        ctypes.c_int64, ctypes.c_int64,                     # B, n_rows
+        ctypes.c_void_p, ctypes.c_void_p,                   # dims, geo
+        ctypes.c_int64, ctypes.c_int64,                     # tiles, smem
+        ctypes.c_void_p]})                                  # stream
+
+#: K6a: threads of a CTA and entries a thread takes (one 16-byte load); a
+#: chunk of a row is their product.
+UNPACK_THREADS = 256
+PER_THREAD = 16
+#: K6b: threads of a CTA, blocks a round of phase 1 (eight threads each),
+#: the output tile it aims at (pixels; whole MCUs: 64 x 64 took 1.8765 ms on
+#: the batch of 32 against 2.1525 at 32 x 64, the fastest of six in
+#: chip_smoke.py's sweep on an H100 80GB HBM3 at 700 W), the floats of an
+#: octet's scratch under ``pallas`` (K1's two padded blocks) and the ints
+#: under ``exact`` (K5's padded tile).
+PIX_THREADS = 256
+OCTETS = PIX_THREADS // 8
+TILE = (64, 64)
+SCRATCH = {"pallas": OCTETS * 2 * 72 * 4, "exact": OCTETS * 72 * 4,
+           "samples": 0}
+MODES = {"pallas": 0, "exact": 1, "samples": 2}
+COLOURS = {"gray": 0, "ycbcr": 1, "rgb": 2, "ycck": 3, "cmyk": 4}
+UP_NONE, UP_NN, UP_FANCY = 0, 1, 2
+
+_count_lock = threading.Lock()
+
+
+def build():
+    """Compile ``csrc/pixels.cu`` (once per source, header and flag set,
+    into ``.cache/torch/kernels/``) and load it."""
+    return LIB.load()
+
+
+def _count(fn) -> None:
+    with _count_lock:
+        fn.launches += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _need(t: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must have {dim} dims, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+# -- K6a ----------------------------------------------------------------------
+
+def unpack_nibble(dc16, e, ov, esc_idx, esc_val) -> torch.Tensor:
+    """Nibble wire -> (B, n_blk + 1, 64) int32 blocks, equal to
+    ``models.batch.unpack_nibble`` on every element.
+
+    On a CUDA tensor this launches K6a or raises; on a CPU tensor it runs
+    the plain version."""
+    if dc16.device.type == "cpu":
+        from ..models import batch
+        return batch.unpack_nibble(dc16, e, ov, esc_idx, esc_val)
+    if dc16.device.type != "cuda":
+        raise ValueError(f"no kernel for device {dc16.device}")
+    dev = dc16.device
+    for t, name, dtype in ((dc16, "dc16", torch.int16), (e, "e", torch.uint8),
+                           (ov, "ov", torch.int8),
+                           (esc_idx, "esc_idx", torch.int32),
+                           (esc_val, "esc_val", torch.int16)):
+        _need(t, name, dtype, 2, dev)
+    b, n_blk = dc16.shape
+    if (e.shape[0], ov.shape[0], esc_idx.shape[0]) != (b, b, b) or \
+            esc_val.shape != esc_idx.shape:
+        raise ValueError("wire arrays of different batch sizes")
+    if b > 65535:
+        raise ValueError("at most 65535 images per launch")
+    k = e.shape[1]
+    n_chunks = -(-k // (UNPACK_THREADS * PER_THREAD))
+    lib = build()
+    out = torch.empty((b, n_blk + 1, 64), dtype=torch.int32, device=dev)
+    agg = torch.empty((b, max(n_chunks, 1), 2), dtype=torch.int32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.jd_unpack_nibble(
+            dc16.data_ptr(), e.data_ptr(), ov.data_ptr(), esc_idx.data_ptr(),
+            esc_val.data_ptr(), out.data_ptr(), agg.data_ptr(), b, n_blk, k,
+            ov.shape[1], esc_idx.shape[1], _stream(dc16))
+    launch_check(rc, "unpack_nibble")
+    _count(unpack_nibble)
+    return out
+
+
+#: Launches of K6a since the count was last set to 0.
+unpack_nibble.launches = 0
+
+
+def unpack_nibble_chunked(dc16, e, ov, esc_idx, esc_val, *,
+                          threads: int = UNPACK_THREADS,
+                          per: int = PER_THREAD) -> torch.Tensor:
+    """Plain model of K6a's decomposition: the output zero with each
+    block's DC in its slot; rows cut into chunks of ``threads * per``
+    entries; each chunk's advance and overflow totals; each chunk's base
+    from the totals of the chunks before it; the threads' exclusive scan
+    inside the chunk; each thread's walk over its ``per`` entries (entries
+    past the row's end are 0x00 fillers); every nonzero value added at its
+    position inside ``[0, n_blk * 64)`` off the DC slots; the escapes set
+    off the DC slots (DC is set last in the reference, so nothing else may
+    change a DC slot).  Equal to ``unpack_nibble`` on every element (tests
+    hold it there at small chunks)."""
+    b, n_blk = dc16.shape
+    k = e.shape[1]
+    chunk = threads * per
+    n_chunks = max(-(-k // chunk), 1)
+    ent = torch.zeros((b, n_chunks * chunk), dtype=torch.int64)
+    ent[:, :k] = e.to(torch.int64)
+    ent = ent.view(b, n_chunks, threads, per)
+    g, vc = ent >> 4, ent & 15
+    adv = torch.where(vc == 0, g * 16, g)
+    is_ov = (vc == 8).to(torch.int64)
+    # Chunk totals, then each chunk's base (the totals before it).
+    tot_adv, tot_ov = adv.sum((2, 3)), is_ov.sum((2, 3))
+    base_adv = torch.cumsum(tot_adv, 1) - tot_adv
+    base_ov = torch.cumsum(tot_ov, 1) - tot_ov
+    # The threads' exclusive scan inside the chunk.
+    th_adv, th_ov = adv.sum(3), is_ov.sum(3)
+    ex_adv = torch.cumsum(th_adv, 2) - th_adv
+    ex_ov = torch.cumsum(th_ov, 2) - th_ov
+    # Each thread's walk: positions after each entry, ranks before it.
+    pos = (base_adv[:, :, None, None] + ex_adv[..., None]
+           + torch.cumsum(adv, 3))
+    rank = (base_ov[:, :, None, None] + ex_ov[..., None]
+            + torch.cumsum(is_ov, 3) - is_ov)
+    o = ov.shape[1]
+    if o:
+        ovv = torch.gather(ov.to(torch.int64), 1,
+                           rank.reshape(b, -1).clamp(0, o - 1)
+                           ).view(rank.shape)
+    else:
+        ovv = torch.zeros_like(rank)
+    val = torch.where(is_ov.bool(), ovv, ((vc + 8) & 15) - 8)
+    idx = pos - 1
+    stride = (n_blk + 1) * 64
+    flat = torch.zeros(b * stride, dtype=torch.int32)
+    flat.view(b, n_blk + 1, 64)[:, :n_blk, 0] = dc16.to(torch.int32)
+    keep = (val != 0) & (idx >= 0) & (idx < n_blk * 64) & ((idx & 63) != 0)
+    rows = torch.arange(b).view(-1, 1, 1, 1).expand_as(idx)
+    flat.index_add_(0, (rows * stride + idx)[keep],
+                    val[keep].to(torch.int32))
+    ei = esc_idx.to(torch.int64)
+    keep = (ei >= 0) & (ei < n_blk * 64) & ((ei & 63) != 0)
+    rows = torch.arange(b).view(-1, 1).expand_as(ei)
+    flat[(rows * stride + ei)[keep]] = esc_val.to(torch.int32)[keep]
+    return flat.view(b, n_blk + 1, 64)
+
+
+# -- K6b ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RgbPlan:
+    """K6b's launch geometry for a group: the output dims, the tiles, the
+    colour and per component (h, v, k0, n_r, n_c, vy, vx, up, win_w, off):
+    sampling factors, first block in an MCU, the sample rows and columns
+    the upsampler sees (cropped to the unpadded grid at the bucket's dims),
+    upsampling factors, the upsampling kind, the window's columns and its
+    first int in the sample area (windows of ``win_h`` rows)."""
+
+    out_h: int
+    out_w: int
+    tile_h: int
+    tile_w: int
+    tiles_x: int
+    tiles_y: int
+    bpm: int
+    colour: int
+    center: int
+    maxv: int
+    comps: tuple
+    win_h: tuple
+    window_ints: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+    def smem(self, mode: str) -> int:
+        return SCRATCH[mode] + 4 * self.window_ints
+
+
+def _colour(color: str, n_comps: int, precision: int) -> int:
+    """The kernel's colour code, as pixel_pipeline_impl picks its branch."""
+    if color == "auto":
+        color = {1: "gray", 3: "ycbcr", 4: "cmyk"}.get(n_comps, "ycbcr")
+    if precision != 8 and color in ("rgb", "ycck", "cmyk"):
+        raise ValueError(
+            "12-bit decode is supported for gray/YCbCr frames only")
+    if n_comps == 1:
+        return COLOURS["gray"]
+    if color == "rgb":
+        need, code = 3, COLOURS["rgb"]
+    elif color in ("ycck", "cmyk"):
+        need, code = 4, COLOURS[color]
+    else:
+        need, code = 3, COLOURS["ycbcr"]
+    if n_comps < need:
+        raise ValueError(f"{color} needs {need} components, got {n_comps}")
+    return code
+
+
+def rgb_plan(*, comp_shapes, comp_hv, height: int, width: int, samplings,
+             upsample: str, color: str, precision: int,
+             tile=None) -> RgbPlan:
+    """K6b's geometry for a group (pure Python).  ``tile`` (rows, cols) of
+    output pixels, whole MCUs by default (:data:`TILE` rounded down to
+    MCUs, at least one)."""
+    if upsample not in ("fancy", "nn"):
+        raise ValueError(f"unknown upsample {upsample!r}")
+    n = len(comp_shapes)
+    if not 1 <= n <= 4:
+        raise ValueError(f"1 to 4 components, got {n}")
+    colour = _colour(color, n, precision)
+    h_max = max(h for h, _ in comp_hv)
+    v_max = max(v for _, v in comp_hv)
+    if tile is None:
+        tile = (8 * v_max * max(1, TILE[0] // (8 * v_max)),
+                8 * h_max * max(1, TILE[1] // (8 * h_max)))
+    tile_h, tile_w = tile
+    comps, hs, ws, k0 = [], [], [], 0
+    for (rows, cols), (h, v), (vy, vx) in zip(comp_shapes, comp_hv,
+                                              samplings):
+        n_r, n_c = rows * 8, cols * 8
+        if (vy, vx) == (1, 1):
+            up, up_r, up_c = UP_NONE, n_r, n_c
+        else:
+            n_r = min(n_r, -(-height // vy))
+            n_c = min(n_c, -(-width // vx))
+            fancy = upsample == "fancy" and vy in (1, 2) and vx in (1, 2)
+            up = UP_FANCY if fancy else UP_NN
+            up_r, up_c = n_r * vy, n_c * vx
+        comps.append([h, v, k0, n_r, n_c, vy, vx, up])
+        hs.append(up_r)
+        ws.append(up_c)
+        k0 += h * v
+    out_h, out_w = min(min(hs), height), min(min(ws), width)
+    off, win_h = 0, []
+    for c in comps:
+        vy, vx = c[5], c[6]
+        wh, ww = -(-tile_h // vy) + 2, -(-tile_w // vx) + 2
+        c += [ww, off]
+        win_h.append(wh)
+        off += wh * ww
+    return RgbPlan(
+        out_h=out_h, out_w=out_w, tile_h=tile_h, tile_w=tile_w,
+        tiles_x=-(-out_w // tile_w), tiles_y=-(-out_h // tile_h), bpm=k0,
+        colour=colour, center=1 << (precision - 1),
+        maxv=(1 << precision) - 1, comps=tuple(tuple(c) for c in comps),
+        win_h=tuple(win_h), window_ints=off)
+
+
+def scan_samples(blocks, qtables, comp_hv, idct: str) -> torch.Tensor:
+    """The ``kron`` or ``fast`` product on scan-order blocks: (B, N, 64)
+    int32 blocks, each dequantised by its component's table of
+    ``qtables`` (B, n_comps, 64), then ``torch.matmul`` by the Kronecker
+    basis (``idct_cuda.idct_kron``'s arithmetic) or the einsum
+    (``pixel.idct_fast``).  Returns (B, M, 64) int32 samples of the first
+    M = (N // blocks per MCU) MCUs' rows: the rows past them are the fill
+    row, which K6b never reads."""
+    if idct not in ("kron", "fast"):
+        raise ValueError(f"scan_samples takes kron or fast, got {idct!r}")
+    b, n = blocks.shape[:2]
+    block_comp = [c for c, (h, v) in enumerate(comp_hv) for _ in range(h * v)]
+    bpm = len(block_comp)
+    m = n // bpm
+    q = qtables[:, block_comp].to(torch.int32)             # (B, bpm, 64)
+    deq = blocks[:, :m * bpm].reshape(b, m, bpm, 64) * q[:, None]
+    if idct == "fast":
+        return pixel.idct_fast(deq.reshape(b, m * bpm, 8, 8)).reshape(
+            b, m * bpm, 64)
+    if blocks.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the kron product needs full float32: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+    out = torch.matmul(deq.reshape(b, m * bpm, 64).to(torch.float32),
+                       idct_cuda._basis_t(blocks.device))
+    return pixel.trunc_int32(torch.round(out))
+
+
+def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
+                  width, samplings, idct, upsample, color,
+                  precision) -> torch.Tensor:
+    """(B, N, 64) int32 scan-order blocks, (B, n_comps, 64) int32 tables and
+    (B, 4) int32 geometry (mcus_x, mcus_y, height, width) -> the group's
+    (B, H, W, 3) uint8 RGB (uint16 for 12-bit), padding included, as
+    ``models.batch.rgb_from_blocks_torch`` computes it.
+
+    On a CUDA tensor this launches K6b (after :func:`scan_samples` under
+    ``kron`` and ``fast``) or raises; on a CPU tensor it runs the plain
+    version."""
+    if blocks.device.type == "cpu":
+        from ..models import batch
+        return batch.rgb_from_blocks_torch(
+            blocks, qtables, geom, comp_shapes=comp_shapes, comp_hv=comp_hv,
+            height=height, width=width, samplings=samplings, idct=idct,
+            upsample=upsample, color=color, precision=precision)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"no kernel for device {blocks.device}")
+    if idct not in ("exact", "pallas", "kron", "fast"):
+        raise ValueError(f"unknown idct {idct!r}")
+    dev = blocks.device
+    _need(blocks, "blocks", torch.int32, 3, dev)
+    _need(qtables, "qtables", torch.int32, 3, dev)
+    _need(geom, "geom", torch.int32, 2, dev)
+    b = blocks.shape[0]
+    n_comps = len(comp_shapes)
+    if blocks.shape[2] != 64 or tuple(qtables.shape) != (b, n_comps, 64) \
+            or tuple(geom.shape) != (b, 4):
+        raise ValueError(f"shapes: blocks {tuple(blocks.shape)}, qtables "
+                         f"{tuple(qtables.shape)}, geom {tuple(geom.shape)}")
+    if b > 65535:
+        raise ValueError("at most 65535 images per launch")
+    plan = rgb_plan(comp_shapes=comp_shapes, comp_hv=comp_hv, height=height,
+                    width=width, samplings=samplings, upsample=upsample,
+                    color=color, precision=precision)
+    if idct in ("kron", "fast"):
+        src, mode = scan_samples(blocks, qtables, comp_hv, idct), "samples"
+    else:
+        src, mode = blocks, idct
+    for t, name in ((src, "blocks"), (qtables, "qtables")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    dtype = pixel._sample_dtype(precision)
+    out = torch.empty((b, plan.out_h, plan.out_w, 3), dtype=dtype,
+                      device=dev)
+    dims = (ctypes.c_int32 * 12)(
+        n_comps, plan.bpm, plan.out_h, plan.out_w, plan.tile_h, plan.tile_w,
+        plan.tiles_x, plan.colour, plan.center, plan.maxv, MODES[mode],
+        out.element_size())
+    geo = (ctypes.c_int32 * (10 * n_comps))(
+        *(x for c in plan.comps for x in c))
+    lib = build()
+    kron = idct_cuda._basis(dev, False)
+    with torch.cuda.device(dev):
+        rc = lib.jd_blocks_to_rgb(
+            src.data_ptr(), qtables.data_ptr(), geom.data_ptr(),
+            kron.data_ptr(), out.data_ptr(), b, src.shape[1], dims, geo,
+            plan.n_tiles, plan.smem(mode), _stream(blocks))
+    launch_check(rc, "blocks_to_rgb")
+    _count(blocks_to_rgb)
+    return out
+
+
+#: Launches of K6b since the count was last set to 0.
+blocks_to_rgb.launches = 0
+
+
+def _span(lo_out: int, hi_out: int, f: int, up: int, n: int):
+    """The window of samples rows (or columns) lo_out..hi_out reach."""
+    if up == UP_NONE:
+        return lo_out, hi_out
+    if up == UP_NN or f == 1:
+        return lo_out // f, hi_out // f
+    return max(lo_out // 2 - 1, 0), min(hi_out // 2 + 1, n - 1)
+
+
+def _scan_idct(blocks, qtables, comp_hv, idct: str) -> torch.Tensor:
+    """Per-block samples of scan-order blocks with the plain route's
+    arithmetic for ``idct`` (the CPU twins: ``exact_twin``'s op-by-op AAN,
+    ``idct_kron``'s product under ``pallas`` and ``kron``, ``idct_fast``)."""
+    if idct == "fast":
+        return scan_samples(blocks, qtables, comp_hv, "fast")
+    if idct in ("pallas", "kron"):
+        return scan_samples(blocks, qtables, comp_hv, "kron")
+    if idct != "exact":
+        raise ValueError(f"unknown idct {idct!r}")
+    b, n = blocks.shape[:2]
+    block_comp = [c for c, (h, v) in enumerate(comp_hv) for _ in range(h * v)]
+    bpm = len(block_comp)
+    m = n // bpm
+    q = qtables[:, block_comp].to(torch.int32)
+    deq = blocks[:, :m * bpm].reshape(b, m, bpm, 64) * q[:, None]
+    return pixel.idct_exact(deq.reshape(b, m * bpm, 8, 8)).reshape(
+        b, m * bpm, 64)
+
+
+def rgb_tiles_torch(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
+                    width, samplings, idct, upsample, color, precision,
+                    tile=None) -> torch.Tensor:
+    """Plain model of K6b's decomposition on CPU tensors: for each output
+    tile of each image, each component's window of samples (the rows and
+    columns the tile's pixels reach, the fancy filter's halo included),
+    filled block by block from the closed-form geometry (a cell outside it
+    a zero block), then each pixel's upsampled samples from the windows and
+    the colour transform.  The samples come from the plain route's per-block
+    IDCT (:func:`_scan_idct`).  Equal to ``rgb_from_blocks_torch`` (tests
+    hold it there at small tiles)."""
+    plan = rgb_plan(comp_shapes=comp_shapes, comp_hv=comp_hv, height=height,
+                    width=width, samplings=samplings, upsample=upsample,
+                    color=color, precision=precision, tile=tile)
+    samples = _scan_idct(blocks, qtables, comp_hv, idct)
+    b, n_rows = samples.shape[:2]
+    out = torch.empty((b, plan.out_h, plan.out_w, 3),
+                      dtype=pixel._sample_dtype(precision))
+    for k in range(b):
+        mcus_x, mcus_y, true_h, true_w = (int(x) for x in geom[k])
+        for ty in range(plan.tiles_y):
+            y0 = ty * plan.tile_h
+            y1 = min(y0 + plan.tile_h, plan.out_h) - 1
+            for tx in range(plan.tiles_x):
+                x0 = tx * plan.tile_w
+                x1 = min(x0 + plan.tile_w, plan.out_w) - 1
+                vals = []
+                for (h, v, k0, n_r, n_c, vy, vx, up, _, _) in plan.comps:
+                    r0, r1 = _span(y0, y1, vy, up, n_r)
+                    c0, c1 = _span(x0, x1, vx, up, n_c)
+                    sr = torch.arange(r0, r1 + 1).view(-1, 1)
+                    sc = torch.arange(c0, c1 + 1).view(1, -1)
+                    br, bc = sr // 8, sc // 8
+                    src = (((br // v) * mcus_x + bc // h) * plan.bpm + k0
+                           + (br % v) * h + bc % h)
+                    valid = ((br < mcus_y * v) & (bc < mcus_x * h)
+                             & (src < n_rows))
+                    win = samples[k, src.clamp(0, n_rows - 1),
+                                  (sr % 8) * 8 + sc % 8]
+                    win = torch.where(valid, win, 0)
+                    vals.append(_upsampled(
+                        win, r0, c0, y0, y1, x0, x1, vy, vx, up, n_r, n_c,
+                        -(-true_h // vy), -(-true_w // vx)))
+                out[k, y0:y1 + 1, x0:x1 + 1] = _colour_pixels(
+                    vals, plan.colour, precision)
+    return out
+
+
+def _upsampled(win, r0, c0, y0, y1, x0, x1, vy, vx, up, n_r, n_c, e_r, e_c):
+    """The kernel's per-pixel upsampling of one component over the tile's
+    pixels (y0..y1, x0..x1), from its window ``win`` (first sample r0, c0):
+    the torch ops of ``pixel.upsample_fancy``/``upsample_nn`` written per
+    output pixel, int32 wrapping."""
+    y = torch.arange(y0, y1 + 1).view(-1, 1)
+    x = torch.arange(x0, x1 + 1).view(1, -1)
+
+    def s(i, j):
+        return win[i - r0, j - c0].to(torch.int64)
+
+    def wrap(t):   # int32 wraparound of an int64 sum
+        return ((t + 2 ** 31) % 2 ** 32 - 2 ** 31)
+
+    if up == UP_NONE:
+        return s(y, x)
+    if up == UP_NN:
+        return s(y // vy, x // vx)
+
+    def down(i, e, n):
+        return torch.where(i + 1 >= e, i, torch.clamp(i + 1, max=n - 1))
+
+    def prev(i):
+        return torch.clamp(i - 1, min=0)
+
+    if vy == 2 and vx == 2:
+        i, j = y >> 1, x >> 1
+        ni = torch.where((y & 1) == 1, down(i, e_r, n_r), prev(i))
+        nj = torch.where((x & 1) == 1, down(j, e_c, n_c), prev(j))
+        col_j = wrap(3 * s(i, j) + s(ni, j))
+        col_n = wrap(3 * s(i, nj) + s(ni, nj))
+        return wrap(3 * col_j + col_n + torch.where((x & 1) == 1, 7, 8)) >> 4
+    if vy == 2:
+        i = y >> 1
+        ni = torch.where((y & 1) == 1, down(i, e_r, n_r), prev(i))
+        return wrap(3 * s(i, x) + s(ni, x)
+                    + torch.where((y & 1) == 1, 2, 1)) >> 2
+    j = x >> 1
+    nj = torch.where((x & 1) == 1, down(j, e_c, n_c), prev(j))
+    return wrap(3 * s(y, j) + s(y, nj) + torch.where((x & 1) == 1, 2, 1)) >> 2
+
+
+def _colour_pixels(vals, colour: int, precision: int) -> torch.Tensor:
+    """(h, w, 3) RGB of one tile from its components' upsampled samples, by
+    the colour functions of ``ops/pixel.py``."""
+    v = [t.to(torch.int32) for t in vals]
+    if colour == COLOURS["gray"]:
+        return pixel.gray_to_rgb(v[0], precision)
+    if colour == COLOURS["rgb"]:
+        return torch.stack([pixel._level_shift_u8(p) for p in v[:3]],
+                           dim=-1).to(torch.uint8)
+    if colour in (COLOURS["ycck"], COLOURS["cmyk"]):
+        name = "ycck" if colour == COLOURS["ycck"] else "cmyk"
+        return pixel.cmyk_to_rgb(pixel.decoded_to_cmyk(v[:4], name))
+    return pixel.ycbcr_to_rgb(v[0], v[1], v[2], precision)

@@ -41,10 +41,10 @@ and environment switches included); each route's device work:
   Huffman and quantisation tables) of DRI-0 streams, or of restart streams
   with fewer than ``JD_RESTART_EMIT_MAX_LANES`` (512) segments in all: the
   host lane plan of every image (``entropy_spec.device_plan``), then one
-  launch of K7 (``csrc/entropy_emit.cu``) over the whole group, the plane
-  gather and the pixel pipeline (K1 under ``idct="pallas"``, K5 under
-  ``"exact"``) — JAX's ``_hybrid_group_dispatch`` with its default
-  ``emit`` kernel;
+  launch of K7 (``csrc/entropy_emit.cu``) over the whole group, then the
+  pixels (one launch of K6b, ``ops/pixels_cuda.blocks_to_rgb``, with K1's
+  arithmetic under ``idct="pallas"`` and K5's under ``"exact"``) — JAX's
+  ``_hybrid_group_dispatch`` with its default ``emit`` kernel;
 * a *bucketed* group (a power-of-two MCU-grid bucket whose images differ in
   size, tables or DRI): per-image plans padded to the group
   (``entropy_spec.plan_bucket_group``), one K7 launch with each image's
@@ -214,10 +214,38 @@ def _samplings(hdr: FrameHeader) -> tuple:
                  for c in hdr.components)
 
 
+def header_geom(hdr: FrameHeader, b: int, device) -> torch.Tensor:
+    """(B, 4) int32 rows of the header's geometry (mcus_x, mcus_y, height,
+    width) on ``device``: K6b's closed-form plane geometry with the exact
+    dims as the bucket, which is ``scan_layout``'s ``comp_src``
+    (tests/test_torch_pixels.py)."""
+    row = torch.tensor((hdr.mcus_x, hdr.mcus_y, hdr.height, hdr.width),
+                       dtype=torch.int32)
+    return row.repeat(b, 1).to(device)
+
+
 def _pixels(blocks, qt, srcs, hdr, *, idct, upsample):
-    """(B, H, W, 3) RGB of same-geometry images: each component's plane
-    gathered from the scan-order ``blocks`` (B, N, 64) by ``srcs`` (int64
-    row indices), then the pixel pipeline with ``qt`` (B, n_comps, 64)."""
+    """(B, H, W, 3) RGB of same-geometry images from the scan-order
+    ``blocks`` (B, N, 64) and ``qt`` (B, n_comps, 64).  On the card one
+    launch of K6b (``models.batch.rgb_from_blocks_dyn``) with the header's
+    geometry (:func:`header_geom`); on the CPU :func:`_pixels_torch`."""
+    if not blocks.is_cuda:
+        return _pixels_torch(blocks, qt, srcs, hdr, idct=idct,
+                             upsample=upsample)
+    lay = scan_layout(hdr)
+    return rgb_from_blocks_dyn(
+        blocks, qt, header_geom(hdr, blocks.shape[0], blocks.device),
+        comp_shapes=tuple(lay.comp_shapes),
+        comp_hv=tuple((c.h, c.v) for c in hdr.components),
+        height=hdr.height, width=hdr.width, samplings=_samplings(hdr),
+        idct=idct, upsample=upsample, color=hdr.colorspace,
+        precision=hdr.precision)
+
+
+def _pixels_torch(blocks, qt, srcs, hdr, *, idct, upsample):
+    """The plain route K6b replaces in :func:`_pixels`: each component's
+    plane gathered from ``blocks`` by ``srcs`` (int64 row indices), then
+    the pixel pipeline (K1 or K5 and torch ops on a CUDA tensor)."""
     lay = scan_layout(hdr)
     b = blocks.shape[0]
     planes = tuple(blocks.index_select(1, src).view(b, rows, cols, 64)

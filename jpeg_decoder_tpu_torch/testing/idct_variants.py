@@ -2,7 +2,8 @@
 
     python -m jpeg_decoder_tpu_torch.testing.idct_variants
 
-Builds copies of ``csrc/idct.cu`` with one design constant changed (the
+Builds copies of ``csrc/idct.cu`` (with ``csrc/idct_common.cuh`` written
+in) with one design constant changed (the
 depth of the shared-memory ring, the near-a-half threshold of the Kronecker
 recheck, the CTAs per SM asked of ptxas, batched loads in the recheck
 chain), each with nvcc into ``.cache/torch/variants/``, and times each at
@@ -42,35 +43,43 @@ VARIANTS = {
 }
 
 _CHAIN = """#pragma unroll
-      for (int k4 = 0; k4 < 16; ++k4) {
-        const float4 d = d4[k4];
-        const float4 w = __ldg(w4 + k4);
-        acc = fmaf(d.x, w.x, acc);
-        acc = fmaf(d.y, w.y, acc);
-        acc = fmaf(d.z, w.z, acc);
-        acc = fmaf(d.w, w.w, acc);
-      }"""
+  for (int k4 = 0; k4 < 16; ++k4) {
+    const float4 d = d4[k4];
+    const float4 w = __ldg(w4 + k4);
+    acc = fmaf(d.x, w.x, acc);
+    acc = fmaf(d.y, w.y, acc);
+    acc = fmaf(d.z, w.z, acc);
+    acc = fmaf(d.w, w.w, acc);
+  }"""
 _BATCHED = """#pragma unroll
-      for (int k16 = 0; k16 < 4; ++k16) {
-        float4 d[4], w[4];
+  for (int k16 = 0; k16 < 4; ++k16) {
+    float4 d[4], w[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          d[j] = d4[4 * k16 + j];
-          w[j] = __ldg(w4 + 4 * k16 + j);
-        }
+    for (int j = 0; j < 4; ++j) {
+      d[j] = d4[4 * k16 + j];
+      w[j] = __ldg(w4 + 4 * k16 + j);
+    }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc = fmaf(d[j].x, w[j].x, acc);
-          acc = fmaf(d[j].y, w[j].y, acc);
-          acc = fmaf(d[j].z, w[j].z, acc);
-          acc = fmaf(d[j].w, w[j].w, acc);
-        }
-      }"""
+    for (int j = 0; j < 4; ++j) {
+      acc = fmaf(d[j].x, w[j].x, acc);
+      acc = fmaf(d[j].y, w[j].y, acc);
+      acc = fmaf(d[j].z, w[j].z, acc);
+      acc = fmaf(d[j].w, w[j].w, acc);
+    }
+  }"""
 
 
 def _source(subs: dict) -> str:
+    """csrc/idct.cu with csrc/idct_common.cuh written in place of its
+    include (the constants and the recheck chain live there), then the
+    substitutions."""
     with open(idct_cuda.LIB.src) as f:
         src = f.read()
+    include = '#include "idct_common.cuh"'
+    with open(os.path.join(_build.CSRC, "idct_common.cuh")) as f:
+        header = f.read()
+    assert src.count(include) == 1
+    src = src.replace(include, header)
     for key, const in (("stages", "kStages"), ("eps", "kEpsScale")):
         if key in subs:
             src, n = re.subn(rf"(constexpr \w+ {const} = )[^;]+;",

@@ -69,7 +69,7 @@ from .. import collectives as coll
 from ..io import parser
 from ..ops import (emit_carry_cuda, entropy_cuda, entropy_emit_cuda,
                    entropy_prog, entropy_prog_cuda, entropy_spec, idct_cuda,
-                   idct_exact_cuda, scan_prep)
+                   idct_exact_cuda, pixels_cuda, scan_prep)
 from ..parallel import mesh as mesh_mod
 from ..parallel import multihost, sharded
 
@@ -79,6 +79,8 @@ KERNELS = {"K1": idct_cuda.fused_dequant_idct,
            "K5": idct_exact_cuda.dequant_idct_exact,
            "K7": entropy_emit_cuda.decode_lanes,
            "K7c": emit_carry_cuda.carry_pack,
+           "K6a": pixels_cuda.unpack_nibble,
+           "K6b": pixels_cuda.blocks_to_rgb,
            **entropy_prog_cuda.KERNELS}
 
 

@@ -14,7 +14,8 @@ from jpeg_decoder_tpu_torch import _build
 from jpeg_decoder_tpu_torch.entropy import native
 from jpeg_decoder_tpu_torch.ops import (emit_carry_cuda, entropy_cuda,
                                         entropy_emit_cuda, entropy_prog_cuda,
-                                        idct_cuda, idct_exact_cuda)
+                                        idct_cuda, idct_exact_cuda,
+                                        pixels_cuda)
 from jpeg_decoder_tpu_torch.probes import lut_probe
 from jpeg_decoder_tpu_torch.testing import emit_v1
 
@@ -25,7 +26,7 @@ CUDA_LIBS = {"idct": idct_cuda.LIB, "entropy": entropy_cuda.LIB,
              "entropy_emit": entropy_emit_cuda.LIB,
              "entropy_emit_v1": emit_v1.LIB,
              "entropy_prog": entropy_prog_cuda.LIB,
-             "emit_carry": emit_carry_cuda.LIB}
+             "emit_carry": emit_carry_cuda.LIB, "pixels": pixels_cuda.LIB}
 
 
 def test_every_cuda_source_has_a_build():
@@ -160,3 +161,27 @@ def test_cuda_lib_without_nvcc_raises(name, cache, monkeypatch):
     with pytest.raises(idct_cuda.KernelBuildFailure, match="nvcc not found"):
         lib.load()
     assert not os.path.exists(os.path.join(_build.CACHE, "kernels"))
+
+
+def test_cuda_lib_name_keys_its_headers(cache, monkeypatch):
+    """A source that includes a csrc/ header is named by the header's bytes
+    too: an edited header gets another name; sources without the include
+    keep theirs."""
+    csrc = cache / "csrc"
+    csrc.mkdir()
+    for name in ("pixels.cu", "idct_common.cuh", "lut_probe.cu"):
+        (csrc / name).write_bytes(open(os.path.join(_build.CSRC, name),
+                                       "rb").read())
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert _build._local_headers((csrc / "pixels.cu").read_bytes()) == [
+        str(csrc / "idct_common.cuh")]
+    paths = {}
+    for name in ("pixels.cu", "lut_probe.cu"):
+        lib = _build.CudaLib(name, name.split(".")[0], {})
+        paths[name] = lib.path()
+    (csrc / "idct_common.cuh").write_bytes(
+        (csrc / "idct_common.cuh").read_bytes() + b"// edited\n")
+    assert _build.CudaLib("pixels.cu", "pixels", {}).path() != \
+        paths["pixels.cu"]
+    assert _build.CudaLib("lut_probe.cu", "lut_probe", {}).path() == \
+        paths["lut_probe.cu"]

@@ -20,7 +20,7 @@ from jpeg_decoder_tpu_torch.models import batch as tbatch
 from jpeg_decoder_tpu_torch.ops import (emit_carry_cuda, entropy_cuda,
                                         entropy_emit_cuda, entropy_spec,
                                         idct_cuda, idct_exact_cuda, pixel,
-                                        scan_prep)
+                                        pixels_cuda, scan_prep)
 from jpeg_decoder_tpu_torch.probes import lut_probe
 from jpeg_decoder_tpu_torch.testing.encoder import encode
 
@@ -39,6 +39,14 @@ def cuda_device():
         pytest.skip("needs an NVIDIA CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _k_counts(before=None) -> dict:
+    """Launches of K1, K6a and K6b (since ``before``)."""
+    now = {"K1": idct_cuda.fused_dequant_idct.launches,
+           "K6a": pixels_cuda.unpack_nibble.launches,
+           "K6b": pixels_cuda.blocks_to_rgb.launches}
+    return now if before is None else {k: now[k] - before[k] for k in now}
 
 
 def _inputs(seed, b, n):
@@ -150,15 +158,16 @@ def test_slice_on_card_matches_cpu(cuda_device):
              encode(_rgb(3, 60, 90), quality=85)[0],
              b"\xff\xd8\xff\xdb\x00\x04garbage"]
     with tbatch.BatchDecoder(device=cuda_device, idct="pallas") as bd:
-        before = idct_cuda.fused_dequant_idct.launches
+        before = _k_counts()
         got = bd.decode(blobs)
         torch.cuda.synchronize()
-        launched = idct_cuda.fused_dequant_idct.launches - before
+        launched = _k_counts(before)
     with tbatch.BatchDecoder(device="cpu", idct="pallas") as bd:
         ref = bd.decode(blobs)
     groups = {id(it.rgb_batch) for it in got if it.ok}
     assert len(groups) == 3
-    assert launched == 3 * len(groups)
+    # Per group one K6a (the nibble wire) and one K6b; K1 only inside K6b.
+    assert launched == {"K1": 0, "K6a": 3, "K6b": 3}
     assert [it.ok for it in got] == [True] * 4 + [False]
     for g, r in zip(got[:4], ref[:4]):
         assert g.rgb.is_cuda
@@ -374,19 +383,21 @@ def _batch_blobs():
 
 
 def test_wires_identical_on_card(cuda_device):
-    """Every wire gives the nibble wire's RGB bit for bit on the card, K1
-    three times per group, and the CPU decode's RGB within RGB_TOL."""
+    """Every wire gives the nibble wire's RGB bit for bit on the card, K6b
+    once per group (K6a too on the nibble wire, K1 never), and the CPU
+    decode's RGB within RGB_TOL."""
     blobs = _batch_blobs()
     got = {}
     for wire in tbatch.WIRES:
         with tbatch.BatchDecoder(device=cuda_device, wire=wire,
                                  idct="pallas") as bd:
-            k1 = idct_cuda.fused_dequant_idct.launches
+            before = _k_counts()
             got[wire] = bd.decode(blobs)
             torch.cuda.synchronize()
             groups = {id(it.rgb_batch) for it in got[wire] if it.ok}
-            assert idct_cuda.fused_dequant_idct.launches - k1 == \
-                3 * len(groups)
+            n = len(groups)
+            assert _k_counts(before) == {
+                "K1": 0, "K6a": n if wire == "nibble" else 0, "K6b": n}
     assert [it.ok for it in got["nibble"]] == [True] * 5 + [False]
     for wire in tbatch.WIRES:
         for a, b in zip(got["nibble"][:5], got[wire][:5]):
@@ -960,10 +971,12 @@ def test_sharded_batch_on_card_equals_cpu(cuda_device, monkeypatch):
              + [encode(_rgb(190, 120, 200), quality=90, precision=12)[0]])
     k7 = entropy_emit_cuda.decode_lanes.launches
     k2 = entropy_cuda.decode_segments.launches
+    k6b = pixels_cuda.blocks_to_rgb.launches
     got = sharded.decode_batch_sharded(blobs, cuda_device, idct="exact")
     torch.cuda.synchronize()
     assert entropy_emit_cuda.decode_lanes.launches - k7 == 3
     assert entropy_cuda.decode_segments.launches - k2 == 1
+    assert pixels_cuda.blocks_to_rgb.launches - k6b == 4   # one a group
     ref = sharded.decode_batch_sharded(blobs, "cpu", idct="exact")
     assert [it.ok for it in got] == [k != 3 for k in range(len(blobs))]
     for g, r in zip(got, ref):
@@ -1571,3 +1584,105 @@ def test_prog_dc_and_ac_chains_share_planes_on_two_streams(cuda_device):
             np.testing.assert_array_equal(got[:, 0], states[1][ci][:, 0])
             want = states[k_ac + 1][ci]
             np.testing.assert_array_equal(got[:, 1:], want[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# The batch routes' pixel stage: K6a (nibble wire -> blocks) and K6b
+# (scan-order blocks -> RGB)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_blk,seed", [(40, 0), (700, 1), (6000, 2)])
+def test_unpack_nibble_kernel_equals_plain(cuda_device, n_blk, seed):
+    """K6a equals the plain ``unpack_nibble`` on every element (run on the
+    card and on the CPU), the trap row included, with one count a call;
+    and again on entry rows whose length is no multiple of 16."""
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    arrays = list(pixel_cases.nibble_group(seed, n_blk))
+    for cut in (0, 11):
+        if cut:
+            k = arrays[1].shape[1]
+            arrays[1] = np.ascontiguousarray(arrays[1][:, :k - k % 16 + cut])
+        cpu = [torch.from_numpy(a) for a in arrays]
+        dev = [t.to(cuda_device) for t in cpu]
+        before = pixels_cuda.unpack_nibble.launches
+        got = pixels_cuda.unpack_nibble(*dev)
+        torch.cuda.synchronize()
+        assert pixels_cuda.unpack_nibble.launches == before + 1
+        assert torch.equal(got, tbatch.unpack_nibble(*dev))
+        assert torch.equal(got.cpu(), tbatch.unpack_nibble(*cpu))
+
+
+def _k6b_kinds():
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    return [k[0] for k in pixel_cases.FRAME_KINDS]
+
+
+@pytest.mark.parametrize("idct", ["pallas", "exact", "kron", "fast"])
+@pytest.mark.parametrize("kind", _k6b_kinds())
+def test_blocks_to_rgb_kernel_equals_route(cuda_device, kind, idct):
+    """K6b on a bucketed group (odd true dims, a tiny image, a padding
+    row), under fancy and nn, equals the route it replaces on the card
+    (``rgb_from_blocks_torch``: the plane gather, K1 or K5 and torch ops)
+    over the whole tensor, padding included; under ``exact`` it equals the
+    CPU route too.  Under ``kron`` and ``fast`` K6b takes the torch
+    product of the scan-order blocks, a GEMM of another shape than the
+    route's per-plane one, whose float32 sums may round differently: the
+    +-1 IDCT bound (RGB_TOL after the colour transform, MIN_EQUAL)."""
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    hv, color, prec = {k[0]: k[1:] for k in pixel_cases.FRAME_KINDS}[kind]
+    arrays = pixel_cases.bucket_group(
+        len(kind), hv, color, prec, pixel_cases.odd_dims(hv, (5, 3)),
+        (8, 4), pad=4)
+    kw = arrays[3]
+    cpu = [torch.from_numpy(a) for a in arrays[:3]]
+    dev = [t.to(cuda_device) for t in cpu]
+    for up in ("fancy", "nn"):
+        before = pixels_cuda.blocks_to_rgb.launches
+        got = pixels_cuda.blocks_to_rgb(*dev, idct=idct, upsample=up, **kw)
+        ref = tbatch.rgb_from_blocks_torch(*dev, idct=idct, upsample=up,
+                                           **kw)
+        torch.cuda.synchronize()
+        assert pixels_cuda.blocks_to_rgb.launches == before + 1
+        assert got.is_cuda and got.dtype == ref.dtype
+        if idct in ("kron", "fast"):
+            d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+            assert int(d.max()) <= RGB_TOL
+            assert float((d == 0).float().mean()) >= MIN_EQUAL
+        else:
+            assert torch.equal(got, ref), up
+        if idct == "exact":
+            assert torch.equal(got.cpu(), tbatch.rgb_from_blocks_torch(
+                *cpu, idct=idct, upsample=up, **kw))
+
+
+def test_blocks_to_rgb_kernel_takes_the_header_geometry(cuda_device):
+    """``sharded._pixels`` on the card (K6b with the header's geometry, no
+    fill row) equals its CPU route (the scan layout's gather) byte for byte
+    under ``exact``, for a 4:2:0 and a 4:2:2 frame of odd dims."""
+    from jpeg_decoder_tpu_torch.layout import scan_layout
+    from jpeg_decoder_tpu_torch.models import decoder as tdec
+    from jpeg_decoder_tpu_torch.parallel import sharded
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    for k, hv in enumerate((((2, 2), (1, 1), (1, 1)),
+                            ((2, 1), (1, 1), (1, 1)))):
+        hdr = parser.parse(encode(_rgb(200 + k, 37, 53), samplings=hv)[0])
+        lay = scan_layout(hdr)
+        rng = np.random.default_rng(k)
+        n = lay.n_mcus * lay.blocks_per_mcu + 5
+        blocks = torch.from_numpy(pixel_cases.random_blocks(
+            rng, 2 * n, 0.2, spread=12, dc=60).reshape(2, n, 64))
+        qt = torch.from_numpy(rng.integers(1, 30, (2, 3, 64))
+                              .astype(np.int32))
+        before = pixels_cuda.blocks_to_rgb.launches
+        got = sharded._pixels(blocks.to(cuda_device), qt.to(cuda_device),
+                              tdec._comp_srcs(hdr, cuda_device), hdr,
+                              idct="exact", upsample="fancy")
+        ref = sharded._pixels(blocks, qt, tdec._comp_srcs(hdr, "cpu"), hdr,
+                              idct="exact", upsample="fancy")
+        torch.cuda.synchronize()
+        assert pixels_cuda.blocks_to_rgb.launches == before + 1
+        assert torch.equal(got.cpu(), ref)

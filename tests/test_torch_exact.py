@@ -36,8 +36,10 @@ from jpeg_decoder_tpu_torch.ops import (  # noqa: E402
     idct_cuda, idct_exact_cuda, pixel)
 
 RGB_TOL = 2   # jitted JAX: one truncation flipped, times the x1.402 gain
+# K5's constants live in the header K5 (idct_exact.cu) and K6b share.
 KERNEL_SRC = os.path.join(os.path.dirname(__file__), "..",
-                          "jpeg_decoder_tpu_torch", "csrc", "idct_exact.cu")
+                          "jpeg_decoder_tpu_torch", "csrc",
+                          "idct_common.cuh")
 
 
 def _jax_exact(blocks: np.ndarray, q: np.ndarray) -> np.ndarray:
@@ -112,10 +114,14 @@ def test_aan_constants_are_jax_values():
 
 
 def test_kernel_hex_constants_equal_numpy():
-    """The float literals in csrc/idct_exact.cu are the numpy float32
-    constants, bit for bit."""
+    """The float literals of K5 (csrc/idct_common.cuh, which
+    csrc/idct_exact.cu includes) are the numpy float32 constants, bit for
+    bit."""
     with open(KERNEL_SRC) as f:
         src = f.read()
+    src = src[src.index("// ---- K5"):]
+    with open(idct_exact_cuda.LIB.src) as f:
+        assert '#include "idct_common.cuh"' in f.read()
     lits = dict(re.findall(
         r"constexpr float (\w+) = (0x[0-9a-fA-F.]+p[+-]?\d+)f;", src))
     want = {"M1": pixel._M1, "M2": pixel._M2, "M3": pixel._M3,

@@ -101,11 +101,15 @@ SEP_MIN_EQUAL = 0.9999   # the kernel's bar against its twin on the card
 
 
 def test_separable_basis_matches_kernel_constants():
-    """csrc/idct.cu's kS is IDCT_S bit for bit, and its column 0 is exactly
-    1.0 (which makes DC-only blocks exact)."""
+    """K1's kS (csrc/idct_common.cuh, which csrc/idct.cu includes) is
+    IDCT_S bit for bit, and its column 0 is exactly 1.0 (which makes
+    DC-only blocks exact)."""
+    import os
     import re
 
-    src = open(idct_cuda.LIB.src).read()
+    assert '#include "idct_common.cuh"' in open(idct_cuda.LIB.src).read()
+    src = open(os.path.join(os.path.dirname(idct_cuda.LIB.src),
+                            "idct_common.cuh")).read()
     body = src[src.index("kS[8][8] = {"):]
     body = body[:body.index("};")]
     lits = re.findall(r"(-?0x1(?:\.[0-9a-f]+)?p[+-]\d+)f", body)
