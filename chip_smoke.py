@@ -199,20 +199,28 @@ kernel against its plain version:
 10e. K6 phase (``csrc/pixels.cu``; run after 10b'''): the groups of the
    batch of 32, the mixed frames, the bucketed group and the 8192x6144
    frame as ``BatchDecoder`` pads them: K6a equal to the plain
-   ``unpack_nibble`` on every element, K6b equal over the whole RGB tensor,
-   padding included, to the route it replaces on the card
-   (``rgb_from_blocks_torch``: the plane gather, K1 or K5 and torch ops)
-   under ``pallas`` (fancy and nn) and ``exact``, and on the batch of 32
-   within the +-1 IDCT bound under ``kron`` and ``fast`` (the torch product
-   on the scan-order blocks is a GEMM of another shape than the route's,
-   so its sums may round otherwise; the bytes that differ are printed);
-   on the batch of 32 each kernel's device
-   time (5 calls a group queued behind a spin kernel, CUDA events, groups
-   summed, median of 2 turns), every function's by CUDA events around one
-   call (the plain routes' host work stalls the card, so they cannot be
-   queued), K6b at six output tiles, the byte bounds (and the floor on the
-   true blocks and RGB), and the pixel stage (unpack and pixels of every
-   group) before and after by CUDA events around it, in turns;
+   ``unpack_nibble`` on every element, K6b (every IDCT inside the kernel,
+   one launch and no ``scan_samples`` product a call) equal over the whole
+   RGB tensor, padding included, to the route it replaces on the card
+   (``rgb_from_blocks_torch``: the plane gather, K1, K5 or the torch
+   product, torch ops) under ``pallas`` (fancy and nn) and ``exact``, and
+   within the +-1 IDCT bound under ``kron`` (K1's arithmetic against the
+   route's GEMM) and ``fast`` (the kernel's separable form against the
+   route's einsum; the bytes that differ are printed); on the batch of 32
+   each kernel's device time (5 calls a group queued behind a spin kernel,
+   CUDA events, groups summed, median of 2 turns), K6b under all four
+   IDCTs beside its first form (``testing/pixel_v1.py``; under kron/fast
+   with its torch product, by events), every function's by CUDA events
+   around one call (the plain routes' host work stalls the card, so they
+   cannot be queued), K6b at other tiles and CTAs a multiprocessor, the
+   byte bounds (and the floor on the true blocks and RGB), and the pixel
+   stage (unpack and pixels of every group) with the first form before and
+   K6b after under fast, kron and pallas, by CUDA events around it, in
+   turns; then (``_k6_routes``) both batch routes under each IDCT, counts
+   set to 0 just before: one K6b a group, no K1, no K5, no
+   ``scan_samples``; and each route's end-to-end MP/s under its default
+   IDCT (``BatchDecoder`` fast, ``decode_batch_sharded`` kron) with K6b and
+   with the first form in its place, in turns;
 10d. progressive lanes phase (K8a-K8d, ``csrc/entropy_prog.cu``, under
    ``ops/entropy_prog.py``; run after 10b''): every scan of the 512x512
    and 1080p (a) progressive fixtures through each kernel and its plain
@@ -457,6 +465,8 @@ def _kernel_fns() -> dict:
             "K5": idct_exact_cuda.dequant_idct_exact,
             "K6a": pixels_cuda.unpack_nibble,
             "K6b": pixels_cuda.blocks_to_rgb,
+            # The torch product before K6b's first form: 0 on every path.
+            "scan_samples": pixels_cuda.scan_samples,
             "K7": entropy_emit_cuda.decode_lanes,
             **entropy_prog_cuda.KERNELS}
 
@@ -2989,15 +2999,15 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
     from jpeg_decoder_tpu_torch import BatchDecoder
     from jpeg_decoder_tpu_torch.models import batch as tb
     from jpeg_decoder_tpu_torch.ops import pixels_cuda as k6
+    from jpeg_decoder_tpu_torch.testing import pixel_v1
 
     med = statistics.median
+    idcts = ("pallas", "exact", "kron", "fast")
     err_a = err_b = 0
-    sets = (("batch of 32", batch, ("pallas", "exact", "kron", "fast")),
-            ("mixed frames", mixed, ("pallas", "exact")),
-            ("bucketed group", dyn, ("pallas", "exact")),
-            (f"{BIG[0]}x{BIG[1]}", [big_blob], ("pallas", "exact")))
+    sets = (("batch of 32", batch), ("mixed frames", mixed),
+            ("bucketed group", dyn), (f"{BIG[0]}x{BIG[1]}", [big_blob]))
     timed = None
-    for label, blobs, idcts in sets:
+    for label, blobs in sets:
         with BatchDecoder(device=dev, idct="pallas") as bd:
             groups = bd.group(bd.host_stage(blobs))
             tensors = [bd.to_device(g) for g in groups]
@@ -3015,7 +3025,13 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
                               height=g.height, width=g.width,
                               samplings=g.samplings, idct=idct, upsample=up,
                               color=g.color, precision=g.precision)
+                    before = (k6.blocks_to_rgb.launches,
+                              k6.scan_samples.launches)
                     got = k6.blocks_to_rgb(got_a, t[-2], t[-1], **kw)
+                    if (k6.blocks_to_rgb.launches - before[0],
+                            k6.scan_samples.launches - before[1]) != (1, 0):
+                        raise AssertionError(f"K6b {label} {idct}: not one "
+                                             "launch and no product")
                     ref = tb.rgb_from_blocks_torch(got_a, t[-2], t[-1], **kw)
                     if got.shape != ref.shape or got.dtype != ref.dtype:
                         raise AssertionError(f"K6b {label}: {got.shape} "
@@ -3025,9 +3041,9 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
                     n_b, d_max = int((d != 0).sum()), int(d.max())
                     diffs.append(f"{idct}/{up} {n_b} (max {d_max})")
                     if idct in ("kron", "fast"):
-                        # The torch product on the scan-order blocks is a
-                        # GEMM of another shape than the route's per-plane
-                        # one: the +-1 IDCT bound.
+                        # K1's arithmetic against the route's GEMM, the
+                        # kernel's separable fast against the route's
+                        # einsum: the +-1 IDCT bound.
                         if d_max > TOL_SLICE or \
                                 n_b > (1 - MIN_EQUAL) * d.numel():
                             raise AssertionError(f"K6b {label} {idct}: "
@@ -3052,8 +3068,9 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
             del groups, tensors
         torch.cuda.empty_cache()
 
-    # Device time on the batch of 32, per group summed: each kernel and its
-    # plain route (queued behind a spin, CUDA events), in turns.
+    # Device time on the batch of 32, per group summed: each kernel, the
+    # first form (jd_blocks_to_rgb_v1) and the plain route (queued behind
+    # a spin, CUDA events), in turns.
     groups, tensors = timed
     blocks = [k6.unpack_nibble(*t[:-2]) for t in tensors]
     outs = []
@@ -3065,19 +3082,26 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
                     precision=g.precision)
 
     # Kernels: device time queued behind a spin; every function also by
-    # CUDA events around one call (its plain route's host work, the
-    # caching allocator's cudaMalloc calls included, stalls the card
-    # there, so a queued plain route overruns any spin).
+    # CUDA events around one call (the torch product before the first form
+    # under kron/fast and the plain routes do host work and cudaMalloc
+    # calls that stall the card, so they cannot be queued).
     kern = {"K6a": lambda t, a, g: k6.unpack_nibble(*t[:-2])}
-    for idct in ("pallas", "exact"):
+    for idct in idcts:
         kern[f"K6b {idct}"] = (lambda t, a, g, i=idct: k6.blocks_to_rgb(
             a, t[-2], t[-1], **kw(g, i)))
-    fns = {**kern,
-           "K6b fast": lambda t, a, g: k6.blocks_to_rgb(
-               a, t[-2], t[-1], **kw(g, "fast")),
-           "unpack_nibble (plain)": lambda t, a, g: tb.unpack_nibble(
-               *t[:-2])}
-    for idct in ("pallas", "exact", "fast"):
+    for idct in ("pallas", "exact"):
+        kern[f"K6b v1 {idct}"] = (
+            lambda t, a, g, i=idct: pixel_v1.blocks_to_rgb_v1(
+                a, t[-2], t[-1], **kw(g, i)))
+    fns = dict(kern)
+    for idct in ("kron", "fast"):
+        fns[f"K6b v1 {idct}"] = (
+            lambda t, a, g, i=idct: pixel_v1.blocks_to_rgb_v1(
+                a, t[-2], t[-1], **kw(g, i)))
+        fns[f"scan_samples {idct}"] = (
+            lambda t, a, g, i=idct: k6.scan_samples(a, t[-2], g.comp_hv, i))
+    fns["unpack_nibble (plain)"] = lambda t, a, g: tb.unpack_nibble(*t[:-2])
+    for idct in idcts:
         fns[f"route {idct}"] = (lambda t, a, g, i=idct:
                                 tb.rgb_from_blocks_torch(
                                     a, t[-2], t[-1], **kw(g, i)))
@@ -3095,18 +3119,21 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
     queued = {k: med(v) for k, v in queued.items()}
     events = {k: med(v) for k, v in events.items()}
     ms = queued
-    # K6b's output tile (whole MCUs): the committed one and others, queued.
-    tiles, committed = {}, k6.TILE
+    # K6b's tile and CTAs a multiprocessor: the committed ones and others,
+    # queued, under pallas.
+    sweep, committed = {}, (k6.TILE, dict(k6.CTAS_PER_SM))
     try:
-        for tile in ((64, 64), (32, 64), (16, 64), (32, 32), (32, 128),
-                     (64, 128)):
+        for tile, ctas in ((k6.TILE, None), ((32, 64), None),
+                           ((64, 128), None), ((32, 128), None),
+                           ((128, 64), None), (k6.TILE, 2), (k6.TILE, 4)):
             k6.TILE = tile
-            tiles[tile] = sum(_queued_ms(
+            k6.CTAS_PER_SM["pallas"] = ctas or committed[1]["pallas"]
+            sweep[(tile, ctas)] = sum(_queued_ms(
                 lambda t=t, a=a, g=g: k6.blocks_to_rgb(
                     a, t[-2], t[-1], **kw(g, "pallas")), 5)
                 for t, a, g in zip(tensors, blocks, groups))
     finally:
-        k6.TILE = committed
+        k6.TILE, k6.CTAS_PER_SM = committed
     n_a = n_b = n_true = n_wire = 0
     for g, t, a in zip(groups, tensors, blocks):
         out = k6.blocks_to_rgb(a, t[-2], t[-1], **kw(g, "pallas"))
@@ -3120,50 +3147,49 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
     bound_b = n_b / HBM_BYTES_PER_S * 1e3
     floor_a = (n_wire + n_true) / HBM_BYTES_PER_S * 1e3
     floor_b = (n_true + rgb_true) / HBM_BYTES_PER_S * 1e3
-    # The stage before and after: every group's unpack and pixels, CUDA
-    # events around the whole stage, in turns (replaced, new, new,
-    # replaced), twice.
-    stage = {"replaced": [], "K6a + K6b": []}
-
-    def replaced():
-        return [tb.rgb_from_blocks_torch(tb.unpack_nibble(*t[:-2]), t[-2],
-                                         t[-1], **kw(g, "pallas"))
-                for g, t in zip(groups, tensors)]
-
-    def new():
-        return [k6.blocks_to_rgb(k6.unpack_nibble(*t[:-2]), t[-2], t[-1],
-                                 **kw(g, "pallas"))
-                for g, t in zip(groups, tensors)]
-
-    for _ in range(2):
-        for name in ("replaced", "K6a + K6b", "K6a + K6b", "replaced"):
-            fn = replaced if name == "replaced" else new
-            torch.cuda.synchronize()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            fn()
-            ev[1].record()
-            ev[1].synchronize()
-            stage[name].append(ev[0].elapsed_time(ev[1]))
+    # The stage before and after: every group's unpack and pixels, the
+    # first form (with the torch product under kron/fast) against K6b,
+    # CUDA events around the whole stage, in turns (before, after, after,
+    # before), twice, under the defaults' IDCTs and pallas.
+    stage = {}
+    for idct in ("fast", "kron", "pallas"):
+        for name in ("before", "after"):
+            stage[f"{idct} {name}"] = []
+        for _ in range(2):
+            for name in ("before", "after", "after", "before"):
+                rgb = (pixel_v1.blocks_to_rgb_v1 if name == "before"
+                       else k6.blocks_to_rgb)
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                for g, t in zip(groups, tensors):
+                    rgb(k6.unpack_nibble(*t[:-2]), t[-2], t[-1],
+                        **kw(g, idct))
+                ev[1].record()
+                ev[1].synchronize()
+                stage[f"{idct} {name}"].append(ev[0].elapsed_time(ev[1]))
     print("K6 batch of 32 device ms (queued behind a spin, 5 calls a "
           "group, groups summed, median of 2 turns): " + ", ".join(
               f"{k} {v:.4f}" for k, v in queued.items())
           + "; ms by CUDA events around one call (median of 3, groups "
           "summed, median of 2 turns): " + ", ".join(
               f"{k} {v:.4f}" for k, v in events.items())
-          + "; K6b pallas by output tile (queued): " + ", ".join(
-              f"{h}x{w} {v:.4f}" for (h, w), v in tiles.items())
+          + "; K6b pallas by tile / grid's CTAs a multiprocessor (queued; "
+          "default: CTAS_PER_SM): " + ", ".join(
+              f"{h}x{w}/{c or 'default'} {v:.4f}"
+              for ((h, w), c), v in sweep.items())
           + f"; bounds (bytes at 3.35 TB/s): K6a {bound_a:.4f} ms "
           f"({n_a / 1e6:.1f} MB: wire in, every block out), K6b "
           f"{bound_b:.4f} ms ({n_b / 1e6:.1f} MB: the blocks the geometry "
           f"covers in, the whole RGB out); floors on the true blocks and "
           f"RGB: K6a {floor_a:.4f} ms, K6b {floor_b:.4f} ms; K6a at "
-          f"{bound_a / ms['K6a']:.3f} of its bound, K6b pallas at "
-          f"{bound_b / ms['K6b pallas']:.3f}")
+          f"{bound_a / ms['K6a']:.3f} of its bound, K6b at "
+          + ", ".join(f"{i} {bound_b / ms[f'K6b {i}']:.3f}" for i in idcts))
     print("K6 batch of 32 pixel stage (unpack + pixels of every group, "
-          "idct=pallas, CUDA events around the stage, 4 turns): "
-          + ", ".join(f"{k} median {med(v):.3f} ms (min {min(v):.3f})"
-                      for k, v in stage.items()))
+          "the first form before, K6b after, CUDA events around the stage, "
+          "4 turns): " + ", ".join(
+              f"{k} median {med(v):.3f} ms (min {min(v):.3f})"
+              for k, v in stage.items()))
     del blocks, outs, tensors, groups
     torch.cuda.empty_cache()
     rec_a = {"name": "unpack_nibble", "route": "cuda",
@@ -3181,13 +3207,89 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
              "plain_ms": events["route pallas"], "bound_ms": bound_b,
              "bound_by": "bytes", "library_ms": None,
              "true_floor_ms": floor_b,
-             "ms_by_events": {i: events[f"K6b {i}"]
-                              for i in ("pallas", "exact", "fast")},
-             "route_ms_by_events": {i: events[f"route {i}"]
-                                    for i in ("pallas", "exact", "fast")},
-             "ms_by_tile": {f"{h}x{w}": v for (h, w), v in tiles.items()},
+             "ms_by_idct": {i: ms[f"K6b {i}"] for i in idcts},
+             "v1_ms_by_idct": {
+                 **{i: ms[f"K6b v1 {i}"] for i in ("pallas", "exact")},
+                 **{i: events[f"K6b v1 {i}"] for i in ("kron", "fast")}},
+             "ms_by_events": {i: events[f"K6b {i}"] for i in idcts},
+             "route_ms_by_events": {i: events[f"route {i}"] for i in idcts},
+             "ms_by_tile_and_ctas": {f"{h}x{w}/{c or 'default'}": v
+                                     for ((h, w), c), v in sweep.items()},
              "stage_ms": {k: med(v) for k, v in stage.items()}}
     return rec_a, rec_b
+
+
+def _k6_routes(dev, batch: list, mp: float) -> dict:
+    """Both batch routes under each IDCT, every count set to 0 just before
+    and read just after: one K6b a group, no K1, no K5, no ``scan_samples``
+    product; then each route's end-to-end MP/s under its default IDCT
+    (``BatchDecoder``: fast, ``decode_batch_sharded``: kron) with K6b and
+    with the first form (and its product) in its place, in turns (before,
+    after, after, before), best of 3 a turn, with the groups' pixel ms of
+    the sharded route's last call.  Returns the launches per path."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import BatchDecoder, decode_batch_sharded
+    from jpeg_decoder_tpu_torch.ops import pixels_cuda as k6
+    from jpeg_decoder_tpu_torch.testing import pixel_v1
+
+    paths = {}
+    for idct in ("pallas", "exact", "kron", "fast"):
+        with BatchDecoder(device=dev, idct=idct) as bd:
+            bd.decode(batch)
+            torch.cuda.synchronize()
+            _zero_counts()
+            items = bd.decode(batch)
+            torch.cuda.synchronize()
+            c = _counts()
+        n_groups = len({id(it.rgb_batch) for it in items if it.ok})
+        _, cs, _ = _sharded_run(dev, batch, idct)
+        for route, cc in (("BatchDecoder", c), ("decode_batch_sharded", cs)):
+            got = {k: cc[k] for k in ("K6b", "K1", "K5", "scan_samples")}
+            if got != {"K6b": n_groups, "K1": 0, "K5": 0,
+                       "scan_samples": 0}:
+                raise AssertionError(f"{route} idct={idct}: launches {got}")
+            paths[f"{route} idct={idct} (K6 phase)"] = cc
+        print(f"K6 routes idct={idct}: BatchDecoder and decode_batch_sharded "
+              f"each {n_groups} K6b (one a group), K1 0, K5 0, scan_samples "
+              "0")
+    own = k6.blocks_to_rgb
+    res = {}
+    for route in ("BatchDecoder", "decode_batch_sharded"):
+        for name in ("before", "after"):
+            res[(route, name)] = []
+        with BatchDecoder(device=dev) as bd:
+            for name in ("before", "after", "after", "before"):
+                k6.blocks_to_rgb = (pixel_v1.blocks_to_rgb_v1
+                                    if name == "before" else own)
+                try:
+                    if route == "BatchDecoder":
+                        ms = min(_e2e(bd, batch)) * 1e3
+                        pix = None
+                    else:
+                        decode_batch_sharded(batch, dev)
+                        times = []
+                        for _ in range(3):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            decode_batch_sharded(batch, dev)
+                            torch.cuda.synchronize()
+                            times.append((time.perf_counter() - t0) * 1e3)
+                        ms = min(times)
+                        pix = sum(g.get("pixels_ms") or 0.0 for g in
+                                  decode_batch_sharded.last_timing["groups"])
+                finally:
+                    k6.blocks_to_rgb = own
+                res[(route, name)].append((ms, pix))
+    print("K6 routes end to end under their defaults (BatchDecoder idct=fast, "
+          "decode_batch_sharded idct=kron; best of 3 a turn; before: the "
+          "first form and its product in K6b's place): " + "; ".join(
+              f"{r} {n}: " + ", ".join(
+                  f"{ms:.1f} ms ({mp / ms * 1e3:.1f} MP/s"
+                  + (f", group pixels {pix:.2f} ms" if pix is not None
+                     else "") + ")" for ms, pix in v)
+              for (r, n), v in res.items()))
+    return paths
 
 
 # Sizes of the bucketed group of the sharded phase: web-photo sizes of one
@@ -4125,6 +4227,7 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     exact_probe = k7["sharded_bucket"].pop("exact_probe")
     torch.cuda.empty_cache()
     k6a, k6b = _k6_phase(dev, batch, mixed_batch, dyn, big_blob)
+    k6_paths = _k6_routes(dev, batch, mp)
     k6b["sharded_exact_probe"] = exact_probe
     k7c, k7c_v1 = _carry_check(dev, batch)
     mesh = _mesh_phase(dev, batch, mixed_batch, dyn, images["a"][0])
@@ -4152,7 +4255,7 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
         "BatchDecoder entropy=jax": lanes_batch["jax"],
         "decode jax/hybrid": lanes_counts,
         **{f"decode_batch_sharded {k}": v for k, v in sharded.items()
-           if k != "e2e_mp_per_s"}}
+           if k != "e2e_mp_per_s"}, **k6_paths}
     for key, rec in (("K1", k1), ("K5", k5), ("K6a", k6a), ("K6b", k6b)):
         rec["launches_by_path"] = {p: c[key] for p, c in paths.items()}
     k1["launches"] = sum(k1["launches_by_path"].values())

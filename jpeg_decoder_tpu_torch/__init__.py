@@ -23,7 +23,9 @@ dequant+IDCT K1 (``csrc/idct.cu``), the strict AAN dequant+IDCT K5
 (``csrc/entropy.cu``), the emit-lane Huffman decoder K7 of the ``hybrid``
 backend and the device-entropy batch (``csrc/entropy_emit.cu``) and the
 progressive scan kernels K8a-K8d (``csrc/entropy_prog.cu``: DC first, DC
-refinement, AC first, AC refinement); ``csrc/lut_probe.cu`` holds the
+refinement, AC first, AC refinement), and the batch routes' pixel stage
+(``csrc/pixels.cu``: K6a, the nibble wire's unpack, and K6b, scan-order
+blocks to RGB in one launch under every IDCT); ``csrc/lut_probe.cu`` holds the
 LUT-probe kernels K3/K4 (``probes/lut_probe.py``).  Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs every kernel's
 plain PyTorch version.  ``decode_batch_sharded`` and the other functions of

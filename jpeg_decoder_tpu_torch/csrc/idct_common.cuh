@@ -1,5 +1,6 @@
 // Device code shared by K1 (idct.cu), K5 (idct_exact.cu) and K6b
-// (pixels.cu), so that K6b gives K1's and K5's samples bit for bit.
+// (pixels.cu), so that K6b gives K1's and K5's samples bit for bit, and
+// K6b's own `fast` arithmetic.
 //
 // K1's arithmetic (the `pallas` IDCT): a separable float32 sum with the
 // basis S = sqrt(8) IDCT_M, a row pass then a column pass, one explicit FMA
@@ -11,6 +12,13 @@
 // K5's arithmetic (the `exact` IDCT): the reference's AAN butterfly, every
 // float operation an uncontracted __fmul_rn / __fadd_rn / __fsub_rn, with
 // truncating, saturating int32 stores between the column and the row pass.
+//
+// `fast` (K6b only): M @ X @ M^T with M = IDCT_M_F32 (ops/pixel.py),
+// associated as torch's einsum contracts it, (M @ X) @ M^T: a column pass
+// then a row pass, one explicit FMA per term in index order, rounded half
+// to even and saturating (__float2int_rn), as pixel.idct_fast rounds; within
+// +-1 of XLA's einsum (the reference gives `fast` that bound).  Plain model:
+// ops/pixels_cuda.py:fast_separable.
 //
 // A library built from a source that includes this header is named by a
 // hash of both (_build.lib_path), and nvcc finds it with -I csrc.
@@ -260,6 +268,54 @@ __device__ __forceinline__ void k5_row_pass(const int* t, int r,
   aan_1d(x, y);
 #pragma unroll
   for (int c = 0; c < 8; ++c) out[c] = __float2int_rz(y[c]);
+}
+
+// ---- fast (K6b) -------------------------------------------------------
+
+// M[p][u] = float32(IDCT_M[p][u]): ops/pixel.py:IDCT_M_F32.
+__constant__ float kM[8][8] = {
+    {0x1.6a09e6p-2f, 0x1.f6297cp-2f, 0x1.d906bcp-2f, 0x1.a9b662p-2f,
+     0x1.6a09e6p-2f, 0x1.1c73b4p-2f, 0x1.87de2ap-3f, 0x1.8f8b84p-4f},
+    {0x1.6a09e6p-2f, 0x1.a9b662p-2f, 0x1.87de2ap-3f, -0x1.8f8b84p-4f,
+     -0x1.6a09e6p-2f, -0x1.f6297cp-2f, -0x1.d906bcp-2f, -0x1.1c73b4p-2f},
+    {0x1.6a09e6p-2f, 0x1.1c73b4p-2f, -0x1.87de2ap-3f, -0x1.f6297cp-2f,
+     -0x1.6a09e6p-2f, 0x1.8f8b84p-4f, 0x1.d906bcp-2f, 0x1.a9b662p-2f},
+    {0x1.6a09e6p-2f, 0x1.8f8b84p-4f, -0x1.d906bcp-2f, -0x1.1c73b4p-2f,
+     0x1.6a09e6p-2f, 0x1.a9b662p-2f, -0x1.87de2ap-3f, -0x1.f6297cp-2f},
+    {0x1.6a09e6p-2f, -0x1.8f8b84p-4f, -0x1.d906bcp-2f, 0x1.1c73b4p-2f,
+     0x1.6a09e6p-2f, -0x1.a9b662p-2f, -0x1.87de2ap-3f, 0x1.f6297cp-2f},
+    {0x1.6a09e6p-2f, -0x1.1c73b4p-2f, -0x1.87de2ap-3f, 0x1.f6297cp-2f,
+     -0x1.6a09e6p-2f, -0x1.8f8b84p-4f, 0x1.d906bcp-2f, -0x1.a9b662p-2f},
+    {0x1.6a09e6p-2f, -0x1.a9b662p-2f, 0x1.87de2ap-3f, 0x1.8f8b84p-4f,
+     -0x1.6a09e6p-2f, 0x1.f6297cp-2f, -0x1.d906bcp-2f, 0x1.1c73b4p-2f},
+    {0x1.6a09e6p-2f, -0x1.f6297cp-2f, 0x1.d906bcp-2f, -0x1.a9b662p-2f,
+     0x1.6a09e6p-2f, -0x1.1c73b4p-2f, 0x1.87de2ap-3f, -0x1.8f8b84p-4f},
+};
+
+// Column pass: t[p] = sum_u M[p][u] col[u] on one column of the
+// dequantised block (T = M X, column by column), an FMA chain in u order.
+__device__ __forceinline__ void fast_col_pass(const float (&col)[8],
+                                              float (&t)[8]) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    float a = kM[p][0] * col[0];
+#pragma unroll
+    for (int u = 1; u < 8; ++u) a = fmaf(kM[p][u], col[u], a);
+    t[p] = a;
+  }
+}
+
+// Row pass on one row of T: res[q] = sum_v row[v] M[q][v], an FMA chain in
+// v order, rounded half to even, saturating.
+__device__ __forceinline__ void fast_row_pass(const float (&row)[8],
+                                              int32_t (&res)[8]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    float a = row[0] * kM[q][0];
+#pragma unroll
+    for (int v = 1; v < 8; ++v) a = fmaf(row[v], kM[q][v], a);
+    res[q] = __float2int_rn(a);
+  }
 }
 
 }  // namespace

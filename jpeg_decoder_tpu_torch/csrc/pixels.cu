@@ -30,38 +30,55 @@
 // K6b, scan-order blocks to RGB in one pass.  Replaces
 // jpeg_decoder_tpu/models/batch.py:52 _planes_from_blocks_dyn and :82
 // _rgb_one_dyn, i.e. ops/pixel.py:325 pixel_pipeline_impl: dequantise and
-// IDCT (:55 dequantize with K1's arithmetic, idct_pallas.py:55, under
-// `pallas`, or K5's, pixel.py:123, under `exact`), crop each component to
-// its unpadded sample grid at the bucket's dims, upsample (:200
-// upsample_fancy, edge replication at each image's true edge; :157
-// upsample_nn, and for ratios outside {1, 2}), colour (:253 _ycbcr_channels,
-// :283 gray_to_rgb, :289 _level_shift_u8, :293 cmyk_to_rgb, :307
-// decoded_to_cmyk) into the whole (B, H, W, 3) output, padding included.
-// Under `kron` and `fast` the product stays a torch matmul (the JAX package
-// leaves it to XLA's dot); the kernel's kSamples form then reads the int32
-// samples in scan order and skips its IDCT.
+// IDCT (:55 dequantize; K1's arithmetic, idct_pallas.py:55, under `pallas`
+// and `kron`, the Pallas kernel's XLA twin; K5's, pixel.py:123, under
+// `exact`; under `fast` the separable form of :135 idct_fast,
+// idct_common.cuh), crop each component to its unpadded sample grid at the
+// bucket's dims, upsample (:200 upsample_fancy, edge replication at each
+// image's true edge; :157 upsample_nn, and for ratios outside {1, 2}),
+// colour (:253 _ycbcr_channels, :283 gray_to_rgb, :289 _level_shift_u8,
+// :293 cmyk_to_rgb, :307 decoded_to_cmyk) into the whole (B, H, W, 3)
+// output, padding included.
 //   Bound: bytes.  It reads the blocks each image's geometry covers once and
 // writes the output once; the IDCT is some 32 FLOP a sample.
-//   Design: one CTA of 256 threads per output tile of about 64 x 64 pixels
-// (whole MCUs; the wrapper picks it, ops/pixels_cuda.py:TILE) of one image.  Phase 1 computes, for each component, the
-// samples of every block that the tile's pixels reach, the fancy filter's
-// one-sample halo included (those halo blocks are computed again by the
-// neighbouring tile), into a window of int32 samples in shared memory: eight
-// threads a block, one block row each, in rounds of 32 blocks; each block's
-// source row comes from the image's geometry in closed form, and a cell
-// outside the geometry is a zero block.  No plane is written to device
-// memory; a tile whose windows reach no block of the geometry (bucket
-// padding) skips phase 1, its pixels all the colour of zero samples.
-// Phase 2 gives each thread pixels of the tile: the upsampled
-// sample of each component from the windows, the colour transform in the
+//   Design: persistent CTAs of 256 threads (ops/pixels_cuda.py:CTAS_PER_SM a
+// multiprocessor; kCtas and its kin cap the registers to match) walk the
+// group's output tiles of about 64 x 64 pixels (whole MCUs;
+// ops/pixels_cuda.py:TILE), tile i, i + grid, ... .  Phase 1 computes, for each component, the samples of
+// every block the tile's pixels reach, the fancy filter's one-sample halo
+// included (the neighbouring tile computes those halo blocks again), into a
+// window of int32 samples in shared memory: eight threads a block, a round
+// of 32 blocks at a time; each block's source row comes from the image's
+// geometry in closed form (a cell outside it is a zero block).  Under
+// `exact` and `fast` the blocks reach shared memory through each warp's own
+// ring of two stages: the warp issues cp.async copies (16 bytes a thread,
+// 256 a block) of its next round's four blocks into one stage while it
+// transforms the round in the other, and a stage's mbarrier
+// (cp.async.mbarrier.arrive.noinc) says when its copies have landed, so no
+// round waits on the CTA.  Under `pallas` and `kron` K1's transform and
+// recheck need the registers the ring would hold (with it they spilled and
+// ran slower), and each octet loads its block as idct.cu does.  The tile's
+// geometry lives in shared memory and a component's values are picked, not
+// indexed, so no per-component array lives in local memory.  A tile whose windows reach
+// no block of the geometry (bucket padding) skips phase 1 and gives every
+// pixel the colour of zero samples.  Phase 2 gives each thread a column of
+// the tile and every (256 / tile width)-th row: the upsampled sample of
+// each component from the windows through its column offsets and the
+// tile's row table (no division a pixel), the colour transform in the
 // reference's float32 op order with uncontracted __fmul_rn / __fadd_rn,
-// clamp, truncate, store.
+// clamp, truncate, and three stores a pixel, which the threads of a warp
+// make to consecutive bytes.  No plane is written to device memory.
+//   Its first form, kept as the same-card baseline
+// jd_blocks_to_rgb_v1: one CTA per tile, a round's blocks loaded
+// synchronously, the samples of `kron` and `fast` from a torch product
+// before the launch (ops/pixels_cuda.py:scan_samples), a division a pixel,
+// and every padding pixel computed.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "idct_common.cuh"   // K1's and K5's per-block arithmetic
+#include "idct_common.cuh"   // K1's, K5's and fast's per-block arithmetic
 
 namespace {
 
@@ -250,16 +267,24 @@ __global__ void __launch_bounds__(kUnpackThreads)
 // ---- K6b: scan-order blocks -> RGB ------------------------------------
 
 constexpr int kPixThreads = 256;
-constexpr int kOctets = kPixThreads / 8;   // blocks per round of phase 1
+constexpr int kOctets = kPixThreads / 8;   // blocks a round of IDCTs
 constexpr int kMaxComps = 4;
 constexpr int kPad = 72;                   // floats per block, padded
 
-enum Mode { kPallas = 0, kExact = 1, kSamples = 2 };
+// `kron` runs K1's arithmetic (kPallas); kSamples is the first form's
+// mode for samples made before the launch.
+enum Mode { kPallas = 0, kExact = 1, kSamples = 2, kFast = 3 };
 enum Colour { kGray = 0, kYCbCr = 1, kRGB = 2, kYCCK = 3, kCMYK = 4 };
 enum Up { kNone = 0, kNN = 1, kFancy = 2 };
 
-// Scratch of an octet in phase 1: K1's dequantised block and its row pass.
+// Scratch of an octet: K1's dequantised block and its row pass.
 constexpr int kScratchFloats = 2 * kPad;
+
+// The first form's variants, for testing/pixel_variants.py (which builds
+// copies of this file with another value): 0 the kernel as it is, 1 phase 1
+// alone, 2 phase 2 alone from zeroed windows, 3 phase 2's RGB staged in
+// shared memory and stored 16 bytes at a time.
+constexpr int kV1Variant = 0;
 
 struct CompGeo {
   int h, v;          // sampling factors: the closed-form source
@@ -282,6 +307,8 @@ struct PixArgs {
   int out_h, out_w;
   int tile_h, tile_w, tiles_x;
   int colour, center, maxv;
+  int window_ints;         // variant 2: the windows zeroed
+  int rgb_pitch;           // variant 3: bytes a staged row
   CompGeo c[kMaxComps];
 };
 
@@ -336,9 +363,72 @@ __device__ __forceinline__ int cmyk_channel(int c, int nk) {
   return clamp_i(nk - ((t + (t >> 8)) >> 8), 0, 255);
 }
 
+// One pixel's RGB from its components' upsampled samples v.
+__device__ __forceinline__ void colour_pixel(int colour, const int (&v)[4],
+                                             int center, int maxv,
+                                             int (&rgb)[3]) {
+  if (colour == kGray) {
+    const int gv = clamp_i(mul3_add(0, v[0], center), 0, maxv);
+    rgb[0] = rgb[1] = rgb[2] = gv;
+  } else if (colour == kRGB) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rgb[k] = clamp_i(v[k] + 128, 0, 255);
+  } else {
+    int cmy[3], kk;
+    if (colour == kCMYK) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cmy[k] = 255 - clamp_i(v[k] + 128, 0, 255);
+      kk = 255 - clamp_i(v[3] + 128, 0, 255);
+    } else {
+      const float cf = static_cast<float>(center);
+      const float mf = static_cast<float>(maxv);
+      const float yf = __int2float_rn(v[0]), cb = __int2float_rn(v[1]);
+      const float cr = __int2float_rn(v[2]);
+      cmy[0] = clamp_trunc(ycc_r(yf, cr, cf), mf);
+      cmy[1] = clamp_trunc(ycc_g(yf, cb, cr, cf), mf);
+      cmy[2] = clamp_trunc(ycc_b(yf, cb, cf), mf);
+      kk = colour == kYCCK ? 255 - clamp_i(v[3] + 128, 0, 255) : 0;
+    }
+    if (colour == kYCbCr) {
+      rgb[0] = cmy[0], rgb[1] = cmy[1], rgb[2] = cmy[2];
+    } else {   // PIL-convention CMYK to RGB
+      const int nk = 255 - kk;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rgb[k] = cmyk_channel(cmy[k], nk);
+    }
+  }
+}
+
+// Stores `rows` staged rows of `nbytes` bytes: row yl goes to row0 + yl *
+// pitch and was staged at stage + yl * stage_pitch + (its address & 15), so
+// the 16-byte chunks of its aligned middle are aligned in both memories and
+// go out as streaming 16-byte stores; the ragged ends go out a byte at a
+// time.  A half-warp takes a row.  Every thread calls it.
+__device__ __forceinline__ void store_rows(unsigned char* row0, int64_t pitch,
+                                           const unsigned char* stage,
+                                           int stage_pitch, int rows,
+                                           int nbytes) {
+  const int hw = threadIdx.x >> 4, l16 = threadIdx.x & 15;
+  for (int yl = hw; yl < rows; yl += kPixThreads / 16) {
+    unsigned char* g = row0 + yl * pitch;
+    const int o = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+    const int head = min((16 - o) & 15, nbytes);
+    const int n16 = (nbytes - head) >> 4;
+    const int tail = nbytes - head - 16 * n16;
+    const unsigned char* s = stage + yl * stage_pitch + o;
+    if (l16 < head) g[l16] = s[l16];
+    const int4* s4 = reinterpret_cast<const int4*>(s + head);
+    int4* g4 = reinterpret_cast<int4*>(g + head);
+    for (int i = l16; i < n16; i += 16) __stcs(g4 + i, s4[i]);
+    if (l16 < tail) g[head + 16 * n16 + l16] = s[head + 16 * n16 + l16];
+  }
+}
+
+// ---- K6b's first form: a CTA per tile ---------------------------------
+
 template <int kMode, typename OutT>
 __global__ void __launch_bounds__(kPixThreads)
-    blocks_to_rgb_kernel(const PixArgs a) {
+    blocks_to_rgb_v1_kernel(const PixArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   // The octets' scratch (ops/pixels_cuda.py:SCRATCH), then the windows.
   constexpr int kScratchBytes =
@@ -375,13 +465,16 @@ __global__ void __launch_bounds__(kPixThreads)
     }
     first[c + 1] = first[c] + jobs;
   }
+  if (kV1Variant == 2) {
+    for (int i = tid; i < a.window_ints; i += kPixThreads) win[i] = 0;
+  }
 
   // Phase 1: the samples of every block the tile reaches, one block an
   // octet a round; the loop is uniform over the CTA (the shuffles of K1's
   // eps need every lane).  A tile whose windows reach no block of the
   // geometry (bucket padding) has only zero samples, so every pixel is the
   // colour of zeros: phase 1 is skipped and phase 2 reads no window.
-  const int n_jobs = any_valid ? first[a.n_comps] : 0;
+  const int n_jobs = any_valid && kV1Variant != 2 ? first[a.n_comps] : 0;
   for (int base = 0; base < n_jobs; base += kOctets) {
     const int j = base + oct;
     const bool active = j < n_jobs;
@@ -461,13 +554,13 @@ __global__ void __launch_bounds__(kPixThreads)
     }
   }
   __syncthreads();
+  if (kV1Variant == 1) return;
 
   // Phase 2: the tile's pixels.
   const int tile_w = x1 - x0 + 1;
   const int n_pix = (y1 - y0 + 1) * tile_w;
   OutT* out = static_cast<OutT*>(a.out);
-  const float center = static_cast<float>(a.center);
-  const float maxv = static_cast<float>(a.maxv);
+  unsigned char* stage = smem + kScratchBytes + 4 * a.window_ints;
   for (int p = tid; p < n_pix; p += kPixThreads) {
     const int y = y0 + p / tile_w, x = x0 + p % tile_w;
     int v[kMaxComps] = {0, 0, 0, 0};
@@ -511,52 +604,492 @@ __global__ void __launch_bounds__(kPixThreads)
 #undef S
     }
     int rgb[3];
-    if (a.colour == kGray) {
-      const int gv = clamp_i(mul3_add(0, v[0], a.center), 0, a.maxv);
-      rgb[0] = rgb[1] = rgb[2] = gv;
-    } else if (a.colour == kRGB) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) rgb[k] = clamp_i(v[k] + 128, 0, 255);
-    } else {
-      int cmy[3], kk;
-      if (a.colour == kCMYK) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) cmy[k] = 255 - clamp_i(v[k] + 128, 0, 255);
-        kk = 255 - clamp_i(v[3] + 128, 0, 255);
-      } else {
-        const float yf = __int2float_rn(v[0]), cb = __int2float_rn(v[1]);
-        const float cr = __int2float_rn(v[2]);
-        cmy[0] = clamp_trunc(ycc_r(yf, cr, center), maxv);
-        cmy[1] = clamp_trunc(ycc_g(yf, cb, cr, center), maxv);
-        cmy[2] = clamp_trunc(ycc_b(yf, cb, center), maxv);
-        kk = a.colour == kYCCK ? 255 - clamp_i(v[3] + 128, 0, 255) : 0;
-      }
-      if (a.colour == kYCbCr) {
-        rgb[0] = cmy[0], rgb[1] = cmy[1], rgb[2] = cmy[2];
-      } else {   // PIL-convention CMYK to RGB
-        const int nk = 255 - kk;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) rgb[k] = cmyk_channel(cmy[k], nk);
-      }
-    }
+    colour_pixel(a.colour, v, a.center, a.maxv, rgb);
     OutT* o =
         out + ((b * a.out_h + y) * static_cast<int64_t>(a.out_w) + x) * 3;
+    if (kV1Variant == 3) {
+      const int o16 = static_cast<int>(
+          reinterpret_cast<uintptr_t>(out + ((b * a.out_h + y) *
+                                             static_cast<int64_t>(a.out_w) +
+                                             x0) * 3) & 15);
+      o = reinterpret_cast<OutT*>(stage + (y - y0) * a.rgb_pitch + o16) +
+          (x - x0) * 3;
+    }
     o[0] = static_cast<OutT>(rgb[0]);
     o[1] = static_cast<OutT>(rgb[1]);
     o[2] = static_cast<OutT>(rgb[2]);
   }
+  if (kV1Variant == 3) {
+    __syncthreads();
+    store_rows(reinterpret_cast<unsigned char*>(
+                   out + ((b * a.out_h + y0) * static_cast<int64_t>(a.out_w) +
+                          x0) * 3),
+               static_cast<int64_t>(a.out_w) * 3 * sizeof(OutT), stage,
+               a.rgb_pitch, y1 - y0 + 1, tile_w * 3 * sizeof(OutT));
+  }
 }
 
 template <int kMode, typename OutT>
-int launch_rgb(const PixArgs& a, int64_t n_img, int64_t n_tiles,
-               size_t smem, cudaStream_t stream) {
-  auto kernel = blocks_to_rgb_kernel<kMode, OutT>;
+int launch_rgb_v1(const PixArgs& a, int64_t n_img, int64_t n_tiles,
+                  size_t smem, cudaStream_t stream) {
+  auto kernel = blocks_to_rgb_v1_kernel<kMode, OutT>;
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid(static_cast<unsigned>(n_tiles),
                   static_cast<unsigned>(n_img));
+  kernel<<<grid, kPixThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K6b ----------------------------------------------------------------
+
+// Asynchronous copies and their barriers (PTX, sm_90).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// 16 bytes from global to shared memory, cached in L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Arrives on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier's count holds this arrival: .noinc).
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// CTAs a multiprocessor holds: __launch_bounds__ caps the registers at
+// 65,536 / (256 x CTAs): kCtas under `exact`, kK1Ctas under `pallas` and
+// `kron` (K1's transform and recheck), kFastCtas under `fast` (its two
+// transposes and its ring); ops/pixels_cuda.py:CTAS_PER_SM sizes the grid
+// for as many.  Each is the fastest of 2, 3 and 4 in
+// testing/pixel_variants.py's runs.
+constexpr int kCtas = 4;
+constexpr int kK1Ctas = 3;
+constexpr int kFastCtas = 3;
+
+// K6b's variants, for testing/pixel_variants.py (which builds copies of
+// this file with another value): 0 the kernel as it is, 1 its blocks'
+// copies and IDCTs alone, 2 its pixels alone from zeroed windows, 3 its RGB
+// staged in shared memory and stored 16 bytes at a time.
+constexpr int kVariant = 0;
+
+// Component c's value of four held in registers: selects, not an indexed
+// array (which would live in local memory).
+__device__ __forceinline__ int pick(int c, int v0, int v1, int v2, int v3) {
+  return c == 0 ? v0 : (c == 1 ? v1 : (c == 2 ? v2 : v3));
+}
+#define PICK(c, field) \
+  pick(c, a.c[0].field, a.c[1].field, a.c[2].field, a.c[3].field)
+
+struct TileArgs {
+  const int32_t* blocks;   // (B, n_rows, 64) coefficients
+  const int32_t* qt;       // (B, n_comps, 64)
+  const int32_t* geom;     // (B, 4): mcus_x, mcus_y, height, width
+  const float* kron;       // (64, 64) KRON, for K1's recheck
+  void* out;               // (B, out_h, out_w, 3) uint8 or uint16
+  int64_t n_rows;
+  int n_comps, bpm, out_h, out_w;
+  int tile_h, tile_w, tiles_x, tiles;   // tiles: an image's
+  int n_work;                            // B x tiles
+  int colour, center, maxv;
+  // Byte offsets in dynamic shared memory (the IDCT scratch first).
+  int off_stage, off_win, window_ints, off_rows, off_rgb, rgb_pitch;
+  CompGeo c[kMaxComps];
+};
+
+// A tile's geometry, in shared memory: per component its window of
+// samples (rows r0..r1, columns c0..c1), first block row and column and
+// block columns, and the first job of each component (first[4]: the tile's
+// blocks).
+struct TileGeo {
+  int r0[kMaxComps], r1[kMaxComps], c0[kMaxComps], c1[kMaxComps];
+  int br0[kMaxComps], bc0[kMaxComps];
+  int nbc[kMaxComps], first[kMaxComps + 1];
+  int valid;   // a window reaches a block of the geometry
+};
+
+__device__ __forceinline__ void tile_geo(const TileArgs& a, int y0, int y1,
+                                         int x0, int x1, int mcus_x,
+                                         int mcus_y, TileGeo& t) {
+  t.first[0] = 0;
+  t.valid = 0;
+  for (int c = 0; c < kMaxComps; ++c) {
+    int jobs = 0;
+    t.r0[c] = t.r1[c] = t.c0[c] = t.c1[c] = t.br0[c] = t.bc0[c] = 0;
+    t.nbc[c] = 1;
+    if (c < a.n_comps) {
+      const CompGeo& g = a.c[c];
+      span(y0, y1, g.vy, g.up, g.n_r, t.r0[c], t.r1[c]);
+      span(x0, x1, g.vx, g.up, g.n_c, t.c0[c], t.c1[c]);
+      t.br0[c] = t.r0[c] >> 3;
+      t.bc0[c] = t.c0[c] >> 3;
+      t.nbc[c] = (t.c1[c] >> 3) - t.bc0[c] + 1;
+      jobs = ((t.r1[c] >> 3) - t.br0[c] + 1) * t.nbc[c];
+      t.valid |= t.br0[c] < mcus_y * g.v && t.bc0[c] < mcus_x * g.h;
+    }
+    t.first[c + 1] = t.first[c] + jobs;
+  }
+}
+
+// Job j of a tile: its component, block row and column, and scan row (-1
+// outside the geometry: a zero block).
+__device__ __forceinline__ int tile_job(const TileArgs& a, const TileGeo& t,
+                                        int j, int mcus_x, int mcus_y,
+                                        int& c, int& br, int& bc) {
+  // first[] does not fall, so c is the count of first[k] <= j.
+  c = (j >= t.first[1]) + (j >= t.first[2]) + (j >= t.first[3]);
+  const int gv = PICK(c, v), gh = PICK(c, h);
+  const int nbc = t.nbc[c];
+  const int jj = j - t.first[c];
+  const int row = jj / nbc;
+  br = t.br0[c] + row;
+  bc = t.bc0[c] + jj - row * nbc;
+  if (br >= mcus_y * gv || bc >= mcus_x * gh) return -1;
+  const int64_t s = (static_cast<int64_t>(br / gv) * mcus_x + bc / gh) *
+                        a.bpm +
+                    PICK(c, k0) + (br % gv) * gh + bc % gh;
+  return s < a.n_rows ? static_cast<int>(s) : -1;
+}
+
+// Finds job j (none past n_jobs), issues the copy of its block into `dst`
+// (256 bytes: two 16-byte copies a thread of the octet) and leaves the job
+// (its block's scan row, -1 for a zero block or no job; its component,
+// block row and column) in `job` for the round that transforms it; then
+// every lane of the warp arrives on `bar` once its copies have landed.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void fetch(const TileArgs& a, const TileGeo& t,
+                                      int b, int j, int n_jobs, int mcus_x,
+                                      int mcus_y, int32_t* dst, int4* job,
+                                      unsigned long long* bar) {
+  int src = -1, c = 0, br = 0, bc = 0;
+  if (j < n_jobs) src = tile_job(a, t, j, mcus_x, mcus_y, c, br, bc);
+  const int r = threadIdx.x & 7;
+  if (src >= 0) {
+    const int32_t* blk =
+        a.blocks + (static_cast<int64_t>(b) * a.n_rows + src) * 64 + r * 8;
+    cp_async16(dst + r * 8, blk);
+    cp_async16(dst + r * 8 + 4, blk + 4);
+  }
+  if (r == 0) *job = make_int4(src, c, br, bc);
+  cp_async_arrive(bar);
+}
+
+template <int kMode, typename OutT>
+__global__ void __launch_bounds__(
+    kPixThreads,
+    kMode == kFast ? kFastCtas : (kMode == kPallas ? kK1Ctas : kCtas))
+    blocks_to_rgb_kernel(const TileArgs a) {
+  // K5 and fast take their blocks through the warps' rings; K1's transform
+  // and recheck need the registers the ring's jobs would hold, so under
+  // pallas and kron each octet loads its block from device memory as
+  // idct.cu does.
+  constexpr bool kRing = kMode != kPallas;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Each warp's two stages' barriers (its own ring: no CTA-wide wait).
+  __shared__ __align__(8) unsigned long long full[kPixThreads / 32][2];
+  __shared__ TileGeo geo_s;
+  __shared__ int4 jobs_s[2][kOctets];   // each octet's job in each stage
+  const TileGeo& t = geo_s;
+  float* scratch = reinterpret_cast<float*>(smem);
+  int32_t* win = reinterpret_cast<int32_t*>(smem + a.off_win);
+  // Each component's sample rows of the tile's pixel rows (window offsets
+  // of the row and of its fancy neighbour), after the windows.
+  int2* rowtab = reinterpret_cast<int2*>(smem + a.off_rows);
+  unsigned char* rgbs = smem + a.off_rgb;
+  const int tid = threadIdx.x, oct = tid >> 3, r = tid & 7;
+  const int warp = tid >> 5;
+  // The warp's two stages: four blocks (one an octet) each.
+  int32_t* stage = reinterpret_cast<int32_t*>(smem + a.off_stage) +
+                   warp * 2 * 4 * 64 + (oct & 3) * 64;
+  // The thread's column of a tile and its first row; threads past
+  // rstep * tile_w take no pixel.
+  const int rstep = kPixThreads / a.tile_w;
+  const int yph = tid / a.tile_w, xl = tid - yph * a.tile_w;
+  const bool emits = yph < rstep;
+  if ((tid & 31) == 0) {
+    mbar_init(&full[warp][0], 32);
+    mbar_init(&full[warp][1], 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  unsigned uses = 0;   // bit k: the parity of stage k's next phase
+
+  for (int work = blockIdx.x; work < a.n_work; work += gridDim.x) {
+    const int b = work / a.tiles;
+    const int tile = work - b * a.tiles;
+    const int ty = tile / a.tiles_x, tx = tile - ty * a.tiles_x;
+    const int y0 = ty * a.tile_h, x0 = tx * a.tile_w;
+    const int rows = min(a.tile_h, a.out_h - y0);
+    const int w_pix = min(a.tile_w, a.out_w - x0);
+    const int mcus_x = __ldg(a.geom + b * 4);
+    const int mcus_y = __ldg(a.geom + b * 4 + 1);
+    __syncthreads();   // the last tile's geometry and windows are read
+    if (tid == 0)
+      tile_geo(a, y0, y0 + rows - 1, x0, x0 + w_pix - 1, mcus_x, mcus_y,
+               geo_s);
+    if (kVariant == 2) {
+      for (int i = tid; i < a.window_ints; i += kPixThreads) win[i] = 0;
+    }
+    __syncthreads();   // the tile's geometry
+    if (t.valid && tid < rows) {
+      const int y = y0 + tid;
+      const int true_h = __ldg(a.geom + b * 4 + 2);
+#pragma unroll
+      for (int c = 0; c < kMaxComps; ++c) {
+        if (c < a.n_comps) {
+          const CompGeo& g = a.c[c];
+          int ra, rb;
+          if (g.up == kFancy && g.vy == 2) {
+            const int i = y >> 1, e_r = (true_h + 1) >> 1;
+            ra = i;
+            rb = (y & 1) ? (i + 1 >= e_r ? i : min(i + 1, g.n_r - 1))
+                         : max(i - 1, 0);
+          } else {
+            ra = rb = g.up == kNone || g.vy == 1 ? y : y / g.vy;
+          }
+          rowtab[c * a.tile_h + tid] = make_int2((ra - t.r0[c]) * g.win_w,
+                                                 (rb - t.r0[c]) * g.win_w);
+        }
+      }
+    }
+
+    // Phase 1: the samples of every block the tile reaches (the fancy
+    // filter's halo included), one block an octet a round; each warp
+    // copies its next round's four blocks into its other stage while it
+    // transforms this round's.  A tile whose windows reach no block of the
+    // geometry (bucket padding) has only zero samples: no round, and
+    // phase 2 gives every pixel the colour of zeros.
+    const int n_jobs = t.valid && kVariant != 2 ? t.first[kMaxComps] : 0;
+    if (kRing && n_jobs > 0)
+      fetch(a, t, b, oct, n_jobs, mcus_x, mcus_y, stage, &jobs_s[0][oct],
+            &full[warp][0]);
+    for (int base = 0, k = 0; base < n_jobs; base += kOctets, k ^= 1) {
+      int4 cur;   // the octet's job: src, c, br, bc
+      const int32_t* blk;
+      if (kRing) {
+        if (base + kOctets < n_jobs)
+          fetch(a, t, b, base + kOctets + oct, n_jobs, mcus_x, mcus_y,
+                stage + (k ^ 1) * 4 * 64, &jobs_s[k ^ 1][oct],
+                &full[warp][k ^ 1]);
+        mbar_wait(&full[warp][k], (uses >> k) & 1);
+        uses ^= 1u << k;
+        __syncwarp();   // the octet's job, written by its first thread
+        cur = jobs_s[k][oct];
+        blk = stage + k * 4 * 64;
+      } else {
+        cur = make_int4(-1, 0, 0, 0);
+        if (base + oct < n_jobs)
+          cur.x = tile_job(a, t, base + oct, mcus_x, mcus_y, cur.y, cur.z,
+                           cur.w);
+        blk = a.blocks + (static_cast<int64_t>(b) * a.n_rows + cur.x) * 64;
+      }
+      const int c = cur.y;
+      const int32_t* qc =
+          a.qt + (static_cast<int64_t>(b) * a.n_comps + c) * 64;
+      int4 clo = make_int4(0, 0, 0, 0), chi = clo, qlo, qhi;
+      if (cur.x >= 0) load_row(blk, r, clo, chi);
+      load_row(qc, r, qlo, qhi);
+      const int32_t q[8] = {qlo.x, qlo.y, qlo.z, qlo.w,
+                            qhi.x, qhi.y, qhi.z, qhi.w};
+      int32_t s8[8];
+      bool by_column;   // s8 holds column r of the block, else row r
+      if (kMode == kPallas) {
+        // K1 as idct.cu runs it: the dequantised block kept in the
+        // octet's scratch for the recheck of the samples near a half.
+        float x[8];
+        k1_dequant_row(clo, chi, q, x);
+        float* xb = scratch + oct * 2 * kPad;
+        float* tb = xb + kPad;
+        store_row(xb, r, x);
+        const float eps = k1_eps(x);
+        float tt[8];
+        k1_row_pass(x, tt);
+        store_row(tb, r, tt);
+        __syncwarp();
+        float col[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) col[u] = tb[u * 8 + r];
+        int32_t res[8];
+        const unsigned near = k1_col_pass(col, eps, res);
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+          s8[p] = (near >> p & 1u) ? k1_kron(xb, a.kron, p * 8 + r) : res[p];
+        by_column = true;
+      } else if (kMode == kFast) {
+        // T = M X column by column, then T M^T row by row: two passes
+        // through the octet's scratch.
+        float x[8];
+        k1_dequant_row(clo, chi, q, x);
+        float* tb = scratch + oct * kPad;
+        store_row(tb, r, x);
+        __syncwarp();
+        float col[8], tt[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) col[u] = tb[u * 8 + r];
+        fast_col_pass(col, tt);
+        __syncwarp();
+#pragma unroll
+        for (int p = 0; p < 8; ++p) tb[p * 8 + r] = tt[p];
+        __syncwarp();
+        float4 lo, hi;
+        load_row(tb, r, lo, hi);
+        const float row[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        fast_row_pass(row, s8);
+        by_column = false;
+      } else {
+        int* tt = reinterpret_cast<int*>(scratch) + oct * kBlockStride;
+        const int cv[8] = {clo.x, clo.y, clo.z, clo.w,
+                           chi.x, chi.y, chi.z, chi.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          tt[r * kRowStride + e] = k5_dequant(cv[e], q[e]);
+        __syncwarp();
+        k5_col_pass(tt, r);
+        __syncwarp();
+        k5_row_pass(tt, r, s8);
+        by_column = false;
+      }
+      if (base + oct < n_jobs) {
+        // The window holds rows r0..r1 and columns c0..c1; a halo block's
+        // samples outside it are dropped.
+        const int r0 = t.r0[c], r1 = t.r1[c], c0 = t.c0[c], c1 = t.c1[c];
+        const int ww = PICK(c, win_w);
+        int32_t* dst = win + PICK(c, off);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int sr = cur.z * 8 + (by_column ? e : r);
+          const int sc = cur.w * 8 + (by_column ? r : e);
+          if (sr >= r0 && sr <= r1 && sc >= c0 && sc <= c1)
+            dst[(sr - r0) * ww + (sc - c0)] = s8[e];
+        }
+      }
+      __syncwarp();   // the scratch and the stage are written again
+    }
+    __syncthreads();   // the windows are whole
+    if (kVariant == 1) continue;
+
+    // Phase 2: the tile's pixels, a column a thread.
+    OutT* out = static_cast<OutT*>(a.out);
+    const int64_t pitch = static_cast<int64_t>(a.out_w) * 3;
+    const bool valid = t.valid;
+    if (emits && xl < w_pix) {
+      const int x = x0 + xl;
+      const int true_w = __ldg(a.geom + b * 4 + 3);
+      int ca[kMaxComps], cb[kMaxComps];
+#pragma unroll
+      for (int c = 0; c < kMaxComps; ++c) {
+        ca[c] = cb[c] = 0;
+        if (c < a.n_comps) {
+          const CompGeo& g = a.c[c];
+          const int e_c = (true_w + g.vx - 1) / g.vx;
+          const int c0 = t.c0[c];
+          if (g.up == kFancy && g.vx == 2) {
+            const int j = x >> 1;
+            ca[c] = j - c0;
+            cb[c] = ((x & 1) ? (j + 1 >= e_c ? j : min(j + 1, g.n_c - 1))
+                             : max(j - 1, 0)) - c0;
+          } else {
+            ca[c] = cb[c] = (g.up == kNone || g.vx == 1 ? x : x / g.vx) - c0;
+          }
+        }
+      }
+      int zero[3];   // the colour of zero samples
+      if (!valid) {
+        const int v0[kMaxComps] = {0, 0, 0, 0};
+        colour_pixel(a.colour, v0, a.center, a.maxv, zero);
+      }
+#pragma unroll 2
+      for (int yl = yph; yl < rows; yl += rstep) {
+        const int y = y0 + yl;
+        int rgb[3];
+        if (valid) {
+          int v[kMaxComps] = {0, 0, 0, 0};
+#pragma unroll
+          for (int c = 0; c < kMaxComps; ++c) {
+            if (c < a.n_comps) {
+              const CompGeo& g = a.c[c];
+              const int32_t* ws = win + g.off;
+              const int2 rt = rowtab[c * a.tile_h + yl];
+              const int ra = rt.x, rb = rt.y;
+              if (g.up != kFancy || (g.vy != 2 && g.vx != 2)) {
+                v[c] = ws[ra + ca[c]];
+              } else if (g.vy == 2 && g.vx == 2) {
+                const int col_j = mul3_add(ws[ra + ca[c]], ws[rb + ca[c]]);
+                const int col_n = mul3_add(ws[ra + cb[c]], ws[rb + cb[c]]);
+                v[c] = mul3_add(col_j, col_n, (x & 1) ? 7 : 8) >> 4;
+              } else if (g.vy == 2) {
+                v[c] = mul3_add(ws[ra + ca[c]], ws[rb + ca[c]],
+                                (y & 1) ? 2 : 1) >> 2;
+              } else {
+                v[c] = mul3_add(ws[ra + ca[c]], ws[ra + cb[c]],
+                                (x & 1) ? 2 : 1) >> 2;
+              }
+            }
+          }
+          colour_pixel(a.colour, v, a.center, a.maxv, rgb);
+        } else {
+          rgb[0] = zero[0], rgb[1] = zero[1], rgb[2] = zero[2];
+        }
+        OutT* o = out + ((static_cast<int64_t>(b) * a.out_h + y) * pitch + (x0 + xl) * 3);
+        if (kVariant == 3) {
+          const int o16 = static_cast<int>(
+              reinterpret_cast<uintptr_t>(out + (static_cast<int64_t>(b) * a.out_h + y) * pitch +
+                                          x0 * 3) & 15);
+          o = reinterpret_cast<OutT*>(rgbs + yl * a.rgb_pitch + o16) + xl * 3;
+        }
+        o[0] = static_cast<OutT>(rgb[0]);
+        o[1] = static_cast<OutT>(rgb[1]);
+        o[2] = static_cast<OutT>(rgb[2]);
+      }
+    }
+    if (kVariant == 3) {
+      __syncthreads();
+      store_rows(reinterpret_cast<unsigned char*>(
+                     out + (static_cast<int64_t>(b) * a.out_h + y0) * pitch + x0 * 3),
+                 pitch * static_cast<int64_t>(sizeof(OutT)), rgbs,
+                 a.rgb_pitch, rows, w_pix * 3 * static_cast<int>(sizeof(OutT)));
+    }
+  }
+}
+
+template <int kMode, typename OutT>
+int launch_rgb(const TileArgs& a, int grid, size_t smem,
+               cudaStream_t stream) {
+  auto kernel = blocks_to_rgb_kernel<kMode, OutT>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   kernel<<<grid, kPixThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -607,19 +1140,78 @@ extern "C" int jd_unpack_nibble(const void* dc16, const void* e,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6b.  `geo`: per component 10 int32 (h, v, k0, n_r, n_c, vy, vx, up,
-// win_w, off: CompGeo); `dims`: n_comps, bpm, out_h, out_w, tile_h, tile_w,
-// tiles_x, colour, center, maxv, mode (0 pallas, 1 exact, 2 samples),
-// out_bytes (1 uint8, 2 uint16); the pointers as in PixArgs, contiguous
-// and 16-byte aligned on the current device.  `smem` is the dynamic shared
-// memory of a CTA: the octets' scratch (mode 0: 32 x 144 floats, mode 1:
-// 32 x 72 ints, mode 2: none) and then the windows.
+// K6b.  `dims`: n_comps, bpm, out_h, out_w, tile_h, tile_w, tiles_x,
+// tiles (an image's), colour, center, maxv, mode (0 pallas and kron, 1
+// exact, 3 fast), out_bytes (1 uint8, 2 uint16), off_stage, off_win (byte
+// offsets of the rings and the windows in dynamic shared memory),
+// window_ints (a multiple of 4), off_rows, off_rgb (byte offsets of the row
+// table and the staged rows), rgb_pitch (ops/pixels_cuda.py:RgbPlan.layout);
+// `geo`: per component 10 int32 (CompGeo).  The pointers as in TileArgs,
+// contiguous and 16-byte aligned on the current device.  Launches `grid`
+// persistent CTAs with `smem` bytes of dynamic shared memory on `stream`,
+// which walk the n_img x tiles tiles; returns cudaGetLastError() (0 =
+// launched).
 extern "C" int jd_blocks_to_rgb(const void* blocks, const void* qt,
                                 const void* geom, const void* kron,
                                 void* out, int64_t n_img, int64_t n_rows,
                                 const int32_t* dims, const int32_t* geo,
-                                int64_t n_tiles, int64_t smem,
-                                void* stream) {
+                                int64_t grid, int64_t smem, void* stream) {
+  if (n_img <= 0 || grid <= 0) return 0;
+  TileArgs a = {};
+  a.blocks = static_cast<const int32_t*>(blocks);
+  a.qt = static_cast<const int32_t*>(qt);
+  a.geom = static_cast<const int32_t*>(geom);
+  a.kron = static_cast<const float*>(kron);
+  a.out = out;
+  a.n_rows = n_rows;
+  a.n_comps = dims[0], a.bpm = dims[1], a.out_h = dims[2], a.out_w = dims[3];
+  a.tile_h = dims[4], a.tile_w = dims[5], a.tiles_x = dims[6];
+  a.tiles = dims[7];
+  a.colour = dims[8], a.center = dims[9], a.maxv = dims[10];
+  const int mode = dims[11], out_bytes = dims[12];
+  a.off_stage = dims[13], a.off_win = dims[14], a.window_ints = dims[15];
+  a.off_rows = dims[16], a.off_rgb = dims[17], a.rgb_pitch = dims[18];
+  if (a.n_comps < 1 || a.n_comps > kMaxComps) return -1;
+  if (a.tile_w < 1 || a.tile_w > kPixThreads || a.tile_h < 1 ||
+      a.tile_h > kPixThreads)
+    return -1;
+  if (n_img * a.tiles >= (int64_t{1} << 31)) return -1;
+  a.n_work = static_cast<int>(n_img * a.tiles);
+  for (int c = 0; c < a.n_comps; ++c) {
+    const int32_t* g = geo + c * 10;
+    a.c[c] = CompGeo{g[0], g[1], g[2], g[3], g[4],
+                     g[5], g[6], g[7], g[8], g[9]};
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  const int n = static_cast<int>(grid);
+  if (out_bytes == 1) {
+    if (mode == kPallas) return launch_rgb<kPallas, uint8_t>(a, n, sm, s);
+    if (mode == kExact) return launch_rgb<kExact, uint8_t>(a, n, sm, s);
+    if (mode == kFast) return launch_rgb<kFast, uint8_t>(a, n, sm, s);
+    return -1;
+  }
+  if (mode == kPallas) return launch_rgb<kPallas, uint16_t>(a, n, sm, s);
+  if (mode == kExact) return launch_rgb<kExact, uint16_t>(a, n, sm, s);
+  if (mode == kFast) return launch_rgb<kFast, uint16_t>(a, n, sm, s);
+  return -1;
+}
+
+// K6b's first form.  `geo`: per component 10 int32 (h, v, k0, n_r, n_c, vy,
+// vx, up, win_w, off: CompGeo); `dims`: n_comps, bpm, out_h, out_w, tile_h,
+// tile_w, tiles_x, colour, center, maxv, mode (0 pallas, 1 exact, 2
+// samples), out_bytes (1 uint8, 2 uint16), window_ints (a multiple of 4),
+// rgb_pitch (the variant with staged stores); the pointers as in PixArgs,
+// contiguous and 16-byte aligned on the current device.  `smem` is the
+// dynamic shared memory of a CTA: the octets' scratch (mode 0: 32 x 144
+// floats, mode 1: 32 x 72 ints, mode 2: none), then the windows (and the
+// staged rows of variant 3).
+extern "C" int jd_blocks_to_rgb_v1(const void* blocks, const void* qt,
+                                   const void* geom, const void* kron,
+                                   void* out, int64_t n_img, int64_t n_rows,
+                                   const int32_t* dims, const int32_t* geo,
+                                   int64_t n_tiles, int64_t smem,
+                                   void* stream) {
   if (n_img <= 0 || n_tiles <= 0) return 0;
   PixArgs a;
   a.blocks = static_cast<const int32_t*>(blocks);
@@ -633,6 +1225,7 @@ extern "C" int jd_blocks_to_rgb(const void* blocks, const void* qt,
   a.tile_h = dims[4], a.tile_w = dims[5], a.tiles_x = dims[6];
   a.colour = dims[7], a.center = dims[8], a.maxv = dims[9];
   const int mode = dims[10], out_bytes = dims[11];
+  a.window_ints = dims[12], a.rgb_pitch = dims[13];
   if (a.n_comps < 1 || a.n_comps > kMaxComps) return -1;
   for (int c = 0; c < a.n_comps; ++c) {
     const int32_t* g = geo + c * 10;
@@ -642,15 +1235,15 @@ extern "C" int jd_blocks_to_rgb(const void* blocks, const void* qt,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
   if (out_bytes == 1) {
-    if (mode == kPallas) return launch_rgb<kPallas, uint8_t>(a, n_img, n_tiles,
-                                                             sm, s);
-    if (mode == kExact) return launch_rgb<kExact, uint8_t>(a, n_img, n_tiles,
-                                                           sm, s);
-    return launch_rgb<kSamples, uint8_t>(a, n_img, n_tiles, sm, s);
+    if (mode == kPallas)
+      return launch_rgb_v1<kPallas, uint8_t>(a, n_img, n_tiles, sm, s);
+    if (mode == kExact)
+      return launch_rgb_v1<kExact, uint8_t>(a, n_img, n_tiles, sm, s);
+    return launch_rgb_v1<kSamples, uint8_t>(a, n_img, n_tiles, sm, s);
   }
-  if (mode == kPallas) return launch_rgb<kPallas, uint16_t>(a, n_img, n_tiles,
-                                                            sm, s);
-  if (mode == kExact) return launch_rgb<kExact, uint16_t>(a, n_img, n_tiles,
-                                                          sm, s);
-  return launch_rgb<kSamples, uint16_t>(a, n_img, n_tiles, sm, s);
+  if (mode == kPallas)
+    return launch_rgb_v1<kPallas, uint16_t>(a, n_img, n_tiles, sm, s);
+  if (mode == kExact)
+    return launch_rgb_v1<kExact, uint16_t>(a, n_img, n_tiles, sm, s);
+  return launch_rgb_v1<kSamples, uint16_t>(a, n_img, n_tiles, sm, s);
 }

@@ -351,8 +351,8 @@ def rgb_from_blocks_dyn(blocks, qtables, geom, *, comp_shapes, comp_hv,
     batched).  ``blocks``: (B, N, 64) int32 scan-order blocks;
     ``qtables``: (B, n_comps, 64) int32; ``geom``: (B, 4) int32 (mcus_x,
     mcus_y, height, width).  On a CUDA tensor one launch of the kernel K6b
-    (``ops/pixels_cuda.blocks_to_rgb``; under ``kron``/``fast`` after the
-    product on the scan-order blocks), which raises if it cannot launch; on
+    (``ops/pixels_cuda.blocks_to_rgb``, every IDCT inside it), which raises
+    if it cannot launch; on
     a CPU tensor the plain route :func:`rgb_from_blocks_torch`.  Returns
     (B, height, width, 3) RGB whose pixels inside each image's (geom
     height, width) are exact; the rest is padding that

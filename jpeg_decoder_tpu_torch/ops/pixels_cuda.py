@@ -12,22 +12,31 @@ kernels (``csrc/pixels.cu``), and the plain versions they are held to.
 * K6b, :func:`blocks_to_rgb`: scan-order blocks to the group's whole
   (B, H, W, 3) RGB in one pass, padding included.  It replaces the JAX
   package's ``models/batch.py:52 _planes_from_blocks_dyn`` and ``:82
-  _rgb_one_dyn`` (dequantise, IDCT, upsample, colour).  Under ``pallas``
-  and ``exact`` the kernel carries K1's or K5's arithmetic
-  (``csrc/idct_common.cuh``); under ``kron`` and ``fast`` the product stays
-  ``torch.matmul`` or the einsum on the scan-order blocks
-  (:func:`scan_samples`) and the kernel's samples form skips its IDCT.  On a
-  CUDA tensor it launches the kernel or raises and counts
-  ``blocks_to_rgb.launches``; on a CPU tensor it runs the plain version
-  ``models.batch.rgb_from_blocks_torch``.
+  _rgb_one_dyn`` (dequantise, IDCT, upsample, colour).  The kernel carries
+  every IDCT: K1's arithmetic under ``pallas`` and ``kron`` (the Pallas
+  kernel and its XLA twin), K5's under ``exact``, and under ``fast`` the
+  separable ``(M @ X) @ M^T`` of ``pixel.idct_fast`` (``csrc/idct_common.cuh``;
+  plain model :func:`fast_separable`).  Persistent CTAs walk the group's
+  output tiles; under ``exact`` and ``fast`` each warp's blocks reach
+  shared memory through its own two-stage ring of asynchronous copies, the
+  next round in flight while it transforms this one (under ``pallas`` and
+  ``kron`` K1's registers leave no room for the ring: the blocks are
+  loaded as K1 loads them); a tile of bucket padding takes the colour of
+  zeros without an IDCT.  On a CUDA tensor it launches the kernel or
+  raises and counts ``blocks_to_rgb.launches``; on a CPU tensor it runs the
+  plain version ``models.batch.rgb_from_blocks_torch``.  Its first form
+  (one CTA per tile, the torch product :func:`scan_samples` before it under
+  ``kron`` and ``fast``) stays in the build as ``jd_blocks_to_rgb_v1``
+  (``testing/pixel_v1.py``), the same-card baseline; no path reaches it.
 
 The kernels' decompositions have plain models here, for the CPU tests:
 :func:`unpack_nibble_chunked` (zeros and DC first, chunk totals, the
 prefix over chunks, the threads' scan, each thread's walk, adds of nonzero
 values off the DC slots, escapes off the DC slots) and
-:func:`rgb_tiles_torch` (output tiles, each component's window of samples
-with the fancy filter's halo, blocks from the closed-form geometry, zero
-blocks outside it, the per-pixel upsampling).  No path runs them.
+:func:`rgb_tiles_torch` (K6b's: the tiles in each persistent CTA's order,
+each component's window of samples with the fancy filter's halo, blocks
+from the closed-form geometry, zero blocks outside it, tiles of padding,
+the per-pixel upsampling).  No path runs them.
 """
 
 from __future__ import annotations
@@ -42,8 +51,9 @@ import torch
 from .._build import CudaLib, launch_check
 from . import idct_cuda, pixel
 
-__all__ = ["blocks_to_rgb", "build", "rgb_plan", "rgb_tiles_torch",
-           "scan_samples", "unpack_nibble", "unpack_nibble_chunked"]
+__all__ = ["blocks_to_rgb", "build", "fast_separable", "rgb_plan",
+           "rgb_tiles_torch", "scan_samples", "unpack_nibble",
+           "unpack_nibble_chunked"]
 
 LIB = CudaLib("pixels.cu", "jd_pixels", {
     "jd_unpack_nibble": [
@@ -58,6 +68,13 @@ LIB = CudaLib("pixels.cu", "jd_pixels", {
         ctypes.c_void_p, ctypes.c_void_p,                   # kron, out
         ctypes.c_int64, ctypes.c_int64,                     # B, n_rows
         ctypes.c_void_p, ctypes.c_void_p,                   # dims, geo
+        ctypes.c_int64, ctypes.c_int64,                     # grid, smem
+        ctypes.c_void_p],                                   # stream
+    "jd_blocks_to_rgb_v1": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # blocks, qt, geom
+        ctypes.c_void_p, ctypes.c_void_p,                   # kron, out
+        ctypes.c_int64, ctypes.c_int64,                     # B, n_rows
+        ctypes.c_void_p, ctypes.c_void_p,                   # dims, geo
         ctypes.c_int64, ctypes.c_int64,                     # tiles, smem
         ctypes.c_void_p]})                                  # stream
 
@@ -65,18 +82,36 @@ LIB = CudaLib("pixels.cu", "jd_pixels", {
 #: chunk of a row is their product.
 UNPACK_THREADS = 256
 PER_THREAD = 16
-#: K6b: threads of a CTA, blocks a round of phase 1 (eight threads each),
-#: the output tile it aims at (pixels; whole MCUs: 64 x 64 took 1.8765 ms on
-#: the batch of 32 against 2.1525 at 32 x 64, the fastest of six in
-#: chip_smoke.py's sweep on an H100 80GB HBM3 at 700 W), the floats of an
-#: octet's scratch under ``pallas`` (K1's two padded blocks) and the ints
-#: under ``exact`` (K5's padded tile).
+#: K6b: threads of a CTA, blocks a round of IDCTs (eight threads each).
 PIX_THREADS = 256
 OCTETS = PIX_THREADS // 8
+#: K6b's output tile (pixels, rounded down to whole MCUs).
 TILE = (64, 64)
+#: K6b's persistent CTAs a multiprocessor, per IDCT (``csrc/pixels.cu:kCtas``,
+#: ``kK1Ctas`` and ``kFastCtas`` cap the registers for as many).
+CTAS_PER_SM = {"pallas": 3, "kron": 3, "exact": 4, "fast": 3}
+#: The first form's tile (whole MCUs: 64 x 64 took 1.8765 ms on the batch
+#: of 32 against 2.1525 at 32 x 64, the fastest of six in chip_smoke.py's
+#: sweep on an H100 80GB HBM3 at 700 W).
+TILE_V1 = (64, 64)
+#: Bytes of the first form's octets' scratch, all octets: K1's two padded
+#: blocks under ``pallas``, K5's padded tile under ``exact``, none for the
+#: samples made before it (``samples``).
 SCRATCH = {"pallas": OCTETS * 2 * 72 * 4, "exact": OCTETS * 72 * 4,
            "samples": 0}
-MODES = {"pallas": 0, "exact": 1, "samples": 2}
+#: Bytes of K6b's scratch, all octets: K1's two padded blocks under
+#: ``pallas`` and ``kron``, one padded block of 4-byte words under ``fast``
+#: and ``exact`` (fast's transposes, K5's tile).
+K6B_SCRATCH = {"pallas": OCTETS * 2 * 72 * 4, "kron": OCTETS * 2 * 72 * 4,
+               "exact": OCTETS * 72 * 4, "fast": OCTETS * 72 * 4}
+#: Bytes of K6b's rings, all warps (two stages of four blocks a warp), under
+#: the IDCTs that take their blocks through them.
+K6B_STAGES = {"pallas": 0, "kron": 0, "exact": 2 * OCTETS * 256,
+              "fast": 2 * OCTETS * 256}
+#: The kernels' mode codes (``kron`` runs K1's arithmetic).
+MODES = {"pallas": 0, "kron": 0, "exact": 1, "samples": 2, "fast": 3}
+#: Dynamic shared memory a CTA may have (H100).
+SMEM_MAX = 232448
 COLOURS = {"gray": 0, "ycbcr": 1, "rgb": 2, "ycck": 3, "cmyk": 4}
 UP_NONE, UP_NN, UP_FANCY = 0, 1, 2
 
@@ -244,7 +279,25 @@ class RgbPlan:
         return self.tiles_x * self.tiles_y
 
     def smem(self, mode: str) -> int:
+        """The first form's dynamic shared memory under ``mode``."""
         return SCRATCH[mode] + 4 * self.window_ints
+
+    def layout(self, idct: str, out_bytes: int, staged: bool = False) -> dict:
+        """K6b's dynamic shared memory under ``idct`` for output elements of
+        ``out_bytes``: byte offsets of the rings and the windows after the
+        octets' scratch, the windows' ints (a multiple of 4), the row table
+        (an int2 a component and tile row) and the staged rows after them,
+        their pitch and (``staged``) their room; ``smem`` the total."""
+        win = -(-self.window_ints // 4) * 4
+        pitch = -(-(self.tile_w * 3 * out_bytes + 15) // 16) * 16
+        lay = {"off_stage": K6B_SCRATCH[idct],
+               "off_win": K6B_SCRATCH[idct] + K6B_STAGES[idct],
+               "window_ints": win, "rgb_pitch": pitch}
+        lay["off_rows"] = lay["off_win"] + 4 * win
+        lay["off_rgb"] = lay["off_rows"] + -(-8 * len(self.comps)
+                                             * self.tile_h // 16) * 16
+        lay["smem"] = lay["off_rgb"] + (self.tile_h * pitch if staged else 0)
+        return lay
 
 
 def _colour(color: str, n_comps: int, precision: int) -> int:
@@ -270,9 +323,9 @@ def _colour(color: str, n_comps: int, precision: int) -> int:
 def rgb_plan(*, comp_shapes, comp_hv, height: int, width: int, samplings,
              upsample: str, color: str, precision: int,
              tile=None) -> RgbPlan:
-    """K6b's geometry for a group (pure Python).  ``tile`` (rows, cols) of
-    output pixels, whole MCUs by default (:data:`TILE` rounded down to
-    MCUs, at least one)."""
+    """K6b's geometry for a group (pure Python), its first form's too.
+    ``tile`` (rows, cols) of output pixels, whole MCUs by default
+    (:data:`TILE_V1` rounded down to MCUs, at least one)."""
     if upsample not in ("fancy", "nn"):
         raise ValueError(f"unknown upsample {upsample!r}")
     n = len(comp_shapes)
@@ -282,8 +335,7 @@ def rgb_plan(*, comp_shapes, comp_hv, height: int, width: int, samplings,
     h_max = max(h for h, _ in comp_hv)
     v_max = max(v for _, v in comp_hv)
     if tile is None:
-        tile = (8 * v_max * max(1, TILE[0] // (8 * v_max)),
-                8 * h_max * max(1, TILE[1] // (8 * h_max)))
+        tile = _whole_mcus(TILE_V1, comp_hv)
     tile_h, tile_w = tile
     comps, hs, ws, k0 = [], [], [], 0
     for (rows, cols), (h, v), (vy, vx) in zip(comp_shapes, comp_hv,
@@ -317,6 +369,14 @@ def rgb_plan(*, comp_shapes, comp_hv, height: int, width: int, samplings,
         win_h=tuple(win_h), window_ints=off)
 
 
+def _whole_mcus(tile, comp_hv) -> tuple[int, int]:
+    """``tile`` (rows, cols) of pixels rounded down to whole MCUs, at least
+    one."""
+    mh = 8 * max(v for _, v in comp_hv)
+    mw = 8 * max(h for h, _ in comp_hv)
+    return mh * max(1, tile[0] // mh), mw * max(1, tile[1] // mw)
+
+
 def scan_samples(blocks, qtables, comp_hv, idct: str) -> torch.Tensor:
     """The ``kron`` or ``fast`` product on scan-order blocks: (B, N, 64)
     int32 blocks, each dequantised by its component's table of
@@ -324,13 +384,17 @@ def scan_samples(blocks, qtables, comp_hv, idct: str) -> torch.Tensor:
     basis (``idct_cuda.idct_kron``'s arithmetic) or the einsum
     (``pixel.idct_fast``).  Returns (B, M, 64) int32 samples of the first
     M = (N // blocks per MCU) MCUs' rows: the rows past them are the fill
-    row, which K6b never reads."""
+    row, which K6b's first form never reads.  K6b's first form takes it
+    before its launch (``testing/pixel_v1.py``); K6b does not.  Calls on a
+    CUDA tensor count ``scan_samples.launches``."""
     if idct not in ("kron", "fast"):
         raise ValueError(f"scan_samples takes kron or fast, got {idct!r}")
     b, n = blocks.shape[:2]
     block_comp = [c for c, (h, v) in enumerate(comp_hv) for _ in range(h * v)]
     bpm = len(block_comp)
     m = n // bpm
+    if blocks.is_cuda:
+        _count(scan_samples)
     q = qtables[:, block_comp].to(torch.int32)             # (B, bpm, 64)
     deq = blocks[:, :m * bpm].reshape(b, m, bpm, 64) * q[:, None]
     if idct == "fast":
@@ -345,6 +409,103 @@ def scan_samples(blocks, qtables, comp_hv, idct: str) -> torch.Tensor:
     return pixel.trunc_int32(torch.round(out))
 
 
+#: Calls of :func:`scan_samples` on a CUDA tensor since the count was last
+#: set to 0 (the batch routes' main path makes none).
+scan_samples.launches = 0
+
+
+def fast_separable(deq: torch.Tensor) -> torch.Tensor:
+    """Plain model of K6b's ``fast`` arithmetic (``csrc/idct_common.cuh``
+    ``fast_col_pass``/``fast_row_pass``) on dequantised int32 blocks
+    (..., 64), associated as torch's einsum contracts ``pixel.idct_fast``:
+    a column pass t[p][v] = sum_u M[p][u] x[u][v], then a row pass
+    o[p][q] = sum_v t[p][v] M[q][v], each a float32 FMA chain in index
+    order with M = ``pixel.IDCT_M_F32``; rint half to even, saturating at
+    the int32 range.  Within +-1 of ``pixel.idct_fast`` and of the JAX
+    package's (another order of the same float32 sums)."""
+    shape = deq.shape
+    x = deq.reshape(-1, 8, 8).to(torch.float32)            # [n, u, v]
+    m = torch.from_numpy(pixel.IDCT_M_F32).to(deq.device)  # [p, u]
+    t = m[:, 0, None] * x[:, None, 0, :]                    # [n, p, v]
+    for u in range(1, 8):
+        t = idct_cuda._fma(m[:, u, None], x[:, None, u, :], t)
+    o = t[:, :, None, 0] * m[:, 0]                          # [n, p, q]
+    for v in range(1, 8):
+        o = idct_cuda._fma(t[:, :, None, v], m[:, v], o)
+    return pixel.trunc_int32(torch.round(o)).reshape(shape)
+
+
+_sms_cache: dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms_cache:
+        _sms_cache[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sms_cache[idx]
+
+
+def check_rgb_args(blocks, qtables, geom, n_comps: int, idct: str) -> None:
+    """The checks K6b's wrapper makes before a launch: dtype, rank, device,
+    contiguity, shapes, batch size, 16-byte alignment, the IDCT's name."""
+    if idct not in ("exact", "pallas", "kron", "fast"):
+        raise ValueError(f"unknown idct {idct!r}")
+    dev = blocks.device
+    _need(blocks, "blocks", torch.int32, 3, dev)
+    _need(qtables, "qtables", torch.int32, 3, dev)
+    _need(geom, "geom", torch.int32, 2, dev)
+    b = blocks.shape[0]
+    if blocks.shape[2] != 64 or tuple(qtables.shape) != (b, n_comps, 64) \
+            or tuple(geom.shape) != (b, 4):
+        raise ValueError(f"shapes: blocks {tuple(blocks.shape)}, qtables "
+                         f"{tuple(qtables.shape)}, geom {tuple(geom.shape)}")
+    if b > 65535:
+        raise ValueError("at most 65535 images per launch")
+    if blocks.shape[1] >= 2 ** 31:
+        raise ValueError("at most 2^31 - 1 blocks an image")
+    for t, name in ((blocks, "blocks"), (qtables, "qtables")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def launch_rgb(lib, blocks, qtables, geom, kron, out, plan: RgbPlan,
+               idct: str, grid: int, stream: int, *,
+               staged: bool = False) -> None:
+    """One launch of K6b (``jd_blocks_to_rgb`` of ``lib``) on ``stream``
+    from checked arguments: ``out`` the (B, H, W, 3) output, ``kron`` K1's
+    basis rows (``idct_cuda._basis``), ``grid`` persistent CTAs;
+    ``staged``: room for the staged RGB rows of the variant that stores
+    them 16 bytes at a time.  Counts ``blocks_to_rgb.launches``; raises if
+    the launch failed."""
+    lay = plan.layout(idct, out.element_size(), staged=staged)
+    if lay["smem"] > SMEM_MAX:
+        raise ValueError(f"K6b needs {lay['smem']} bytes of shared memory "
+                         f"(tile {plan.tile_h}x{plan.tile_w}); at most "
+                         f"{SMEM_MAX}")
+    n_comps = len(plan.comps)
+    dims = (ctypes.c_int32 * 19)(
+        n_comps, plan.bpm, plan.out_h, plan.out_w, plan.tile_h, plan.tile_w,
+        plan.tiles_x, plan.n_tiles, plan.colour, plan.center, plan.maxv,
+        MODES[idct], out.element_size(), lay["off_stage"], lay["off_win"],
+        lay["window_ints"], lay["off_rows"], lay["off_rgb"],
+        lay["rgb_pitch"])
+    geo = (ctypes.c_int32 * (10 * n_comps))(
+        *(x for c in plan.comps for x in c))
+    rc = lib.jd_blocks_to_rgb(
+        blocks.data_ptr(), qtables.data_ptr(), geom.data_ptr(),
+        kron.data_ptr(), out.data_ptr(), blocks.shape[0], blocks.shape[1],
+        dims, geo, grid, lay["smem"], stream)
+    launch_check(rc, "blocks_to_rgb")
+    _count(blocks_to_rgb)
+
+
+def grid_for(plan: RgbPlan, n_img: int, sms: int, ctas_per_sm: int) -> int:
+    """K6b's persistent grid: ``ctas_per_sm`` CTAs on each of ``sms``
+    multiprocessors, at most one a tile."""
+    return max(1, min(n_img * plan.n_tiles, sms * ctas_per_sm))
+
+
 def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
                   width, samplings, idct, upsample, color,
                   precision) -> torch.Tensor:
@@ -353,9 +514,9 @@ def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
     (B, H, W, 3) uint8 RGB (uint16 for 12-bit), padding included, as
     ``models.batch.rgb_from_blocks_torch`` computes it.
 
-    On a CUDA tensor this launches K6b (after :func:`scan_samples` under
-    ``kron`` and ``fast``) or raises; on a CPU tensor it runs the plain
-    version."""
+    On a CUDA tensor this launches K6b (every IDCT inside the kernel, tiles
+    of :data:`TILE`, a grid of :data:`CTAS_PER_SM` CTAs a multiprocessor)
+    or raises; on a CPU tensor it runs the plain version."""
     if blocks.device.type == "cpu":
         from ..models import batch
         return batch.rgb_from_blocks_torch(
@@ -364,48 +525,20 @@ def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
             upsample=upsample, color=color, precision=precision)
     if blocks.device.type != "cuda":
         raise ValueError(f"no kernel for device {blocks.device}")
-    if idct not in ("exact", "pallas", "kron", "fast"):
-        raise ValueError(f"unknown idct {idct!r}")
+    check_rgb_args(blocks, qtables, geom, len(comp_shapes), idct)
     dev = blocks.device
-    _need(blocks, "blocks", torch.int32, 3, dev)
-    _need(qtables, "qtables", torch.int32, 3, dev)
-    _need(geom, "geom", torch.int32, 2, dev)
-    b = blocks.shape[0]
-    n_comps = len(comp_shapes)
-    if blocks.shape[2] != 64 or tuple(qtables.shape) != (b, n_comps, 64) \
-            or tuple(geom.shape) != (b, 4):
-        raise ValueError(f"shapes: blocks {tuple(blocks.shape)}, qtables "
-                         f"{tuple(qtables.shape)}, geom {tuple(geom.shape)}")
-    if b > 65535:
-        raise ValueError("at most 65535 images per launch")
     plan = rgb_plan(comp_shapes=comp_shapes, comp_hv=comp_hv, height=height,
                     width=width, samplings=samplings, upsample=upsample,
-                    color=color, precision=precision)
-    if idct in ("kron", "fast"):
-        src, mode = scan_samples(blocks, qtables, comp_hv, idct), "samples"
-    else:
-        src, mode = blocks, idct
-    for t, name in ((src, "blocks"), (qtables, "qtables")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    dtype = pixel._sample_dtype(precision)
-    out = torch.empty((b, plan.out_h, plan.out_w, 3), dtype=dtype,
-                      device=dev)
-    dims = (ctypes.c_int32 * 12)(
-        n_comps, plan.bpm, plan.out_h, plan.out_w, plan.tile_h, plan.tile_w,
-        plan.tiles_x, plan.colour, plan.center, plan.maxv, MODES[mode],
-        out.element_size())
-    geo = (ctypes.c_int32 * (10 * n_comps))(
-        *(x for c in plan.comps for x in c))
+                    color=color, precision=precision,
+                    tile=_whole_mcus(TILE, comp_hv))
+    out = torch.empty((blocks.shape[0], plan.out_h, plan.out_w, 3),
+                      dtype=pixel._sample_dtype(precision), device=dev)
     lib = build()
-    kron = idct_cuda._basis(dev, False)
     with torch.cuda.device(dev):
-        rc = lib.jd_blocks_to_rgb(
-            src.data_ptr(), qtables.data_ptr(), geom.data_ptr(),
-            kron.data_ptr(), out.data_ptr(), b, src.shape[1], dims, geo,
-            plan.n_tiles, plan.smem(mode), _stream(blocks))
-    launch_check(rc, "blocks_to_rgb")
-    _count(blocks_to_rgb)
+        launch_rgb(lib, blocks, qtables, geom, idct_cuda._basis(dev, False),
+                   out, plan, idct,
+                   grid_for(plan, blocks.shape[0], _sm_count(dev),
+                            CTAS_PER_SM[idct]), _stream(blocks))
     return out
 
 
@@ -444,49 +577,72 @@ def _scan_idct(blocks, qtables, comp_hv, idct: str) -> torch.Tensor:
 
 def rgb_tiles_torch(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
                     width, samplings, idct, upsample, color, precision,
-                    tile=None) -> torch.Tensor:
-    """Plain model of K6b's decomposition on CPU tensors: for each output
-    tile of each image, each component's window of samples (the rows and
-    columns the tile's pixels reach, the fancy filter's halo included),
-    filled block by block from the closed-form geometry (a cell outside it
-    a zero block), then each pixel's upsampled samples from the windows and
-    the colour transform.  The samples come from the plain route's per-block
-    IDCT (:func:`_scan_idct`).  Equal to ``rgb_from_blocks_torch`` (tests
-    hold it there at small tiles)."""
+                    tile=None, grid=None,
+                    arithmetic: str = "route") -> torch.Tensor:
+    """Plain model of K6b's decomposition on CPU tensors: the output tiles
+    of the group's images in the order ``grid`` persistent CTAs take them
+    (CTA i: tiles i, i + grid, ...; image by image when None); for each
+    tile each component's window of samples (the rows and columns the
+    tile's pixels reach, the fancy filter's halo included), filled block by
+    block from the closed-form geometry (a cell outside it a zero block);
+    a tile whose windows reach no block of the geometry takes the colour of
+    zeros; else each pixel's upsampled samples from the windows and the
+    colour transform.  The samples come from the plain route's per-block
+    IDCT (:func:`_scan_idct`), or with ``arithmetic="kernel"`` from the
+    kernel's own ``fast`` (:func:`fast_separable`).  Equal to
+    ``rgb_from_blocks_torch`` (tests hold it there at small tiles)."""
     plan = rgb_plan(comp_shapes=comp_shapes, comp_hv=comp_hv, height=height,
                     width=width, samplings=samplings, upsample=upsample,
                     color=color, precision=precision, tile=tile)
-    samples = _scan_idct(blocks, qtables, comp_hv, idct)
+    if arithmetic == "kernel" and idct == "fast":
+        block_comp = [c for c, (h, v) in enumerate(comp_hv)
+                      for _ in range(h * v)]
+        bpm = len(block_comp)
+        m = blocks.shape[1] // bpm
+        deq = (blocks[:, :m * bpm].reshape(blocks.shape[0], m, bpm, 64)
+               * qtables[:, block_comp].to(torch.int32)[:, None])
+        samples = fast_separable(deq.reshape(blocks.shape[0], m * bpm, 64))
+    else:
+        samples = _scan_idct(blocks, qtables, comp_hv, idct)
     b, n_rows = samples.shape[:2]
     out = torch.empty((b, plan.out_h, plan.out_w, 3),
                       dtype=pixel._sample_dtype(precision))
-    for k in range(b):
+    n_work = b * plan.n_tiles
+    grid = grid or n_work
+    for work in (w for cta in range(grid) for w in range(cta, n_work, grid)):
+        k, tile_i = divmod(work, plan.n_tiles)
+        ty, tx = divmod(tile_i, plan.tiles_x)
         mcus_x, mcus_y, true_h, true_w = (int(x) for x in geom[k])
-        for ty in range(plan.tiles_y):
-            y0 = ty * plan.tile_h
-            y1 = min(y0 + plan.tile_h, plan.out_h) - 1
-            for tx in range(plan.tiles_x):
-                x0 = tx * plan.tile_w
-                x1 = min(x0 + plan.tile_w, plan.out_w) - 1
-                vals = []
-                for (h, v, k0, n_r, n_c, vy, vx, up, _, _) in plan.comps:
-                    r0, r1 = _span(y0, y1, vy, up, n_r)
-                    c0, c1 = _span(x0, x1, vx, up, n_c)
-                    sr = torch.arange(r0, r1 + 1).view(-1, 1)
-                    sc = torch.arange(c0, c1 + 1).view(1, -1)
-                    br, bc = sr // 8, sc // 8
-                    src = (((br // v) * mcus_x + bc // h) * plan.bpm + k0
-                           + (br % v) * h + bc % h)
-                    valid = ((br < mcus_y * v) & (bc < mcus_x * h)
-                             & (src < n_rows))
-                    win = samples[k, src.clamp(0, n_rows - 1),
-                                  (sr % 8) * 8 + sc % 8]
-                    win = torch.where(valid, win, 0)
-                    vals.append(_upsampled(
-                        win, r0, c0, y0, y1, x0, x1, vy, vx, up, n_r, n_c,
-                        -(-true_h // vy), -(-true_w // vx)))
-                out[k, y0:y1 + 1, x0:x1 + 1] = _colour_pixels(
-                    vals, plan.colour, precision)
+        y0, x0 = ty * plan.tile_h, tx * plan.tile_w
+        y1 = min(y0 + plan.tile_h, plan.out_h) - 1
+        x1 = min(x0 + plan.tile_w, plan.out_w) - 1
+        live = any(
+            (_span(y0, y1, vy, up, n_r)[0] >> 3) < mcus_y * v
+            and (_span(x0, x1, vx, up, n_c)[0] >> 3) < mcus_x * h
+            for (h, v, _, n_r, n_c, vy, vx, up, _, _) in plan.comps)
+        vals = []
+        for (h, v, k0, n_r, n_c, vy, vx, up, _, _) in plan.comps:
+            if not live:
+                vals.append(torch.zeros((y1 - y0 + 1, x1 - x0 + 1),
+                                        dtype=torch.int64))
+                continue
+            r0, r1 = _span(y0, y1, vy, up, n_r)
+            c0, c1 = _span(x0, x1, vx, up, n_c)
+            sr = torch.arange(r0, r1 + 1).view(-1, 1)
+            sc = torch.arange(c0, c1 + 1).view(1, -1)
+            br, bc = sr // 8, sc // 8
+            src = (((br // v) * mcus_x + bc // h) * plan.bpm + k0
+                   + (br % v) * h + bc % h)
+            valid = ((br < mcus_y * v) & (bc < mcus_x * h)
+                     & (src < n_rows))
+            win = samples[k, src.clamp(0, n_rows - 1),
+                          (sr % 8) * 8 + sc % 8]
+            win = torch.where(valid, win, 0)
+            vals.append(_upsampled(
+                win, r0, c0, y0, y1, x0, x1, vy, vx, up, n_r, n_c,
+                -(-true_h // vy), -(-true_w // vx)))
+        out[k, y0:y1 + 1, x0:x1 + 1] = _colour_pixels(
+            vals, plan.colour, precision)
     return out
 
 
@@ -545,3 +701,4 @@ def _colour_pixels(vals, colour: int, precision: int) -> torch.Tensor:
         name = "ycck" if colour == COLOURS["ycck"] else "cmyk"
         return pixel.cmyk_to_rgb(pixel.decoded_to_cmyk(v[:4], name))
     return pixel.ycbcr_to_rgb(v[0], v[1], v[2], precision)
+

@@ -43,7 +43,8 @@ and environment switches included); each route's device work:
   host lane plan of every image (``entropy_spec.device_plan``), then one
   launch of K7 (``csrc/entropy_emit.cu``) over the whole group, then the
   pixels (one launch of K6b, ``ops/pixels_cuda.blocks_to_rgb``, with K1's
-  arithmetic under ``idct="pallas"`` and K5's under ``"exact"``) — JAX's
+  arithmetic under ``idct="pallas"`` and ``"kron"``, K5's under ``"exact"``
+  and its own separable form under ``"fast"``) — JAX's
   ``_hybrid_group_dispatch`` with its default ``emit`` kernel;
 * a *bucketed* group (a power-of-two MCU-grid bucket whose images differ in
   size, tables or DRI): per-image plans padded to the group

@@ -1619,17 +1619,31 @@ def _k6b_kinds():
     return [k[0] for k in pixel_cases.FRAME_KINDS]
 
 
+def _k6b_equal(got, ref, idct) -> None:
+    """Byte-equal under ``pallas`` and ``exact``; under ``kron`` (K1's
+    arithmetic against the route's GEMM) and ``fast`` (the kernel's
+    separable form against the route's einsum) the +-1 IDCT bound
+    (RGB_TOL after the colour transform, MIN_EQUAL)."""
+    assert got.is_cuda and got.dtype == ref.dtype and got.shape == ref.shape
+    if idct in ("kron", "fast"):
+        d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+        assert int(d.max()) <= RGB_TOL
+        assert float((d == 0).float().mean()) >= MIN_EQUAL
+    else:
+        assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("idct", ["pallas", "exact", "kron", "fast"])
 @pytest.mark.parametrize("kind", _k6b_kinds())
-def test_blocks_to_rgb_kernel_equals_route(cuda_device, kind, idct):
+def test_blocks_to_rgb_kernel_equals_route(cuda_device, kind, idct,
+                                           monkeypatch):
     """K6b on a bucketed group (odd true dims, a tiny image, a padding
-    row), under fancy and nn, equals the route it replaces on the card
-    (``rgb_from_blocks_torch``: the plane gather, K1 or K5 and torch ops)
-    over the whole tensor, padding included; under ``exact`` it equals the
-    CPU route too.  Under ``kron`` and ``fast`` K6b takes the torch
-    product of the scan-order blocks, a GEMM of another shape than the
-    route's per-plane one, whose float32 sums may round differently: the
-    +-1 IDCT bound (RGB_TOL after the colour transform, MIN_EQUAL)."""
+    row), under fancy and nn, at its tile, at one MCU and at 32x128, and
+    with a grid of one CTA a multiprocessor, equals the route it replaces
+    on the card (``rgb_from_blocks_torch``: the plane gather, K1 or K5 or
+    the torch product, torch ops) over the whole tensor, padding included
+    (``_k6b_equal``); under ``exact`` it equals the CPU route too.  Every
+    call is one launch and no ``scan_samples``."""
     from jpeg_decoder_tpu_torch.testing import pixel_cases
 
     hv, color, prec = {k[0]: k[1:] for k in pixel_cases.FRAME_KINDS}[kind]
@@ -1639,23 +1653,142 @@ def test_blocks_to_rgb_kernel_equals_route(cuda_device, kind, idct):
     kw = arrays[3]
     cpu = [torch.from_numpy(a) for a in arrays[:3]]
     dev = [t.to(cuda_device) for t in cpu]
+    mcu = (8 * max(v for _, v in hv), 8 * max(h for h, _ in hv))
     for up in ("fancy", "nn"):
-        before = pixels_cuda.blocks_to_rgb.launches
-        got = pixels_cuda.blocks_to_rgb(*dev, idct=idct, upsample=up, **kw)
         ref = tbatch.rgb_from_blocks_torch(*dev, idct=idct, upsample=up,
                                            **kw)
-        torch.cuda.synchronize()
-        assert pixels_cuda.blocks_to_rgb.launches == before + 1
-        assert got.is_cuda and got.dtype == ref.dtype
-        if idct in ("kron", "fast"):
-            d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
-            assert int(d.max()) <= RGB_TOL
-            assert float((d == 0).float().mean()) >= MIN_EQUAL
-        else:
-            assert torch.equal(got, ref), up
+        for tile, ctas in ((pixels_cuda.TILE, None), (mcu, 1),
+                           ((32, 128), 2)):
+            monkeypatch.setattr(pixels_cuda, "TILE", tile)
+            monkeypatch.setitem(pixels_cuda.CTAS_PER_SM, idct,
+                                ctas or pixels_cuda.CTAS_PER_SM[idct])
+            before = pixels_cuda.blocks_to_rgb.launches
+            products = pixels_cuda.scan_samples.launches
+            got = pixels_cuda.blocks_to_rgb(*dev, idct=idct, upsample=up,
+                                            **kw)
+            torch.cuda.synchronize()
+            assert pixels_cuda.blocks_to_rgb.launches == before + 1
+            assert pixels_cuda.scan_samples.launches == products
+            _k6b_equal(got, ref, idct)
         if idct == "exact":
             assert torch.equal(got.cpu(), tbatch.rgb_from_blocks_torch(
                 *cpu, idct=idct, upsample=up, **kw))
+
+
+@pytest.mark.parametrize("idct", ["pallas", "kron"])
+def test_blocks_to_rgb_kernel_rounds_ties(cuda_device, idct):
+    """DC-only blocks whose samples all lie exactly on a half (odd DC
+    times a table of 4): K1's check sends every sample through its
+    recheck, which rounds half to even as the route does."""
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    hv = ((2, 2), (1, 1), (1, 1))
+    blocks, qt, geom, kw = pixel_cases.bucket_group(
+        3, hv, "ycbcr", 8, pixel_cases.odd_dims(hv, (5, 3)), (8, 4), pad=4)
+    rng = np.random.default_rng(9)
+    blocks[:, :, 1:] = 0
+    blocks[:, :, 0] = rng.integers(-60, 60, blocks.shape[:2]) * 2 + 1
+    blocks[:, -1] = 0   # the route's zero fill row
+    qt[:] = 4
+    dev = [torch.from_numpy(a).to(cuda_device) for a in (blocks, qt, geom)]
+    got = pixels_cuda.blocks_to_rgb(*dev, idct=idct, upsample="fancy", **kw)
+    ref = tbatch.rgb_from_blocks_torch(*dev, idct=idct, upsample="fancy",
+                                       **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("idct", ["pallas", "exact", "kron", "fast"])
+def test_blocks_to_rgb_kernel_unaligned_rows(cuda_device, idct):
+    """K6b's stores where the output rows leave 16-byte boundaries: a
+    1000x750 4:2:0 group (a 3,000-byte pitch), a 12-bit group (uint16
+    rows) and the header geometry of odd-width frames (53 pixels: a
+    159-byte pitch, ``sharded._pixels``) against the route on the card,
+    and the odd frames against the CPU route under ``exact``."""
+    from jpeg_decoder_tpu_torch.layout import scan_layout
+    from jpeg_decoder_tpu_torch.models import decoder as tdec
+    from jpeg_decoder_tpu_torch.parallel import sharded
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    hv = ((2, 2), (1, 1), (1, 1))
+    for dims, bucket, prec in (([(750, 1000), (733, 999)], (63, 47), 8),
+                               ([(120, 200), (37, 53)], (13, 8), 12)):
+        arrays = pixel_cases.bucket_group(3, hv, "ycbcr", prec, dims, bucket,
+                                          pad=3)
+        kw = arrays[3]
+        dev = [torch.from_numpy(a).to(cuda_device) for a in arrays[:3]]
+        got = pixels_cuda.blocks_to_rgb(*dev, idct=idct, upsample="fancy",
+                                        **kw)
+        ref = tbatch.rgb_from_blocks_torch(*dev, idct=idct,
+                                           upsample="fancy", **kw)
+        torch.cuda.synchronize()
+        _k6b_equal(got, ref, idct)
+    for k, shv in enumerate((hv, ((2, 1), (1, 1), (1, 1)), ((1, 1),) * 3)):
+        hdr = parser.parse(encode(_rgb(210 + k, 37, 53), samplings=shv)[0])
+        lay = scan_layout(hdr)
+        rng = np.random.default_rng(k)
+        n = lay.n_mcus * lay.blocks_per_mcu + 5
+        blocks = torch.from_numpy(pixel_cases.random_blocks(
+            rng, 2 * n, 0.2, spread=12, dc=60).reshape(2, n, 64))
+        qt = torch.from_numpy(rng.integers(1, 30, (2, 3, 64))
+                              .astype(np.int32))
+        got = sharded._pixels(blocks.to(cuda_device), qt.to(cuda_device),
+                              tdec._comp_srcs(hdr, cuda_device), hdr,
+                              idct=idct, upsample="fancy")
+        assert got.shape[2] == 53
+        ref = sharded._pixels(blocks, qt, tdec._comp_srcs(hdr, "cpu"), hdr,
+                              idct=idct, upsample="fancy")
+        torch.cuda.synchronize()
+        if idct == "exact":
+            assert torch.equal(got.cpu(), ref)
+        else:
+            d = (got.cpu().to(torch.int32) - ref.to(torch.int32)).abs()
+            assert int(d.max()) <= RGB_TOL
+            assert float((d == 0).float().mean()) >= MIN_EQUAL
+
+
+@pytest.mark.parametrize("idct", ["pallas", "exact", "kron", "fast"])
+def test_batch_routes_launch_k6b_alone(cuda_device, idct):
+    """Under every IDCT both batch routes launch one K6b per group and no
+    K1, no K5 and no ``scan_samples`` product; their RGB is the CPU
+    route's (byte for byte under ``exact``, else within RGB_TOL and
+    MIN_EQUAL)."""
+    from jpeg_decoder_tpu_torch.parallel import sharded
+
+    blobs = [encode(_rgb(220, 64, 96), quality=90)[0],
+             encode(_rgb(221, 48, 40), samplings=((1, 1),) * 3,
+                    quality=95, restart_interval=5)[0],
+             encode(_rgb(222, 37, 53), quality=75)[0]]
+
+    def batch_decoder(dev):
+        with tbatch.BatchDecoder(device=dev, idct=idct) as bd:
+            return bd.decode(blobs)
+
+    for name, run in (
+            ("BatchDecoder", batch_decoder),
+            ("decode_batch_sharded",
+             lambda dev: sharded.decode_batch_sharded(blobs, dev,
+                                                      idct=idct))):
+        k1 = idct_cuda.fused_dequant_idct.launches
+        k5 = idct_exact_cuda.dequant_idct_exact.launches
+        k6b = pixels_cuda.blocks_to_rgb.launches
+        products = pixels_cuda.scan_samples.launches
+        got = run(cuda_device)
+        torch.cuda.synchronize()
+        groups = len({id(it.rgb_batch) for it in got if it.ok})
+        assert pixels_cuda.blocks_to_rgb.launches - k6b == groups, name
+        assert idct_cuda.fused_dequant_idct.launches == k1, name
+        assert idct_exact_cuda.dequant_idct_exact.launches == k5, name
+        assert pixels_cuda.scan_samples.launches == products, name
+        ref = run("cpu")
+        for g, r in zip(got, ref):
+            assert g.ok and r.ok
+            d = (g.rgb.cpu().to(torch.int32) - r.rgb.to(torch.int32)).abs()
+            if idct == "exact":
+                assert int(d.max()) == 0, name
+            else:
+                assert int(d.max()) <= RGB_TOL, name
+                assert float((d == 0).float().mean()) >= MIN_EQUAL, name
 
 
 def test_blocks_to_rgb_kernel_takes_the_header_geometry(cuda_device):

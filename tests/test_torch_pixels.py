@@ -10,15 +10,27 @@ decompositions run as plain models (``ops/pixels_cuda.py``):
   chunks a few entries long (chunk edges inside runs of overflow codes,
   all-filler rows, fillers after a real value, gap-0 entries, escapes that
   overwrite values and DC);
-* K6b's tiles (``rgb_tiles_torch``: output tiles, each component's window
-  with the fancy filter's halo, blocks from the closed-form geometry, zero
-  blocks outside it) equal the plain route ``rgb_from_blocks_torch`` byte
-  for byte over the whole tensor, padding included, for every frame kind,
-  both upsamplers and all four IDCTs; and each image's true region equals
-  the JAX package's ``_rgb_one_dyn``, byte for byte under ``exact`` (JAX
-  eager is its strict path) and under ``kron`` and ``pallas`` (JAX's
-  ``pallas`` is its Kronecker twin off the TPU), within the +-1 IDCT bound
-  under ``fast`` (einsum orders differ; +-2 after the colour transform);
+* K6b's decomposition as the kernel runs it (``rgb_tiles_torch`` with a
+  persistent grid: each CTA's tiles in order, tiles of padding given the
+  colour of zeros, the kernel's own ``fast``) equals the plain route
+  ``rgb_from_blocks_torch`` byte for byte over the whole tensor, padding
+  included, under ``exact``, ``pallas`` and ``kron``, and within the +-1
+  IDCT bound under ``fast`` (the kernel's separable ``fast`` against the
+  route's einsum), for every frame kind, both upsamplers, whole-MCU, odd
+  and large tiles (images shorter than a tile); the kernel's ``fast``
+  arithmetic (``fast_separable``) is within +-1 of the JAX package's
+  ``idct_fast``, and the CUDA route launches K6b alone (no
+  ``scan_samples``), with each IDCT's mode code;
+* K6b's first form's tiles (``rgb_tiles_torch``: output tiles, each
+  component's window with the fancy filter's halo, blocks from the
+  closed-form geometry, zero blocks outside it) equal the plain route
+  ``rgb_from_blocks_torch`` byte for byte over the whole tensor, padding
+  included, for every frame kind, both upsamplers and all four IDCTs; and
+  each image's true region equals the JAX package's ``_rgb_one_dyn``, byte
+  for byte under ``exact`` (JAX eager is its strict path) and under
+  ``kron`` and ``pallas`` (JAX's ``pallas`` is its Kronecker twin off the
+  TPU), within the +-1 IDCT bound under ``fast`` (einsum orders differ; +-2
+  after the colour transform);
 * the header geometry ``sharded._pixels`` hands K6b gives
   ``scan_layout``'s ``comp_src`` for every frame kind the K2 and K7 groups
   take, and the same RGB as the plain ``_pixels``.
@@ -27,6 +39,8 @@ decompositions run as plain models (``ops/pixels_cuda.py``):
 import os
 import re
 import sys
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,11 +52,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from encoder import encode  # noqa: E402
 
 from jpeg_decoder_tpu.models import batch as jbatch  # noqa: E402
+from jpeg_decoder_tpu.ops import pixel as jpixel  # noqa: E402
 
 from jpeg_decoder_tpu_torch.io import parser  # noqa: E402
 from jpeg_decoder_tpu_torch.layout import scan_layout  # noqa: E402
 from jpeg_decoder_tpu_torch.models import batch as tbatch  # noqa: E402
 from jpeg_decoder_tpu_torch.models import decoder as tdecoder  # noqa: E402
+from jpeg_decoder_tpu_torch.ops import idct_cuda  # noqa: E402
 from jpeg_decoder_tpu_torch.ops import pixels_cuda as k6  # noqa: E402
 from jpeg_decoder_tpu_torch.parallel import sharded  # noqa: E402
 from jpeg_decoder_tpu_torch.testing import pixel_cases  # noqa: E402
@@ -222,6 +238,207 @@ def test_pixels_cu_colour_constants_equal_numpy():
         r"__fmul_rn\((0x[0-9a-f.]+p[+-]\d+)f", src)]
     assert [np.float32(v).tobytes() for v in lits] == [
         np.float32(v).tobytes() for v in (1.402, 0.344, 0.714, 1.772)]
+
+
+# -- K6b's walk ---------------------------------------------------------------
+
+def _close(got, ref, idct):
+    """Byte-equal under exact, pallas and kron; the +-1 IDCT bound under
+    fast (RGB_TOL, MIN_EQUAL)."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if idct != "fast":
+        return bool(torch.equal(got, ref))
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    return int(d.max()) <= RGB_TOL and float((d == 0).float().mean()) >= \
+        MIN_EQUAL
+
+
+@pytest.mark.parametrize("idct", IDCTS)
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_kernel_model_equals_plain_route(kind, idct):
+    """K6b's decomposition with the kernel's arithmetic, its tiles in the
+    order of a persistent grid of 1, 3 and 7 CTAs, at its tile, at one MCU,
+    at an odd tile (rounded to whole MCUs) and at a tile larger than the
+    group (every image shorter than one tile), under fancy and nn, equals
+    the plain route over the whole tensor, padding rows and bucket padding
+    included (byte for byte but under fast: the +-1 IDCT bound)."""
+    blocks, qt, geom, kw = _group(kind, seed=len(kind))
+    hv = KINDS[kind][0]
+    mcu = (8 * max(v for _, v in hv), 8 * max(h for h, _ in hv))
+    args = _t((blocks, qt, geom))
+    for up in ("fancy", "nn"):
+        plain = tbatch.rgb_from_blocks_torch(*args, idct=idct, upsample=up,
+                                             **kw)
+        for tile, grid in ((None, 7), (mcu, 3), ((24, 40), 1),
+                           ((64, 256), 7)):
+            got = k6.rgb_tiles_torch(*args, idct=idct, upsample=up,
+                                     tile=tile, grid=grid,
+                                     arithmetic="kernel", **kw)
+            assert _close(got, plain, idct), (up, tile, grid)
+
+
+def test_kernel_layout_fits_the_card():
+    """K6b's shared memory fits the card at its tile for every frame kind,
+    both upsamplers and output types, with and without staged rows; its
+    regions start on 16-byte boundaries; the grid is one CTA a tile at
+    most."""
+    for kind, (hv, color, prec) in KINDS.items():
+        _, _, _, kw = pixel_cases.bucket_group(0, hv, color, prec,
+                                               [(8, 8)], (40, 40))
+        for up in ("fancy", "nn"):
+            plan = k6.rgb_plan(upsample=up, tile=k6._whole_mcus(
+                k6.TILE, kw["comp_hv"]), **kw)
+            assert k6.grid_for(plan, 1, 132, 4) == min(plan.n_tiles, 528)
+            assert k6.grid_for(plan, 1000, 132, 3) == 132 * 3
+            for idct in IDCTS:
+                for nbytes in (1, 2):
+                    for staged in (False, True):
+                        lay = plan.layout(idct, nbytes, staged)
+                        assert lay["smem"] <= k6.SMEM_MAX
+                        assert lay["window_ints"] % 4 == 0
+                        assert all(lay[k] % 16 == 0 for k in (
+                            "off_stage", "off_win", "off_rows", "off_rgb",
+                            "rgb_pitch"))
+
+
+def _fast_blocks(seed):
+    """Seeded dequantised blocks: JPEG-like ones, and ones at the extremes
+    of the int32 range (each coefficient anywhere in it, one coefficient
+    at INT_MIN or INT_MAX, a block of INT_MAX)."""
+    rng = np.random.default_rng(seed)
+    jpeg = pixel_cases.random_blocks(rng, 4000, 0.3, spread=300, dc=900) \
+        * rng.integers(1, 60, (1, 64)).astype(np.int32)
+    wide = rng.integers(-2 ** 31, 2 ** 31, (200, 64)).astype(np.int32)
+    ones = np.zeros((128, 64), np.int32)
+    ones[np.arange(128), np.arange(128) % 64] = np.where(
+        np.arange(128) < 64, 2 ** 31 - 1, -2 ** 31)
+    full = np.full((1, 64), 2 ** 31 - 1, np.int32)
+    return jpeg.astype(np.int32), np.concatenate([wide, ones, full])
+
+
+def test_fast_separable_within_one_of_jax_idct_fast():
+    """K6b's ``fast`` arithmetic (``fast_separable``) against the JAX
+    package's ``idct_fast`` on the same int32 blocks: within +-1 on
+    JPEG-like blocks (dequantised up to about 2^14); at the extremes of the int32 range the saturated
+    samples equal, no other sample saturates, and the rest lie within the
+    two 8-term float32 contractions' rounding (2^-22 of the block's
+    sum|x|) plus the final +-1, as ``test_fast_and_kron_saturate_like_jax``
+    bounds the port's einsum."""
+    jpeg, extreme = _fast_blocks(0)
+    ref = np.asarray(jpixel.idct_fast(jnp.asarray(jpeg.reshape(-1, 8, 8))))
+    got = k6.fast_separable(torch.from_numpy(jpeg)).numpy()
+    d = np.abs(got.astype(np.int64) - ref.reshape(-1, 64))
+    assert got.dtype == np.int32 and d.max() <= 1
+    # Another order flips a rounding only near a half: a rounding fault
+    # (truncation, off by one) changes far more.
+    assert (d == 0).mean() >= 0.999
+    ref = np.asarray(jpixel.idct_fast(jnp.asarray(
+        extreme.reshape(-1, 8, 8)))).reshape(-1, 64).astype(np.int64)
+    got = k6.fast_separable(torch.from_numpy(extreme)).numpy()
+    sat = (ref == 2 ** 31 - 1) | (ref == -2 ** 31)
+    assert sat.any() and (~sat).any()
+    np.testing.assert_array_equal(got[sat], ref[sat])
+    assert ((got == 2 ** 31 - 1) | (got == -2 ** 31))[~sat].sum() == 0
+    bound = 1 + 2.0 ** -22 * np.abs(extreme.astype(np.float64)).sum(1)
+    assert (np.abs(got - ref) <= bound[:, None]).all()
+
+
+def test_fast_kernel_constants_equal_idct_m():
+    """The ``fast`` basis kM in ``csrc/idct_common.cuh`` is
+    ``pixel.IDCT_M_F32`` bit for bit."""
+    src = open(os.path.join(os.path.dirname(k6.LIB.src),
+                            "idct_common.cuh")).read()
+    body = src[src.index("kM[8][8] = {"):]
+    body = body[:body.index("};")]
+    lits = re.findall(r"(-?0x1(?:\.[0-9a-f]+)?p[+-]\d+)f", body)
+    got = np.array([float.fromhex(v) for v in lits], np.float32)
+    assert got.tobytes() == k6.pixel.IDCT_M_F32.reshape(-1).tobytes()
+
+
+class _MockLib:
+    """Records ``jd_blocks_to_rgb``'s arguments instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def jd_blocks_to_rgb(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("kind", ["420", "12-bit gray", "cmyk"])
+def test_cuda_route_launches_k6b_alone(kind, monkeypatch):
+    """What ``blocks_to_rgb`` does on a CUDA tensor, run on CPU tensors with
+    a mock library call: one K6b launch per call under every IDCT, with
+    the IDCT's mode code (kron runs K1's arithmetic), the plan's grid and
+    shared memory, and no ``scan_samples`` (its count stays; a call would
+    raise); the CUDA branch names no ``scan_samples``."""
+    blocks, qt, geom, kw = _group(kind, seed=5)
+    args = _t((blocks, qt, geom))
+
+    def no_product(*a, **k):
+        raise AssertionError("scan_samples reached")
+
+    monkeypatch.setattr(k6, "scan_samples", no_product)
+    lib = _MockLib()
+    before = k6.blocks_to_rgb.launches
+    products = k6.scan_samples.launches if hasattr(
+        k6.scan_samples, "launches") else None
+    for idct, mode in (("pallas", 0), ("kron", 0), ("exact", 1),
+                       ("fast", 3)):
+        k6.check_rgb_args(*args, len(kw["comp_shapes"]), idct)
+        plan = k6.rgb_plan(upsample="fancy", tile=k6._whole_mcus(
+            k6.TILE, kw["comp_hv"]), **kw)
+        out = torch.empty((blocks.shape[0], plan.out_h, plan.out_w, 3),
+                          dtype=torch.uint16 if "12" in kind
+                          else torch.uint8)
+        grid = k6.grid_for(plan, blocks.shape[0], 2,
+                           k6.CTAS_PER_SM[idct])
+        k6.launch_rgb(lib, *args, idct_cuda._basis(torch.device("cpu"),
+                                                   False),
+                      out, plan, idct, grid, 0)
+        call = lib.calls[-1]
+        dims, smem = call[7], call[10]
+        assert dims[11] == mode and dims[12] == out.element_size()
+        assert call[9] == grid and smem == plan.layout(
+            idct, out.element_size())["smem"]
+    assert k6.blocks_to_rgb.launches == before + 4
+    assert products is None
+    src = inspect.getsource(k6.blocks_to_rgb)
+    assert "scan_samples" not in src.split('"""')[-1]
+
+
+def test_scan_samples_counts_card_calls_only():
+    """``scan_samples`` counts its calls on CUDA tensors (chip_smoke.py and
+    the card tests hold the main path's count at 0); on CPU tensors it
+    counts nothing."""
+    blocks, qt, _, kw = _group("420", seed=6)
+    before = k6.scan_samples.launches
+    k6.scan_samples(*_t((blocks, qt)), kw["comp_hv"], "kron")
+    assert k6.scan_samples.launches == before
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(dtype=torch.int64), TypeError), (dict(shape=(2, 9, 32)), ValueError),
+    (dict(idct="dct"), ValueError), (dict(stride=True), ValueError),
+    (dict(offset=True), ValueError)])
+def test_cuda_route_checks_arguments(bad, err):
+    """The CUDA route's checks, run on CPU tensors: dtype, shape, the IDCT's
+    name, contiguity, 16-byte alignment."""
+    blocks, qt, geom, kw = _group("444", seed=7)
+    tb_, tq, tg = _t((blocks, qt, geom))
+    if "dtype" in bad:
+        tb_ = tb_.to(bad["dtype"])
+    if "shape" in bad:
+        tb_ = torch.zeros(bad["shape"], dtype=torch.int32)
+    if "stride" in bad:
+        tb_ = tb_[:, ::2]
+    if "offset" in bad:
+        tb_ = torch.zeros(tb_.numel() + 1, dtype=torch.int32)[1:].view(
+            tb_.shape)
+    with pytest.raises(err):
+        k6.check_rgb_args(tb_, tq, tg, len(kw["comp_shapes"]),
+                          bad.get("idct", "pallas"))
 
 
 # -- the sharded route's header geometry -------------------------------------
