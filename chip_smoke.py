@@ -37,7 +37,9 @@ kernel against its plain version:
    per-stage times;
 5. wires: the same 32 images through ``BatchDecoder(wire=w)`` for each of
    ``nibble``, ``sparse``, ``packed`` and ``slots``: every wire's unpacked
-   blocks and RGB must equal the nibble wire's bit for bit, K6b must
+   blocks (the nibble wire's trimmed to the true images' blocks, the
+   others zero past them) and RGB must equal the nibble wire's bit for
+   bit, K6b must
    launch 3 times (one a group), K6a 3 times on the nibble wire (0 on the
    others), K1 never; per wire the MB copied, host
    entropy, group+pad, copy, the device unpack (profiler), the pixel stage
@@ -198,8 +200,13 @@ kernel against its plain version:
    and pixel times and the bytes its collectives gathered;
 10e. K6 phase (``csrc/pixels.cu``; run after 10b'''): the groups of the
    batch of 32, the mixed frames, the bucketed group and the 8192x6144
-   frame as ``BatchDecoder`` pads them: K6a equal to the plain
-   ``unpack_nibble`` on every element, K6b (every IDCT inside the kernel,
+   frame as ``BatchDecoder`` pads them: K6a whole and its first form
+   (``jd_unpack_nibble_v1``) equal to the plain ``unpack_nibble`` on every
+   element, K6a with the route's trim (the true images, the longest one's
+   blocks) equal to its ``[:n_img, :n_rows + 1]`` and the plain output zero
+   on all that the trim drops; the route's RGB (K6b on the trimmed blocks)
+   byte-equal under every IDCT to K6b on the first form's whole blocks;
+   K6b (every IDCT inside the kernel,
    one launch and no ``scan_samples`` product a call) equal over the whole
    RGB tensor, padding included, to the route it replaces on the card
    (``rgb_from_blocks_torch``: the plane gather, K1, K5 or the torch
@@ -208,19 +215,21 @@ kernel against its plain version:
    route's GEMM) and ``fast`` (the kernel's separable form against the
    route's einsum; the bytes that differ are printed); on the batch of 32
    each kernel's device time (5 calls a group queued behind a spin kernel,
-   CUDA events, groups summed, median of 2 turns), K6b under all four
-   IDCTs beside its first form (``testing/pixel_v1.py``; under kron/fast
-   with its torch product, by events), every function's by CUDA events
-   around one call (the plain routes' host work stalls the card, so they
-   cannot be queued), K6b at other tiles and CTAs a multiprocessor, the
-   byte bounds (and the floor on the true blocks and RGB), and the pixel
-   stage (unpack and pixels of every group) with the first form before and
-   K6b after under fast, kron and pallas, by CUDA events around it, in
-   turns; then (``_k6_routes``) both batch routes under each IDCT, counts
-   set to 0 just before: one K6b a group, no K1, no K5, no
+   CUDA events, groups summed, median of 2 turns): K6a trimmed, whole and
+   its first form in turns, K6b under all four IDCTs on the trimmed and on
+   the whole blocks beside its first form (``testing/pixel_v1.py``; under
+   kron/fast with its torch product, by events), every function's by CUDA
+   events around one call (the plain routes' host work stalls the card, so
+   they cannot be queued), K6b at other tiles and CTAs a multiprocessor,
+   the byte bounds trimmed and whole with their bytes (and the floor on the
+   true blocks and RGB), and the pixel stage (unpack and pixels of every
+   group) with K6a's first form and whole blocks before and the route's
+   trimmed K6a after under fast, kron and pallas, by CUDA events around it,
+   in turns; then (``_k6_routes``) both batch routes under each IDCT,
+   counts set to 0 just before: one K6b a group, no K1, no K5, no
    ``scan_samples``; and each route's end-to-end MP/s under its default
-   IDCT (``BatchDecoder`` fast, ``decode_batch_sharded`` kron) with K6b and
-   with the first form in its place, in turns;
+   IDCT (``BatchDecoder`` fast, ``decode_batch_sharded`` kron) with the
+   trimmed K6a and with K6a's first form in its place, in turns;
 10d. progressive lanes phase (K8a-K8d, ``csrc/entropy_prog.cu``, under
    ``ops/entropy_prog.py``; run after 10b''): every scan of the 512x512
    and 1080p (a) progressive fixtures through each kernel and its plain
@@ -1182,6 +1191,18 @@ def _e2e(bd, blobs, n: int = 3, **kw) -> list[float]:
     return out
 
 
+def _same_blocks(a, b) -> bool:
+    """Two unpacks of one group agree: equal on the images and blocks both
+    hold, zero on the rest (the nibble wire's K6a returns only the true
+    images' blocks that the pixels read, the other wires the whole
+    bucket)."""
+    import torch
+
+    n, m = min(a.shape[0], b.shape[0]), min(a.shape[1], b.shape[1])
+    return torch.equal(a[:n, :m], b[:n, :m]) and not any(
+        bool(x[n:].any()) or bool(x[:, m:].any()) for x in (a, b))
+
+
 def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
     """The 32-image batch through every wire: each wire's unpacked blocks
     and RGB must equal the nibble wire's bit for bit, K6b must launch 3
@@ -1219,7 +1240,7 @@ def _wires_phase(dev, batch: list[bytes], mp: float) -> tuple[dict, list]:
                 n_rgb = n_blk = 0
             else:
                 n_rgb = _n_rgb_differ(ref_items, items)
-                n_blk = sum(not torch.equal(a, b)
+                n_blk = sum(not _same_blocks(a, b)
                             for a, b in zip(ref_blocks, blocks))
             if n_rgb or n_blk:
                 raise AssertionError(f"wire {wire}: {n_rgb} images' RGB and "
@@ -2970,23 +2991,32 @@ def _batch_exact_phase(dev, batch: list[bytes], mp: float,
     return c
 
 
-def _k6_bytes(group, tensors, out) -> tuple[int, int, int, int]:
+def _k6_bytes(group, tensors, out) -> dict:
     """Bytes K6a and K6b must move for one group (each input read once,
-    each output written once), the true blocks' and the wire's: K6a reads the
-    wire and writes the whole (B, n_blk + 1, 64) int32 blocks; K6b reads
-    the blocks each row's geometry covers (padding rows included, as the
-    kernel computes them), the tables and the geometry, and writes the
-    whole RGB tensor."""
+    each output written once), whole and with the route's trim, and the
+    true blocks' and the wire's.  K6a whole: the wire in, the whole (B,
+    n_blk + 1, 64) int32 blocks out; trimmed: the true images' rows of the
+    wire (their first n_rows DC values) in, the (n_img, n_rows + 1, 64)
+    blocks out.  K6b: the blocks each row's geometry covers (whole: the
+    padding rows' too, as the kernel computes them from whole blocks;
+    trimmed: the true images'), the tables and the geometry in, the whole
+    RGB tensor out."""
     geom = tensors[-1].cpu().numpy().astype(np.int64)
     bpm = sum(h * v for h, v in group.comp_hv)
-    covered = int((geom[:, 0] * geom[:, 1]).sum()) * bpm * 256
+    covered = (geom[:, 0] * geom[:, 1]) * bpm * 256
     true = sum(h.mcus_x * h.mcus_y for h in group.headers) * bpm * 256
     b, n1 = tensors[0].shape[0], tensors[0].shape[1] + 1
+    n, rows = group.n_img, group.n_rows
     wire = sum(t.numel() * t.element_size() for t in tensors[:-2])
-    k6a = wire + b * n1 * 64 * 4
-    k6b = (covered + tensors[-2].numel() * 4 + tensors[-1].numel() * 4
-           + out.numel() * out.element_size())
-    return k6a, k6b, true, wire
+    wire_trim = n * rows * 2 + sum(
+        t[:n].numel() * t.element_size() for t in tensors[1:-2])
+    side = (tensors[-2].numel() * 4 + tensors[-1].numel() * 4
+            + out.numel() * out.element_size())
+    return {"k6a": wire + b * n1 * 64 * 4,
+            "k6a_trim": wire_trim + n * (rows + 1) * 64 * 4,
+            "k6b": int(covered.sum()) + side,
+            "k6b_trim": int(covered[:n].sum()) + side,
+            "true": true, "wire": wire}
 
 
 def _k6_phase(dev, batch: list, mixed: list, dyn: list,
@@ -3007,16 +3037,32 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
     sets = (("batch of 32", batch), ("mixed frames", mixed),
             ("bucketed group", dyn), (f"{BIG[0]}x{BIG[1]}", [big_blob]))
     timed = None
+
+    def trim(g):
+        return dict(n_img=g.n_img, n_rows=g.n_rows)
+
     for label, blobs in sets:
         with BatchDecoder(device=dev, idct="pallas") as bd:
             groups = bd.group(bd.host_stage(blobs))
             tensors = [bd.to_device(g) for g in groups]
         line = []
         for g, t in zip(groups, tensors):
+            # K6a whole, trimmed (as the route calls it) and its first
+            # form, against the plain version; the plain version zero on
+            # all that the trim drops.
             got_a = k6.unpack_nibble(*t[:-2])
+            got_t = k6.unpack_nibble(*t[:-2], **trim(g))
+            v1_a = pixel_v1.unpack_nibble_v1(*t[:-2])
             ref_a = tb.unpack_nibble(*t[:-2])
+            n, m = g.n_img, g.n_rows + 1
             n_a = int((got_a != ref_a).sum())
-            err_a = max(err_a, int((got_a - ref_a).abs().max()))
+            n_t = int((got_t != ref_a[:n, :m]).sum())
+            n_v1 = int((v1_a != ref_a).sum())
+            dropped = int(ref_a[n:].count_nonzero()
+                          + ref_a[:n, m:].count_nonzero())
+            err_a = max(err_a, int((got_a - ref_a).abs().max()),
+                        int((got_t - ref_a[:n, :m]).abs().max()),
+                        int((v1_a - ref_a).abs().max()), dropped)
             diffs = []
             for idct in idcts:
                 for up in (("fancy", "nn") if idct == "pallas"
@@ -3032,6 +3078,11 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
                             k6.scan_samples.launches - before[1]) != (1, 0):
                         raise AssertionError(f"K6b {label} {idct}: not one "
                                              "launch and no product")
+                    # The route (trimmed K6a, K6b on its short blocks)
+                    # against K6b on the first form's whole blocks.
+                    n_route = int((k6.blocks_to_rgb(got_t, t[-2], t[-1], **kw)
+                                   != k6.blocks_to_rgb(v1_a, t[-2], t[-1],
+                                                       **kw)).sum())
                     ref = tb.rgb_from_blocks_torch(got_a, t[-2], t[-1], **kw)
                     if got.shape != ref.shape or got.dtype != ref.dtype:
                         raise AssertionError(f"K6b {label}: {got.shape} "
@@ -3039,7 +3090,13 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
                                              f"{ref.shape} {ref.dtype}")
                     d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
                     n_b, d_max = int((d != 0).sum()), int(d.max())
-                    diffs.append(f"{idct}/{up} {n_b} (max {d_max})")
+                    diffs.append(f"{idct}/{up} {n_b} (max {d_max}; trimmed "
+                                 f"route against whole first-form blocks "
+                                 f"{n_route})")
+                    if n_route:
+                        raise AssertionError(f"K6 {label} {idct}/{up}: "
+                                             f"{n_route} bytes of the "
+                                             "trimmed route differ")
                     if idct in ("kron", "fast"):
                         # K1's arithmetic against the route's GEMM, the
                         # kernel's separable fast against the route's
@@ -3055,9 +3112,11 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
             line.append(f"{len(g.idxs)} x {g.width}x{g.height} "
                         f"{''.join(map(str, g.comp_hv))} {g.color} "
                         f"{g.precision}-bit: K6a {n_a} of {got_a.numel()} "
-                        f"elements differ; K6b bytes differing "
-                        f"{', '.join(diffs)}")
-            del got_a, ref_a
+                        f"elements differ, trimmed {n_t} of {got_t.numel()} "
+                        f"(n_img {n}, n_rows {g.n_rows}), first form {n_v1}, "
+                        f"nonzero where the trim drops {dropped}; K6b bytes "
+                        f"differing {', '.join(diffs)}")
+            del got_a, got_t, v1_a, ref_a
         print(f"K6 {label}: {len(groups)} groups: " + "; ".join(line))
         if err_a or err_b:
             raise AssertionError(f"K6 {label}: K6a max |diff| {err_a}, K6b "
@@ -3069,10 +3128,13 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
         torch.cuda.empty_cache()
 
     # Device time on the batch of 32, per group summed: each kernel, the
-    # first form (jd_blocks_to_rgb_v1) and the plain route (queued behind
-    # a spin, CUDA events), in turns.
+    # first forms and the plain routes (queued behind a spin, CUDA events),
+    # in turns.  K6b on the whole blocks (K6a's output without a trim) and
+    # on the route's trimmed blocks.
     groups, tensors = timed
     blocks = [k6.unpack_nibble(*t[:-2]) for t in tensors]
+    short = [k6.unpack_nibble(*t[:-2], **trim(g))
+             for g, t in zip(groups, tensors)]
     outs = []
 
     def kw(g, idct):
@@ -3085,24 +3147,35 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
     # CUDA events around one call (the torch product before the first form
     # under kron/fast and the plain routes do host work and cudaMalloc
     # calls that stall the card, so they cannot be queued).
-    kern = {"K6a": lambda t, a, g: k6.unpack_nibble(*t[:-2])}
+    kern = {"K6a trim": lambda t, a, s, g: k6.unpack_nibble(*t[:-2],
+                                                            **trim(g)),
+            "K6a whole": lambda t, a, s, g: k6.unpack_nibble(*t[:-2]),
+            "K6a v1": lambda t, a, s, g: pixel_v1.unpack_nibble_v1(*t[:-2])}
     for idct in idcts:
-        kern[f"K6b {idct}"] = (lambda t, a, g, i=idct: k6.blocks_to_rgb(
+        kern[f"K6b {idct}"] = (lambda t, a, s, g, i=idct: k6.blocks_to_rgb(
             a, t[-2], t[-1], **kw(g, i)))
+        kern[f"K6b {idct} trim"] = (
+            lambda t, a, s, g, i=idct: k6.blocks_to_rgb(s, t[-2], t[-1],
+                                                        **kw(g, i)))
     for idct in ("pallas", "exact"):
         kern[f"K6b v1 {idct}"] = (
-            lambda t, a, g, i=idct: pixel_v1.blocks_to_rgb_v1(
+            lambda t, a, s, g, i=idct: pixel_v1.blocks_to_rgb_v1(
                 a, t[-2], t[-1], **kw(g, i)))
     fns = dict(kern)
     for idct in ("kron", "fast"):
         fns[f"K6b v1 {idct}"] = (
-            lambda t, a, g, i=idct: pixel_v1.blocks_to_rgb_v1(
+            lambda t, a, s, g, i=idct: pixel_v1.blocks_to_rgb_v1(
                 a, t[-2], t[-1], **kw(g, i)))
         fns[f"scan_samples {idct}"] = (
-            lambda t, a, g, i=idct: k6.scan_samples(a, t[-2], g.comp_hv, i))
-    fns["unpack_nibble (plain)"] = lambda t, a, g: tb.unpack_nibble(*t[:-2])
+            lambda t, a, s, g, i=idct: k6.scan_samples(a, t[-2], g.comp_hv,
+                                                       i))
+    fns["unpack_nibble (plain)"] = \
+        lambda t, a, s, g: tb.unpack_nibble(*t[:-2])
+    fns["unpack_nibble (plain, trimmed)"] = \
+        lambda t, a, s, g: tb.unpack_nibble(
+            t[0][:g.n_img, :g.n_rows], *(x[:g.n_img] for x in t[1:-2]))
     for idct in idcts:
-        fns[f"route {idct}"] = (lambda t, a, g, i=idct:
+        fns[f"route {idct}"] = (lambda t, a, s, g, i=idct:
                                 tb.rgb_from_blocks_torch(
                                     a, t[-2], t[-1], **kw(g, i)))
     queued = {k: [] for k in kern}
@@ -3110,108 +3183,129 @@ def _k6_phase(dev, batch: list, mixed: list, dyn: list,
     order = list(fns)
     for turn in (order, order[::-1]):
         for name in turn:
-            calls = [lambda f=fns[name], t=t, a=a, g=g: f(t, a, g)
-                     for t, a, g in zip(tensors, blocks, groups)]
+            calls = [lambda f=fns[name], t=t, a=a, sh=sh, g=g: f(t, a, sh, g)
+                     for t, a, sh, g in zip(tensors, blocks, short, groups)]
             if name in kern:
                 queued[name].append(sum(_queued_ms(c, 5) for c in calls))
             events[name].append(sum(med(_cuda_ms(c, 3, warmup=1))
                                     for c in calls))
+    turns_a = {k: [round(x, 4) for x in queued[k]]
+               for k in ("K6a trim", "K6a whole", "K6a v1")}
     queued = {k: med(v) for k, v in queued.items()}
     events = {k: med(v) for k, v in events.items()}
     ms = queued
     # K6b's tile and CTAs a multiprocessor: the committed ones and others,
-    # queued, under pallas.
+    # queued, under pallas, on the route's trimmed blocks.
     sweep, committed = {}, (k6.TILE, dict(k6.CTAS_PER_SM))
     try:
-        for tile, ctas in ((k6.TILE, None), ((32, 64), None),
-                           ((64, 128), None), ((32, 128), None),
+        for tile, ctas in ((k6.TILE, None), ((64, 128), None),
                            ((128, 64), None), (k6.TILE, 2), (k6.TILE, 4)):
             k6.TILE = tile
             k6.CTAS_PER_SM["pallas"] = ctas or committed[1]["pallas"]
             sweep[(tile, ctas)] = sum(_queued_ms(
-                lambda t=t, a=a, g=g: k6.blocks_to_rgb(
-                    a, t[-2], t[-1], **kw(g, "pallas")), 5)
-                for t, a, g in zip(tensors, blocks, groups))
+                lambda t=t, sh=sh, g=g: k6.blocks_to_rgb(
+                    sh, t[-2], t[-1], **kw(g, "pallas")), 5)
+                for t, sh, g in zip(tensors, short, groups))
     finally:
         k6.TILE, k6.CTAS_PER_SM = committed
-    n_a = n_b = n_true = n_wire = 0
+    nb = {}
     for g, t, a in zip(groups, tensors, blocks):
         out = k6.blocks_to_rgb(a, t[-2], t[-1], **kw(g, "pallas"))
-        ba, bb, tr, wi = _k6_bytes(g, t, out)
-        n_a, n_b, n_true, n_wire = n_a + ba, n_b + bb, n_true + tr, \
-            n_wire + wi
+        for key, v in _k6_bytes(g, t, out).items():
+            nb[key] = nb.get(key, 0) + v
         outs.append(out)
     rgb_true = sum(h.width * h.height * 3 for g in groups
                    for h in g.headers)
-    bound_a = n_a / HBM_BYTES_PER_S * 1e3
-    bound_b = n_b / HBM_BYTES_PER_S * 1e3
-    floor_a = (n_wire + n_true) / HBM_BYTES_PER_S * 1e3
-    floor_b = (n_true + rgb_true) / HBM_BYTES_PER_S * 1e3
-    # The stage before and after: every group's unpack and pixels, the
-    # first form (with the torch product under kron/fast) against K6b,
-    # CUDA events around the whole stage, in turns (before, after, after,
-    # before), twice, under the defaults' IDCTs and pallas.
+    bound = {k: nb[k] / HBM_BYTES_PER_S * 1e3
+             for k in ("k6a", "k6a_trim", "k6b", "k6b_trim")}
+    floor_a = (nb["wire"] + nb["true"]) / HBM_BYTES_PER_S * 1e3
+    floor_b = (nb["true"] + rgb_true) / HBM_BYTES_PER_S * 1e3
+    # The stage before and after: every group's unpack and pixels, the old
+    # (K6a's first form, K6b on its whole blocks) against the route's
+    # (trimmed K6a, K6b on its short blocks), CUDA events around the whole
+    # stage, in turns (before, after, after, before), twice, under the
+    # defaults' IDCTs and pallas.
     stage = {}
     for idct in ("fast", "kron", "pallas"):
         for name in ("before", "after"):
             stage[f"{idct} {name}"] = []
         for _ in range(2):
             for name in ("before", "after", "after", "before"):
-                rgb = (pixel_v1.blocks_to_rgb_v1 if name == "before"
-                       else k6.blocks_to_rgb)
                 torch.cuda.synchronize()
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
                 for g, t in zip(groups, tensors):
-                    rgb(k6.unpack_nibble(*t[:-2]), t[-2], t[-1],
-                        **kw(g, idct))
+                    a = (pixel_v1.unpack_nibble_v1(*t[:-2])
+                         if name == "before"
+                         else k6.unpack_nibble(*t[:-2], **trim(g)))
+                    k6.blocks_to_rgb(a, t[-2], t[-1], **kw(g, idct))
                 ev[1].record()
                 ev[1].synchronize()
                 stage[f"{idct} {name}"].append(ev[0].elapsed_time(ev[1]))
     print("K6 batch of 32 device ms (queued behind a spin, 5 calls a "
           "group, groups summed, median of 2 turns): " + ", ".join(
               f"{k} {v:.4f}" for k, v in queued.items())
+          + "; K6a's turns: " + ", ".join(f"{k} {v}"
+                                          for k, v in turns_a.items())
           + "; ms by CUDA events around one call (median of 3, groups "
           "summed, median of 2 turns): " + ", ".join(
               f"{k} {v:.4f}" for k, v in events.items())
-          + "; K6b pallas by tile / grid's CTAs a multiprocessor (queued; "
-          "default: CTAS_PER_SM): " + ", ".join(
+          + "; K6b pallas on the trimmed blocks by tile / grid's CTAs a "
+          "multiprocessor (queued; default: CTAS_PER_SM): " + ", ".join(
               f"{h}x{w}/{c or 'default'} {v:.4f}"
-              for ((h, w), c), v in sweep.items())
-          + f"; bounds (bytes at 3.35 TB/s): K6a {bound_a:.4f} ms "
-          f"({n_a / 1e6:.1f} MB: wire in, every block out), K6b "
-          f"{bound_b:.4f} ms ({n_b / 1e6:.1f} MB: the blocks the geometry "
-          f"covers in, the whole RGB out); floors on the true blocks and "
-          f"RGB: K6a {floor_a:.4f} ms, K6b {floor_b:.4f} ms; K6a at "
-          f"{bound_a / ms['K6a']:.3f} of its bound, K6b at "
-          + ", ".join(f"{i} {bound_b / ms[f'K6b {i}']:.3f}" for i in idcts))
+              for ((h, w), c), v in sweep.items()))
+    print(f"K6 batch of 32 bounds (bytes at 3.35 TB/s): K6a trimmed "
+          f"{bound['k6a_trim']:.4f} ms ({nb['k6a_trim'] / 1e6:.1f} MB: the "
+          f"true images' wire in, their blocks to the longest one's out), "
+          f"whole {bound['k6a']:.4f} ms ({nb['k6a'] / 1e6:.1f} MB: the wire "
+          f"in, every block out); K6b on the trimmed blocks "
+          f"{bound['k6b_trim']:.4f} ms ({nb['k6b_trim'] / 1e6:.1f} MB: the "
+          f"true images' covered blocks in, the whole RGB out), on the whole "
+          f"blocks {bound['k6b']:.4f} ms ({nb['k6b'] / 1e6:.1f} MB: every "
+          f"row's covered blocks in); floors on the true blocks and RGB: K6a "
+          f"{floor_a:.4f} ms, K6b {floor_b:.4f} ms; K6a trimmed at "
+          f"{bound['k6a_trim'] / ms['K6a trim']:.3f} of its bound, whole at "
+          f"{bound['k6a'] / ms['K6a whole']:.3f}, first form at "
+          f"{bound['k6a'] / ms['K6a v1']:.3f}; K6b at "
+          + ", ".join(f"{i} {bound['k6b'] / ms[f'K6b {i}']:.3f} (trimmed "
+                      f"{bound['k6b_trim'] / ms[f'K6b {i} trim']:.3f})"
+                      for i in idcts))
     print("K6 batch of 32 pixel stage (unpack + pixels of every group, "
-          "the first form before, K6b after, CUDA events around the stage, "
-          "4 turns): " + ", ".join(
+          "before: K6a's first form and K6b on its whole blocks, after: the "
+          "route's trimmed K6a and K6b, CUDA events around the stage, 4 "
+          "turns): " + ", ".join(
               f"{k} median {med(v):.3f} ms (min {min(v):.3f})"
               for k, v in stage.items()))
-    del blocks, outs, tensors, groups
+    del blocks, short, outs, tensors, groups
     torch.cuda.empty_cache()
     rec_a = {"name": "unpack_nibble", "route": "cuda",
              "source": "jpeg_decoder_tpu_torch/csrc/pixels.cu",
              "replaces": "jpeg_decoder_tpu/models/batch.py:256",
-             "max_abs_err": err_a, "ms": ms["K6a"],
-             "plain_ms": events["unpack_nibble (plain)"],
-             "ms_by_events": events["K6a"], "bound_ms": bound_a,
-             "bound_by": "bytes", "library_ms": None,
-             "true_blocks_floor_ms": floor_a}
+             "max_abs_err": err_a, "ms": ms["K6a trim"],
+             "plain_ms": events["unpack_nibble (plain, trimmed)"],
+             "ms_by_events": events["K6a trim"],
+             "bound_ms": bound["k6a_trim"], "bound_by": "bytes",
+             "library_ms": None, "bytes": nb["k6a_trim"],
+             "ms_whole": ms["K6a whole"], "bound_whole_ms": bound["k6a"],
+             "bytes_whole": nb["k6a"],
+             "plain_whole_ms": events["unpack_nibble (plain)"],
+             "v1_ms": ms["K6a v1"], "v1_ms_by_events": events["K6a v1"],
+             "turns": turns_a, "true_blocks_floor_ms": floor_a}
     rec_b = {"name": "blocks_to_rgb", "route": "cuda",
              "source": "jpeg_decoder_tpu_torch/csrc/pixels.cu",
              "replaces": "jpeg_decoder_tpu/models/batch.py:52",
-             "max_abs_err": err_b, "ms": ms["K6b pallas"],
-             "plain_ms": events["route pallas"], "bound_ms": bound_b,
-             "bound_by": "bytes", "library_ms": None,
+             "max_abs_err": err_b, "ms": ms["K6b pallas trim"],
+             "plain_ms": events["route pallas"],
+             "bound_ms": bound["k6b_trim"], "bound_by": "bytes",
+             "library_ms": None, "bytes": nb["k6b_trim"],
              "true_floor_ms": floor_b,
-             "ms_by_idct": {i: ms[f"K6b {i}"] for i in idcts},
+             "ms_by_idct": {i: ms[f"K6b {i} trim"] for i in idcts},
+             "ms_by_idct_whole_blocks": {i: ms[f"K6b {i}"] for i in idcts},
+             "bound_whole_blocks_ms": bound["k6b"],
              "v1_ms_by_idct": {
                  **{i: ms[f"K6b v1 {i}"] for i in ("pallas", "exact")},
                  **{i: events[f"K6b v1 {i}"] for i in ("kron", "fast")}},
-             "ms_by_events": {i: events[f"K6b {i}"] for i in idcts},
+             "ms_by_events": {i: events[f"K6b {i} trim"] for i in idcts},
              "route_ms_by_events": {i: events[f"route {i}"] for i in idcts},
              "ms_by_tile_and_ctas": {f"{h}x{w}/{c or 'default'}": v
                                      for ((h, w), c), v in sweep.items()},
@@ -3223,10 +3317,11 @@ def _k6_routes(dev, batch: list, mp: float) -> dict:
     """Both batch routes under each IDCT, every count set to 0 just before
     and read just after: one K6b a group, no K1, no K5, no ``scan_samples``
     product; then each route's end-to-end MP/s under its default IDCT
-    (``BatchDecoder``: fast, ``decode_batch_sharded``: kron) with K6b and
-    with the first form (and its product) in its place, in turns (before,
-    after, after, before), best of 3 a turn, with the groups' pixel ms of
-    the sharded route's last call.  Returns the launches per path."""
+    (``BatchDecoder``: fast, ``decode_batch_sharded``: kron) with K6a
+    trimmed and with K6a's first form (whole blocks) in its place, in turns
+    (before, after, after, before), best of 3 a turn, with the groups' pixel
+    ms of the sharded route's last call (its host-fallback batch alone runs
+    K6a).  Returns the launches per path."""
     import torch
 
     from jpeg_decoder_tpu_torch import BatchDecoder, decode_batch_sharded
@@ -3253,15 +3348,18 @@ def _k6_routes(dev, batch: list, mp: float) -> dict:
         print(f"K6 routes idct={idct}: BatchDecoder and decode_batch_sharded "
               f"each {n_groups} K6b (one a group), K1 0, K5 0, scan_samples "
               "0")
-    own = k6.blocks_to_rgb
+    own = k6.unpack_nibble
+
+    def first_form(*wire, n_img=None, n_rows=None):
+        return pixel_v1.unpack_nibble_v1(*wire)
+
     res = {}
     for route in ("BatchDecoder", "decode_batch_sharded"):
         for name in ("before", "after"):
             res[(route, name)] = []
         with BatchDecoder(device=dev) as bd:
             for name in ("before", "after", "after", "before"):
-                k6.blocks_to_rgb = (pixel_v1.blocks_to_rgb_v1
-                                    if name == "before" else own)
+                k6.unpack_nibble = first_form if name == "before" else own
                 try:
                     if route == "BatchDecoder":
                         ms = min(_e2e(bd, batch)) * 1e3
@@ -3279,11 +3377,11 @@ def _k6_routes(dev, batch: list, mp: float) -> dict:
                         pix = sum(g.get("pixels_ms") or 0.0 for g in
                                   decode_batch_sharded.last_timing["groups"])
                 finally:
-                    k6.blocks_to_rgb = own
+                    k6.unpack_nibble = own
                 res[(route, name)].append((ms, pix))
     print("K6 routes end to end under their defaults (BatchDecoder idct=fast, "
-          "decode_batch_sharded idct=kron; best of 3 a turn; before: the "
-          "first form and its product in K6b's place): " + "; ".join(
+          "decode_batch_sharded idct=kron; best of 3 a turn; before: K6a's "
+          "first form, whole blocks, in K6a's place): " + "; ".join(
               f"{r} {n}: " + ", ".join(
                   f"{ms:.1f} ms ({mp / ms * 1e3:.1f} MP/s"
                   + (f", group pixels {pix:.2f} ms" if pix is not None

@@ -9,23 +9,41 @@
 // prefix sum, ADD every value at its position (a 0x00 filler re-adds 0 at
 // the last real position: a store would wipe the value there), drop the
 // positions outside [0, n_blk * 64), then SET the escapes, then set DC of
-// blocks [0, n_blk); block n_blk stays 0 (the fill block).
-//   Bound: bytes.  It reads the wire once and writes the (B, n_blk + 1, 64)
-// int32 blocks once, zeros included.
-//   Design: four launches on the caller's stream.  (0) The whole output is
-// written once with coalesced 16-byte stores: zeros, and each block's DC
-// in its slot (DC is set last in the reference, so no later write may
-// touch a DC slot of a block below n_blk: the adds and escapes that land
-// on one are skipped, which leaves the reference's result).  The entries
-// of a row are cut into chunks of 4,096 (256 threads x 16, one 16-byte
-// load a thread); (1) each chunk's advance and overflow totals; (2) each
-// chunk sums the totals of the chunks before it in its row (the two prefix
-// sums cross chunks, so they take this second pass over the bytes, which
-// are 7% of the traffic), scans its threads' totals, and each thread walks
-// its 16 entries, adding every nonzero value with a 32-bit atomic (real
-// values land on distinct positions, so the atomics do not contend; zero
-// values are skipped, which leaves the same sums); (3) the escapes set.
-// No int64 index tensor is built; positions are 64-bit in registers.
+// blocks [0, n_blk); block n_blk stays 0 (the fill block).  With a trim
+// (ops/pixels_cuda.py: n_img, n_rows) only the first n_img rows and n_keep
+// = n_rows blocks of each take part: the reference on the wire cut to
+// them, which is the whole output's [:n_img, :n_keep + 1] wherever that
+// is zero at block n_keep (the routes' n_keep covers every image's
+// blocks).
+//   Bound: bytes.  It reads the wire once and writes the (n_img, n_keep +
+// 1, 64) int32 blocks once, zeros included.
+//   Design: three launches on the caller's stream; each output element is
+// written once, from shared memory, and no pass zero-fills the output or
+// adds in device memory.  The entries of a row are cut into chunks of
+// 4,096 (256 threads x 16, one 16-byte load a thread).  (1) Each chunk's
+// advance and overflow totals and whether any entry carries a value; extra
+// CTAs check that each row's escapes do not fall (keys max(idx, -1)).
+// (2) One CTA a row scans the totals into each chunk's first position and
+// rank.  (3) One CTA a window of kWindow output positions: zeros and DC
+// into shared memory; a warp's 32-way search of the chunk bases finds the
+// chunks whose entries land in the window (positions never fall along a
+// row, so they are a run; a chunk that advances nowhere and carries no
+// value is skipped, so a row's tail of fillers costs a look at its
+// totals); each such chunk is loaded and scanned again, and its entries
+// that land in the window add with shared-memory atomics (an entry that
+// advances 0 adds at the position before its chunk's, in its window, so a
+// chunk's lead needs no special case); then the escapes in the window are
+// set (a second warp's search of the row's escapes, or all of them where
+// they fall); then the window goes out in coalesced 16-byte stores.  DC is
+// set last in the reference, so no add or escape may touch a DC slot of a
+// block below n_keep: those are skipped, which leaves its result.  A
+// window reads each chunk that reaches it, so wire bytes are read about
+// twice from L2 where a chunk spans two windows.
+// Positions are 64-bit in registers; no index tensor is built.
+//   Its first form, kept as the same-card baseline jd_unpack_nibble_v1:
+// the whole output written with zeros and DC, chunk totals, then each
+// chunk's adds as 32-bit atomics in device memory (every one a
+// read-modify-write of a sector long out of L2), then the escapes.
 //
 // K6b, scan-order blocks to RGB in one pass.  Replaces
 // jpeg_decoder_tpu/models/batch.py:52 _planes_from_blocks_dyn and :82
@@ -88,6 +106,21 @@ constexpr int kUnpackThreads = 256;
 constexpr int kPerThread = 16;                          // one 16-byte load
 constexpr int kChunk = kUnpackThreads * kPerThread;    // entries per chunk
 constexpr int kWarpsPerCta = kUnpackThreads / 32;
+// Output positions a CTA of the window pass builds in shared memory (64 KB
+// of dynamic shared memory; a multiple of 64, so windows hold whole
+// blocks).  The fastest of 4,096 to 24,576 in testing/pixel_variants.py's
+// runs.
+constexpr int kWindow = 16384;
+constexpr int kWindowBytes = kWindow * 4;
+// K6a's variants, for testing/pixel_variants.py (which builds copies of
+// this file with another value): 0 the kernel as it is, 1 passes 1 and 2
+// alone, 2 the window pass's zeros and DC alone (no search, add or
+// escape), 3 the window pass without its stores.
+constexpr int kUnpackVariant = 0;
+// Window CTAs a multiprocessor that __launch_bounds__ caps the registers
+// for: 3 (80 registers, no spill; 3 windows fill 192 KB of shared memory),
+// the fastest of 2 to 5 in testing/pixel_variants.py's runs.
+constexpr int kUnpackCtas = 3;
 
 struct NibbleArgs {
   const int16_t* dc16;    // (B, n_blk)
@@ -95,9 +128,18 @@ struct NibbleArgs {
   const int8_t* ov;       // (B, O)
   const int32_t* esc_idx;  // (B, E)
   const int16_t* esc_val;  // (B, E)
-  int32_t* out;           // (B, n_blk + 1, 64)
-  int32_t* agg;           // (B, n_chunks, 2): advance, overflow totals
+  int32_t* out;           // (n_img, n_keep + 1, 64); the first form's
+                          // (B, n_blk + 1, 64)
+  int32_t* agg;           // first form: (B, n_chunks, 2) advance, overflow
+  int4* rec;              // (n_img, n_chunks): advance and overflow
+                          // totals, any value
+  longlong2* base;        // (n_img, n_chunks + 1): position and rank
+                          // before each chunk, the row's totals last
+  int32_t* flags;         // (n_img, n_esc_ctas + 1): escapes that fall,
+                          // per CTA, the row's last
   int64_t n_blk, k, o, n_esc, n_chunks;
+  int64_t n_keep;         // blocks that take values (<= n_blk)
+  int64_t n_esc_ctas;     // CTAs of pass 1 that check escapes
   int vec;                // rows start on 16-byte boundaries
 };
 
@@ -119,6 +161,29 @@ __device__ __forceinline__ void load_entries(const NibbleArgs& a, int64_t b,
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i)
       v[i] = first + i < a.k ? row[first + i] : 0;
+  }
+}
+
+// The same 16 entries as four little-endian words (entry i in byte i & 3
+// of word i >> 2): four registers where the window pass keeps them.
+__device__ __forceinline__ void load_words(const NibbleArgs& a, int64_t b,
+                                           int64_t chunk,
+                                           uint32_t (&w)[kPerThread / 4]) {
+  const int64_t first =
+      chunk * kChunk + static_cast<int64_t>(threadIdx.x) * kPerThread;
+  const uint8_t* row = a.e + b * a.k;
+  if (a.vec && first + kPerThread <= a.k) {
+    const uint4 q = *reinterpret_cast<const uint4*>(row + first);
+    w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPerThread / 4; ++j) {
+      w[j] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (first + 4 * j + i < a.k)
+          w[j] |= static_cast<uint32_t>(row[first + 4 * j + i]) << (8 * i);
+    }
   }
 }
 
@@ -154,8 +219,9 @@ __device__ __forceinline__ int2 block_scan2(int a, int b, int& ea, int& eb) {
   return make_int2(ta, tb);
 }
 
-// Pass 0: zeros and DC, the whole (n_blk + 1, 64) row of each image in
-// 16-byte stores.  grid (ceil(units / 1024), B), four stores a thread.
+// First form, pass 0: zeros and DC, the whole (n_blk + 1, 64) row of each
+// image in 16-byte stores.  grid (ceil(units / 1024), B), four stores a
+// thread.
 __global__ void __launch_bounds__(kUnpackThreads)
     nibble_fill(NibbleArgs a) {
   const int64_t b = blockIdx.y;
@@ -173,7 +239,8 @@ __global__ void __launch_bounds__(kUnpackThreads)
   }
 }
 
-// Pass 1: each chunk's advance and overflow totals.  grid (n_chunks, B).
+// First form, pass 1: each chunk's advance and overflow totals.  grid
+// (n_chunks, B).
 __global__ void __launch_bounds__(kUnpackThreads)
     nibble_totals(NibbleArgs a) {
   const int64_t b = blockIdx.y, chunk = blockIdx.x;
@@ -193,7 +260,8 @@ __global__ void __launch_bounds__(kUnpackThreads)
   }
 }
 
-// Pass 2: positions and ranks, then the adds.  grid (n_chunks, B).
+// First form, pass 2: positions and ranks, then the adds.  grid
+// (n_chunks, B).
 __global__ void __launch_bounds__(kUnpackThreads)
     nibble_scatter(NibbleArgs a) {
   __shared__ long long base_sum[2][kWarpsPerCta];
@@ -250,7 +318,8 @@ __global__ void __launch_bounds__(kUnpackThreads)
   }
 }
 
-// Pass 3: escapes set (off the DC slots).  grid (ceil(E / 256), B).
+// First form, pass 3: escapes set (off the DC slots).  grid
+// (ceil(E / 256), B).
 __global__ void __launch_bounds__(kUnpackThreads)
     nibble_escapes(NibbleArgs a) {
   const int64_t b = blockIdx.y;
@@ -262,6 +331,267 @@ __global__ void __launch_bounds__(kUnpackThreads)
     if (idx >= 0 && idx < a.n_blk * 64 && (idx & 63) != 0)
       out[idx] = a.esc_val[b * a.n_esc + i];
   }
+}
+
+// An escape's key for the window search: every index below 0 is dropped
+// alike.
+__device__ __forceinline__ int esc_key(int32_t idx) { return max(idx, -1); }
+
+// Pass 1.  CTAs below n_chunks: a chunk's advance and overflow totals and
+// whether any entry carries a value (a value code other than 0).  The rest:
+// whether 256 escapes of the row fall anywhere (each against the one
+// before it).  grid (n_chunks + n_esc_ctas, n_img).
+__global__ void __launch_bounds__(kUnpackThreads)
+    unpack_totals(NibbleArgs a) {
+  const int64_t b = blockIdx.y;
+  if (blockIdx.x < a.n_chunks) {
+    const int64_t chunk = blockIdx.x;
+    uint8_t v[kPerThread];
+    load_entries(a, b, chunk, v);
+    int adv = 0, n_ov = 0, live = 0;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      adv += advance(v[i]);
+      n_ov += (v[i] & 15) == 8;
+      live |= (v[i] & 15) != 0;
+    }
+    int ea, eb;
+    const int2 tot = block_scan2(adv, n_ov, ea, eb);
+    live = __syncthreads_or(live);
+    if (threadIdx.x == 0)
+      a.rec[b * a.n_chunks + chunk] = make_int4(tot.x, tot.y, live, 0);
+    return;
+  }
+  const int64_t j = blockIdx.x - a.n_chunks;
+  const int64_t i = j * kUnpackThreads + threadIdx.x;
+  const int32_t* idx = a.esc_idx + b * a.n_esc;
+  const int fall =
+      i > 0 && i < a.n_esc && esc_key(idx[i - 1]) > esc_key(idx[i]);
+  const int any = __syncthreads_or(fall);
+  if (threadIdx.x == 0) a.flags[b * (a.n_esc_ctas + 1) + j] = any;
+}
+
+// Pass 2: a row's position and rank before each chunk (an exclusive scan
+// of the totals, 256 chunks a step; a step's sums fit int32: 256 x 4,096 x
+// 240), its totals after the last, and whether its escapes fall.  grid
+// (n_img).
+__global__ void __launch_bounds__(kUnpackThreads)
+    unpack_bases(NibbleArgs a) {
+  const int64_t b = blockIdx.x;
+  longlong2* base = a.base + b * (a.n_chunks + 1);
+  long long pos = 0, rank = 0;
+  for (int64_t c0 = 0; c0 < a.n_chunks; c0 += kUnpackThreads) {
+    const int64_t c = c0 + threadIdx.x;
+    int t = 0, o = 0;
+    if (c < a.n_chunks) {
+      const int4 r = a.rec[b * a.n_chunks + c];
+      t = r.x, o = r.y;
+    }
+    int et, eo;
+    const int2 tot = block_scan2(t, o, et, eo);
+    if (c < a.n_chunks) base[c] = make_longlong2(pos + et, rank + eo);
+    pos += tot.x, rank += tot.y;
+  }
+  if (threadIdx.x == 0) base[a.n_chunks] = make_longlong2(pos, rank);
+  int32_t* f = a.flags + b * (a.n_esc_ctas + 1);
+  int fall = 0;
+  for (int64_t j = threadIdx.x; j < a.n_esc_ctas; j += kUnpackThreads)
+    fall |= f[j];
+  fall = __syncthreads_or(fall);
+  if (threadIdx.x == 0) f[a.n_esc_ctas] = fall;
+}
+
+// The first index in [0, n) whose key(i) is >= x, n if none; key must not
+// fall.  A 32-way search: each round every lane probes the last index of
+// its 32nd of the range.  Every lane of the warp calls it and gets the
+// answer.
+template <typename Key>
+__device__ __forceinline__ int64_t warp_lower_bound(int64_t n, long long x,
+                                                    Key key) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = n;   // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t first = lo + lane * step;
+    const bool ge = first < hi && key(min(first + step, hi) - 1) >= x;
+    const unsigned m = __ballot_sync(kFullMask, ge);
+    if (m == 0) {   // every key of [lo, hi) is below x
+      lo = hi;
+    } else {        // the answer lies in lane f's part, at or before its end
+      const int64_t f_first = lo + (__ffs(m) - 1) * step;
+      hi = min(f_first + step, hi) - 1;
+      lo = f_first;
+    }
+  }
+  return lo;
+}
+
+// Adds the values of chunk `chunk`'s entries that land in [w0, lim), off
+// the DC slots, into the window `win` (position w0 first); a chunk that
+// advances nowhere and carries no value adds nothing.  The entries, the
+// totals and the base are read at once.  Every thread of the CTA calls it.
+__device__ __forceinline__ void add_chunk(const NibbleArgs& a, int64_t b,
+                                          int64_t chunk, int64_t w0,
+                                          int64_t lim, int32_t* win) {
+  uint32_t w[kPerThread / 4];
+  load_words(a, b, chunk, w);
+  const int4 r = a.rec[b * a.n_chunks + chunk];
+  const longlong2 base = a.base[b * (a.n_chunks + 1) + chunk];
+  if (r.x == 0 && r.z == 0) return;   // alike in every thread
+  int adv = 0, n_ov = 0;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const uint8_t e = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
+    adv += advance(e);
+    n_ov += (e & 15) == 8;
+  }
+  int ea, eb;
+  block_scan2(adv, n_ov, ea, eb);
+  long long pos = base.x + ea;   // positions before the thread's entries
+  long long rank = base.y + eb;
+  // The thread's entries land on [pos - 1, pos + adv - 1].
+  if (pos + adv - 1 < w0 || pos - 1 >= lim) return;
+  const int8_t* ov = a.ov + b * a.o;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const uint8_t e = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
+    const int vc = e & 15;
+    pos += advance(e);
+    const long long idx = pos - 1;
+    const bool in = idx >= w0 && idx < lim && (idx & 63) != 0;
+    int val = ((vc + 8) & 15) - 8;
+    if (vc == 8) {
+      const long long rk = rank < 0 ? 0 : (rank >= a.o ? a.o - 1 : rank);
+      val = in && a.o > 0 ? ov[rk] : 0;
+      ++rank;
+    }
+    if (in && val != 0) atomicAdd(win + (idx - w0), val);
+  }
+}
+
+// Chunks a window takes one after another without first looking at their
+// totals (a row's tail of fillers takes the look); 2% faster than always
+// looking, in testing/pixel_variants.py's runs.
+constexpr int kDirect = 4;
+static_assert(kWindow % 64 == 0, "a window holds whole blocks");
+// DC values a thread of the window pass holds: block tid + k * 256, k <
+// kDcPerThread.
+constexpr int kDcPerThread = (kWindow / 64 + kUnpackThreads - 1) /
+                             kUnpackThreads;
+
+// Pass 3: window blockIdx.x of row blockIdx.y, whole (see the design note
+// at the top).  Every read whose address is known early is issued early:
+// the window's DC values first, the searches while the other warps zero
+// the window, a thread's escape and a chunk's totals beside its entries.
+// grid (ceil((n_keep + 1) * 64 / kWindow), n_img).
+__global__ void __launch_bounds__(kUnpackThreads, kUnpackCtas)
+    unpack_windows(NibbleArgs a) {
+  extern __shared__ __align__(16) int32_t win[];   // kWindow ints
+  __shared__ int list[kUnpackThreads];
+  __shared__ int n_list;
+  __shared__ long long span[4];   // chunks [0, 1), escapes [2, 3)
+  const int64_t b = blockIdx.y;
+  const int64_t row = (a.n_keep + 1) * 64;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kWindow;
+  const int len = static_cast<int>(min(static_cast<int64_t>(kWindow),
+                                       row - w0));
+  const int64_t lim = min(w0 + len, a.n_keep * 64);   // takes values below
+  const int tid = threadIdx.x, warp = tid >> 5;
+  // The DC of the window's blocks tid, tid + 256, ..., set last (no add
+  // or escape touches a DC slot).
+  int dc[kDcPerThread];
+#pragma unroll
+  for (int k = 0; k < kDcPerThread; ++k) {
+    const int j = tid + k * kUnpackThreads;
+    const int64_t blk = (w0 >> 6) + j;
+    dc[k] = j < len / 64 && blk < a.n_keep ? a.dc16[b * a.n_blk + blk] : 0;
+  }
+
+  if (kUnpackVariant == 2) {   // no search: no chunk, no escape
+    if (tid == 0) span[0] = span[1] = span[2] = span[3] = 0;
+  } else if (warp == 0) {
+    // Chunk c's entries land on [base[c] - 1, base[c + 1] - 1]: those of
+    // chunks [first, end) reach [w0, lim).
+    const longlong2* base = a.base + b * (a.n_chunks + 1);
+    const auto at = [base](int64_t j) { return base[j].x; };
+    int64_t first = a.n_chunks, end = a.n_chunks;
+    if (w0 < lim) {
+      first = warp_lower_bound(a.n_chunks + 1, w0 + 1, at) - 1;
+      end = min(warp_lower_bound(a.n_chunks + 1, lim + 1, at), a.n_chunks);
+    }
+    if (tid == 0) span[0] = first, span[1] = end;
+  } else if (warp == 1) {
+    const int32_t* ei = a.esc_idx + b * a.n_esc;
+    const auto key = [ei](int64_t i) { return esc_key(ei[i]); };
+    int64_t lo = 0, hi = 0;
+    if (w0 < lim) {
+      if (a.flags[b * (a.n_esc_ctas + 1) + a.n_esc_ctas]) {
+        hi = a.n_esc;   // they fall somewhere: look at all of them
+      } else {
+        lo = warp_lower_bound(a.n_esc, w0, key);
+        hi = warp_lower_bound(a.n_esc, lim, key);
+      }
+    }
+    if (tid == 32) span[2] = lo, span[3] = hi;
+  }
+  int4* win4 = reinterpret_cast<int4*>(win);
+  for (int u = tid; u < len / 4; u += kUnpackThreads)
+    win4[u] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+
+  // This thread's escape, read before the adds and set after them (when
+  // the window has more than one a thread, all are read after).
+  const int32_t* ei = a.esc_idx + b * a.n_esc;
+  const int16_t* ev = a.esc_val + b * a.n_esc;
+  const int64_t e_lo = span[2], e_hi = span[3];
+  const bool few = e_hi - e_lo <= kUnpackThreads;
+  int64_t e_idx = -1;
+  int e_val = 0;
+  if (few && e_lo + tid < e_hi)
+    e_idx = ei[e_lo + tid], e_val = ev[e_lo + tid];
+
+  // The adds, chunk by chunk; past kDirect chunks, up to 256 a step are
+  // looked at and those that advance or carry a value are loaded.
+  const int64_t first = span[0], end = span[1];
+  if (end - first <= kDirect) {
+    for (int64_t c = first; c < end; ++c) add_chunk(a, b, c, w0, lim, win);
+  } else {
+    for (int64_t c0 = first; c0 < end; c0 += kUnpackThreads) {
+      if (tid == 0) n_list = 0;
+      __syncthreads();
+      const int64_t c = c0 + tid;
+      if (c < end) {
+        const int4 r = a.rec[b * a.n_chunks + c];
+        if (r.x > 0 || r.z) list[atomicAdd(&n_list, 1)] = tid;
+      }
+      __syncthreads();
+      const int n = n_list;
+      for (int k = 0; k < n; ++k) add_chunk(a, b, c0 + list[k], w0, lim, win);
+      __syncthreads();   // n_list is reset next step
+    }
+  }
+  __syncthreads();   // the adds are in
+
+  // The escapes set, after the adds; then DC.
+  if (few) {
+    if (e_idx >= w0 && e_idx < lim && (e_idx & 63) != 0)
+      win[e_idx - w0] = e_val;
+  } else {
+    for (int64_t i = e_lo + tid; i < e_hi; i += kUnpackThreads) {
+      const int64_t idx = ei[i];
+      if (idx >= w0 && idx < lim && (idx & 63) != 0) win[idx - w0] = ev[i];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kDcPerThread; ++k) {
+    const int j = tid + k * kUnpackThreads;
+    if (j < len / 64) win[j * 64] = dc[k];
+  }
+  __syncthreads();
+
+  if (kUnpackVariant == 3) return;
+  int4* out4 = reinterpret_cast<int4*>(a.out + b * row + w0);
+  for (int u = tid; u < len / 4; u += kUnpackThreads) __stcs(out4 + u, win4[u]);
 }
 
 // ---- K6b: scan-order blocks -> RGB ------------------------------------
@@ -719,6 +1049,7 @@ struct TileArgs {
   const float* kron;       // (64, 64) KRON, for K1's recheck
   void* out;               // (B, out_h, out_w, 3) uint8 or uint16
   int64_t n_rows;
+  int n_coded;                           // images with blocks (<= n_img)
   int n_comps, bpm, out_h, out_w;
   int tile_h, tile_w, tiles_x, tiles;   // tiles: an image's
   int n_work;                            // B x tiles
@@ -854,9 +1185,12 @@ __global__ void __launch_bounds__(
     const int mcus_x = __ldg(a.geom + b * 4);
     const int mcus_y = __ldg(a.geom + b * 4 + 1);
     __syncthreads();   // the last tile's geometry and windows are read
-    if (tid == 0)
+    if (tid == 0) {
       tile_geo(a, y0, y0 + rows - 1, x0, x0 + w_pix - 1, mcus_x, mcus_y,
                geo_s);
+      // An image past the blocks given is padding: the colour of zeros.
+      if (b >= a.n_coded) geo_s.valid = 0;
+    }
     if (kVariant == 2) {
       for (int i = tid; i < a.window_ints; i += kPixThreads) win[i] = 0;
     }
@@ -1097,18 +1431,72 @@ int launch_rgb(const TileArgs& a, int grid, size_t smem,
 }  // namespace
 
 // K6a.  dc16 (B, n_blk) int16, e (B, K) uint8, ov (B, O) int8, esc_idx
-// (B, E) int32, esc_val (B, E) int16, out (B, n_blk + 1, 64) int32, agg
-// (B, ceil(K / 4096), 2) int32 scratch; all contiguous on the current
-// device (the wrapper checks this).  Launches on `stream`; returns
-// cudaGetLastError() (0 = launched).
+// (B, E) int32, esc_val (B, E) int16 (B >= n_img), out (n_img, n_keep + 1,
+// 64) int32 (16-byte aligned), scratch rec (n_img, ceil(K / 4096), 4)
+// int32, base (n_img, ceil(K / 4096) + 1, 2) int64 and flags (n_img,
+// ceil(E / 256) + 1) int32; all contiguous on the current device (the
+// wrapper checks this).  Rows n_img.. of the wire and its blocks from
+// n_keep on take no part.  Launches on `stream`; returns cudaGetLastError()
+// (0 = launched), -1 for arguments out of range.
 extern "C" int jd_unpack_nibble(const void* dc16, const void* e,
                                 const void* ov, const void* esc_idx,
-                                const void* esc_val, void* out, void* agg,
-                                int64_t n_img, int64_t n_blk, int64_t k,
+                                const void* esc_val, void* out, void* rec,
+                                void* base, void* flags, int64_t n_img,
+                                int64_t n_blk, int64_t n_keep, int64_t k,
                                 int64_t o, int64_t n_esc, void* stream) {
   if (n_img <= 0) return 0;
+  if (n_img > 65535 || n_keep < 0 || n_keep > n_blk) return -1;
+  const int64_t n_windows = ((n_keep + 1) * 64 + kWindow - 1) / kWindow;
+  NibbleArgs a = {};
+  a.dc16 = static_cast<const int16_t*>(dc16);
+  a.e = static_cast<const uint8_t*>(e);
+  a.ov = static_cast<const int8_t*>(ov);
+  a.esc_idx = static_cast<const int32_t*>(esc_idx);
+  a.esc_val = static_cast<const int16_t*>(esc_val);
+  a.out = static_cast<int32_t*>(out);
+  a.rec = static_cast<int4*>(rec);
+  a.base = static_cast<longlong2*>(base);
+  a.flags = static_cast<int32_t*>(flags);
+  a.n_blk = n_blk, a.n_keep = n_keep, a.k = k, a.o = o, a.n_esc = n_esc;
+  a.n_chunks = (k + kChunk - 1) / kChunk;
+  a.n_esc_ctas = (n_esc + kUnpackThreads - 1) / kUnpackThreads;
+  a.vec = reinterpret_cast<uintptr_t>(e) % 16 == 0 && k % 16 == 0;
+  if (a.n_chunks + a.n_esc_ctas >= (int64_t{1} << 31) ||
+      n_windows >= (int64_t{1} << 31))
+    return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  NibbleArgs a;
+  const unsigned ny = static_cast<unsigned>(n_img);
+  if (a.n_chunks + a.n_esc_ctas > 0)
+    unpack_totals<<<dim3(static_cast<unsigned>(a.n_chunks + a.n_esc_ctas),
+                         ny),
+                    kUnpackThreads, 0, s>>>(a);
+  unpack_bases<<<ny, kUnpackThreads, 0, s>>>(a);
+  if (kUnpackVariant != 1) {
+    // The window's size is this file's constant: every call sets the same
+    // limit.
+    const cudaError_t rc = cudaFuncSetAttribute(
+        unpack_windows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kWindowBytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    unpack_windows<<<dim3(static_cast<unsigned>(n_windows), ny),
+                     kUnpackThreads, kWindowBytes, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6a's first form (the same-card baseline; no path reaches it).  dc16
+// (B, n_blk) int16, e (B, K) uint8, ov (B, O) int8, esc_idx (B, E) int32,
+// esc_val (B, E) int16, out (B, n_blk + 1, 64) int32, agg (B, ceil(K /
+// 4096), 2) int32 scratch; all contiguous on the current device.  Launches
+// on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int jd_unpack_nibble_v1(const void* dc16, const void* e,
+                                   const void* ov, const void* esc_idx,
+                                   const void* esc_val, void* out, void* agg,
+                                   int64_t n_img, int64_t n_blk, int64_t k,
+                                   int64_t o, int64_t n_esc, void* stream) {
+  if (n_img <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  NibbleArgs a = {};
   a.dc16 = static_cast<const int16_t*>(dc16);
   a.e = static_cast<const uint8_t*>(e);
   a.ov = static_cast<const int8_t*>(ov);
@@ -1145,9 +1533,11 @@ extern "C" int jd_unpack_nibble(const void* dc16, const void* e,
 // exact, 3 fast), out_bytes (1 uint8, 2 uint16), off_stage, off_win (byte
 // offsets of the rings and the windows in dynamic shared memory),
 // window_ints (a multiple of 4), off_rows, off_rgb (byte offsets of the row
-// table and the staged rows), rgb_pitch (ops/pixels_cuda.py:RgbPlan.layout);
-// `geo`: per component 10 int32 (CompGeo).  The pointers as in TileArgs,
-// contiguous and 16-byte aligned on the current device.  Launches `grid`
+// table and the staged rows), rgb_pitch (ops/pixels_cuda.py:RgbPlan.layout),
+// n_coded (the images `blocks` holds, its first dimension: the images past
+// them are padding, the colour of zeros); `geo`: per component 10 int32
+// (CompGeo).  The pointers as in TileArgs, contiguous and 16-byte aligned
+// on the current device; qt and geom hold n_img images.  Launches `grid`
 // persistent CTAs with `smem` bytes of dynamic shared memory on `stream`,
 // which walk the n_img x tiles tiles; returns cudaGetLastError() (0 =
 // launched).
@@ -1171,6 +1561,8 @@ extern "C" int jd_blocks_to_rgb(const void* blocks, const void* qt,
   const int mode = dims[11], out_bytes = dims[12];
   a.off_stage = dims[13], a.off_win = dims[14], a.window_ints = dims[15];
   a.off_rows = dims[16], a.off_rgb = dims[17], a.rgb_pitch = dims[18];
+  a.n_coded = dims[19];
+  if (a.n_coded < 0 || a.n_coded > n_img) return -1;
   if (a.n_comps < 1 || a.n_comps > kMaxComps) return -1;
   if (a.tile_w < 1 || a.tile_w > kPixThreads || a.tile_h < 1 ||
       a.tile_h > kPixThreads)

@@ -348,7 +348,8 @@ def rgb_from_blocks_dyn(blocks, qtables, geom, *, comp_shapes, comp_hv,
                         height, width, samplings, idct, upsample, color,
                         precision) -> torch.Tensor:
     """Pixels of a geometry bucket (the JAX package's ``_rgb_one_dyn``,
-    batched).  ``blocks``: (B, N, 64) int32 scan-order blocks;
+    batched).  ``blocks``: (B', N, 64) int32 scan-order blocks of the first
+    B' <= B images (the rest are padding, the colour of zero blocks);
     ``qtables``: (B, n_comps, 64) int32; ``geom``: (B, 4) int32 (mcus_x,
     mcus_y, height, width).  On a CUDA tensor one launch of the kernel K6b
     (``ops/pixels_cuda.blocks_to_rgb``, every IDCT inside it), which raises
@@ -370,7 +371,12 @@ def rgb_from_blocks_torch(blocks, qtables, geom, *, comp_shapes, comp_hv,
     the pixel pipeline at the bucket's dims with each image's true edge
     (K1 or K5 and torch ops on a CUDA tensor, their twins on the CPU).
     ``blocks`` must hold a zero fill row last (:class:`_Blocks`); arguments
-    and result as :func:`rgb_from_blocks_dyn`."""
+    and result as :func:`rgb_from_blocks_dyn`.  Blocks of fewer images than
+    ``geom`` are padded with zero images first."""
+    short = geom.shape[0] - blocks.shape[0]
+    if short > 0:
+        blocks = torch.cat([blocks, blocks.new_zeros(
+            (short,) + tuple(blocks.shape[1:]))])
     planes = planes_from_blocks_dyn(blocks, geom, comp_shapes=comp_shapes,
                                     comp_hv=comp_hv)
     qts = tuple(qtables[:, i].contiguous() for i in range(len(comp_shapes)))
@@ -419,7 +425,10 @@ class BatchItem:
 class Group:
     """One geometry bucket's host arrays, padded and ready to copy: the
     wire's arrays in the order its unpack function takes them, then the
-    (B, n_comps, 64) quantisation tables and the (B, 4) geometry."""
+    (B, n_comps, 64) quantisation tables and the (B, 4) geometry; the
+    images the batch holds before its padding rows (``n_img``) and the
+    blocks of the longest of them (``n_rows``: the most any image's
+    pixels read)."""
 
     idxs: list[int]                    # positions in the host-stage output
     headers: list[FrameHeader]
@@ -432,6 +441,8 @@ class Group:
     samplings: tuple
     color: str
     precision: int
+    n_img: int
+    n_rows: int
     # Pinned host buffer the arrays are views of (CUDA devices), handed
     # back to the decoder's pool once ``to_device`` has queued the copy.
     staging: torch.Tensor | None = None
@@ -476,11 +487,12 @@ class BatchDecoder:
     raises (pass ``device="cpu"`` to decode on the CPU).  The other defaults
     are the JAX package's: ``entropy="auto"`` (the native host decoder,
     ``python`` where the native library does not build) and ``idct="fast"``
-    (torch contractions).  On a CUDA device the nibble wire's unpack is the
-    hand-written kernel K6a and each group's pixels one launch of K6b
-    (``ops/pixels_cuda.py``), which carries K1's arithmetic under
-    ``idct="pallas"`` and K5's under ``idct="exact"`` and takes the torch
-    product's samples under ``kron`` and ``fast``; under
+    (a separable form).  On a CUDA device the nibble wire's unpack is the
+    hand-written kernel K6a (only the blocks of the group's true images
+    that their pixels read) and each group's pixels one launch of K6b
+    (``ops/pixels_cuda.py``), which carries every IDCT: K1's arithmetic
+    under ``idct="pallas"`` and ``"kron"``, K5's under ``"exact"``, the
+    separable form under ``"fast"``; under
     ``entropy="pallas"`` and ``"jax"`` each image's Huffman decode is K2,
     under ``"hybrid"`` K7 for a DRI=0 stream and K2 otherwise (the blocks
     come back to the host and ride the wire, as in the JAX package); on the
@@ -621,9 +633,11 @@ class BatchDecoder:
         packs = [host_out[i][1] for i in idxs]
         h_max = max(h for h, _ in comp_hv)
         v_max = max(v for _, v in comp_hv)
-        n_blk = mxb * myb * sum(h * v for h, v in comp_hv)  # block capacity
+        bpm = sum(h * v for h, v in comp_hv)
+        n_blk = mxb * myb * bpm                             # block capacity
         n_coef = n_blk * 64
         b = len(packs)
+        n_rows = max(h.mcus_x * h.mcus_y for h in headers) * bpm
         # Pad the batch to the next power of two, as the JAX package does to
         # bound its compiled-program count.  Wire rows past b stay as their
         # fill (no-op entries); tables and geometry repeat the last image.
@@ -685,7 +699,8 @@ class BatchDecoder:
             comp_shapes=tuple((myb * v, mxb * h) for h, v in comp_hv),
             comp_hv=comp_hv, height=myb * 8 * v_max, width=mxb * 8 * h_max,
             samplings=tuple((v_max // v, h_max // h) for h, v in comp_hv),
-            color=color, precision=precision, staging=staging)
+            color=color, precision=precision, n_img=b, n_rows=n_rows,
+            staging=staging)
 
     def _stage(self, specs):
         """Host arrays of the given (shape, dtype, fill): on a CUDA device
@@ -733,12 +748,15 @@ class BatchDecoder:
         return out
 
     def unpack(self, group: Group, tensors) -> torch.Tensor:
-        """The group's (B, n_blk + 1, 64) int32 blocks from its wire: the
-        nibble wire through ``ops/pixels_cuda.unpack_nibble`` (the kernel
-        K6a on the card, the plain :func:`unpack_nibble` on the CPU), the
-        other wires through their torch unpack."""
+        """The group's int32 blocks from its wire: the nibble wire through
+        ``ops/pixels_cuda.unpack_nibble`` (the kernel K6a on the card, the
+        plain :func:`unpack_nibble` on the CPU), only the (n_img, n_rows +
+        1, 64) that the pixels read; the other wires through their torch
+        unpack, the whole (B, n_blk + 1, 64)."""
         if group.wire == "nibble":
-            return pixels_cuda.unpack_nibble(*tensors[:-2])
+            return pixels_cuda.unpack_nibble(*tensors[:-2],
+                                             n_img=group.n_img,
+                                             n_rows=group.n_rows)
         return UNPACK[group.wire](*tensors[:-2])
 
     def pixels(self, group: Group, tensors) -> torch.Tensor:

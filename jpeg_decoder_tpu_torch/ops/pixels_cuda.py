@@ -2,15 +2,21 @@
 kernels (``csrc/pixels.cu``), and the plain versions they are held to.
 
 * K6a, :func:`unpack_nibble`: the nibble wire to (B, n_blk + 1, 64) int32
-  scan-order blocks.  It replaces the XLA code of the JAX package's
-  ``models/batch.py:256 _batched_from_nibble``.  On a CUDA tensor it
-  launches the kernel (four launches: zeros and DC written over the whole
-  output, chunk totals, the chunked double prefix sum with the adds, the
-  escapes)
-  and counts ``unpack_nibble.launches``; on a CPU tensor it runs the plain
-  version ``models.batch.unpack_nibble``.
+  scan-order blocks, or with ``n_img``/``n_rows`` only the (n_img, n_rows
+  + 1, 64) that the pixel stage reads.  It replaces the XLA code of the
+  JAX package's ``models/batch.py:256 _batched_from_nibble``.  On a CUDA
+  tensor it launches the kernel (three launches: chunk totals, each
+  chunk's base, then one CTA a window of output positions that builds the
+  window in shared memory and stores it once: no zero-fill pass, no adds
+  in device memory) and counts ``unpack_nibble.launches``; on a CPU tensor
+  it runs the plain version ``models.batch.unpack_nibble``.  Its first
+  form (zeros and DC over the whole output, then 32-bit atomic adds in
+  device memory) stays in the build as ``jd_unpack_nibble_v1``
+  (``testing/pixel_v1.unpack_nibble_v1``), the same-card baseline; no path
+  reaches it.
 * K6b, :func:`blocks_to_rgb`: scan-order blocks to the group's whole
-  (B, H, W, 3) RGB in one pass, padding included.  It replaces the JAX
+  (B, H, W, 3) RGB in one pass, padding included; the blocks may hold
+  fewer images than the geometry (the rest are padding).  It replaces the JAX
   package's ``models/batch.py:52 _planes_from_blocks_dyn`` and ``:82
   _rgb_one_dyn`` (dequantise, IDCT, upsample, colour).  The kernel carries
   every IDCT: K1's arithmetic under ``pallas`` and ``kron`` (the Pallas
@@ -30,9 +36,12 @@ kernels (``csrc/pixels.cu``), and the plain versions they are held to.
   (``testing/pixel_v1.py``), the same-card baseline; no path reaches it.
 
 The kernels' decompositions have plain models here, for the CPU tests:
-:func:`unpack_nibble_chunked` (zeros and DC first, chunk totals, the
-prefix over chunks, the threads' scan, each thread's walk, adds of nonzero
-values off the DC slots, escapes off the DC slots) and
+:func:`unpack_nibble_windowed` (K6a's: chunk totals and bases, windows of
+output positions, the run of chunks whose entries land in each, the
+escapes in each, the trim), :func:`unpack_nibble_chunked` (its first
+form's: zeros and DC first, chunk totals, the prefix over chunks, the
+threads' scan, each thread's walk, adds of nonzero values off the DC
+slots, escapes off the DC slots) and
 :func:`rgb_tiles_torch` (K6b's: the tiles in each persistent CTA's order,
 each component's window of samples with the fancy filter's halo, blocks
 from the closed-form geometry, zero blocks outside it, tiles of padding,
@@ -53,10 +62,18 @@ from . import idct_cuda, pixel
 
 __all__ = ["blocks_to_rgb", "build", "fast_separable", "rgb_plan",
            "rgb_tiles_torch", "scan_samples", "unpack_nibble",
-           "unpack_nibble_chunked"]
+           "unpack_nibble_chunked", "unpack_nibble_windowed"]
 
 LIB = CudaLib("pixels.cu", "jd_pixels", {
     "jd_unpack_nibble": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dc16, e, ov
+        ctypes.c_void_p, ctypes.c_void_p,                   # esc idx, val
+        ctypes.c_void_p, ctypes.c_void_p,                   # out, rec
+        ctypes.c_void_p, ctypes.c_void_p,                   # base, flags
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,     # n_img, n_blk,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,     # n_keep, K, O,
+        ctypes.c_void_p],                                   # E, stream
+    "jd_unpack_nibble_v1": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dc16, e, ov
         ctypes.c_void_p, ctypes.c_void_p,                   # esc idx, val
         ctypes.c_void_p, ctypes.c_void_p,                   # out, agg
@@ -82,6 +99,9 @@ LIB = CudaLib("pixels.cu", "jd_pixels", {
 #: chunk of a row is their product.
 UNPACK_THREADS = 256
 PER_THREAD = 16
+#: K6a's output window: the positions a CTA builds in shared memory
+#: (``csrc/pixels.cu:kWindow``).
+WINDOW = 8192
 #: K6b: threads of a CTA, blocks a round of IDCTs (eight threads each).
 PIX_THREADS = 256
 OCTETS = PIX_THREADS // 8
@@ -147,40 +167,91 @@ def _need(t: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
 
 # -- K6a ----------------------------------------------------------------------
 
-def unpack_nibble(dc16, e, ov, esc_idx, esc_val) -> torch.Tensor:
+def _trim(dc16, n_img, n_rows) -> tuple[int, int]:
+    """``(n_img, n_rows)`` of a call, the whole wire's where not given."""
+    b, n_blk = dc16.shape
+    n_img = b if n_img is None else int(n_img)
+    n_rows = n_blk if n_rows is None else int(n_rows)
+    if not 0 <= n_img <= b:
+        raise ValueError(f"n_img {n_img} outside [0, {b}]")
+    if not 0 <= n_rows <= n_blk:
+        raise ValueError(f"n_rows {n_rows} outside [0, {n_blk}]")
+    return n_img, n_rows
+
+
+def unpack_nibble(dc16, e, ov, esc_idx, esc_val, *, n_img=None,
+                  n_rows=None) -> torch.Tensor:
     """Nibble wire -> (B, n_blk + 1, 64) int32 blocks, equal to
     ``models.batch.unpack_nibble`` on every element.
 
+    With ``n_img`` (images, the wire's first rows) and ``n_rows`` (blocks
+    of the longest of them) it returns only the (n_img, n_rows + 1, 64)
+    that K6b reads: the plain version on the wire cut to them
+    (``dc16[:n_img, :n_rows]`` and the first ``n_img`` rows of the rest:
+    values and escapes at block ``n_rows`` or later are dropped, and block
+    ``n_rows`` is the zero fill block).  That is the whole output's
+    ``[:n_img, :n_rows + 1]`` wherever the whole output is zero at block
+    ``n_rows``, as it is when ``n_rows`` covers every image's blocks.
+
     On a CUDA tensor this launches K6a or raises; on a CPU tensor it runs
     the plain version."""
+    n_img, n_rows = _trim(dc16, n_img, n_rows)
+    if n_img == 0:
+        return torch.zeros((0, n_rows + 1, 64), dtype=torch.int32,
+                           device=dc16.device)
     if dc16.device.type == "cpu":
         from ..models import batch
-        return batch.unpack_nibble(dc16, e, ov, esc_idx, esc_val)
+        return batch.unpack_nibble(dc16[:n_img, :n_rows], e[:n_img],
+                                   ov[:n_img], esc_idx[:n_img],
+                                   esc_val[:n_img])
     if dc16.device.type != "cuda":
         raise ValueError(f"no kernel for device {dc16.device}")
+    return launch_unpack(build(), dc16, e, ov, esc_idx, esc_val, n_img,
+                         n_rows)
+
+
+def check_wire(dc16, e, ov, esc_idx, esc_val, n_img: int) -> None:
+    """The checks a launch of K6a (or its first form) makes on the wire:
+    dtypes, ranks, one device, contiguity, one batch size, at most 65,535
+    images a launch."""
     dev = dc16.device
     for t, name, dtype in ((dc16, "dc16", torch.int16), (e, "e", torch.uint8),
                            (ov, "ov", torch.int8),
                            (esc_idx, "esc_idx", torch.int32),
                            (esc_val, "esc_val", torch.int16)):
         _need(t, name, dtype, 2, dev)
-    b, n_blk = dc16.shape
+    b = dc16.shape[0]
     if (e.shape[0], ov.shape[0], esc_idx.shape[0]) != (b, b, b) or \
             esc_val.shape != esc_idx.shape:
         raise ValueError("wire arrays of different batch sizes")
-    if b > 65535:
+    if n_img > 65535:
         raise ValueError("at most 65535 images per launch")
-    k = e.shape[1]
+
+
+def launch_unpack(lib, dc16, e, ov, esc_idx, esc_val, n_img: int,
+                  n_rows: int) -> torch.Tensor:
+    """One launch of K6a (``jd_unpack_nibble`` of ``lib``) on CUDA tensors
+    with a checked trim, on the current stream: checks the wire, allocates
+    the (n_img, n_rows + 1, 64) output and the kernel's scratch, counts
+    ``unpack_nibble.launches``; raises if the launch failed."""
+    check_wire(dc16, e, ov, esc_idx, esc_val, n_img)
+    dev = dc16.device
+    n_blk = dc16.shape[1]
+    k, n_esc = e.shape[1], esc_idx.shape[1]
     n_chunks = -(-k // (UNPACK_THREADS * PER_THREAD))
-    lib = build()
-    out = torch.empty((b, n_blk + 1, 64), dtype=torch.int32, device=dev)
-    agg = torch.empty((b, max(n_chunks, 1), 2), dtype=torch.int32,
+    out = torch.empty((n_img, n_rows + 1, 64), dtype=torch.int32, device=dev)
+    rec = torch.empty((n_img, max(n_chunks, 1), 4), dtype=torch.int32,
                       device=dev)
+    base = torch.empty((n_img, n_chunks + 1, 2), dtype=torch.int64,
+                       device=dev)
+    flags = torch.empty((n_img, -(-n_esc // UNPACK_THREADS) + 1),
+                        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.jd_unpack_nibble(
             dc16.data_ptr(), e.data_ptr(), ov.data_ptr(), esc_idx.data_ptr(),
-            esc_val.data_ptr(), out.data_ptr(), agg.data_ptr(), b, n_blk, k,
-            ov.shape[1], esc_idx.shape[1], _stream(dc16))
+            esc_val.data_ptr(), out.data_ptr(), rec.data_ptr(),
+            base.data_ptr(), flags.data_ptr(), n_img, n_blk, n_rows, k,
+            ov.shape[1], n_esc, _stream(dc16))
     launch_check(rc, "unpack_nibble")
     _count(unpack_nibble)
     return out
@@ -188,6 +259,88 @@ def unpack_nibble(dc16, e, ov, esc_idx, esc_val) -> torch.Tensor:
 
 #: Launches of K6a since the count was last set to 0.
 unpack_nibble.launches = 0
+
+
+def unpack_nibble_windowed(dc16, e, ov, esc_idx, esc_val, *, n_img=None,
+                           n_rows=None, chunk: int = UNPACK_THREADS
+                           * PER_THREAD,
+                           window: int = WINDOW) -> torch.Tensor:
+    """Plain model of K6a's decomposition (numpy, CPU tensors in and out):
+    rows cut into chunks of ``chunk`` entries (entries past the row's end
+    are 0x00 fillers); each chunk's advance and overflow totals and whether
+    an entry carries a value; each chunk's base, the totals before it, and
+    the row's totals after the last; whether the row's escapes fall (keys
+    ``max(idx, -1)``); then each window of ``window`` output positions
+    (a multiple of 64; the last one ragged) built on its own: zeros and DC
+    of the blocks below ``n_rows``; the run of chunks whose entries land in
+    ``[w0, lim)`` (``lim``: the window's end, at most ``n_rows * 64``),
+    found by lower bounds on the bases, less those that advance nowhere and
+    carry no value; their values added off the DC slots; the escapes in the
+    window (a lower bound on the keys, or all of them where they fall) set
+    off the DC slots.  Trim as :func:`unpack_nibble`.  Equal to
+    :func:`unpack_nibble` on every element (tests hold it there at small
+    chunks and windows)."""
+    n_img, n_rows = _trim(dc16, n_img, n_rows)
+    if window % 64 or window <= 0 or chunk <= 0:
+        raise ValueError("window: a positive multiple of 64; chunk > 0")
+    dc = dc16.numpy()[:n_img].astype(np.int32)
+    ent = e.numpy()[:n_img].astype(np.int64)
+    ovs = ov.numpy()[:n_img].astype(np.int32)
+    ei = esc_idx.numpy()[:n_img].astype(np.int64)
+    ev = esc_val.numpy()[:n_img].astype(np.int32)
+    k, o = ent.shape[1], ovs.shape[1]
+    n_chunks = -(-k // chunk)
+    pad = np.zeros((n_img, n_chunks * chunk), np.int64)
+    pad[:, :k] = ent
+    g, vc = pad >> 4, pad & 15
+    adv = np.where(vc == 0, g * 16, g).reshape(n_img, n_chunks, chunk)
+    is_ov = (vc == 8).astype(np.int64).reshape(n_img, n_chunks, chunk)
+    vc = vc.reshape(n_img, n_chunks, chunk)
+    tot_adv, tot_ov = adv.sum(2), is_ov.sum(2)
+    live = (vc != 0).any(2)
+    zero = np.zeros((n_img, 1), np.int64)
+    base_pos = np.concatenate([zero, np.cumsum(tot_adv, 1)], 1)
+    base_rank = np.concatenate([zero, np.cumsum(tot_ov, 1)], 1)
+    keys = np.maximum(ei, -1)
+    falls = (np.diff(keys, axis=1) < 0).any(1)
+    row = (n_rows + 1) * 64
+    out = np.zeros((n_img, row), np.int32)
+    for b in range(n_img):
+        for w0 in range(0, row, window):
+            w1 = min(w0 + window, row)
+            lim = min(w1, n_rows * 64)
+            win = np.zeros(w1 - w0, np.int64)
+            p = np.arange(w0, w1)
+            dc_slot = (p % 64 == 0) & (p < n_rows * 64)
+            win[dc_slot] = dc[b, p[dc_slot] // 64]
+            if w0 < lim:
+                # Chunk c's entries land on [base[c] - 1, base[c + 1] - 1].
+                first = np.searchsorted(base_pos[b], w0 + 1) - 1
+                end = min(np.searchsorted(base_pos[b], lim + 1), n_chunks)
+                for c in range(first, end):
+                    if tot_adv[b, c] == 0 and not live[b, c]:
+                        continue
+                    pos = base_pos[b, c] + np.cumsum(adv[b, c])
+                    rank = (base_rank[b, c] + np.cumsum(is_ov[b, c])
+                            - is_ov[b, c])
+                    val = ((vc[b, c] + 8) & 15) - 8
+                    if o:
+                        val = np.where(is_ov[b, c] == 1,
+                                       ovs[b, np.clip(rank, 0, o - 1)], val)
+                    else:
+                        val = np.where(is_ov[b, c] == 1, 0, val)
+                    idx = pos - 1
+                    keep = ((idx >= w0) & (idx < lim) & (idx % 64 != 0)
+                            & (val != 0))
+                    np.add.at(win, idx[keep] - w0, val[keep])
+                lo, hi = ((0, keys.shape[1]) if falls[b] else
+                          (np.searchsorted(keys[b], w0),
+                           np.searchsorted(keys[b], lim)))
+                i = ei[b, lo:hi]
+                keep = (i >= w0) & (i < lim) & (i % 64 != 0)
+                win[i[keep] - w0] = ev[b, lo:hi][keep]
+            out[b, w0:w1] = win.astype(np.int32)
+    return torch.from_numpy(out.reshape(n_img, n_rows + 1, 64))
 
 
 def unpack_nibble_chunked(dc16, e, ov, esc_idx, esc_val, *,
@@ -448,15 +601,17 @@ def _sm_count(dev: torch.device) -> int:
 
 def check_rgb_args(blocks, qtables, geom, n_comps: int, idct: str) -> None:
     """The checks K6b's wrapper makes before a launch: dtype, rank, device,
-    contiguity, shapes, batch size, 16-byte alignment, the IDCT's name."""
+    contiguity, shapes (``blocks`` may hold fewer images than ``qtables``
+    and ``geom``), batch size, 16-byte alignment, the IDCT's name."""
     if idct not in ("exact", "pallas", "kron", "fast"):
         raise ValueError(f"unknown idct {idct!r}")
     dev = blocks.device
     _need(blocks, "blocks", torch.int32, 3, dev)
     _need(qtables, "qtables", torch.int32, 3, dev)
     _need(geom, "geom", torch.int32, 2, dev)
-    b = blocks.shape[0]
-    if blocks.shape[2] != 64 or tuple(qtables.shape) != (b, n_comps, 64) \
+    b = geom.shape[0]
+    if blocks.shape[2] != 64 or blocks.shape[0] > b \
+            or tuple(qtables.shape) != (b, n_comps, 64) \
             or tuple(geom.shape) != (b, 4):
         raise ValueError(f"shapes: blocks {tuple(blocks.shape)}, qtables "
                          f"{tuple(qtables.shape)}, geom {tuple(geom.shape)}")
@@ -473,7 +628,8 @@ def launch_rgb(lib, blocks, qtables, geom, kron, out, plan: RgbPlan,
                idct: str, grid: int, stream: int, *,
                staged: bool = False) -> None:
     """One launch of K6b (``jd_blocks_to_rgb`` of ``lib``) on ``stream``
-    from checked arguments: ``out`` the (B, H, W, 3) output, ``kron`` K1's
+    from checked arguments: ``out`` the (B, H, W, 3) output (B the images
+    of ``geom``; those past ``blocks``' are padding), ``kron`` K1's
     basis rows (``idct_cuda._basis``), ``grid`` persistent CTAs;
     ``staged``: room for the staged RGB rows of the variant that stores
     them 16 bytes at a time.  Counts ``blocks_to_rgb.launches``; raises if
@@ -484,17 +640,17 @@ def launch_rgb(lib, blocks, qtables, geom, kron, out, plan: RgbPlan,
                          f"(tile {plan.tile_h}x{plan.tile_w}); at most "
                          f"{SMEM_MAX}")
     n_comps = len(plan.comps)
-    dims = (ctypes.c_int32 * 19)(
+    dims = (ctypes.c_int32 * 20)(
         n_comps, plan.bpm, plan.out_h, plan.out_w, plan.tile_h, plan.tile_w,
         plan.tiles_x, plan.n_tiles, plan.colour, plan.center, plan.maxv,
         MODES[idct], out.element_size(), lay["off_stage"], lay["off_win"],
         lay["window_ints"], lay["off_rows"], lay["off_rgb"],
-        lay["rgb_pitch"])
+        lay["rgb_pitch"], blocks.shape[0])
     geo = (ctypes.c_int32 * (10 * n_comps))(
         *(x for c in plan.comps for x in c))
     rc = lib.jd_blocks_to_rgb(
         blocks.data_ptr(), qtables.data_ptr(), geom.data_ptr(),
-        kron.data_ptr(), out.data_ptr(), blocks.shape[0], blocks.shape[1],
+        kron.data_ptr(), out.data_ptr(), out.shape[0], blocks.shape[1],
         dims, geo, grid, lay["smem"], stream)
     launch_check(rc, "blocks_to_rgb")
     _count(blocks_to_rgb)
@@ -509,10 +665,11 @@ def grid_for(plan: RgbPlan, n_img: int, sms: int, ctas_per_sm: int) -> int:
 def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
                   width, samplings, idct, upsample, color,
                   precision) -> torch.Tensor:
-    """(B, N, 64) int32 scan-order blocks, (B, n_comps, 64) int32 tables and
-    (B, 4) int32 geometry (mcus_x, mcus_y, height, width) -> the group's
-    (B, H, W, 3) uint8 RGB (uint16 for 12-bit), padding included, as
-    ``models.batch.rgb_from_blocks_torch`` computes it.
+    """(B', N, 64) int32 scan-order blocks, (B, n_comps, 64) int32 tables
+    and (B, 4) int32 geometry (mcus_x, mcus_y, height, width), B' <= B ->
+    the group's (B, H, W, 3) uint8 RGB (uint16 for 12-bit), padding
+    included, as ``models.batch.rgb_from_blocks_torch`` computes it: the
+    images past the blocks' B' are padding, the colour of zero blocks.
 
     On a CUDA tensor this launches K6b (every IDCT inside the kernel, tiles
     of :data:`TILE`, a grid of :data:`CTAS_PER_SM` CTAs a multiprocessor)
@@ -531,13 +688,13 @@ def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
                     width=width, samplings=samplings, upsample=upsample,
                     color=color, precision=precision,
                     tile=_whole_mcus(TILE, comp_hv))
-    out = torch.empty((blocks.shape[0], plan.out_h, plan.out_w, 3),
+    out = torch.empty((geom.shape[0], plan.out_h, plan.out_w, 3),
                       dtype=pixel._sample_dtype(precision), device=dev)
     lib = build()
     with torch.cuda.device(dev):
         launch_rgb(lib, blocks, qtables, geom, idct_cuda._basis(dev, False),
                    out, plan, idct,
-                   grid_for(plan, blocks.shape[0], _sm_count(dev),
+                   grid_for(plan, geom.shape[0], _sm_count(dev),
                             CTAS_PER_SM[idct]), _stream(blocks))
     return out
 
@@ -586,7 +743,8 @@ def rgb_tiles_torch(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
     tile's pixels reach, the fancy filter's halo included), filled block by
     block from the closed-form geometry (a cell outside it a zero block);
     a tile whose windows reach no block of the geometry takes the colour of
-    zeros; else each pixel's upsampled samples from the windows and the
+    zeros, and so does every tile of an image past the blocks' first
+    dimension; else each pixel's upsampled samples from the windows and the
     colour transform.  The samples come from the plain route's per-block
     IDCT (:func:`_scan_idct`), or with ``arithmetic="kernel"`` from the
     kernel's own ``fast`` (:func:`fast_separable`).  Equal to
@@ -594,6 +752,7 @@ def rgb_tiles_torch(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
     plan = rgb_plan(comp_shapes=comp_shapes, comp_hv=comp_hv, height=height,
                     width=width, samplings=samplings, upsample=upsample,
                     color=color, precision=precision, tile=tile)
+    qtables = qtables[:blocks.shape[0]]
     if arithmetic == "kernel" and idct == "fast":
         block_comp = [c for c, (h, v) in enumerate(comp_hv)
                       for _ in range(h * v)]
@@ -604,7 +763,8 @@ def rgb_tiles_torch(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
         samples = fast_separable(deq.reshape(blocks.shape[0], m * bpm, 64))
     else:
         samples = _scan_idct(blocks, qtables, comp_hv, idct)
-    b, n_rows = samples.shape[:2]
+    n_coded, n_rows = samples.shape[:2]
+    b = geom.shape[0]
     out = torch.empty((b, plan.out_h, plan.out_w, 3),
                       dtype=pixel._sample_dtype(precision))
     n_work = b * plan.n_tiles
@@ -616,7 +776,7 @@ def rgb_tiles_torch(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
         y0, x0 = ty * plan.tile_h, tx * plan.tile_w
         y1 = min(y0 + plan.tile_h, plan.out_h) - 1
         x1 = min(x0 + plan.tile_w, plan.out_w) - 1
-        live = any(
+        live = k < n_coded and any(
             (_span(y0, y1, vy, up, n_r)[0] >> 3) < mcus_y * v
             and (_span(x0, x1, vx, up, n_c)[0] >> 3) < mcus_x * h
             for (h, v, _, n_r, n_c, vy, vx, up, _, _) in plan.comps)

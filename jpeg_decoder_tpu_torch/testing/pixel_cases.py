@@ -1,6 +1,7 @@
 """Seeded inputs of the pixel stage's kernels, K6a and K6b, for the CPU
 tests, the card tests and ``chip_smoke.py``: padded nibble-wire groups
-with the traps of its unpack, and bucketed groups of scan-order blocks with
+with the traps of its unpack, rows made for the edges of K6a's kernel, and
+bucketed groups of scan-order blocks with
 per-image geometry, for any sampling, colour space and precision.
 """
 
@@ -85,6 +86,108 @@ def nibble_group(seed: int, n_blk: int, densities=(0.02, 0.3, 0.9),
         ei[t, :3] = (64, 70, -3)
         ev[t, :3] = (999, -500, 7)
     return dc, e, ov, ei, ev
+
+
+def nibble_edge(name: str):
+    """One edge case of K6a's kernel (:data:`NIBBLE_EDGES`): two rows of
+    wire as numpy arrays (dc16, e, ov, esc_idx, esc_val) and a function
+    that asserts what the plain output (a CPU tensor) must hold there."""
+    n_blk = 800
+    rng = np.random.default_rng(len(name))
+    dc = rng.integers(-900, 900, (2, n_blk)).astype(np.int16)
+    e = np.zeros((2, 200), np.uint8)
+    ov = np.zeros((2, 16), np.int8)
+    ei = np.full((2, 8), n_blk * 64, np.int32)
+    ev = np.zeros((2, 8), np.int16)
+
+    def check(out):
+        return None
+
+    if name == "gap-0 entry opens a chunk":
+        # At chunks of 4 (and 3, 7: other edges), entry 4 is a real entry
+        # that advances 0 after an extender: it adds at position 2 + 48 +
+        # ... - 1, the position before its chunk's first one.
+        e[0, :8] = (0x11, 0x21, 0x11, 0x30, 0x05, 0x13, 0x00, 0x1F)
+        e[1, :6] = (0x20, 0x00, 0x03, 0x30, 0x0D, 0x11)
+
+        def check(out):
+            assert int(out[0].view(-1)[4 + 48 - 1]) == 5
+            assert int(out[1].view(-1)[32 - 1]) == 3
+            assert int(out[1].view(-1)[32 + 48 - 1]) == -3
+    elif name == "chunks of extenders only":
+        # 150 extenders of +240 (36,000 positions: windows and chunks with
+        # no value at all), then values; the other row's run ends the row.
+        e[0, 0] = 0x11
+        e[0, 1:151] = 0xF0
+        e[0, 151:155] = (0x13, 0x2A, 0xF0, 0x17)
+        e[1, :100] = 0xF0
+
+        def check(out):
+            flat = out[0].view(-1)
+            assert int(flat[1 + 36000 + 1 - 1]) == 3
+            assert int(flat[1 + 36000 + 1 + 2 - 1]) == -6
+    elif name == "rows of fillers only":
+        ei[0, :2] = (70, 130)
+        ev[0, :2] = (-999, 999)
+
+        def check(out):
+            assert int(out[1].view(-1).abs().sum()) == int(
+                np.abs(dc[1].astype(np.int64)).sum())
+            assert int(out[0].view(-1)[70]) == -999
+    elif name == "escapes on DC slots and out of range":
+        e[:, :40] = rng.integers(0, 256, (2, 40))
+        e[:, 0] = 0x31
+        ei[0] = (0, 64, 65, 127, 4 * 64 + 3, n_blk * 64 - 1, n_blk * 64,
+                 n_blk * 64 + 7)
+        ei[1, :5] = (65, 0, -5, 200, n_blk * 64 + 64)       # they fall
+        ev[:] = rng.integers(-2000, 2000, (2, 8))
+
+        def check(out):
+            flat = out[0].view(-1)
+            assert int(flat[0]) == int(dc[0, 0])             # DC wins
+            assert int(flat[64]) == int(dc[0, 1])
+            assert int(flat[65]) == int(ev[0, 2])
+            assert int(flat[n_blk * 64 - 1]) == int(ev[0, 5])
+            assert not out[:, -1].any()                      # fill block
+            assert int(out[1].view(-1)[200]) == int(ev[1, 3])
+    elif name == "overflow values":
+        # Runs of overflow codes (0x?8), more of them than ov values (the
+        # rank clamps to the last), some values 0, some cancelling.
+        e[0, :30] = 0x18
+        e[0, 30:34] = (0x08, 0x08, 0x0F, 0x01)
+        ov[0] = (100, -100, 0, 127, -128, 5, 0, 0, 9, 1, 2, 3, 4, 5, 6, 77)
+        e[1, :10] = (0x28, 0x08, 0x18, 0x00, 0x00, 0x08, 0x38, 0x30, 0x08,
+                     0x11)
+        ov[1, :4] = (-50, 50, 7, -7)
+
+        def check(out):
+            flat = out[0].view(-1)
+            assert int(flat[29]) == 77 + 77 + 77 - 1 + 1
+    elif name == "12-bit values":
+        blocks = random_blocks(rng, n_blk, 0.3, spread=30000, dc=16000)
+        dc16, ac8, i, v = batch.pack_blocks(blocks)
+        ent, o = batch.nibbleize_ac(ac8)
+        dc[0] = dc16
+        e = np.zeros((2, len(ent) + 20), np.uint8)
+        e[0, :len(ent)] = ent
+        ov = np.zeros((2, len(o) + 3), np.int8)
+        ov[0, :len(o)] = o
+        ei = np.full((2, len(i) + 5), n_blk * 64, np.int32)
+        ev = np.zeros((2, len(i) + 5), np.int16)
+        ei[0, :len(i)], ev[0, :len(i)] = i, v
+
+        def check(out):
+            np.testing.assert_array_equal(out[0, :-1].numpy(), blocks)
+    else:
+        raise KeyError(name)
+    return [dc, e, ov, ei, ev], check
+
+
+#: K6a's edge cases, the names :func:`nibble_edge` takes.
+NIBBLE_EDGES = ["gap-0 entry opens a chunk", "chunks of extenders only",
+                "rows of fillers only",
+                "escapes on DC slots and out of range", "overflow values",
+                "12-bit values"]
 
 
 def bucket_group(seed: int, comp_hv, color: str, precision: int, dims,

@@ -1,6 +1,6 @@
-"""K6b's forms and design variants timed on one card, in turns.
+"""K6a's and K6b's forms and design variants timed on one card, in turns.
 
-    python -m jpeg_decoder_tpu_torch.testing.pixel_variants [--quick]
+    python -m jpeg_decoder_tpu_torch.testing.pixel_variants [--quick] [--k6a]
 
 Builds copies of ``csrc/pixels.cu`` with one design constant changed, each
 with nvcc into ``.cache/torch/variants/``, and times each on the three
@@ -19,15 +19,24 @@ batch of ``chip_smoke.py``, photos drawn anew), under ``pallas``, ``exact``,
   and IDCTs alone (1), its pixels alone from zeroed windows (2), its RGB
   staged in shared memory and stored 16 bytes at a time (3), built for 2,
   3 and 4 CTAs a multiprocessor (``kCtas``, ``kK1Ctas``, ``kFastCtas``, with
-  the grid to match), and at other tiles.
+  the grid to match), and at other tiles;
+* K6a (``jd_unpack_nibble``) as committed, with the route's trim and
+  whole, beside its first form (``jd_unpack_nibble_v1``); its window pass
+  capped for 2 and 4 CTAs a multiprocessor (``kUnpackCtas``); windows of
+  8,192, 12,288, 20,480 and 24,576 positions (``kWindow``, the last two
+  at 2 CTAs); passes 1 and 2 alone
+  (``kUnpackVariant`` = 1); the window pass's zeros and DC alone (2: no
+  search, add or escape); the window pass without its stores (3).
 
 Device time of each: the three groups' launches queued behind a spin
 kernel, CUDA events, summed over the groups, the median of turns in one
 order and the reverse.  Prints each build's ``-Xptxas -v`` registers,
 stack and spills, the card's name and power limit, and checks that every
 form that writes pixels gives the committed K6b's bytes (the first form
-under ``kron``/``fast`` within the +-1 IDCT bound).  ``--quick``: one turn
-each way, the committed tile only.  Needs a CUDA card.
+under ``kron``/``fast`` within the +-1 IDCT bound) and that every K6a
+build that writes its output gives the committed K6a's.  ``--quick``: one
+turn each way, the committed tile only; ``--k6a``: K6a alone.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -63,33 +72,56 @@ BUILDS = {"v1 whole": ("kV1Variant", 0), "v1 phase 1": ("kV1Variant", 1),
           "K6b IDCT only": ("kVariant", 1),
           "K6b pixels only": ("kVariant", 2),
           "K6b vector stores": ("kVariant", 3)}
+#: K6a's builds beside the committed source: other windows, passes 1 and 2
+#: alone, the window pass's zeros and DC alone, the window pass without
+#: its stores.
+K6A_BUILDS = {"K6a ctas=2": (("kUnpackCtas", 2),),
+              "K6a ctas=4": (("kUnpackCtas", 4),),
+              "K6a window 8192": (("kWindow", 8192),),
+              "K6a window 12288": (("kWindow", 12288),),
+              "K6a window 20480 ctas=2": (("kWindow", 20480),
+                                          ("kUnpackCtas", 2)),
+              "K6a window 24576 ctas=2": (("kWindow", 24576),
+                                          ("kUnpackCtas", 2)),
+              "K6a chunks always listed": (("kDirect", 0),),
+              "K6a passes 1-2": (("kUnpackVariant", 1),),
+              "K6a zeros and DC": (("kUnpackVariant", 2),),
+              "K6a no stores": (("kUnpackVariant", 3),)}
+#: The K6a builds whose output is whole (checked against the committed).
+K6A_WHOLE = ("K6a ctas=2", "K6a ctas=4", "K6a window 8192",
+             "K6a window 12288", "K6a window 20480 ctas=2",
+             "K6a window 24576 ctas=2", "K6a chunks always listed")
 #: The grid's CTAs a multiprocessor of each K6b build.
 CTAS = {"K6b ctas=2": 2, "K6b ctas=3": 3, "K6b ctas=4": 4}
 #: Tiles of the committed K6b also timed.
 TILES = ((32, 64), (64, 128), (32, 128), (128, 64))
 
 
-def _source(const: str, value: int) -> str:
-    """csrc/pixels.cu with ``const`` set to ``value`` ("Ctas": every
-    mode's CTAs a multiprocessor, kCtas, kK1Ctas and kFastCtas)."""
+def _source(pairs) -> str:
+    """csrc/pixels.cu with each (constant, value) of ``pairs`` set ("Ctas":
+    every K6b mode's CTAs a multiprocessor, kCtas, kK1Ctas and
+    kFastCtas)."""
     with open(k6.LIB.src) as f:
         src = f.read()
-    for name in (("kCtas", "kK1Ctas", "kFastCtas") if const == "Ctas"
-                 else (const,)):
-        src, n = re.subn(rf"(constexpr int {name} = )\d+;",
-                         rf"\g<1>{value};", src)
-        assert n == 1, name
+    for const, value in pairs:
+        for name in (("kCtas", "kK1Ctas", "kFastCtas") if const == "Ctas"
+                     else (const,)):
+            src, n = re.subn(rf"(constexpr int {name} = )\d+;",
+                             rf"\g<1>{value};", src)
+            assert n == 1, name
     return src
 
 
-def _lib(const: str, value: int):
-    """A build of csrc/pixels.cu with ``const`` set to ``value`` and
-    ptxas's output for it."""
-    tag = f"pixels_{const}_{value}"
+def _lib(*pairs):
+    """A build of csrc/pixels.cu with each (constant, value) of ``pairs``
+    set, and ptxas's output for it; one pair may come as two arguments."""
+    if len(pairs) == 2 and isinstance(pairs[0], str):
+        pairs = (pairs,)
+    tag = "pixels_" + "_".join(f"{c}_{v}" for c, v in pairs)
     path = os.path.join(_build.CACHE, "variants", f"{tag}.cu")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
-        f.write(_source(const, value))
+        f.write(_source(pairs))
     so, log = _build.shared_lib(_build.nvcc(), _build.NVCC_FLAGS, path,
                                 "variants", tag, RuntimeError)
     lib = ctypes.CDLL(so)
@@ -170,6 +202,41 @@ def batch_groups(dev, seed: int = 0):
     return list(zip(groups, tensors, blocks))
 
 
+def _k6a_turns(libs, work, turns: int) -> None:
+    """K6a's builds, trimmed as the route calls it and whole, and its first
+    form, on the batch of 32's groups: device ms (queued behind a spin,
+    groups summed, median of the turns in one order and the reverse);
+    the builds that write their output must give the committed build's."""
+    committed = libs["K6b"][0]
+
+    def calls(lib, trim):
+        return [lambda t=t, g=g: k6.launch_unpack(
+            lib, *t[:-2], g.n_img if trim else t[0].shape[0],
+            g.n_rows if trim else t[0].shape[1]) for g, t, _ in work]
+
+    fns = {"K6a v1": [lambda t=t: pixel_v1.unpack_nibble_v1(
+        *t[:-2], lib=committed) for _, t, _ in work]}
+    for name in ("K6a", *K6A_BUILDS):
+        lib = committed if name == "K6a" else libs[name][0]
+        fns[f"{name} trim"] = calls(lib, True)
+        fns[f"{name} whole"] = calls(lib, False)
+        if name in K6A_WHOLE:
+            for mode in ("trim", "whole"):
+                for f, r in zip(fns[f"{name} {mode}"], fns[f"K6a {mode}"]):
+                    if not torch.equal(f(), r()):
+                        raise AssertionError(f"{name} {mode} differs")
+    ms = {n: [] for n in fns}
+    order = list(fns)
+    for _ in range(turns):
+        for turn in (order, order[::-1]):
+            for n in turn:
+                ms[n].append(sum(_queued_ms(c) for c in fns[n]))
+    print(f"K6a device ms on the batch of 32 (3 groups summed, median of "
+          f"{2 * turns} turns, queued behind a spin): " + ", ".join(
+              f"{n} {statistics.median(v):.4f}" for n, v in ms.items()))
+    torch.cuda.empty_cache()
+
+
 def _kw(g, idct: str) -> dict:
     return dict(comp_shapes=g.comp_shapes, comp_hv=g.comp_hv,
                 height=g.height, width=g.width, samplings=g.samplings,
@@ -180,6 +247,7 @@ def _kw(g, idct: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--k6a", action="store_true", help="K6a alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("pixel_variants needs a CUDA card")
@@ -190,14 +258,20 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     print(f"card: {card}")
-    with ThreadPoolExecutor(len(BUILDS)) as pool:   # one nvcc each
-        futs = {n: pool.submit(_lib, *b) for n, b in BUILDS.items()}
+    builds = ({"K6b": BUILDS["K6b"]} if args.k6a else dict(BUILDS))
+    builds.update(K6A_BUILDS)
+    with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each
+        futs = {n: pool.submit(_lib, *b) for n, b in builds.items()}
         libs = {n: f.result() for n, f in futs.items()}
     for name, (_, log) in libs.items():
         kern = "blocks_to_rgb_v1" if name.startswith("v1") else \
-            "blocks_to_rgb_kernel"
+            "unpack_" if name.startswith("K6a") else "blocks_to_rgb_kernel"
         print(f"ptxas {name}: " + "; ".join(_ptxas(log, kern)))
+    print("ptxas K6a: " + "; ".join(_ptxas(libs["K6b"][1], "unpack_")))
     work = batch_groups(dev)
+    _k6a_turns(libs, work, 1 if args.quick else 2)
+    if args.k6a:
+        return
     print("groups: " + "; ".join(
         f"{len(g.idxs)} x {g.width}x{g.height} "
         f"{''.join(map(str, g.comp_hv))}" for g, _, _ in work))

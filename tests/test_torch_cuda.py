@@ -1613,6 +1613,135 @@ def test_unpack_nibble_kernel_equals_plain(cuda_device, n_blk, seed):
         assert torch.equal(got.cpu(), tbatch.unpack_nibble(*cpu))
 
 
+def _nibble_trims(b, n_blk):
+    return [(None, None), (b, n_blk), (b - 1, n_blk - 9),
+            (max(b - 2, 1), n_blk // 3), (1, 0)]
+
+
+@pytest.mark.parametrize("n_blk,seed", [(40, 3), (700, 4), (6000, 5)])
+def test_unpack_nibble_kernel_trims(cuda_device, n_blk, seed):
+    """K6a with and without the trim (``n_img``/``n_rows``) equals the plain
+    version on the cut wire, on padded groups with the trap row (escapes
+    that fall) and with sorted escapes only; its first form
+    (``jd_unpack_nibble_v1``) equals the whole plain output; one count a
+    call of each."""
+    from jpeg_decoder_tpu_torch.testing import pixel_cases, pixel_v1
+
+    arrays = list(pixel_cases.nibble_group(seed, n_blk))
+    for sort in (False, True):
+        if sort:
+            arrays[3][arrays[3] < 0] = n_blk * 64
+            arrays[3] = np.sort(arrays[3], axis=1)
+        cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        dev = [t.to(cuda_device) for t in cpu]
+        for n_img, n_rows in _nibble_trims(cpu[0].shape[0], n_blk):
+            before = pixels_cuda.unpack_nibble.launches
+            got = pixels_cuda.unpack_nibble(*dev, n_img=n_img, n_rows=n_rows)
+            torch.cuda.synchronize()
+            assert pixels_cuda.unpack_nibble.launches == before + 1
+            ref = pixels_cuda.unpack_nibble(*cpu, n_img=n_img, n_rows=n_rows)
+            assert torch.equal(got.cpu(), ref), (n_img, n_rows)
+        before = pixel_v1.unpack_nibble_v1.launches
+        v1 = pixel_v1.unpack_nibble_v1(*dev)
+        torch.cuda.synchronize()
+        assert pixel_v1.unpack_nibble_v1.launches == before + 1
+        assert torch.equal(v1.cpu(), tbatch.unpack_nibble(*cpu))
+
+
+def test_unpack_nibble_kernel_edges(cuda_device):
+    """K6a on each edge case of its kernel (a real gap-0 entry that opens a
+    chunk, chunks of extenders only, rows of fillers only, escapes on DC
+    slots, out of range and out of order, overflow values, 12-bit values),
+    whole and trimmed, equals the plain version; and on a group whose rows
+    cross windows of every kind: a chunk of extenders, a value that opens
+    a chunk, a row whose tail of filler chunks holds a value."""
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    cases = [pixel_cases.nibble_edge(n)[0] for n in pixel_cases.NIBBLE_EDGES]
+    n_blk = 40000
+    rng = np.random.default_rng(21)
+    e = np.zeros((2, 9 * 4096 + 100), np.uint8)
+    e[0, :4095] = 0x11
+    e[0, 4095] = 0x30
+    e[0, 4096] = 0x05               # gap 0, value 5: opens chunk 1
+    e[0, 4097:8192] = 0xF0           # chunk 1 advances 240 an entry
+    e[0, 8192:8200] = 0x1F
+    e[1, :12000] = rng.integers(0, 256, 12000)
+    e[1, 30000] = 0x03              # past six chunks of fillers
+    esc = np.full((2, 300), n_blk * 64, np.int32)
+    esc[0, :4] = (65, 4146, 4338, 4339)
+    esc[1, :260] = np.sort(rng.integers(0, n_blk * 64, 260))
+    cases.append([rng.integers(-99, 99, (2, n_blk)).astype(np.int16), e,
+                  rng.integers(-128, 128, (2, 700)).astype(np.int8), esc,
+                  rng.integers(-3000, 3000, (2, 300)).astype(np.int16)])
+    for arrays in cases:
+        cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        dev = [t.to(cuda_device) for t in cpu]
+        n_blk = cpu[0].shape[1]
+        for n_img, n_rows in _nibble_trims(2, n_blk):
+            got = pixels_cuda.unpack_nibble(*dev, n_img=n_img, n_rows=n_rows)
+            ref = pixels_cuda.unpack_nibble(*cpu, n_img=n_img, n_rows=n_rows)
+            assert torch.equal(got.cpu(), ref), (n_blk, n_img, n_rows)
+
+
+@pytest.mark.parametrize("idct", ["pallas", "exact", "kron", "fast"])
+def test_blocks_to_rgb_short_blocks(cuda_device, idct):
+    """K6b on blocks of fewer images than the geometry equals K6b on the
+    zero-padded blocks, byte for byte, for every frame kind (the images
+    past the blocks the colour of zeros)."""
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    for name, hv, color, prec in pixel_cases.FRAME_KINDS:
+        blocks, qt, geom, kw = pixel_cases.bucket_group(
+            5, hv, color, prec, pixel_cases.odd_dims(hv, (5, 3)), (8, 4),
+            pad=6)
+        dev = [torch.from_numpy(a).to(cuda_device)
+               for a in (blocks, qt, geom)]
+        for n in (3, 1, 0):
+            padded = dev[0].clone()
+            padded[n:] = 0
+            want = pixels_cuda.blocks_to_rgb(padded, dev[1], dev[2],
+                                             idct=idct, upsample="fancy",
+                                             **kw)
+            got = pixels_cuda.blocks_to_rgb(
+                dev[0][:n].contiguous(), dev[1], dev[2], idct=idct,
+                upsample="fancy", **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, n)
+
+
+def test_batch_route_trim_equals_whole(cuda_device):
+    """``BatchDecoder``'s pixels from K6a's trimmed blocks equal K6b on the
+    first form's whole blocks, byte for byte, under every IDCT, on a
+    mixed-size bucket of three images in a batch of 4 and other groups."""
+    from jpeg_decoder_tpu_torch import BatchDecoder
+    from jpeg_decoder_tpu_torch.testing import pixel_v1
+    from jpeg_decoder_tpu_torch.testing.photo import synthetic_photo
+
+    rng = np.random.default_rng(17)
+    blobs = [encode(synthetic_photo(rng, h, w), samplings=s)[0]
+             for h, w, s in ((48, 80, ((2, 2), (1, 1), (1, 1))),
+                             (40, 72, ((2, 2), (1, 1), (1, 1))),
+                             (60, 100, ((2, 2), (1, 1), (1, 1))),
+                             (200, 300, ((1, 1),) * 3))]
+    for idct in ("pallas", "exact", "kron", "fast"):
+        with BatchDecoder(device=cuda_device, idct=idct) as bd:
+            groups = bd.group(bd.host_stage(blobs))
+            assert sorted(len(g.idxs) for g in groups) == [1, 3]
+            for g in groups:
+                t = bd.to_device(g)
+                kw = dict(comp_shapes=g.comp_shapes, comp_hv=g.comp_hv,
+                          height=g.height, width=g.width,
+                          samplings=g.samplings, idct=idct,
+                          upsample="fancy", color=g.color,
+                          precision=g.precision)
+                got = bd.pixels(g, t)
+                want = pixels_cuda.blocks_to_rgb(
+                    pixel_v1.unpack_nibble_v1(*t[:-2]), t[-2], t[-1], **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (idct, len(g.idxs))
+
+
 def _k6b_kinds():
     from jpeg_decoder_tpu_torch.testing import pixel_cases
 

@@ -4,7 +4,8 @@ the port's plain versions, at small sizes.
 The kernels run only on the card (tests/test_torch_cuda.py); here their
 decompositions run as plain models (``ops/pixels_cuda.py``):
 
-* K6a's chunked double prefix sum (``unpack_nibble_chunked``) equals the
+* K6a's first form's chunked double prefix sum (``unpack_nibble_chunked``;
+  the kernel's own model is tested in tests/test_torch_unpack.py) equals the
   port's ``unpack_nibble`` and the blocks the JAX package's
   ``_batched_from_nibble`` builds, exactly, at the kernel's chunk and at
   chunks a few entries long (chunk edges inside runs of overflow codes,
