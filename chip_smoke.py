@@ -270,6 +270,18 @@ kernel against its plain version:
    file's error line), the 12-bit frame to ``.npy`` and a ``--resume``
    rerun that writes nothing; every output read back equals ``decode()`` on
    the card (12-bit BMP/PPM as the high 8 bits);
+10c'. examples phase: the port's two examples in subprocesses on the card
+   (their launches are their own processes', outside the counts): ``python
+   examples/torch_serving_pipeline.py --glob`` over the batch of 32 and a
+   corrupt file (rc 0, 32 embeddings, the corrupt file's failure line, the
+   best of 3 passes' wall time and MP/s), then on one image of each
+   geometry and the corrupt file on the card and under ``--device cpu``
+   (the same lines, embeddings within 1.5/127.5: a +-1 pixel through the
+   model); ``python examples/torch_mixed_corpus_serving.py`` on a (1, 1)
+   NCCL mesh, on its default corpus (only the corrupt blob failing) and
+   with ``--glob`` over the mixed frames, every line's sha256 (or error
+   text) equal to the one-GPU ``decode_batch_sharded(idct="fast")``'s,
+   with the best of 3 calls' wall time;
 11. probe phase (K3/K4, ``csrc/lut_probe.cu``): the dependent probe chain
    must equal the value tools/pallas_mosaic_repro.py expects and the
    per-lane gather must equal ``lut[idx]``; the kernels' device time per
@@ -291,8 +303,10 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4246,6 +4260,199 @@ def _cli_phase(dev, frames: dict) -> None:
           f"equal to decode() on the card; per-image lines: {timing}")
 
 
+EXAMPLE_TIMEOUT = 300   # seconds, each example run
+EMB_BOUND = 1.5 / 127.5  # +-1 pixel through the model: 1/127.5 times
+                         # the largest column sum of |W|, 1.5
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.splitlines()[0]
+
+
+def _start_example(name: str, *argv):
+    """Start ``examples/<name>.py`` in a session of its own (so that a
+    time-out can stop the ranks it spawns too)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, os.path.join(repo, "examples", f"{name}.py"),
+         *argv], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True), time.perf_counter()
+
+
+def _stop_example(started) -> None:
+    """Kill a run of :func:`_start_example` and every process it started,
+    if it is still running."""
+    import signal
+
+    p = started[0]
+    if p.poll() is None:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+
+
+def _finish_example(started, what: str) -> tuple[list, float]:
+    """Wait for a run of :func:`_start_example`: its stdout lines and the
+    process's wall seconds; raises unless it exits with 0."""
+    p, t0 = started
+    try:
+        out, err = p.communicate(timeout=EXAMPLE_TIMEOUT)
+    finally:
+        _stop_example(started)
+    if p.returncode:
+        raise AssertionError(f"examples: {what} rc {p.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-3000:]}")
+    return out.splitlines(), time.perf_counter() - t0
+
+
+def _embeddings(lines: list) -> dict:
+    """The serving example's lines: path -> embedding or failure text."""
+    import re
+
+    out = {}
+    for ln in lines:
+        m = re.match(r"(.+?): (embedding \[(.*)\]|failed: (.*))$", ln)
+        if m:
+            out[m[1]] = (np.array(m[3].split(), np.float64)
+                         if m[3] is not None else m[4])
+    return out
+
+
+def _mixed_check(what: str, lines: list, blobs: list, dev) -> None:
+    """The mixed example's lines against the one-GPU
+    ``decode_batch_sharded(blobs, dev, idct="fast")``: per item the same
+    error text, or the same sha256 of its RGB; then that call timed here,
+    with its parts."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import decode_batch_sharded
+
+    got = [ln for ln in lines if ln.startswith("[")]
+    ref = decode_batch_sharded(blobs, dev, idct="fast", upsample="fancy")
+    calls = []
+    for _ in range(3):
+        calls.append(_wall(lambda: (decode_batch_sharded(
+            blobs, dev, idct="fast", upsample="fancy"),
+            torch.cuda.synchronize())))
+        if calls[-1] == min(calls):
+            t = dict(decode_batch_sharded.last_timing)
+    print(f"examples: {what}: the one-GPU call here {min(calls) * 1e3:.1f} "
+          f"ms (best of {len(calls)} after the checked one: "
+          f"{', '.join(f'{c * 1e3:.1f}' for c in calls)}): parse "
+          f"{t['parse_s'] * 1e3:.1f} ms, dispatch {t['dispatch_s'] * 1e3:.1f} "
+          f"({', '.join(g['route'] + ' x' + str(g['images']) for g in t['groups'])}"
+          f"), progressive {t['progressive_s'] * 1e3:.1f} (x"
+          f"{t['progressive']}), host fallback {t['fallback_s'] * 1e3:.1f} "
+          f"(x{t['host_fallback']}), flags and finish "
+          f"{t['finish_s'] * 1e3:.1f}")
+    if len(got) != len(ref):
+        raise AssertionError(f"examples: {what}: {len(got)} lines for "
+                             f"{len(ref)} blobs")
+    for k, (ln, it) in enumerate(zip(got, ref)):
+        want = (f"[{k}] FAILED (isolated): {it.error}" if not it.ok
+                else f" sha256 {_digest(it.rgb)}")
+        if not (ln == want if not it.ok else
+                ln.startswith(f"[{k}] ") and ln.endswith(want)):
+            raise AssertionError(f"examples: {what}: item {k} differs from "
+                                 f"the one-GPU route:\n{ln}\n{want}")
+
+
+def _examples_phase(dev, batch: list, mixed: list) -> None:
+    """Both port examples in subprocesses on the card (see the module
+    docstring).  Their launches happen in their own processes, so they
+    are not part of this process's kernel counts."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = _card()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_mixed_corpus_serving",
+        os.path.join(repo, "examples", "torch_mixed_corpus_serving.py"))
+    mixed_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mixed_mod)
+    with tempfile.TemporaryDirectory() as d:
+        full, sub, mix = (os.path.join(d, n) for n in ("full", "sub", "mix"))
+        for sub_dir in (full, sub, mix):
+            os.mkdir(sub_dir)
+        for k, blob in enumerate(batch):
+            with open(os.path.join(full, f"img{k:02d}.jpg"), "wb") as f:
+                f.write(blob)
+        with open(os.path.join(full, "zz_bad.jpg"), "wb") as f:
+            f.write(mixed_mod.CORRUPT)
+        # One image of each geometry group of the batch, and the corrupt
+        # file.
+        for name in ("img00.jpg", "img06.jpg", "img07.jpg", "zz_bad.jpg"):
+            shutil.copy(os.path.join(full, name), sub)
+        for k, blob in enumerate(mixed):
+            with open(os.path.join(mix, f"m{k:02d}.jpg"), "wb") as f:
+                f.write(blob)
+
+        lines, wall = _finish_example(_start_example(
+            "torch_serving_pipeline", "--glob", os.path.join(full, "*.jpg"),
+            "--repeat", "3"), "serving")
+        got = _embeddings(lines)
+        fails = {p: e for p, e in got.items() if isinstance(e, str)}
+        n_emb = len(got) - len(fails)
+        if n_emb != len(batch) or list(fails) != [
+                os.path.join(full, "zz_bad.jpg")]:
+            raise AssertionError(f"examples: serving: {n_emb} embeddings, "
+                                 f"failures {fails}")
+        print(f"examples: serving (torch_serving_pipeline.py --glob, the "
+              f"batch of {len(batch)} and a corrupt file) on the card: rc 0, "
+              f"{n_emb} embeddings, the corrupt file's line "
+              f"'{next(iter(fails.values()))}'; {lines[-1]}; process "
+              f"{wall:.1f} s; card {card}")
+
+        sub_glob = os.path.join(sub, "*.jpg")
+        on_cpu = _start_example("torch_serving_pipeline", "--glob",
+                                sub_glob, "--device", "cpu")
+        try:
+            on_card, _ = _finish_example(_start_example(
+                "torch_serving_pipeline", "--glob", sub_glob),
+                "serving subset")
+        except BaseException:
+            _stop_example(on_cpu)
+            raise
+        on_cpu, _ = _finish_example(on_cpu, "serving subset --device cpu")
+        a, b = _embeddings(on_card), _embeddings(on_cpu)
+        if list(a) != list(b) or any(
+                isinstance(a[p], str) != isinstance(b[p], str) for p in a):
+            raise AssertionError(f"examples: serving subset: card {a}, "
+                                 f"cpu {b}")
+        diff = max(float(np.abs(a[p] - b[p]).max()) for p in a
+                   if not isinstance(a[p], str))
+        if diff > EMB_BOUND:
+            raise AssertionError(f"examples: serving subset: card and CPU "
+                                 f"embeddings differ by {diff} > "
+                                 f"{EMB_BOUND}")
+        print(f"examples: serving subset ({len(a) - 1} images, one of each "
+              f"geometry, and the corrupt file) on the card and under "
+              f"--device cpu: the same files and failure, embeddings within "
+              f"{diff!r} (bound {EMB_BOUND!r})")
+
+        for what, argv, blobs in (
+                ("mixed default corpus", (), mixed_mod.corpus()),
+                ("mixed frames", ("--glob", os.path.join(mix, "*.jpg")),
+                 mixed)):
+            lines, wall = _finish_example(_start_example(
+                "torch_mixed_corpus_serving", *argv, "--repeat", "3"), what)
+            _mixed_check(what, lines, blobs, dev)
+            failed = [ln.split("]")[0] + "]" for ln in lines
+                      if " FAILED (isolated): " in ln]
+            if not argv and failed != ["[4]"]:
+                raise AssertionError(f"examples: {what}: failed {failed}")
+            print(f"examples: {what} (torch_mixed_corpus_serving.py"
+                  f"{' --glob' if argv else ''}) on a (1, 1) NCCL mesh: "
+                  f"{len(blobs)} lines, each equal to the one-GPU "
+                  f"decode_batch_sharded(idct='fast'), failed {failed}; "
+                  f"{lines[-1]}; process {wall:.1f} s; card {card}")
+    print(f"examples: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     """Every phase after the build, in order (see the module docstring);
     ``pool`` the encode pool with the big frame's, the mixed frames' and
@@ -4333,6 +4540,7 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     del big_blob
     torch.cuda.empty_cache()
     _cli_phase(dev, {**strict_frames, "c": images["c"]})
+    _examples_phase(dev, batch, mixed_batch)
     probes = _probe_phase(dev)
     kw = dict(entropy="pallas", idct="pallas", upsample="fancy", device=dev)
     _profile({f"decode() ({tag})": (lambda b=blob: decode(b, **kw))
@@ -4404,11 +4612,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    print(smi.splitlines()[0])  # the card's name and power limit
+    print(_card())  # the card's name and power limit
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}")
 

@@ -5,7 +5,8 @@ The same seeded blobs (tools/encoder.py and PIL) go through
 mesh and the port's ``decode_batch_sharded(device="cpu")``, where every
 kernel runs its plain version: the RGB of every item is equal under
 ``idct="pallas"``, within the +-1 IDCT bound (+-2 after the colour
-transform, >= 99.99% equal) under ``"kron"``, and under ``"exact"`` equal
+transform, >= 99.99% equal) under ``"kron"``, within 1 under ``"fast"``
+(float summation order), and under ``"exact"`` equal
 to the JAX package's strict ``decode()`` byte for byte (the JAX batch runs
 ``exact`` jitted, which may differ from strict by 1; the port has no jitted
 form) and within 1 of the JAX batch; failures stay on the same items.  One
@@ -145,7 +146,7 @@ def _compare(jitems, titems, tol: str):
             assert d.max() <= RGB_TOL and (d == 0).mean() >= MIN_EQUAL
 
 
-@pytest.mark.parametrize("idct", ["pallas", "exact", "kron"])
+@pytest.mark.parametrize("idct", ["pallas", "exact", "kron", "fast"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_routes_match_jax(mesh, case, idct):
     blobs = CASES[case]()
@@ -153,8 +154,11 @@ def test_routes_match_jax(mesh, case, idct):
                                         upsample="fancy")
     got = sharded.decode_batch_sharded(blobs, "cpu", idct=idct,
                                        upsample="fancy")
+    # "fast": the JAX einsum and torch's sum the same products in their own
+    # float order, so a sample may round the other way (+-1; 3 of 15,360
+    # on the second uniform_restart image, every other case equal).
     _compare(ref, got, {"pallas": "equal", "exact": "1",
-                        "kron": "kron"}[idct])
+                        "kron": "kron", "fast": "1"}[idct])
     if idct == "exact":
         for blob, it in zip(blobs, got):
             if it.ok:
