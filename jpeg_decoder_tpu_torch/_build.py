@@ -21,6 +21,8 @@ import subprocess
 import threading
 from collections.abc import Sequence
 
+from .utils import profiling
+
 #: Root of the build cache, ``.cache/torch/`` beside the package.
 CACHE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -122,7 +124,9 @@ class CudaLib:
                                        KernelBuildFailure)
                 if log is not None:
                     self.build_log = log
+                    profiling.count("kernels.build")
                 lib = ctypes.CDLL(path)
+                profiling.count("kernels.load")
                 for fn, argtypes in self.signatures.items():
                     getattr(lib, fn).restype = ctypes.c_int
                     getattr(lib, fn).argtypes = argtypes

@@ -50,6 +50,7 @@ from .. import layout as layout_mod
 from ..io import parser
 from ..ops import pixel as pixel_ops
 from ..types import FrameHeader, JPEGError
+from ..utils import profiling
 from .routing import needs_scan_loop, resolve_device, segment_mismatch
 
 _log = logging.getLogger(__name__)
@@ -268,6 +269,7 @@ def _comp_srcs(hdr: FrameHeader, device: torch.device) -> tuple:
            tuple((c.h, c.v) for c in hdr.components), device)
     hit = _comp_src_cache.get(key)
     if hit is None:
+        profiling.count("layout.comp_src_upload")
         hit = tuple(torch.from_numpy(src.astype(np.int64)).to(device)
                     for src in layout_mod.scan_layout(hdr).comp_src)
         if len(_comp_src_cache) > 256:  # bound memory, like scan_layout
@@ -329,73 +331,83 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
       orientation: "ignore" (sensor order) or "respect" (apply the EXIF
         orientation tag, like PIL.ImageOps.exif_transpose).
     """
-    dev = resolve_device(device)
-    if colorspace not in ("rgb", "cmyk"):
-        raise ValueError(f"unknown colorspace {colorspace!r}")
-    if orientation not in ("ignore", "respect"):
-        raise ValueError(f"unknown orientation {orientation!r}")
-    if isinstance(source, (bytes, bytearray, np.ndarray)):
-        hdr = parser.parse(source)
-    else:
-        hdr = parser.parse_file(source)
-    color = hdr.colorspace
-    out_cmyk = colorspace == "cmyk"
-    if out_cmyk and color not in ("ycck", "cmyk"):
-        raise JPEGError(
-            f"colorspace='cmyk' requires a 4-component source, got {color}")
+    with profiling.span("decode", call=True):
+        dev = resolve_device(device)
+        if colorspace not in ("rgb", "cmyk"):
+            raise ValueError(f"unknown colorspace {colorspace!r}")
+        if orientation not in ("ignore", "respect"):
+            raise ValueError(f"unknown orientation {orientation!r}")
+        with profiling.span("decode.parse"):
+            if isinstance(source, (bytes, bytearray, np.ndarray)):
+                hdr = parser.parse(source)
+            else:
+                hdr = parser.parse_file(source)
+        color = hdr.colorspace
+        out_cmyk = colorspace == "cmyk"
+        if out_cmyk and color not in ("ycck", "cmyk"):
+            raise JPEGError(f"colorspace='cmyk' requires a 4-component "
+                            f"source, got {color}")
 
-    qtables = tuple(
-        torch.from_numpy(hdr.quant_tables[c.tq].values.astype(np.int32))
-        .to(dev) for c in hdr.components)
-    samplings = tuple(
-        (hdr.v_max // c.v, hdr.h_max // c.h) for c in hdr.components)
-    pixel_kw = dict(height=hdr.height, width=hdr.width, samplings=samplings,
-                    idct=idct, upsample=upsample, color=color,
-                    out_cmyk=out_cmyk, precision=hdr.precision)
-    lay = layout_mod.scan_layout(hdr)
-    planes = None
-    if hdr.progressive and not hdr.arithmetic and entropy in DEVICE_BACKENDS:
-        # Device progressive lanes: the planes stay on the device for the
-        # pixel pipeline; the lane flags are read once, after it is queued.
-        from ..ops import entropy_prog
+        with profiling.span("pixel.enqueue"):
+            qtables = tuple(
+                torch.from_numpy(hdr.quant_tables[c.tq].values
+                                 .astype(np.int32)).to(dev)
+                for c in hdr.components)
+        samplings = tuple(
+            (hdr.v_max // c.v, hdr.h_max // c.h) for c in hdr.components)
+        pixel_kw = dict(height=hdr.height, width=hdr.width,
+                        samplings=samplings, idct=idct, upsample=upsample,
+                        color=color, out_cmyk=out_cmyk,
+                        precision=hdr.precision)
+        lay = layout_mod.scan_layout(hdr)
+        planes = None
+        if (hdr.progressive and not hdr.arithmetic
+                and entropy in DEVICE_BACKENDS):
+            # Device progressive lanes: the planes stay on the device for
+            # the pixel pipeline; the lane flags are read once, after it is
+            # queued.
+            from ..ops import entropy_prog
 
-        errs: list = []
-        dplanes = entropy_prog.decode_progressive_lanes(
-            hdr, dev, as_device=True, err_sink=errs)
-        rgb = pixels_from_planes(hdr, dplanes, idct=idct, upsample=upsample,
-                                 out_cmyk=out_cmyk)[0]
-        entropy_prog.check_errors(errs)
+            errs: list = []
+            dplanes = entropy_prog.decode_progressive_lanes(
+                hdr, dev, as_device=True, err_sink=errs)
+            rgb = pixels_from_planes(hdr, dplanes, idct=idct,
+                                     upsample=upsample, out_cmyk=out_cmyk)[0]
+            entropy_prog.check_errors(errs)
+            if keep_planes:
+                planes = [p.cpu().numpy() for p in dplanes]
+        elif (hdr.progressive or hdr.arithmetic or needs_scan_loop(hdr)
+                or keep_planes):
+            # Host planes: every scan of the frame decoded on the host (or
+            # by K2 for ``keep_planes`` under pallas), then the pixel
+            # pipeline.
+            planes = decode_to_planes(hdr, entropy=entropy, device=dev)
+            rgb = pixels_from_planes(
+                hdr, [torch.from_numpy(p).to(dev) for p in planes],
+                idct=idct, upsample=upsample, out_cmyk=out_cmyk)[0]
+        else:
+            # Production path: scan-order blocks go (or stay) on the device
+            # and plane assembly is a device gather inside the pipeline.
+            blocks = _decode_scan_robust(hdr, hdr.scans[0], entropy, dev)
+            if not isinstance(blocks, torch.Tensor):
+                blocks = torch.from_numpy(blocks).to(dev)
+            with profiling.span("pixel.enqueue"):
+                rgb = pixel_ops.pixel_pipeline_from_scan(
+                    blocks, qtables, _comp_srcs(hdr, dev),
+                    comp_shapes=tuple(lay.comp_shapes), **pixel_kw)
+        if orientation == "respect":
+            # uint16 tensors lack flip: orient 12-bit samples as int32.
+            wide = (rgb.to(torch.int32) if rgb.dtype == torch.uint16
+                    else rgb)
+            rgb = apply_exif_orientation(
+                wide, hdr.exif_orientation).contiguous().to(rgb.dtype)
+        result = DecodeResult(header=hdr, rgb=rgb)
         if keep_planes:
-            planes = [p.cpu().numpy() for p in dplanes]
-    elif (hdr.progressive or hdr.arithmetic or needs_scan_loop(hdr)
-            or keep_planes):
-        # Host planes: every scan of the frame decoded on the host (or by
-        # K2 for ``keep_planes`` under pallas), then the pixel pipeline.
-        planes = decode_to_planes(hdr, entropy=entropy, device=dev)
-        rgb = pixels_from_planes(
-            hdr, [torch.from_numpy(p).to(dev) for p in planes], idct=idct,
-            upsample=upsample, out_cmyk=out_cmyk)[0]
-    else:
-        # Production path: scan-order blocks go (or stay) on the device and
-        # plane assembly is a device gather inside the pipeline.
-        blocks = _decode_scan_robust(hdr, hdr.scans[0], entropy, dev)
-        if not isinstance(blocks, torch.Tensor):
-            blocks = torch.from_numpy(blocks).to(dev)
-        rgb = pixel_ops.pixel_pipeline_from_scan(
-            blocks, qtables, _comp_srcs(hdr, dev),
-            comp_shapes=tuple(lay.comp_shapes), **pixel_kw)
-    if orientation == "respect":
-        # uint16 tensors lack flip: orient 12-bit samples as int32.
-        wide = rgb.to(torch.int32) if rgb.dtype == torch.uint16 else rgb
-        rgb = apply_exif_orientation(
-            wide, hdr.exif_orientation).contiguous().to(rgb.dtype)
-    result = DecodeResult(header=hdr, rgb=rgb)
-    if keep_planes:
-        result.quantized_planes = planes
-        result.dequantized_planes = [
-            p * hdr.quant_tables[c.tq].values
-            for p, c in zip(planes, hdr.components)]
-    return result
+            result.quantized_planes = planes
+            result.dequantized_planes = [
+                p * hdr.quant_tables[c.tq].values
+                for p, c in zip(planes, hdr.components)]
+        return result
 
 
 def decode_to_file(source, out_path, **kw) -> DecodeResult:

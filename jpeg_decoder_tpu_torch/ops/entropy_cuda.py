@@ -46,6 +46,7 @@ import torch
 
 from .._build import CudaLib, launch_check
 from ..types import FrameHeader, JPEGError, ScanHeader, ZIGZAG
+from ..utils import profiling
 from . import scan_prep
 
 LIB = CudaLib("entropy.cu", "jd_entropy", {
@@ -613,6 +614,7 @@ def device_tables(hdr: FrameHeader, scan: ScanHeader,
         if hit is not None:
             _tables.move_to_end(key)
             return hit
+    profiling.count("tables.build")
     dc, ac = scan_prep.luts_for_scan(hdr, scan)
     luts = np.empty((2 * len(hdr.components), 1 << 16), np.int32)
     luts[0::2] = dc
@@ -673,13 +675,19 @@ def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
         raise JPEGError(f"device entropy decodes 8- and 12-bit frames, got "
                         f"{hdr.precision}-bit")
     dev = torch.device(device)
-    words, nm, block_comp, max_mcus, lay = scan_prep.prepare_scan(hdr, scan)
-    luts, l1 = device_tables(hdr, scan, dev)
-    out, err = decode_segments(
-        torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(dev),
-        luts, block_comp=block_comp, n_comps=len(hdr.components),
-        max_mcus=max_mcus, l1=l1, precision=hdr.precision)
-    bad = np.flatnonzero(err.cpu().numpy())
+    with profiling.span("entropy.prepare_scan"):
+        words, nm, block_comp, max_mcus, lay = scan_prep.prepare_scan(
+            hdr, scan)
+    with profiling.span("entropy.enqueue"):
+        luts, l1 = device_tables(hdr, scan, dev)
+        out, err = decode_segments(
+            torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(dev),
+            luts, block_comp=block_comp, n_comps=len(hdr.components),
+            max_mcus=max_mcus, l1=l1, precision=hdr.precision)
+    # The host waits here for K2 to finish.
+    with profiling.span("entropy.flags"):
+        flags = err.cpu()
+    bad = np.flatnonzero(flags.numpy())
     if bad.size:
         raise JPEGError(f"device entropy decode failed in segments "
                         f"{bad[:8].tolist()} ({bad.size} of {len(nm)})")
