@@ -96,7 +96,7 @@ kernel against its plain version:
    (product only), with GB/s and the share of HBM;
 10. single-image path (``decode(entropy="pallas", idct="pallas",
    upsample="fancy")``) on (a)-(d), with every kernel count set to 0 just
-   before and read just after: K2 once and K1 three times per image, RGB on
+   before and read just after: K2 once and K6b once per image, RGB on
    the card, PSNR >= 30 dB, and the CPU decode (``entropy="native"``, plain
    twins) within the batch path's tolerance; prints end-to-end ms and MP/s
    (best of 3 after warm-up) and the stages (parse, scan prep, copy with a
@@ -104,11 +104,11 @@ kernel against its plain version:
 10b. strict single-image phase: ``decode(idct="exact", strict=True)`` with
    ``upsample`` nn and fancy on (a)-(d) and on one 1920x1080 frame of each
    kind (CMYK, YCCK, Adobe RGB, 12-bit 4:2:0, gray), every count set to 0
-   just before each decode: K5 once per component, K1 never, K2 once under
+   just before each decode: K6b once, K5 and K1 never, K2 once under
    ``entropy="pallas"`` (the 8-bit frames; the 12-bit one takes the native
    decoder, as ``pallas`` refuses 12-bit frames); the RGB on the card equal
    to the port's CPU decode byte for byte; end-to-end ms and MP/s (best of 3
-   after warm-up) with the pixel stage's share; then
+   after warm-up) with the torch pixel route's share; then
    ``decode(entropy="pallas", idct="pallas")`` on the CMYK frame, whose K2
    planes must equal the native decoder's on every coefficient;
 10b'. entropy jax/hybrid phase on (a)-(d), the 12-bit 4:2:0 frame and a
@@ -967,7 +967,7 @@ def _decode_phase(dev, images: dict) -> dict:
     print(f"decode(): kernel launches in the run {counts}, per image "
           f"{per_image}")
     for tag, c in per_image.items():
-        if c["K2"] != 1 or c["K1"] != 3:
+        if c["K2"] != 1 or c["K6b"] != 1 or c["K1"]:
             raise AssertionError(f"decode() ({tag}): launches {c}")
     for tag, (blob, src) in images.items():
         rgb = results[tag].rgb
@@ -2888,7 +2888,6 @@ def _strict_phase(dev, images: dict, frames: dict) -> tuple[dict, dict]:
     for name, (blob, src) in cases.items():
         hdr = parser.parse(blob)
         entropy = "pallas" if hdr.precision == 8 else "native"
-        n_comp = len(hdr.components)
         for up in ("nn", "fancy"):
             kw = dict(entropy=entropy, idct="exact", strict=True,
                       upsample=up)
@@ -2897,7 +2896,7 @@ def _strict_phase(dev, images: dict, frames: dict) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             c = _counts()
             want_k2 = 1 if entropy == "pallas" else 0
-            if c["K5"] != n_comp or c["K1"] or c["K2"] != want_k2:
+            if c["K6b"] != 1 or c["K5"] or c["K1"] or c["K2"] != want_k2:
                 raise AssertionError(f"strict {name} {up}: launches {c}")
             for k, v in c.items():
                 total[k] = total.get(k, 0) + v
@@ -2916,8 +2915,9 @@ def _strict_phase(dev, images: dict, frames: dict) -> tuple[dict, dict]:
             psnr = _psnr(got.rgb, src)
             if psnr < MIN_PSNR_DB:
                 raise AssertionError(f"strict {name}: PSNR {psnr:.2f}")
-        # Timing (fancy), best of 3 after the warm-up above; the pixel
-        # stage alone by CUDA events on blocks already on the card.
+        # Timing (fancy), best of 3 after the warm-up above; the torch
+        # pixel route K6b replaced, alone by CUDA events on blocks already
+        # on the card.
         mp = hdr.height * hdr.width / 1e6
         e2e = []
         for _ in range(3):
@@ -2942,12 +2942,12 @@ def _strict_phase(dev, images: dict, frames: dict) -> tuple[dict, dict]:
             precision=hdr.precision), 3, warmup=1))
         best = min(e2e) * 1e3
         print(f"strict {name}: {hdr.width}x{hdr.height} {hdr.colorspace} "
-              f"{hdr.precision}-bit, entropy={entropy}: K5 x{n_comp}, K1 0, "
+              f"{hdr.precision}-bit, entropy={entropy}: K6b 1, K5 0, K1 0, "
               f"K2 {want_k2} per decode; RGB equal to the CPU twin's (nn and "
               f"fancy), PSNR {psnr:.2f} dB; end to end "
               f"{[round(t * 1e3, 2) for t in e2e]} ms -> {best:.2f} ms, "
-              f"{mp / best * 1e3:.1f} MP/s (best of 3, fancy); pixel stage "
-              f"{pix_ms:.3f} ms ({pix_ms / best:.3f} of end to end)")
+              f"{mp / best * 1e3:.1f} MP/s (best of 3, fancy); torch pixel "
+              f"route {pix_ms:.3f} ms ({pix_ms / best:.3f} of end to end)")
     # K2 on the CMYK frame (4 components): every coefficient equal to the
     # native decoder's.
     blob = frames["cmyk"][0]

@@ -1,8 +1,12 @@
 """Single-image decode: the port's counterpart of ``decode()``.
 
 Counterpart of ``jpeg_decoder_tpu/models/decoder.py``.  Host parse, entropy
-decode by the chosen backend, then the device pixel pipeline: one gather per
-component from the scan-order blocks, dequant+IDCT, upsample, colour.
+decode by the chosen backend, then the device pixel stage.  On the card,
+under ``idct="exact"`` or ``"pallas"`` to RGB, that is one launch of K6b
+(``ops/pixels_cuda.blocks_to_rgb``: gather, dequant+IDCT, upsample, colour)
+straight from the scan-order blocks, with the quantisation tables and the
+geometry already on the card (:func:`k6b_route`); else the torch pixel
+pipeline: one gather per component, dequant+IDCT, upsample, colour.
 
 Entropy backends:
 
@@ -49,6 +53,7 @@ import torch
 from .. import layout as layout_mod
 from ..io import parser
 from ..ops import pixel as pixel_ops
+from ..ops import pixels_cuda
 from ..types import FrameHeader, JPEGError
 from ..utils import profiling
 from .routing import needs_scan_loop, resolve_device, segment_mismatch
@@ -56,6 +61,11 @@ from .routing import needs_scan_loop, resolve_device, segment_mismatch
 _log = logging.getLogger(__name__)
 
 _comp_src_cache: dict[tuple, tuple] = {}
+_k6b_plans: dict[tuple, object] = {}
+_k6b_const_cache: dict[tuple, tuple] = {}
+
+#: The IDCTs under which K6b gives the torch pixel route's bytes.
+K6B_IDCTS = ("exact", "pallas")
 
 
 #: The entropy backends that decode on the device.
@@ -278,6 +288,91 @@ def _comp_srcs(hdr: FrameHeader, device: torch.device) -> tuple:
     return hit
 
 
+def k6b_route(idct: str, out_cmyk: bool, device_type: str, plan) -> bool:
+    """Whether :func:`decode`'s scan-order branch makes its pixels with one
+    launch of K6b: on a CUDA device, under an IDCT whose bytes K6b keeps
+    (:data:`K6B_IDCTS`), to RGB (K6b writes three channels), for a frame
+    whose :func:`_k6b_plan` (None where K6b refuses it) fits the kernel's
+    shared memory.  Every other call takes
+    ``pixel_ops.pixel_pipeline_from_scan``."""
+    if (device_type != "cuda" or idct not in K6B_IDCTS or out_cmyk
+            or plan is None):
+        return False
+    out_bytes = 1 if plan.maxv < 256 else 2
+    return plan.layout(idct, out_bytes)["smem"] <= pixels_cuda.SMEM_MAX
+
+
+def _k6b_plan(hdr: FrameHeader, upsample: str):
+    """K6b's launch plan (``pixels_cuda.kernel_plan``) for the frame's
+    geometry and ``upsample``, or None where the kernel refuses the frame;
+    made once per geometry."""
+    key = (hdr.height, hdr.width, tuple((c.h, c.v) for c in hdr.components),
+           hdr.precision, hdr.colorspace, upsample)
+    if key in _k6b_plans:
+        return _k6b_plans[key]
+    try:
+        plan = pixels_cuda.kernel_plan(
+            comp_shapes=tuple(layout_mod.scan_layout(hdr).comp_shapes),
+            comp_hv=tuple((c.h, c.v) for c in hdr.components),
+            height=hdr.height, width=hdr.width,
+            samplings=tuple((hdr.v_max // c.v, hdr.h_max // c.h)
+                            for c in hdr.components),
+            upsample=upsample, color=hdr.colorspace,
+            precision=hdr.precision)
+    except ValueError:
+        # The torch route takes the frame (and raises where it cannot).
+        plan = None
+    if len(_k6b_plans) > 256:  # bound memory, like _comp_srcs
+        _k6b_plans.clear()
+    _k6b_plans[key] = plan
+    return plan
+
+
+def _k6b_consts(hdr: FrameHeader, device: torch.device) -> tuple:
+    """K6b's (1, n_comps, 64) int32 quantisation tables and (1, 4) int32
+    geometry row (mcus_x, mcus_y, height, width) on ``device``: views of
+    one buffer, uploaded once per geometry, table set and device, the
+    upload finished before another stream can find it here."""
+    tables = [hdr.quant_tables[c.tq].values.astype(np.int32, copy=False)
+              for c in hdr.components]
+    geom = (hdr.mcus_x, hdr.mcus_y, hdr.height, hdr.width)
+    key = (*geom, b"".join(t.tobytes() for t in tables), device)
+    hit = _k6b_const_cache.get(key)
+    if hit is None:
+        profiling.count("pixel.consts_upload")
+        host = np.concatenate([*tables, np.array(geom, np.int32)])
+        buf = torch.from_numpy(host).to(device)
+        if buf.is_cuda:
+            torch.cuda.current_stream(device).synchronize()
+        n = len(tables) * 64
+        hit = (buf, buf[:n].view(1, len(tables), 64), buf[n:].view(1, 4))
+        if len(_k6b_const_cache) > 256:  # bound memory, like _comp_srcs
+            _k6b_const_cache.clear()
+        _k6b_const_cache[key] = hit
+    return hit
+
+
+def _k6b_pixels(hdr: FrameHeader, blocks: torch.Tensor, plan, *,
+                comp_shapes: tuple, samplings: tuple, idct: str,
+                upsample: str) -> torch.Tensor:
+    """(H, W, 3) RGB of the frame's (N, 64) scan-order ``blocks``: one
+    launch of K6b on the current stream, from the device-resident
+    :func:`_k6b_consts` and the cached ``plan`` (on a CPU tensor, K6b's
+    plain version)."""
+    buf, qt, geom = _k6b_consts(hdr, blocks.device)
+    if blocks.is_cuda:
+        # The buffer may be freed (by the cache's bound) while this stream
+        # still reads it.
+        buf.record_stream(torch.cuda.current_stream(blocks.device))
+    profiling.count("pixel.k6b")
+    return pixels_cuda.blocks_to_rgb(
+        blocks[None], qt, geom, comp_shapes=comp_shapes,
+        comp_hv=tuple((c.h, c.v) for c in hdr.components),
+        height=hdr.height, width=hdr.width, samplings=samplings, idct=idct,
+        upsample=upsample, color=hdr.colorspace, precision=hdr.precision,
+        plan=plan)[0]
+
+
 def pixels_from_planes(hdr: FrameHeader, planes, *, idct: str,
                        upsample: str, out_cmyk: bool = False) -> torch.Tensor:
     """The frame's (1, H, W, C) pixels from its coefficient planes (one
@@ -310,10 +405,12 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
         "hybrid" (K7 on DRI=0 streams, K2 on restart streams); under
         these three, progressive frames decode on the device lanes
         (K8a-K8d, ``ops/entropy_prog.py``).
-      idct: "exact" (the reference's AAN float semantics: the CUDA kernel
-        K5, its op-by-op twin on the CPU), "pallas" (the Kronecker CUDA
-        kernel K1; its plain twin on the CPU), "kron" (that twin) or
-        "fast".
+      idct: "exact" (the reference's AAN float semantics: K5's arithmetic
+        inside K6b on the card, its op-by-op twin on the CPU), "pallas"
+        (the Kronecker arithmetic of K1: inside K6b on the card, its plain
+        twin on the CPU), "kron" (that twin) or "fast".  CMYK output,
+        ``keep_planes`` and frames decoded to planes take K5 or K1 and
+        torch ops on the card.
       upsample: "nn" (reference nearest-neighbour parity) or "fancy"
         (libjpeg triangular filter).
       keep_planes: also return the coefficient planes (numpy).
@@ -348,11 +445,17 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
             raise JPEGError(f"colorspace='cmyk' requires a 4-component "
                             f"source, got {color}")
 
-        with profiling.span("pixel.enqueue"):
-            qtables = tuple(
-                torch.from_numpy(hdr.quant_tables[c.tq].values
-                                 .astype(np.int32)).to(dev)
-                for c in hdr.components)
+        scan_branch = not (hdr.progressive or hdr.arithmetic
+                           or needs_scan_loop(hdr) or keep_planes)
+        plan = (_k6b_plan(hdr, upsample)
+                if scan_branch and dev.type == "cuda" else None)
+        fused = scan_branch and k6b_route(idct, out_cmyk, dev.type, plan)
+        if not fused:
+            with profiling.span("pixel.enqueue"):
+                qtables = tuple(
+                    torch.from_numpy(hdr.quant_tables[c.tq].values
+                                     .astype(np.int32)).to(dev)
+                    for c in hdr.components)
         samplings = tuple(
             (hdr.v_max // c.v, hdr.h_max // c.h) for c in hdr.components)
         pixel_kw = dict(height=hdr.height, width=hdr.width,
@@ -376,8 +479,7 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
             entropy_prog.check_errors(errs)
             if keep_planes:
                 planes = [p.cpu().numpy() for p in dplanes]
-        elif (hdr.progressive or hdr.arithmetic or needs_scan_loop(hdr)
-                or keep_planes):
+        elif not scan_branch:
             # Host planes: every scan of the frame decoded on the host (or
             # by K2 for ``keep_planes`` under pallas), then the pixel
             # pipeline.
@@ -392,9 +494,14 @@ def decode(source, *, entropy: str = "auto", idct: str = "exact",
             if not isinstance(blocks, torch.Tensor):
                 blocks = torch.from_numpy(blocks).to(dev)
             with profiling.span("pixel.enqueue"):
-                rgb = pixel_ops.pixel_pipeline_from_scan(
-                    blocks, qtables, _comp_srcs(hdr, dev),
-                    comp_shapes=tuple(lay.comp_shapes), **pixel_kw)
+                if fused:
+                    rgb = _k6b_pixels(
+                        hdr, blocks, plan, comp_shapes=tuple(lay.comp_shapes),
+                        samplings=samplings, idct=idct, upsample=upsample)
+                else:
+                    rgb = pixel_ops.pixel_pipeline_from_scan(
+                        blocks, qtables, _comp_srcs(hdr, dev),
+                        comp_shapes=tuple(lay.comp_shapes), **pixel_kw)
         if orientation == "respect":
             # uint16 tensors lack flip: orient 12-bit samples as int32.
             wide = (rgb.to(torch.int32) if rgb.dtype == torch.uint16

@@ -60,8 +60,8 @@ import torch
 from .._build import CudaLib, launch_check
 from . import idct_cuda, pixel
 
-__all__ = ["blocks_to_rgb", "build", "fast_separable", "rgb_plan",
-           "rgb_tiles_torch", "scan_samples", "unpack_nibble",
+__all__ = ["blocks_to_rgb", "build", "fast_separable", "kernel_plan",
+           "rgb_plan", "rgb_tiles_torch", "scan_samples", "unpack_nibble",
            "unpack_nibble_chunked", "unpack_nibble_windowed"]
 
 LIB = CudaLib("pixels.cu", "jd_pixels", {
@@ -662,9 +662,19 @@ def grid_for(plan: RgbPlan, n_img: int, sms: int, ctas_per_sm: int) -> int:
     return max(1, min(n_img * plan.n_tiles, sms * ctas_per_sm))
 
 
+def kernel_plan(*, comp_shapes, comp_hv, height: int, width: int, samplings,
+                upsample: str, color: str, precision: int) -> RgbPlan:
+    """K6b's plan for a group: :func:`rgb_plan` at tiles of :data:`TILE`
+    rounded down to whole MCUs."""
+    return rgb_plan(comp_shapes=comp_shapes, comp_hv=comp_hv, height=height,
+                    width=width, samplings=samplings, upsample=upsample,
+                    color=color, precision=precision,
+                    tile=_whole_mcus(TILE, comp_hv))
+
+
 def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
                   width, samplings, idct, upsample, color,
-                  precision) -> torch.Tensor:
+                  precision, plan=None) -> torch.Tensor:
     """(B', N, 64) int32 scan-order blocks, (B, n_comps, 64) int32 tables
     and (B, 4) int32 geometry (mcus_x, mcus_y, height, width), B' <= B ->
     the group's (B, H, W, 3) uint8 RGB (uint16 for 12-bit), padding
@@ -673,7 +683,8 @@ def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
 
     On a CUDA tensor this launches K6b (every IDCT inside the kernel, tiles
     of :data:`TILE`, a grid of :data:`CTAS_PER_SM` CTAs a multiprocessor)
-    or raises; on a CPU tensor it runs the plain version."""
+    or raises; on a CPU tensor it runs the plain version.  ``plan``: the
+    group's :func:`kernel_plan`, made here when None."""
     if blocks.device.type == "cpu":
         from ..models import batch
         return batch.rgb_from_blocks_torch(
@@ -684,10 +695,11 @@ def blocks_to_rgb(blocks, qtables, geom, *, comp_shapes, comp_hv, height,
         raise ValueError(f"no kernel for device {blocks.device}")
     check_rgb_args(blocks, qtables, geom, len(comp_shapes), idct)
     dev = blocks.device
-    plan = rgb_plan(comp_shapes=comp_shapes, comp_hv=comp_hv, height=height,
-                    width=width, samplings=samplings, upsample=upsample,
-                    color=color, precision=precision,
-                    tile=_whole_mcus(TILE, comp_hv))
+    if plan is None:
+        plan = kernel_plan(comp_shapes=comp_shapes, comp_hv=comp_hv,
+                           height=height, width=width, samplings=samplings,
+                           upsample=upsample, color=color,
+                           precision=precision)
     out = torch.empty((geom.shape[0], plan.out_h, plan.out_w, 3),
                       dtype=pixel._sample_dtype(precision), device=dev)
     lib = build()

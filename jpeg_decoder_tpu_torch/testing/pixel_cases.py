@@ -239,3 +239,27 @@ def odd_dims(comp_hv, mcus) -> list:
     mx, my = mcus
     return [(my * 8 * v_max, mx * 8 * h_max),
             (my * 8 * v_max - 11, mx * 8 * h_max - 5), (9, 13)]
+
+
+def frame_blob(kind: str, seed: int, height: int, width: int,
+               **kw) -> bytes:
+    """A JPEG frame of :data:`FRAME_KINDS`' ``kind``, ``height`` x ``width``,
+    from a seeded gradient with noise (one interleaved scan; ``kw`` goes to
+    ``testing.encoder.encode``, such as ``restart_interval``)."""
+    from .encoder import encode
+
+    hv, color, precision = {k[0]: k[1:] for k in FRAME_KINDS}[kind]
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width]
+    base = np.stack([x * 255.0 / width, y * 255.0 / height,
+                     (x + y) * 127.0 / (width + height) + 60], axis=-1)
+    rgb = np.clip(base + rng.normal(0.0, 6.0, base.shape), 0,
+                  255).astype(np.uint8)
+    kw = dict(samplings=hv, precision=precision, **kw)
+    if color == "gray":
+        return encode(rgb[..., 0], grayscale=True, **kw)[0]
+    if color == "ycbcr":
+        return encode(rgb, **kw)[0]
+    planes = [rgb[..., k % 3].astype(np.float64) for k in range(len(hv))]
+    return encode(rgb, raw_planes=planes,
+                  app14_transform=2 if color == "ycck" else 0, **kw)[0]

@@ -9,6 +9,8 @@ that has only torch; on the card run it with
 (``--noconftest`` because tests/conftest.py imports jax).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +47,14 @@ def _k_counts(before=None) -> dict:
     """Launches of K1, K6a and K6b (since ``before``)."""
     now = {"K1": idct_cuda.fused_dequant_idct.launches,
            "K6a": pixels_cuda.unpack_nibble.launches,
+           "K6b": pixels_cuda.blocks_to_rgb.launches}
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+def _pix_counts(before=None) -> dict:
+    """Launches of the pixel kernels K1, K5 and K6b (since ``before``)."""
+    now = {"K1": idct_cuda.fused_dequant_idct.launches,
+           "K5": idct_exact_cuda.dequant_idct_exact.launches,
            "K6b": pixels_cuda.blocks_to_rgb.launches}
     return now if before is None else {k: now[k] - before[k] for k in now}
 
@@ -333,18 +343,19 @@ def test_lut_probes_match_twins(cuda_device):
 @pytest.mark.parametrize("entropy", ["pallas", "native"])
 def test_decode_on_card_matches_cpu(cuda_device, entropy):
     """decode() on the card (both kernels) against the CPU decode (plain
-    twins); the pallas route launches K2 once and K1 once per component."""
+    twins); the pallas route launches K2 once and K6b once (K1's
+    arithmetic inside it), K1 never."""
     for k, (samp, q, ri, (h, w)) in enumerate(ENTROPY_CASES):
         blob = encode(_rgb(40 + k, h, w), samplings=samp, quality=q,
                       restart_interval=ri)[0]
         k2 = entropy_cuda.decode_segments.launches
-        k1 = idct_cuda.fused_dequant_idct.launches
+        before = _pix_counts()
         got = decode(blob, entropy=entropy, idct="pallas", upsample="fancy",
                      device=cuda_device)
         torch.cuda.synchronize()
         assert entropy_cuda.decode_segments.launches - k2 == (
             entropy == "pallas")
-        assert idct_cuda.fused_dequant_idct.launches - k1 == 3
+        assert _pix_counts(before) == {"K1": 0, "K5": 0, "K6b": 1}
         ref = decode(blob, entropy="native", idct="pallas",
                      upsample="fancy", device="cpu")
         assert got.rgb.is_cuda and got.rgb.shape == (h, w, 3)
@@ -491,19 +502,139 @@ def _colour_blobs():
 
 @pytest.mark.parametrize("upsample", ["nn", "fancy"])
 def test_exact_decode_on_card_equals_cpu(cuda_device, upsample):
-    """decode(idct="exact") on the card: K5 once per component, K1 never,
-    and the CPU twin's bytes."""
+    """decode(idct="exact") on the card: K6b once (K5's arithmetic inside
+    it), K5 and K1 never, and the CPU twin's bytes."""
     for name, blob in _colour_blobs().items():
-        k5, k1 = (idct_exact_cuda.dequant_idct_exact.launches,
-                  idct_cuda.fused_dequant_idct.launches)
+        before = _pix_counts()
         got = decode(blob, idct="exact", strict=True, upsample=upsample,
                      device=cuda_device)
         torch.cuda.synchronize()
-        n_comp = len(got.header.components)
-        assert idct_exact_cuda.dequant_idct_exact.launches == k5 + n_comp
-        assert idct_cuda.fused_dequant_idct.launches == k1
+        assert _pix_counts(before) == {"K1": 0, "K5": 0, "K6b": 1}, name
         ref = decode(blob, idct="exact", upsample=upsample, device="cpu")
         assert got.rgb.is_cuda and torch.equal(got.rgb.cpu(), ref.rgb), name
+
+
+def _route_blobs() -> dict:
+    """A frame of every kind of ``pixel_cases.FRAME_KINDS`` the test
+    encoder makes (all but "odd", whose 3:2 ratios it refuses), odd dims,
+    DRI 3, and the frames of :func:`_colour_blobs`."""
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    out = {k[0]: pixel_cases.frame_blob(k[0], 230, 45, 61,
+                                        restart_interval=3)
+           for k in pixel_cases.FRAME_KINDS if k[0] != "odd"}
+    out.update({f"colour {n}": b for n, b in _colour_blobs().items()})
+    return out
+
+
+@pytest.mark.parametrize("upsample", ["nn", "fancy"])
+@pytest.mark.parametrize("idct", ["exact", "pallas"])
+def test_decode_takes_k6b_on_card(cuda_device, idct, upsample, monkeypatch):
+    """decode() to RGB under ``exact`` and ``pallas``: one K6b launch, no
+    K5 and no K1; under ``exact`` the CPU decode's bytes, under
+    ``pallas`` the torch route's on the card (``k6b_route`` forced off).
+    The "odd" kind's samplings on random blocks, K6b's arguments as
+    decode() makes them against the torch route."""
+    from jpeg_decoder_tpu_torch.layout import scan_layout
+    from jpeg_decoder_tpu_torch.models import decoder as tdec
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    for name, blob in _route_blobs().items():
+        before = _pix_counts()
+        got = decode(blob, idct=idct, upsample=upsample,
+                     device=cuda_device).rgb
+        torch.cuda.synchronize()
+        assert _pix_counts(before) == {"K1": 0, "K5": 0, "K6b": 1}, name
+        if idct == "exact":
+            ref = decode(blob, idct=idct, upsample=upsample,
+                         device="cpu").rgb
+        else:
+            with monkeypatch.context() as m:
+                m.setattr(tdec, "k6b_route", lambda *a: False)
+                ref = decode(blob, idct=idct, upsample=upsample,
+                             device=cuda_device).rgb
+            torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == ref.dtype, name
+        assert torch.equal(got.cpu(), ref.cpu()), name
+    hv = {k[0]: k[1] for k in pixel_cases.FRAME_KINDS}["odd"]
+    base = parser.parse(pixel_cases.frame_blob("444", 231, 45, 61))
+    hdr = dataclasses.replace(base, components=[
+        dataclasses.replace(c, h=h, v=v)
+        for c, (h, v) in zip(base.components, hv)])
+    lay = scan_layout(hdr)
+    blocks = torch.from_numpy(pixel_cases.random_blocks(
+        np.random.default_rng(12), lay.n_mcus * lay.blocks_per_mcu, 0.2,
+        spread=12, dc=60)).to(cuda_device)
+    samplings = tuple((hdr.v_max // c.v, hdr.h_max // c.h)
+                      for c in hdr.components)
+    plan = tdec._k6b_plan(hdr, upsample)
+    assert tdec.k6b_route(idct, False, "cuda", plan)
+    got = tdec._k6b_pixels(hdr, blocks, plan,
+                           comp_shapes=tuple(lay.comp_shapes),
+                           samplings=samplings, idct=idct, upsample=upsample)
+    qts = tuple(torch.from_numpy(hdr.quant_tables[c.tq].values
+                                 .astype(np.int32)).to(cuda_device)
+                for c in hdr.components)
+    ref = pixel.pixel_pipeline_from_scan(
+        blocks, qts, tdec._comp_srcs(hdr, cuda_device),
+        comp_shapes=tuple(lay.comp_shapes), height=hdr.height,
+        width=hdr.width, samplings=samplings, idct=idct, upsample=upsample,
+        color=hdr.colorspace, precision=hdr.precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("idct", ["exact", "pallas", "kron", "fast"])
+def test_decode_torch_routes_on_card(cuda_device, idct):
+    """Under ``kron`` and ``fast``, and to CMYK, decode() keeps the torch
+    route: no K6b, K5 or K1 once a component (``kron`` and ``fast``
+    neither: torch ops), the CPU
+    decode's bytes (byte for byte under ``exact``, else within the +-1
+    IDCT bound, as tests/test_torch_decoder.py holds them)."""
+    for name, blob in _route_blobs().items():
+        hdr = parser.parse(blob)
+        kw = dict(idct=idct, upsample="fancy")
+        if idct in ("exact", "pallas"):
+            if hdr.colorspace not in ("cmyk", "ycck"):
+                continue
+            kw["colorspace"] = "cmyk"
+        before = _pix_counts()
+        got = decode(blob, device=cuda_device, **kw).rgb
+        torch.cuda.synchronize()
+        n = len(hdr.components)
+        want = {"K1": n if idct == "pallas" else 0,
+                "K5": n if idct == "exact" else 0, "K6b": 0}
+        assert _pix_counts(before) == want, name
+        ref = decode(blob, device="cpu", **kw).rgb
+        if idct == "exact":
+            assert torch.equal(got.cpu(), ref), name
+        else:
+            d = (got.cpu().to(torch.int32) - ref.to(torch.int32)).abs()
+            assert int(d.max()) <= RGB_TOL, name
+            assert float((d == 0).float().mean()) >= MIN_EQUAL, name
+
+
+def test_second_decode_makes_two_host_copies(cuda_device):
+    """The cell's call (``hybrid`` on a restart stream, ``exact``, nn) a
+    second time: two host-to-device copies (K2's words and segment
+    counts), none in the pixel stage, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+
+    blob = pixel_cases.frame_blob("420", 232, 120, 192, restart_interval=4)
+    kw = dict(entropy="hybrid", idct="exact", upsample="nn",
+              device=cuda_device)
+    decode(blob, **kw)
+    torch.cuda.synchronize()
+    before = _pix_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode(blob, **kw)
+        torch.cuda.synchronize()
+    assert _pix_counts(before) == {"K1": 0, "K5": 0, "K6b": 1}
+    h2d = [e.name for e in prof.events() if "Memcpy HtoD" in e.name]
+    assert len(h2d) == 2, h2d
 
 
 def test_exact_batch_on_card_equals_cpu(cuda_device):

@@ -237,5 +237,25 @@ def test_readers_without_a_recorder(monkeypatch):
     monkeypatch.setattr(stages, "recorded", lambda: None)
     ctx = types.SimpleNamespace(trace=red)
     for name in ("serve.parse_ms", "serve.call_idle_ms",
-                 "serve.cache_misses"):
+                 "serve.cache_misses", "serve.pixel_fused_share"):
         assert harness.reader(name).read(ctx) is None
+
+
+def test_fused_share_on_hand_built_spans(monkeypatch):
+    """The share of the window's calls with a ``pixel.k6b`` increment; a
+    program without the route (no ``k6b_route``) reads None."""
+    from jpeg_decoder_tpu_torch.models import decoder
+
+    spans, counts, red = _hand_built()
+    counts = counts + [
+        profiling.CountRecord("pixel.k6b", 1, 3_800, 7, 1),
+        profiling.CountRecord("pixel.k6b", 1, 22_600, 7, 3),
+        profiling.CountRecord("pixel.k6b", 1, W1 + 30, 7, 4),
+        profiling.CountRecord("pixel.consts_upload", 1, 12_000, 8, 2)]
+    monkeypatch.setattr(stages, "recorded", lambda: (spans, counts))
+    monkeypatch.setattr(stages, "_print", lambda line: None)
+    reader = harness.reader("serve.pixel_fused_share")
+    ctx = types.SimpleNamespace(trace=red)
+    assert reader.read(ctx) == pytest.approx(200 / 3, rel=1e-12)
+    monkeypatch.delattr(decoder, "k6b_route")
+    assert reader.read(types.SimpleNamespace(trace=red)) is None
