@@ -832,9 +832,9 @@ def _entropy_phase(dev, images: dict) -> dict:
         hdr, scan, lay, args, kw = _scan_inputs(blob, dev)
         n_seg, n_words = args[0].shape
         n_blocks = lay.n_mcus * len(kw["block_comp"])
-        out, err = entropy_cuda.decode_segments(*args, **kw)
-        stats = dict(zip(entropy_cuda.STATS,
-                         entropy_cuda.decode_segments.last_stats.tolist()))
+        tail = []
+        out, err = entropy_cuda.decode_segments(*args, **kw, tail=tail)
+        stats = entropy_cuda.launch_stats(tail[0])
         n_chunks = int(entropy_cuda.seg_chunks(args[0], C).sum())
         ref = torch.from_numpy(native.decode_scan_baseline(hdr, scan))
         got = out.view(-1, 64)[:n_blocks].cpu()

@@ -77,10 +77,10 @@ SYNC_LANES = 64
 GLOBAL_ROUNDS = 2
 #: Index bits of the first-level tables (kL1Bits in csrc/entropy.cu).
 L1_BITS = 12
-#: What ``decode_segments.last_stats`` holds, in order: the most
-#: iterations of a CTA in the first sync launch, the CTAs re-run across CTA
-#: boundaries and their most iterations, the chunks the serial seal
-#: re-decoded, and the chunk decodes of all sync launches.
+#: The statistics of a launch (``decode_segments``' ``tail``), in order:
+#: the most iterations of a CTA in the first sync launch, the CTAs re-run
+#: across CTA boundaries and their most iterations, the chunks the serial
+#: seal re-decoded, and the chunk decodes of all sync launches.
 STATS = ("round0_iterations", "global_round_ctas", "global_round_iterations",
          "seal_redecodes", "sync_decodes")
 #: Table sets kept on each device by :func:`device_tables`.
@@ -175,7 +175,8 @@ def scratch_bytes(n_seg: int, n_words: int, chunk_bits: int) -> int:
 def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
                     luts: torch.Tensor, *, block_comp: tuple[int, ...],
                     n_comps: int, max_mcus: int, chunk_bits: int | None = None,
-                    l1: torch.Tensor | None = None, precision: int = 8):
+                    l1: torch.Tensor | None = None, precision: int = 8,
+                    tail: list | None = None):
     """Decode restart segments to natural-order blocks.
 
     words: (S, W) uint32, segment s's unstuffed bytes as big-endian words
@@ -192,10 +193,12 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
 
     Returns ((S, max_mcus*bpm, 64) int32 blocks, (S,) int32 error flags).
     Rows past ``seg_nmcus[s]*bpm`` are 0; the rows of a flagged segment are
-    unspecified.  On CUDA tensors this launches the kernel or raises (its
-    phase statistics land in ``decode_segments.last_stats``, a device
-    tensor named by :data:`STATS`); on CPU tensors it runs
-    :func:`decode_segments_torch`.
+    unspecified.  On CUDA tensors this launches the kernel or raises; on
+    CPU tensors it runs :func:`decode_segments_torch`.  Given a list
+    ``tail``, a launch appends to it a (2S + len(STATS),) int32 device
+    tensor: the chunks of each segment, the :data:`STATS`, then the error
+    flags (the returned ``err`` is a view of its last S), so that one copy
+    brings back both (:func:`launch_stats` reads it).
     """
     _check(words, seg_nmcus, luts, block_comp, n_comps, max_mcus)
     size_limits(precision)
@@ -222,9 +225,11 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
     bpm = len(block_comp)
     rows = max_mcus * bpm
     out = torch.zeros((s, rows, 64), dtype=torch.int32, device=dev)
-    err = torch.empty((s,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((scratch_bytes(s, w, chunk_bits) + 3) // 4,
-                          dtype=torch.int32, device=dev)
+    # The scratch ends in the chunks of each segment and the statistics;
+    # the error flags follow them in the same buffer.
+    n_scratch = (scratch_bytes(s, w, chunk_bits) + 3) // 4
+    buf = torch.empty((n_scratch + s,), dtype=torch.int32, device=dev)
+    scratch, err = buf[:n_scratch], buf[n_scratch:]
     comp_code = sum(c << (4 * k) for k, c in enumerate(block_comp))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -236,14 +241,13 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
     launch_check(rc, "decode_segments")
     with _count_lock:
         decode_segments.launches += 1
-    decode_segments.last_stats = scratch[-len(STATS):]
+    if tail is not None:
+        tail.append(buf[-(2 * s + len(STATS)):])
     return out, err
 
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 decode_segments.launches = 0
-#: (len(STATS),) int32 device tensor: the last launch's phase statistics.
-decode_segments.last_stats = None
 
 
 def decode_segments_torch(words: torch.Tensor, seg_nmcus: torch.Tensor,
@@ -663,6 +667,29 @@ def clear_table_cache() -> None:
         _tables.clear()
 
 
+#: The recorder's counters of one launch (:func:`count_stats`): its chunks
+#: and three of its :data:`STATS`.
+COUNTERS = ("k2.chunks", "k2.sync_decodes", "k2.seal_redecodes",
+            "k2.global_round_ctas")
+
+
+def launch_stats(tail: torch.Tensor) -> dict:
+    """One launch's :data:`STATS` by name, and under ``chunks`` the chunks
+    of all its segments, from its ``tail`` (see :func:`decode_segments`)."""
+    vals = tail.tolist()
+    s = (len(vals) - len(STATS)) // 2
+    stats = dict(zip(STATS, vals[s:s + len(STATS)]))
+    stats["chunks"] = sum(vals[:s])
+    return stats
+
+
+def count_stats(tail: torch.Tensor) -> None:
+    """Record one launch's :data:`COUNTERS` from its ``tail`` on the host."""
+    stats = launch_stats(tail)
+    for name in COUNTERS:
+        profiling.count(name, stats[name.removeprefix("k2.")])
+
+
 def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
                          device) -> torch.Tensor:
     """Decode an 8- or 12-bit interleaved baseline scan on ``device``.
@@ -670,7 +697,9 @@ def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
     Returns (n_mcus*bpm, 64) int32 scan-order natural-layout coefficients on
     ``device`` (equal to ``python_ref.decode_scan_baseline``).  Only the
     (S,) error flags cross to the host; any flag raises :class:`JPEGError`
-    naming the failed segments."""
+    naming the failed segments.  While the recorder is on, the same copy
+    brings back K2's statistics with them, which a span of their own
+    (``entropy.stats``) counts as the :data:`COUNTERS`."""
     if hdr.precision not in (8, 12):
         raise JPEGError(f"device entropy decodes 8- and 12-bit frames, got "
                         f"{hdr.precision}-bit")
@@ -680,14 +709,19 @@ def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
             hdr, scan)
     with profiling.span("entropy.enqueue"):
         luts, l1 = device_tables(hdr, scan, dev)
+        # K2's statistics are gathered only for the recorder.
+        tail = [] if profiling.recording() else None
         out, err = decode_segments(
             torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(dev),
             luts, block_comp=block_comp, n_comps=len(hdr.components),
-            max_mcus=max_mcus, l1=l1, precision=hdr.precision)
+            max_mcus=max_mcus, l1=l1, precision=hdr.precision, tail=tail)
     # The host waits here for K2 to finish.
     with profiling.span("entropy.flags"):
-        flags = err.cpu()
-    bad = np.flatnonzero(flags.numpy())
+        host = (tail[0] if tail else err).cpu()
+    if tail:
+        with profiling.span("entropy.stats"):
+            count_stats(host)
+    bad = np.flatnonzero(host[-len(nm):].numpy())
     if bad.size:
         raise JPEGError(f"device entropy decode failed in segments "
                         f"{bad[:8].tolist()} ({bad.size} of {len(nm)})")

@@ -28,18 +28,39 @@ def pack_words(data: np.ndarray) -> np.ndarray:
     return padded.view(">u4").astype(np.uint32)
 
 
-def _segment_rows(data: np.ndarray, off: np.ndarray,
-                  row_bytes: int) -> np.ndarray:
+def _segment_rows(data: np.ndarray, off: np.ndarray, row_bytes: int,
+                  padded: np.ndarray | None = None) -> np.ndarray:
     """(S, row_bytes) uint8: row s holds bytes ``data[off[s]:off[s+1]]``
-    (a row no longer than ``row_bytes``), zero past them.  One gather of
-    ``row_bytes`` windows starting at the segment offsets, then a mask."""
+    (a row no longer than ``row_bytes``), zero past them.  ``padded``,
+    where given, is ``data`` followed by zeros (the parser's
+    ``data_padded``); where its zeros reach past the last row, the rows are
+    read from it, and a single segment's row is a view of it.  Otherwise
+    the bytes are copied into a zero buffer first.  Many segments take one
+    gather of ``row_bytes`` windows at their offsets, then a mask over
+    every row but the last (the zeros already end that one)."""
     lo, hi = int(off[0]), int(off[-1])
-    padded = np.zeros(max(hi - lo, 0) + row_bytes, np.uint8)
-    padded[:max(hi - lo, 0)] = data[lo:hi]
-    rows = np.lib.stride_tricks.sliding_window_view(
-        padded, row_bytes)[off[:-1] - lo]
-    rows[np.arange(row_bytes) >= np.diff(off)[:, None]] = 0
+    start = off[:-1] - lo
+    end = int(start[-1]) + row_bytes
+    if padded is not None and hi == len(data) and lo + end <= len(padded):
+        src = padded[lo:lo + end]
+    else:
+        src = np.zeros(end, np.uint8)
+        src[:hi - lo] = data[lo:hi]
+    if len(start) == 1:
+        return src[None, :row_bytes]
+    rows = np.lib.stride_tricks.sliding_window_view(src, row_bytes)[start]
+    rows[:-1][np.arange(row_bytes) >= np.diff(off)[:-1, None]] = 0
     return rows
+
+
+def _zero_tail(scan: ScanHeader, data: np.ndarray) -> np.ndarray | None:
+    """The scan's ``data_padded`` where it still begins at ``data`` (a
+    caller may replace ``data`` alone), else None."""
+    dp = getattr(scan, "data_padded", None)
+    if (dp is None or len(dp) < len(data) or dp.__array_interface__["data"][0]
+            != data.__array_interface__["data"][0]):
+        return None
+    return dp
 
 
 def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
@@ -60,8 +81,9 @@ def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
     off = np.asarray(seg_offsets, np.int64)
     seg_lens = np.diff(off)
     seg_words = int(max(1, -(-int(seg_lens.max()) // 4) + 2))
-    words = _segment_rows(np.asarray(scan.data, np.uint8), off,
-                          4 * seg_words).view(">u4").astype(np.uint32)
+    data = np.asarray(scan.data, np.uint8)
+    words = _segment_rows(data, off, 4 * seg_words,
+                          _zero_tail(scan, data)).view(">u4").astype(np.uint32)
     nm = np.full((n_segments,), max_mcus, np.int32)
     if ri:
         nm[-1] = n_mcus - ri * (n_segments - 1)

@@ -154,17 +154,23 @@ def span(name: str, call: bool = False):
     """Context manager recording one span ``name`` while recording is on
     (see the module docstring); ``call=True`` opens a call when none is
     open on the thread."""
-    # torch sets this flag for the whole process while a profile runs.
-    if _torch_profiler._is_profiler_enabled:
+    if recording():
         return _Span(name, call)
     _recorder.live = False
     return _NO_SPAN
 
 
+def recording() -> bool:
+    """Whether the recorder is on: a caller gathers what only a counter
+    would read (a copy from the card, say) only then."""
+    # torch sets this flag for the whole process while a profile runs.
+    return _torch_profiler._is_profiler_enabled
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while recording is on."""
     rec = _recorder
-    if not _torch_profiler._is_profiler_enabled:
+    if not recording():
         rec.live = False
         return
     if not rec.live:

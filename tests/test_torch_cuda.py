@@ -10,6 +10,7 @@ that has only torch; on the card run it with
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -284,10 +285,10 @@ def test_entropy_kernel_dri0_chunked_matches_twin_and_native(cuda_device,
     blob = encode(_rgb(33, 160, 240), quality=90)[0]
     hdr, words, nm, luts, kw = _segments(blob, cuda_device)
     assert words.shape[0] == 1
+    tail = []
     out, err = entropy_cuda.decode_segments(words, nm, luts, **kw,
-                                            chunk_bits=chunk_bits)
-    stats = dict(zip(entropy_cuda.STATS,
-                     entropy_cuda.decode_segments.last_stats.tolist()))
+                                            chunk_bits=chunk_bits, tail=tail)
+    stats = entropy_cuda.launch_stats(tail[0])
     ref, ref_err = entropy_cuda.decode_segments_torch(
         words.cpu(), nm.cpu(), luts.cpu(), **kw)
     assert not err.any() and not ref_err.any()
@@ -299,8 +300,10 @@ def test_entropy_kernel_dri0_chunked_matches_twin_and_native(cuda_device,
     np.testing.assert_array_equal(
         out.view(-1, 64)[:n].cpu().numpy(),
         native.decode_scan_baseline(hdr, hdr.scans[0]))
-    assert stats["sync_decodes"] > int(entropy_cuda.seg_chunks(
-        words.cpu(), chunk_bits)[0]) - 1
+    assert stats["chunks"] == int(entropy_cuda.seg_chunks(
+        words.cpu(), chunk_bits)[0])
+    assert stats["sync_decodes"] > stats["chunks"] - 1
+    assert torch.equal(tail[0][-1:], err)
 
 
 def test_entropy_first_level_kernel_matches_plain(cuda_device):
@@ -635,6 +638,55 @@ def test_second_decode_makes_two_host_copies(cuda_device):
     assert _pix_counts(before) == {"K1": 0, "K5": 0, "K6b": 1}
     h2d = [e.name for e in prof.events() if "Memcpy HtoD" in e.name]
     assert len(h2d) == 2, h2d
+
+
+def test_dri0_decode_counts_k2_stats(cuda_device, monkeypatch):
+    """A DRI-0 ``decode()`` (``photo12_ingest``'s call, at 1024 x 768, a
+    stream of 13 CTAs): with the recorder on, one launch's four
+    ``k2.*`` counters, ``k2.chunks`` equal to the stream's chunks, in an
+    ``entropy.stats`` span; on or off, the same two copies to the card and
+    one copy back, the flags' (which brings the statistics with it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jpeg_decoder_tpu_torch.testing import pixel_cases
+    from jpeg_decoder_tpu_torch.utils import profiling
+
+    blob = pixel_cases.frame_blob("420", 233, 768, 1024)
+    kw = dict(entropy="pallas", idct="exact", upsample="fancy",
+              device=cuda_device)
+    hdr = parser.parse(blob)
+    words = scan_prep.prepare_scan(hdr, hdr.scans[0])[0]
+    chunks = int(entropy_cuda.seg_chunks(torch.from_numpy(words),
+                                         entropy_cuda.CHUNK_BITS).sum())
+    assert words.shape[0] == 1 and chunks > 12 * entropy_cuda.SYNC_LANES
+    want = decode(blob, **kw).rgb
+    copies = {}
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr(profiling, "recording", lambda: False)
+        decode(blob, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time_ns()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = decode(blob, **kw).rgb
+            torch.cuda.synchronize()
+            counted = {}
+            for c in profiling.counts():
+                if c.name.startswith("k2.") and c.t_ns >= t0:
+                    counted[c.name] = counted.get(c.name, 0) + c.n
+            names = [s.name for s in profiling.spans() if s.start_ns >= t0]
+        assert torch.equal(got, want)
+        copies[on] = [sum(w in e.name for e in prof.events())
+                      for w in ("Memcpy HtoD", "Memcpy DtoH")]
+        if on:
+            assert set(counted) == set(entropy_cuda.COUNTERS)
+            assert counted["k2.chunks"] == chunks
+            assert counted["k2.sync_decodes"] >= chunks - 1
+            assert names.count("entropy.stats") == 1
+        else:
+            assert counted == {} and "entropy.stats" not in names
+    assert copies == {True: [2, 1], False: [2, 1]}
 
 
 def test_exact_batch_on_card_equals_cpu(cuda_device):
