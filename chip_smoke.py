@@ -86,7 +86,19 @@ kernel against its plain version:
    (no single PyTorch call computes a Huffman decode), the twin on (b);
    per image the kernel's device time per phase (tables, sync, scan, write;
    torch.profiler), its synchronisation rounds, and a sweep of the chunk
-   size C (each C must give the same output);
+   size C (each C must give the same output).  K2's in-place form
+   (``decode_scan_bytes``, the form ``decode()`` runs on the card) on the
+   same four and on the two benchmark cells' frames (a 1080p DRI-120
+   RTP/JPEG frame, a 4032x3024 DRI-0 q95 photo): its plain reader
+   ``segment_words_torch`` must give the packed rows of ``prepare_scan``,
+   and its blocks, flags, chunk counts and statistics must equal the row
+   form's (``decode_segments``, which the batch routes run), its blocks
+   the native decoder's, and on (b) and the DRI-120 frame the twin's
+   (``decode_segments_torch`` on ``segment_words_torch``'s rows); on the
+   corrupt copy of (b) its flags the twin's.  Both forms timed with CUDA
+   events (median of 20), each with its bound (the in-place form's bytes:
+   the scan bytes and offset table in, blocks out) and device time per
+   phase;
 9b. K5 phase at the batch path's largest launch (B=32, N=65,536): on
    random blocks in the JPEG range, DC-only blocks and image (d)'s JPEG
    coefficients, ``dequant_idct_exact`` must equal its op-by-op twin
@@ -99,8 +111,10 @@ kernel against its plain version:
    before and read just after: K2 once and K6b once per image, RGB on
    the card, PSNR >= 30 dB, and the CPU decode (``entropy="native"``, plain
    twins) within the batch path's tolerance; prints end-to-end ms and MP/s
-   (best of 3 after warm-up) and the stages (parse, scan prep, copy with a
-   cold and with a warm table cache, K2, pixel pipeline);
+   (best of 3 after warm-up) and the stages as ``decode()`` runs them on
+   the card (parse, scan prep (``segment_table``), the copy of the scan
+   bytes and offset table with a cold and with a warm table cache, K2 in
+   place, pixel pipeline);
 10b. strict single-image phase: ``decode(idct="exact", strict=True)`` with
    ``upsample`` nn and fancy on (a)-(d) and on one 1920x1080 frame of each
    kind (CMYK, YCCK, Adobe RGB, 12-bit 4:2:0, gray), every count set to 0
@@ -817,10 +831,87 @@ K2_PHASES = {"tables": ("build_l1_kernel",),
              "sync": ("seg_chunks_kernel", "sync_kernel", "seal_kernel"),
              "scan": ("offsets_kernel",), "write": ("write_kernel",)}
 CHUNK_SWEEP = (512, 1024, 2048, 4096)
+#: The benchmark configurations whose frames the entropy phase adds, by tag.
+CELL_FRAMES = {"rtp1080 DRI 120": "rtp1080_service",
+               "photo12 DRI 0": "photo12_ingest"}
+RTP_TAG = "rtp1080 DRI 120"
 
 
-def _entropy_phase(dev, images: dict) -> dict:
-    """K2 on images (a)-(d) (see the module docstring)."""
+def _cell_frames(dev) -> dict:
+    """{tag: blob}: one frame of each configuration in
+    :data:`CELL_FRAMES`, made by the benchmark's corpus on the card from
+    :data:`SEED`."""
+    from portbench import corpus, harness
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {tag: corpus.make_frames(harness.load_json(os.path.join(
+        root, "portbench", "configs", f"{name}.json"))["frame"], SEED, 1,
+        dev)[0].blob for tag, name in CELL_FRAMES.items()}
+
+
+def _in_place_form(tag: str, hdr, scan, args, kw, rows: tuple,
+                   rows_tail: list, n_blocks: int, twin: bool) -> dict:
+    """K2's in-place form, ``decode()``'s on the card, on ``tag``'s scan
+    (see the module docstring), held to the row form's launch ``rows``
+    (blocks, flags) and its ``rows_tail`` on the same scan; to the twin
+    too where ``twin``.  Returns its record: ms, bound_ms (scan bytes and
+    offset table in, ``n_blocks`` blocks out), bytes, phases_ms."""
+    import torch
+
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda, scan_prep
+
+    dev = args[0].device
+    seg, n_words, _, _, _ = scan_prep.segment_table(hdr, scan)
+    data = torch.from_numpy(np.asarray(scan.data, np.uint8)).to(dev)
+    seg_t = torch.from_numpy(seg).to(dev)
+    n_seg = args[0].shape[0]
+    words = entropy_cuda.segment_words_torch(data, seg_t[:n_seg + 1],
+                                             n_words)
+    if words.shape != args[0].shape or not torch.equal(words, args[0]):
+        raise AssertionError(f"entropy ({tag}): segment_words_torch "
+                             "differs from prepare_scan's rows")
+    ikw = dict(kw, n_words=n_words)
+    tail = []
+    out, err = entropy_cuda.decode_scan_bytes(data, seg_t, args[2], **ikw,
+                                              tail=tail)
+    same = (torch.equal(out, rows[0]) and torch.equal(err, rows[1])
+            and torch.equal(tail[0], rows_tail[0]))
+    print(f"entropy ({tag}) in place: blocks, flags, chunks and statistics "
+          f"equal to the row form's: {same}")
+    if not same or int(err.sum()):
+        raise AssertionError(f"entropy ({tag}): in-place form differs")
+    if twin:
+        t_out, t_err = entropy_cuda.decode_segments_torch(
+            words, args[1], args[2],
+            **{k: v for k, v in kw.items() if k != "l1"})
+        n_twin = int((t_out != out).sum())
+        print(f"entropy ({tag}) in place vs twin on segment_words_torch's "
+              f"rows: {n_twin} of {out.numel()} coefficients differ")
+        if n_twin or not torch.equal(t_err, err):
+            raise AssertionError(f"in place vs twin: {n_twin} differ")
+    ms = _cuda_ms(lambda: entropy_cuda.decode_scan_bytes(
+        data, seg_t, args[2], **ikw), 20, warmup=2)
+    nbytes = data.numel() + seg_t.numel() * 8 + n_blocks * 256
+    ph = _kernel_ms(lambda: entropy_cuda.decode_scan_bytes(
+        data, seg_t, args[2], **ikw), 10, K2_PHASES)
+    rec = {"ms": statistics.median(ms), "bound_ms":
+           nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+           # The first-level tables come built, as in decode().
+           "phases_ms": {k: ph[k] for k in ("sync", "scan", "write",
+                                            "other")}}
+    print(f"entropy ({tag}) in place (decode()'s form): decode_scan_bytes "
+          f"median "
+          f"{rec['ms']:.4f} ms (min {min(ms):.4f}, max {max(ms):.4f}, 20 "
+          f"runs); bound {rec['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} "
+          "MB of scan bytes and offsets in, blocks out at 3.35 TB/s); device "
+          "ms per phase (profiler, mean of 10): "
+          + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in rec["phases_ms"].items()))
+    return rec
+
+
+def _entropy_phase(dev, images: dict, cells: dict) -> dict:
+    """K2 on images (a)-(d), and its in-place form on those and on the
+    benchmark cells' frames ``cells`` (see the module docstring)."""
     import torch
 
     from jpeg_decoder_tpu_torch.entropy import native
@@ -828,7 +919,8 @@ def _entropy_phase(dev, images: dict) -> dict:
 
     max_err, by_image = 0, {}
     C = entropy_cuda.CHUNK_BITS
-    for tag, (blob, _) in images.items():
+    blobs = {**{t: b for t, (b, _) in images.items()}, **cells}
+    for tag, blob in blobs.items():
         hdr, scan, lay, args, kw = _scan_inputs(blob, dev)
         n_seg, n_words = args[0].shape
         n_blocks = lay.n_mcus * len(kw["block_comp"])
@@ -861,7 +953,8 @@ def _entropy_phase(dev, images: dict) -> dict:
                "native_1_ms": host[1], "native_all_ms": host[os.cpu_count()]}
         syms = _symbols(ref.numpy())
         print(f"entropy ({tag}): {syms} symbols, {syms / n_chunks:.0f} per "
-              f"chunk; decode_segments median {rec['ms']:.4f} ms (min "
+              f"chunk; row form (the batch routes'): decode_segments median "
+              f"{rec['ms']:.4f} ms (min "
               f"{min(ms):.4f}, max {max(ms):.4f}, 20 runs; "
               f"{rec['ms'] * 1e6 / syms:.2f} ns per symbol over the image); "
               f"bound {rec['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB "
@@ -882,6 +975,12 @@ def _entropy_phase(dev, images: dict) -> dict:
               f"({', '.join(ph['other_names'])})")
         rec["phases_ms"] = {k: ph[k] for k in (*K2_PHASES, "other")}
         rec["rounds"] = stats
+        rec["in_place"] = _in_place_form(
+            tag, hdr, scan, args, kw, (out, err), tail, n_blocks,
+            twin=tag in ("b", RTP_TAG))
+        if tag not in images:
+            by_image[tag] = rec
+            continue
         # Chunk size sweep: same output, median of 10 runs each.
         sweep = {}
         for cb in CHUNK_SWEEP:
@@ -926,11 +1025,16 @@ def _entropy_phase(dev, images: dict) -> dict:
             _, k_err = entropy_cuda.decode_segments(*bad_args, **kw)
             _, t_err = entropy_cuda.decode_segments_torch(
                 *bad_args, **{k: v for k, v in kw.items() if k != "l1"})
+            seg, bad_words, _, _, _ = scan_prep.segment_table(hdr, bad_scan)
+            _, i_err = entropy_cuda.decode_scan_bytes(
+                torch.from_numpy(data).to(dev), torch.from_numpy(seg).to(dev),
+                args[2], n_words=bad_words, **kw)
             flagged = torch.nonzero(k_err).flatten().tolist()
-            same = torch.equal(k_err, t_err)
+            same = torch.equal(k_err, t_err) and torch.equal(i_err, t_err)
             print(f"entropy ({tag}) corrupt copy: kernel flags {len(flagged)}"
                   f" segments {flagged[:12]}, twin flags "
-                  f"{int(t_err.sum())}; equal: {same}")
+                  f"{int(t_err.sum())}, in-place form "
+                  f"{int(i_err.sum())}; all equal: {same}")
             if not same or bad_seg not in flagged:
                 raise AssertionError("corrupt stream: flags differ")
         by_image[tag] = rec
@@ -940,6 +1044,8 @@ def _entropy_phase(dev, images: dict) -> dict:
             "replaces": "jpeg_decoder_tpu/ops/entropy_pallas.py:178",
             "max_abs_err": max_err, "ms": b["ms"], "plain_ms": b["plain_ms"],
             "bound_ms": b["bound_ms"], "bound_by": "bytes",
+            "in_place_ms": b["in_place"]["ms"],
+            "in_place_bound_ms": b["in_place"]["bound_ms"],
             "library_ms": None, "chunk_bits": C,
             "by_image": {t: {k: v for k, v in r.items() if k != "bytes"}
                          for t, r in by_image.items()}}
@@ -992,16 +1098,18 @@ def _decode_phase(dev, images: dict) -> dict:
             torch.cuda.synchronize()
             e2e.append(time.perf_counter() - t0)
             del out
-        # Stages, best of 3: the same calls decode() makes, one by one; the
-        # copy once with the per-device table cache cleared (LUT upload and
-        # first-level build included) and once warm.
+        # Stages, best of 3: the same calls decode() makes on the card, one
+        # by one (K2 reads the scan in place); the copy once with the
+        # per-device table cache cleared (LUT upload and first-level build
+        # included) and once warm.
         st = {"parse": [], "scan prep": [], "copy (cold tables)": [],
               "copy (warm)": [], "K2": [], "pixel": []}
         for _ in range(3):
             t0 = time.perf_counter()
             hdr = parser.parse(blob)
             t1 = time.perf_counter()
-            words, nm, bc, mm, lay = scan_prep.prepare_scan(hdr, hdr.scans[0])
+            seg, n_words, bc, mm, lay = scan_prep.segment_table(
+                hdr, hdr.scans[0])
             t2 = time.perf_counter()
             copies = {}
             for name in ("copy (cold tables)", "copy (warm)"):
@@ -1009,16 +1117,17 @@ def _decode_phase(dev, images: dict) -> dict:
                     entropy_cuda.clear_table_cache()
                 torch.cuda.synchronize()
                 c0 = time.perf_counter()
-                tw = torch.from_numpy(words).to(dev)
-                tn = torch.from_numpy(nm).to(dev)
+                td = torch.from_numpy(np.asarray(hdr.scans[0].data,
+                                                 np.uint8)).to(dev)
+                ts = torch.from_numpy(seg).to(dev)
                 luts, l1 = entropy_cuda.device_tables(hdr, hdr.scans[0], dev)
                 torch.cuda.synchronize()
                 copies[name] = time.perf_counter() - c0
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
-            out, _ = entropy_cuda.decode_segments(
-                tw, tn, luts, block_comp=bc, n_comps=len(hdr.components),
-                max_mcus=mm, l1=l1)
+            out, _ = entropy_cuda.decode_scan_bytes(
+                td, ts, luts, n_words=n_words, block_comp=bc,
+                n_comps=len(hdr.components), max_mcus=mm, l1=l1)
             ev[1].record()
             rgb = pixel.pixel_pipeline_from_scan(
                 out.view(-1, 64)[: lay.n_mcus * len(bc)],
@@ -4503,7 +4612,7 @@ def _phases(dev, pool, big_fut, mixed_futs, dyn_futs) -> int:
     k1["on_jpeg_coefficients"] = _idct_jpeg_phase(dev, blob_d)
     k5 = _idct_exact_phase(dev, rng, blob_d)
     torch.cuda.empty_cache()
-    k2 = _entropy_phase(dev, images)
+    k2 = _entropy_phase(dev, images, _cell_frames(dev))
     counts = _decode_phase(dev, images)
     strict_frames = {"cmyk": enc["cmyk"], "ycck": enc["ycck"],
                      "adobe rgb": enc["adobe rgb"],

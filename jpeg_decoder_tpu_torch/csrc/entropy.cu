@@ -68,6 +68,18 @@
 // positions.  New: the next word is prefetched one refill ahead, and the
 // decode is one flat loop of symbols (no nested MCU/block loops), so the
 // lanes of a warp stay in step.
+//
+// Two sources of a segment's words, one instantiation of every kernel that
+// reads them each (the word source is a template argument):
+//  * RowWords (jd_decode_segments): the host packed segment s into row s
+//    of an (n_seg, n_words) matrix of big-endian words, zero past its end;
+//  * ScanBytes (jd_decode_scan_bytes): the unstuffed scan bytes as the
+//    parser left them and S+1 byte offsets; word w of segment s is the
+//    big-endian bytes off[s] + 4w .. + 3, each byte at or past off[s+1]
+//    read as zero, so the two sources give the same words.  A word is two
+//    aligned 32-bit loads and one byte permute; the segment's last words
+//    and the buffer's take a guarded path that never reads past the
+//    buffer (its last partial word is read byte by byte).
 
 #include <cstdint>
 
@@ -92,8 +104,11 @@ __device__ const uint8_t kZigzag[64] = {
 
 // Everything the kernels share, passed by value.
 struct Params {
-  const uint32_t* words;      // (n_seg, n_words)
-  const int32_t* seg_nmcus;   // (n_seg,)
+  const uint32_t* words;      // RowWords: (n_seg, n_words)
+  const int32_t* seg_nmcus;   // RowWords: (n_seg,)
+  const uint8_t* bytes;       // ScanBytes: (n_bytes,), 4-byte aligned
+  const int64_t* seg_off;     // ScanBytes: (n_seg + 1,) offsets, (n_seg,) MCUs
+  int64_t n_bytes;
   const int32_t* luts;        // (n_tables, 65536)
   const int16_t* l1;          // (n_tables, kL1Size)
   int32_t* out;               // (n_seg, rows, 64), zero-filled
@@ -125,20 +140,104 @@ __device__ __forceinline__ uint64_t pack(int64_t pos, int k, int i) {
          (static_cast<uint64_t>(k) << 6) | static_cast<uint64_t>(i);
 }
 
+// Segment s's words from row s of the host's (n_seg, n_words) matrix.
+struct RowWords {
+  const uint32_t* w;
+  int64_t n_words;
+
+  __device__ __forceinline__ static RowWords of(const Params& p,
+                                                int64_t seg) {
+    return {p.words + seg * p.n_words, p.n_words};
+  }
+  __device__ __forceinline__ static int64_t nmcus(const Params& p,
+                                                  int64_t seg) {
+    return p.seg_nmcus[seg];
+  }
+  // Words that may be non-zero: the whole row.
+  __device__ __forceinline__ int64_t span() const { return n_words; }
+  __device__ __forceinline__ uint32_t operator()(int64_t i) const {
+    return __ldg(w + i);
+  }
+};
+
+// Segment s's words read in place from the scan bytes [off[s], off[s+1]).
+// Every word starts at the same offset sh = off[s] & 3 into an aligned
+// 32-bit word, so one byte permute with a fixed selector turns two aligned
+// loads into it.  The first n_fast words lie wholly in the segment with
+// both loads inside the buffer; the rest take the guarded path.
+struct ScanBytes {
+  const uint8_t* bytes;
+  const uint32_t* aligned;    // the aligned word holding byte begin, on
+  int64_t n_bytes, begin, end, n_fast;
+  unsigned sel;               // __byte_perm selector of bytes sh .. sh+3
+
+  // The offsets clamped to the buffer: [begin, end) within [0, n_bytes).
+  __device__ __forceinline__ static ScanBytes of(const Params& p,
+                                                 int64_t seg) {
+    int64_t end = p.seg_off[seg + 1], begin = p.seg_off[seg];
+    end = end < 0 ? 0 : end > p.n_bytes ? p.n_bytes : end;
+    begin = begin < 0 ? 0 : begin > end ? end : begin;
+    const int64_t base = begin & ~static_cast<int64_t>(3);
+    // Word i is fast when 4i + 4 <= end - begin and base + 4i + 8 <= n_bytes.
+    const int64_t whole = (end - begin) >> 2;
+    const int64_t room =
+        p.n_bytes - base >= 8 ? ((p.n_bytes - base - 8) >> 2) + 1 : 0;
+    return {p.bytes, reinterpret_cast<const uint32_t*>(p.bytes + base),
+            p.n_bytes, begin, end, whole < room ? whole : room,
+            0x0123u + static_cast<unsigned>(begin & 3) * 0x1111u};
+  }
+  __device__ __forceinline__ static int64_t nmcus(const Params& p,
+                                                  int64_t seg) {
+    return p.seg_off[p.n_seg + 1 + seg];
+  }
+  // Words that may be non-zero: those holding a byte of the segment.
+  __device__ __forceinline__ int64_t span() const {
+    return (end - begin + 3) >> 2;
+  }
+  // Little-endian bytes a .. a+3 (a a multiple of 4); those at or past
+  // n_bytes read as zero and are never loaded.
+  __device__ __forceinline__ uint32_t le32(int64_t a) const {
+    if (a + 4 <= n_bytes)
+      return __ldg(reinterpret_cast<const uint32_t*>(bytes + a));
+    uint32_t x = 0u;
+    for (int j = 0; j < 4 && a + j < n_bytes; ++j)
+      x |= static_cast<uint32_t>(__ldg(bytes + a + j)) << (8 * j);
+    return x;
+  }
+  __device__ __forceinline__ uint32_t operator()(int64_t i) const {
+    if (i < n_fast)
+      return __byte_perm(__ldg(aligned + i), __ldg(aligned + i + 1), sel);
+    const int64_t b = begin + 4 * i;
+    const int64_t v = end - b;            // the segment's bytes from b on
+    if (v <= 0) return 0u;
+    const int64_t a = b & ~static_cast<int64_t>(3);
+    const uint32_t lo = le32(a);
+    const uint32_t hi = (b & 3) != 0 ? le32(a + 4) : 0u;
+    uint32_t x = __byte_perm(lo, hi, sel);
+    if (v < 4) x &= ~0u << (8 * (4 - v));  // v in 1..3: shift 8..24
+    return x;
+  }
+};
+
 // MSB-first reader over one segment's words.  Invariant after refill():
 // 33 <= nbits <= 64 valid bits, left-aligned in buf, zeros below them; pf
 // holds word `next`, loaded one refill ahead.  Words outside [0, n_words)
 // read as zero (never out of bounds).
+template <class Src>
 struct BitReader {
-  const uint32_t* words;
+  Src src;
   int64_t n_words;
   int64_t next;
   uint64_t buf;
   int nbits;
   uint32_t pf;
 
+  __device__ __forceinline__ BitReader(const Params& p, int64_t seg)
+      : src(Src::of(p, seg)), n_words(p.n_words), next(0), buf(0), nbits(0),
+        pf(0u) {}
+
   __device__ __forceinline__ uint32_t word(int64_t w) const {
-    return (w >= 0 && w < n_words) ? __ldg(words + w) : 0u;
+    return (w >= 0 && w < n_words) ? src(w) : 0u;
   }
   __device__ __forceinline__ void seek(int64_t pos) {
     const int64_t w = pos >> 5;
@@ -200,7 +299,8 @@ struct Sym {
 // Decode the symbol at (pos, k, i).  On success advance the reader, pos,
 // k and i and return true; on an error (the Pallas kernel's conditions)
 // return false and change nothing.
-__device__ __forceinline__ bool step(BitReader& br, const int16_t* l1,
+template <class Src>
+__device__ __forceinline__ bool step(BitReader<Src>& br, const int16_t* l1,
                                      const Params& p, int64_t& pos, int& k,
                                      int& i, Sym& s) {
   br.refill();
@@ -258,13 +358,14 @@ struct SyncOut {
 // Phase 1 for one chunk: decode from `entry` to the first symbol boundary
 // at or past `end`, speculatively (an error re-aligns to the next byte
 // boundary as an MCU start).
+template <class Src>
 __device__ __forceinline__ SyncOut sync_chunk(const Params& p,
                                               const int16_t* l1, int64_t seg,
                                               uint64_t entry, int64_t end) {
   int64_t pos = static_cast<int64_t>(entry >> 10);
   int k = static_cast<int>((entry >> 6) & 15);
   int i = static_cast<int>(entry & 63);
-  BitReader br{p.words + seg * p.n_words, p.n_words, 0, 0, 0, 0};
+  BitReader<Src> br(p, seg);
   br.seek(pos);
   SyncOut o{0, 0, 0u, 0u, 0u, 0u};
   while (pos < end) {
@@ -329,6 +430,7 @@ __global__ void build_l1_kernel(const int32_t* __restrict__ luts,
 
 // One warp per segment: chunks up to the last non-zero word; also clears
 // the segment's flag and (threads 0 .. kStats-1) the stats.
+template <class Src>
 __global__ void __launch_bounds__(kSegThreads) seg_chunks_kernel(Params p) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -337,11 +439,13 @@ __global__ void __launch_bounds__(kSegThreads) seg_chunks_kernel(Params p) {
   const int64_t seg = t >> 5;
   if (seg >= p.n_seg) return;
   if (lane == 0) p.err[seg] = 0;
-  const uint32_t* w = p.words + seg * p.n_words;
+  const Src w = Src::of(p, seg);
+  const int64_t span = w.span();
   int64_t last = -1;
-  for (int64_t top = p.n_words - 1; top >= 0; top -= 32) {
+  for (int64_t top = (span < p.n_words ? span : p.n_words) - 1; top >= 0;
+       top -= 32) {
     const int64_t idx = top - lane;
-    const bool nz = idx >= 0 && __ldg(w + idx) != 0u;
+    const bool nz = idx >= 0 && w(idx) != 0u;
     const unsigned m = __ballot_sync(kFull, nz);
     if (m != 0u) {
       last = top - (__ffs(m) - 1);   // lowest lane = highest word
@@ -358,6 +462,7 @@ __global__ void __launch_bounds__(kSegThreads) seg_chunks_kernel(Params p) {
 // decodes from its assumed entry.  Otherwise only a CTA whose first chunk's
 // entry is no longer its predecessor's exit (in the previous CTA) re-runs.
 // Then chunks take their predecessors' exits until nothing changes.
+template <class Src>
 __global__ void __launch_bounds__(kSyncLanes)
     sync_kernel(Params p, int first_round) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -400,7 +505,7 @@ __global__ void __launch_bounds__(kSyncLanes)
     if (n_dec == 0) break;
     if (changed) {
       const SyncOut o =
-          sync_chunk(p, s_l1, seg, entry, (c + 1) * p.chunk_bits);
+          sync_chunk<Src>(p, s_l1, seg, entry, (c + 1) * p.chunk_bits);
       s_exit[tid] = o.exit;
       store_chunk(p, g, entry, o);
     }
@@ -426,6 +531,7 @@ __global__ void __launch_bounds__(kSyncLanes)
 // One thread per segment: walk the CTA boundaries in order and, wherever a
 // chunk's entry is not its predecessor's exit, re-decode it and its
 // successors one by one until the entries agree again.
+template <class Src>
 __global__ void __launch_bounds__(kSegThreads) seal_kernel(Params p) {
   const int64_t seg = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -441,7 +547,7 @@ __global__ void __launch_bounds__(kSegThreads) seal_kernel(Params p) {
       const uint64_t x = p.exit[g - 1];
       if (x == p.entry[g]) break;
       store_chunk(p, g, x,
-                  sync_chunk(p, p.l1, seg, x, (cc + 1) * p.chunk_bits));
+                  sync_chunk<Src>(p, p.l1, seg, x, (cc + 1) * p.chunk_bits));
       ++fixes;
     }
     do {
@@ -510,6 +616,7 @@ __global__ void __launch_bounds__(kScanThreads) offsets_kernel(Params p) {
 
 // Phase 3 on one CTA of kSyncLanes chunks: decode each chunk from its true
 // entry and write its coefficients.
+template <class Src>
 __global__ void __launch_bounds__(kSyncLanes) write_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int16_t* s_l1 = reinterpret_cast<int16_t*>(smem);
@@ -528,8 +635,8 @@ __global__ void __launch_bounds__(kSyncLanes) write_kernel(Params p) {
   int i = static_cast<int>(entry & 63);
   const bool last = c == n - 1;
   const int64_t end = (c + 1) * p.chunk_bits;
-  const int64_t nm = p.seg_nmcus[seg] < p.rows / p.bpm ? p.seg_nmcus[seg]
-                                                        : p.rows / p.bpm;
+  const int64_t seg_nm = Src::nmcus(p, seg);
+  const int64_t nm = seg_nm < p.rows / p.bpm ? seg_nm : p.rows / p.bpm;
   const int64_t limit = nm * p.bpm;
   int64_t nb = p.cnt[g];                  // blocks begun before this chunk
   uint32_t pr0 = static_cast<uint32_t>(p.dcs[g]);
@@ -537,7 +644,7 @@ __global__ void __launch_bounds__(kSyncLanes) write_kernel(Params p) {
   uint32_t pr2 = static_cast<uint32_t>(p.dcs[2 * p.n_chunk + g]);
   uint32_t pr3 = static_cast<uint32_t>(p.dcs[3 * p.n_chunk + g]);
   int32_t* seg_out = p.out + seg * p.rows * 64;
-  BitReader br{p.words + seg * p.n_words, p.n_words, 0, 0, 0, 0};
+  BitReader<Src> br(p, seg);
   br.seek(pos);
   while (last || pos < end) {
     const int64_t cur = i == 0 ? nb : nb - 1;
@@ -573,6 +680,72 @@ unsigned blocks_for(int64_t threads, int per_block) {
   return static_cast<unsigned>((threads + per_block - 1) / per_block);
 }
 
+// Checks the options, fills the shared fields of `p` and the scratch
+// layout, and launches the phases on `stream` with the word source Src.
+template <class Src>
+int launch(Params p, void* out, void* err, void* scratch, const void* luts,
+           const void* l1, int64_t n_seg, int64_t n_words, int64_t rows,
+           int n_tables, int bpm, uint64_t comp_code, int64_t chunk_bits,
+           int global_rounds, int precision, void* stream) {
+  if (n_seg <= 0) return 0;
+  if (n_tables < 2 || n_tables > kMaxTables || bpm < 1 || bpm > 16 ||
+      n_words < 1 || chunk_bits < 32 || chunk_bits % 32 != 0 ||
+      global_rounds < 0 || (precision != 8 && precision != 12))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  p.luts = static_cast<const int32_t*>(luts);
+  p.l1 = static_cast<const int16_t*>(l1);
+  p.out = static_cast<int32_t*>(out);
+  p.err = static_cast<int32_t*>(err);
+  p.n_seg = n_seg;
+  p.n_words = n_words;
+  p.rows = rows;
+  p.chunk_bits = chunk_bits;
+  p.cps = (n_words * 32 + chunk_bits - 1) / chunk_bits;
+  p.n_chunk = n_seg * p.cps;
+  p.comp_code = comp_code;
+  p.n_tables = n_tables;
+  p.bpm = bpm;
+  p.max_dc = precision == 12 ? 15 : 11;
+  p.max_ac = precision == 12 ? 14 : 10;
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  p.entry = reinterpret_cast<uint64_t*>(base);
+  p.exit = p.entry + p.n_chunk;
+  p.cnt = reinterpret_cast<int32_t*>(p.exit + p.n_chunk);
+  p.dcs = p.cnt + p.n_chunk;
+  p.n_chunks = p.dcs + 4 * p.n_chunk;
+  p.stats = p.n_chunks + n_seg;
+
+  const size_t smem = decode_smem(n_tables);
+  cudaError_t rc = cudaFuncSetAttribute(
+      sync_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(write_kernel<Src>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+
+  const unsigned seg_warps = blocks_for(n_seg * 32, kSegThreads);
+  const unsigned chunk_ctas = blocks_for(p.n_chunk, kSyncLanes);
+  seg_chunks_kernel<Src><<<seg_warps, kSegThreads, 0, st>>>(p);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  for (int r = 0; r <= global_rounds; ++r) {
+    sync_kernel<Src><<<chunk_ctas, kSyncLanes, smem, st>>>(p, r == 0 ? 1 : 0);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  }
+  seal_kernel<Src><<<blocks_for(n_seg, kSegThreads), kSegThreads, 0, st>>>(p);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  // Threads per segment: about one per chunk of a row, 32 to kScanThreads.
+  int64_t scan_threads = (p.cps + 31) / 32 * 32;
+  if (scan_threads > kScanThreads) scan_threads = kScanThreads;
+  offsets_kernel<<<static_cast<unsigned>(n_seg),
+                   static_cast<unsigned>(scan_threads), 0, st>>>(p);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  write_kernel<Src><<<chunk_ctas, kSyncLanes, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // luts: (n_tables, 65536) int32; l1: (n_tables, 4096) int16 out.  Launches
@@ -606,64 +779,37 @@ extern "C" int jd_decode_segments(const void* words, const void* seg_nmcus,
                                   int bpm, uint64_t comp_code,
                                   int64_t chunk_bits, int global_rounds,
                                   int precision, void* stream) {
-  if (n_seg <= 0) return 0;
-  if (n_tables < 2 || n_tables > kMaxTables || bpm < 1 || bpm > 16 ||
-      chunk_bits < 32 || chunk_bits % 32 != 0 || global_rounds < 0 ||
-      (precision != 8 && precision != 12))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Params p;
+  Params p{};
   p.words = static_cast<const uint32_t*>(words);
   p.seg_nmcus = static_cast<const int32_t*>(seg_nmcus);
-  p.luts = static_cast<const int32_t*>(luts);
-  p.l1 = static_cast<const int16_t*>(l1);
-  p.out = static_cast<int32_t*>(out);
-  p.err = static_cast<int32_t*>(err);
-  p.n_seg = n_seg;
-  p.n_words = n_words;
-  p.rows = rows;
-  p.chunk_bits = chunk_bits;
-  p.cps = (n_words * 32 + chunk_bits - 1) / chunk_bits;
-  p.n_chunk = n_seg * p.cps;
-  p.comp_code = comp_code;
-  p.n_tables = n_tables;
-  p.bpm = bpm;
-  p.max_dc = precision == 12 ? 15 : 11;
-  p.max_ac = precision == 12 ? 14 : 10;
-  unsigned char* base = static_cast<unsigned char*>(scratch);
-  p.entry = reinterpret_cast<uint64_t*>(base);
-  p.exit = p.entry + p.n_chunk;
-  p.cnt = reinterpret_cast<int32_t*>(p.exit + p.n_chunk);
-  p.dcs = p.cnt + p.n_chunk;
-  p.n_chunks = p.dcs + 4 * p.n_chunk;
-  p.stats = p.n_chunks + n_seg;
+  return launch<RowWords>(p, out, err, scratch, luts, l1, n_seg, n_words,
+                          rows, n_tables, bpm, comp_code, chunk_bits,
+                          global_rounds, precision, stream);
+}
 
-  const size_t smem = decode_smem(n_tables);
-  cudaError_t rc = cudaFuncSetAttribute(
-      sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (rc == cudaSuccess)
-    rc = cudaFuncSetAttribute(write_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-
-  const unsigned seg_warps = blocks_for(n_seg * 32, kSegThreads);
-  const unsigned chunk_ctas = blocks_for(p.n_chunk, kSyncLanes);
-  seg_chunks_kernel<<<seg_warps, kSegThreads, 0, st>>>(p);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  for (int r = 0; r <= global_rounds; ++r) {
-    sync_kernel<<<chunk_ctas, kSyncLanes, smem, st>>>(p, r == 0 ? 1 : 0);
-    if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  }
-  seal_kernel<<<blocks_for(n_seg, kSegThreads), kSegThreads, 0, st>>>(p);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  // Threads per segment: about one per chunk of a row, 32 to kScanThreads.
-  int64_t scan_threads = (p.cps + 31) / 32 * 32;
-  if (scan_threads > kScanThreads) scan_threads = kScanThreads;
-  offsets_kernel<<<static_cast<unsigned>(n_seg),
-                   static_cast<unsigned>(scan_threads), 0, st>>>(p);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  write_kernel<<<chunk_ctas, kSyncLanes, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// The same decode with each segment read in place from the scan bytes:
+// bytes: (n_bytes,) uint8, 4-byte aligned; seg: (2 * n_seg + 1,) int64, the
+// n_seg + 1 byte offsets of the segments (segment s is [off[s], off[s+1])
+// clamped to [0, n_bytes), so no offset reads outside the buffer), then the
+// n_seg MCU counts.  n_words: the words a segment is cut
+// into chunks over (at least its own ceil(bytes / 4); words past the
+// segment read zero), the row width of jd_decode_segments.  The rest as
+// there.
+extern "C" int jd_decode_scan_bytes(const void* bytes, int64_t n_bytes,
+                                    const void* seg, const void* luts,
+                                    const void* l1, void* out, void* err,
+                                    void* scratch, int64_t n_seg,
+                                    int64_t n_words, int64_t rows,
+                                    int n_tables, int bpm, uint64_t comp_code,
+                                    int64_t chunk_bits, int global_rounds,
+                                    int precision, void* stream) {
+  if (n_bytes < 0 || reinterpret_cast<uintptr_t>(bytes) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.bytes = static_cast<const uint8_t*>(bytes);
+  p.n_bytes = n_bytes;
+  p.seg_off = static_cast<const int64_t*>(seg);
+  return launch<ScanBytes>(p, out, err, scratch, luts, l1, n_seg, n_words,
+                           rows, n_tables, bpm, comp_code, chunk_bits,
+                           global_rounds, precision, stream);
 }

@@ -2,9 +2,12 @@
 
 Counterpart of ``jpeg_decoder_tpu/ops/entropy_pallas.py``.  Restart segments
 are independent (DC predictors reset and the stream is byte-aligned at each
-RSTn): the host packs each segment's unstuffed bytes into a row of
-big-endian uint32 words (``ops/scan_prep``), and the device decodes all rows
-at once into scan-order 8x8 blocks in natural coefficient order.
+RSTn), and the device decodes all of them at once into scan-order 8x8 blocks
+in natural coefficient order.  It reads segment s as big-endian uint32 words
+from one of two forms, one kernel build each: a row of words the host packed
+(``ops/scan_prep.prepare_scan``; the batch routes), or the unstuffed scan
+bytes read in place at the segment's byte offsets, zero from the next
+segment's first byte on (``scan_prep.segment_table``; ``decode()``).
 
 * :func:`decode_segments` launches ``csrc/entropy.cu`` (built with nvcc for
   sm_90a at first use into ``.cache/torch/kernels/``, bound with ctypes) on
@@ -14,6 +17,10 @@ at once into scan-order 8x8 blocks in natural coefficient order.
   source), so a DRI=0 stream is thousands of lanes, not one.  A failed build
   or launch raises.  On CPU tensors it runs :func:`decode_segments_torch`;
   that is the only way a plain version is reached.
+* :func:`decode_scan_bytes` launches the same kernels on the in-place form;
+  on CPU tensors it builds the rows with :func:`segment_words_torch`, the
+  plain version of the kernel's byte reader, and runs
+  :func:`decode_segments_torch`.
 * :func:`decode_segments_torch` is the plain PyTorch twin the kernel is held
   to: the sequential decode, with the segments as lanes in lockstep.
 * :func:`decode_segments_chunked_torch` is the plain model of the kernel's
@@ -22,8 +29,9 @@ at once into scan-order 8x8 blocks in natural coefficient order.
 * :func:`device_tables` caches each table set's LUTs and first-level tables
   per device; :func:`decode_scan_baseline` is the ``entropy="pallas"`` and
   ``"jax"`` backend of ``models/decoder.py`` (and ``"hybrid"``'s on restart
-  streams): blocks stay on the device, only the per-segment error flags
-  cross to the host.
+  streams): on the card K2 reads the parser's scan bytes in place, blocks
+  stay on the device, and only the per-segment error flags cross to the
+  host.
 
 Every version takes the frame's precision, 8 or 12 bits, for T.81's size
 categories (:func:`size_limits`); the Pallas kernel flags 12-bit ones, and
@@ -59,6 +67,17 @@ LIB = CudaLib("entropy.cu", "jd_entropy", {
         ctypes.c_void_p, ctypes.c_void_p,   # luts, l1
         ctypes.c_void_p, ctypes.c_void_p,   # out, err
         ctypes.c_void_p,                    # scratch
+        ctypes.c_int64, ctypes.c_int64,     # n_seg, n_words
+        ctypes.c_int64, ctypes.c_int,       # rows, n_tables
+        ctypes.c_int, ctypes.c_uint64,      # bpm, comp_code
+        ctypes.c_int64, ctypes.c_int,       # chunk_bits, global_rounds
+        ctypes.c_int, ctypes.c_void_p,      # precision, stream
+    ],
+    "jd_decode_scan_bytes": [
+        ctypes.c_void_p, ctypes.c_int64,    # bytes, n_bytes
+        ctypes.c_void_p, ctypes.c_void_p,   # seg, luts
+        ctypes.c_void_p, ctypes.c_void_p,   # l1, out
+        ctypes.c_void_p, ctypes.c_void_p,   # err, scratch
         ctypes.c_int64, ctypes.c_int64,     # n_seg, n_words
         ctypes.c_int64, ctypes.c_int,       # rows, n_tables
         ctypes.c_int, ctypes.c_uint64,      # bpm, comp_code
@@ -105,11 +124,29 @@ def size_limits(precision: int) -> tuple[int, int]:
     return (11, 10) if precision == 8 else (15, 14)
 
 
+def _check_tables(dev, luts, block_comp, n_comps, max_mcus) -> None:
+    if luts.device != dev:
+        raise ValueError(f"luts on {luts.device}, the scan on {dev}")
+    if not 1 <= n_comps <= 4:
+        raise ValueError(f"n_comps must be 1..4, got {n_comps}")
+    if luts.dtype != torch.int32 or tuple(luts.shape) != (2 * n_comps,
+                                                          1 << 16):
+        raise TypeError(f"luts must be ({2 * n_comps}, 65536) int32, got "
+                        f"{luts.dtype} {tuple(luts.shape)}")
+    if not luts.is_contiguous():
+        raise ValueError("luts must be contiguous")
+    if not 1 <= len(block_comp) <= 16 or any(
+            not 0 <= c < n_comps for c in block_comp):
+        raise ValueError(f"bad block_comp {block_comp} for {n_comps} "
+                         "components")
+    if max_mcus < 1:
+        raise ValueError(f"max_mcus must be >= 1, got {max_mcus}")
+
+
 def _check(words, seg_nmcus, luts, block_comp, n_comps, max_mcus) -> None:
     dev = words.device
-    for name, t in (("seg_nmcus", seg_nmcus), ("luts", luts)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, words on {dev}")
+    if seg_nmcus.device != dev:
+        raise ValueError(f"seg_nmcus on {seg_nmcus.device}, words on {dev}")
     if words.dtype != torch.uint32 or words.dim() != 2:
         raise TypeError(f"words must be (S, W) uint32, got {words.dtype} "
                         f"{tuple(words.shape)}")
@@ -119,22 +156,29 @@ def _check(words, seg_nmcus, luts, block_comp, n_comps, max_mcus) -> None:
     if seg_nmcus.dtype != torch.int32 or tuple(seg_nmcus.shape) != (s,):
         raise TypeError(f"seg_nmcus must be ({s},) int32, got "
                         f"{seg_nmcus.dtype} {tuple(seg_nmcus.shape)}")
-    if not 1 <= n_comps <= 4:
-        raise ValueError(f"n_comps must be 1..4, got {n_comps}")
-    if luts.dtype != torch.int32 or tuple(luts.shape) != (2 * n_comps,
-                                                          1 << 16):
-        raise TypeError(f"luts must be ({2 * n_comps}, 65536) int32, got "
-                        f"{luts.dtype} {tuple(luts.shape)}")
-    if not 1 <= len(block_comp) <= 16 or any(
-            not 0 <= c < n_comps for c in block_comp):
-        raise ValueError(f"bad block_comp {block_comp} for {n_comps} "
-                         "components")
-    if max_mcus < 1:
-        raise ValueError(f"max_mcus must be >= 1, got {max_mcus}")
-    for name, t in (("words", words), ("seg_nmcus", seg_nmcus),
-                    ("luts", luts)):
+    for name, t in (("words", words), ("seg_nmcus", seg_nmcus)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    _check_tables(dev, luts, block_comp, n_comps, max_mcus)
+
+
+def _check_bytes(data, seg, n_words) -> None:
+    if seg.device != data.device:
+        raise ValueError(f"seg on {seg.device}, data on {data.device}")
+    if data.dtype != torch.uint8 or data.dim() != 1:
+        raise TypeError(f"data must be (N,) uint8, got {data.dtype} "
+                        f"{tuple(data.shape)}")
+    if (seg.dtype != torch.int64 or seg.dim() != 1 or seg.numel() < 3
+            or seg.numel() % 2 != 1):
+        raise TypeError(f"seg must be (2S+1,) int64 with S >= 1, got "
+                        f"{seg.dtype} {tuple(seg.shape)}")
+    if n_words < 1:
+        raise ValueError(f"n_words must be >= 1, got {n_words}")
+    for name, t in (("data", data), ("seg", seg)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if data.device.type == "cuda" and data.data_ptr() % 4:
+        raise ValueError("data must start on a 4-byte boundary")
 
 
 def first_level_torch(luts: torch.Tensor) -> torch.Tensor:
@@ -207,6 +251,56 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
         return decode_segments_torch(words, seg_nmcus, luts,
                                      block_comp=block_comp, n_comps=n_comps,
                                      max_mcus=max_mcus, precision=precision)
+    s, w = words.shape
+    return _launch("jd_decode_segments",
+                   (words.data_ptr(), seg_nmcus.data_ptr()), s, w, luts,
+                   block_comp, max_mcus, chunk_bits, l1, precision, tail)
+
+
+def decode_scan_bytes(data: torch.Tensor, seg: torch.Tensor,
+                      luts: torch.Tensor, *, n_words: int,
+                      block_comp: tuple[int, ...], n_comps: int,
+                      max_mcus: int, l1: torch.Tensor | None = None,
+                      precision: int = 8, tail: list | None = None):
+    """:func:`decode_segments` with each segment read in place from the
+    scan's bytes, nothing packed on the host.
+
+    data: (N,) uint8, the unstuffed scan bytes (on the card starting on a
+    4-byte boundary); seg: (2S+1,) int64, the S+1 byte offsets of the
+    segments in ``data`` (segment s is ``data[off[s]:off[s+1]]``), then
+    their S MCU counts (``scan_prep.segment_table``); n_words: the words a
+    segment is read and cut into chunks over, at least the longest
+    segment's ceil(bytes / 4) (``scan_prep.row_words`` gives
+    ``prepare_scan``'s row width, so that both forms cut the same chunks).
+    Word w of segment s is the big-endian bytes ``off[s] + 4w`` .. ``+ 3``,
+    each byte at or past ``off[s+1]`` zero: row s of the words
+    ``prepare_scan`` packs (:func:`segment_words_torch`).  The rest, the
+    returns and ``tail`` as in :func:`decode_segments` (chunks of
+    :data:`CHUNK_BITS`).  On CPU tensors it runs
+    :func:`decode_segments_torch` on :func:`segment_words_torch`.
+    """
+    _check_bytes(data, seg, n_words)
+    dev = data.device
+    _check_tables(dev, luts, block_comp, n_comps, max_mcus)
+    size_limits(precision)
+    s = (seg.numel() - 1) // 2
+    if dev.type == "cpu":
+        return decode_segments_torch(
+            segment_words_torch(data, seg[:s + 1], n_words),
+            seg[s + 1:].to(torch.int32), luts, block_comp=block_comp,
+            n_comps=n_comps, max_mcus=max_mcus, precision=precision)
+    return _launch("jd_decode_scan_bytes",
+                   (data.data_ptr(), data.numel(), seg.data_ptr()), s,
+                   n_words, luts, block_comp, max_mcus, None, l1, precision,
+                   tail)
+
+
+def _launch(entry: str, head: tuple, s: int, w: int, luts, block_comp,
+            max_mcus, chunk_bits, l1, precision, tail):
+    """One launch of K2 through ``entry``, whose own arguments ``head``
+    precede the ones both entries share; counted in
+    ``decode_segments.launches``."""
+    dev = luts.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     chunk_bits = CHUNK_BITS if chunk_bits is None else chunk_bits
@@ -221,7 +315,6 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
         raise TypeError(f"l1 must be ({luts.shape[0]}, {1 << L1_BITS}) "
                         f"int16 on {dev}")
     lib = build()
-    s, w = words.shape
     bpm = len(block_comp)
     rows = max_mcus * bpm
     out = torch.zeros((s, rows, 64), dtype=torch.int32, device=dev)
@@ -233,11 +326,10 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
     comp_code = sum(c << (4 * k) for k, c in enumerate(block_comp))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.jd_decode_segments(
-            words.data_ptr(), seg_nmcus.data_ptr(), luts.data_ptr(),
-            l1.data_ptr(), out.data_ptr(), err.data_ptr(),
-            scratch.data_ptr(), s, w, rows, luts.shape[0], bpm, comp_code,
-            chunk_bits, GLOBAL_ROUNDS, precision, stream)
+        rc = getattr(lib, entry)(
+            *head, luts.data_ptr(), l1.data_ptr(), out.data_ptr(),
+            err.data_ptr(), scratch.data_ptr(), s, w, rows, luts.shape[0],
+            bpm, comp_code, chunk_bits, GLOBAL_ROUNDS, precision, stream)
     launch_check(rc, "decode_segments")
     with _count_lock:
         decode_segments.launches += 1
@@ -246,8 +338,28 @@ def decode_segments(words: torch.Tensor, seg_nmcus: torch.Tensor,
     return out, err
 
 
-#: Launches of the CUDA kernel since the count was last set to 0.
+#: Launches of the CUDA kernel, in either form, since the count was last
+#: set to 0.
 decode_segments.launches = 0
+
+
+def segment_words_torch(data: torch.Tensor, off: torch.Tensor,
+                        n_words: int) -> torch.Tensor:
+    """(S, n_words) uint32: the words :func:`decode_scan_bytes`' kernel
+    reads for each segment, by its rule.  Word w of segment s is the
+    big-endian bytes ``off[s] + 4w`` .. ``+ 3`` of ``data``, each byte at or
+    past ``off[s+1]`` zero; the offsets are clamped to ``[0, N]`` first, as
+    the kernel clamps them.  ``off``: (S+1,) int64."""
+    n = data.numel()
+    end = off[1:].to(torch.int64).clamp(0, n)
+    begin = torch.minimum(off[:-1].to(torch.int64).clamp(min=0), end)
+    idx = begin[:, None] + torch.arange(4 * n_words, device=data.device)
+    src = torch.cat([data.to(torch.int64),
+                     torch.zeros(1, dtype=torch.int64, device=data.device)])
+    b = torch.where(idx < end[:, None], src[idx.clamp(max=n)], 0)
+    b = b.view(len(begin), n_words, 4)
+    w = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+    return w.to(torch.uint32)
 
 
 def decode_segments_torch(words: torch.Tensor, seg_nmcus: torch.Tensor,
@@ -695,34 +807,52 @@ def decode_scan_baseline(hdr: FrameHeader, scan: ScanHeader,
     """Decode an 8- or 12-bit interleaved baseline scan on ``device``.
 
     Returns (n_mcus*bpm, 64) int32 scan-order natural-layout coefficients on
-    ``device`` (equal to ``python_ref.decode_scan_baseline``).  Only the
-    (S,) error flags cross to the host; any flag raises :class:`JPEGError`
-    naming the failed segments.  While the recorder is on, the same copy
-    brings back K2's statistics with them, which a span of their own
-    (``entropy.stats``) counts as the :data:`COUNTERS`."""
+    ``device`` (equal to ``python_ref.decode_scan_baseline``).  On the card
+    K2 reads the parser's scan bytes in place (:func:`decode_scan_bytes`:
+    two copies up, the bytes and one array of offsets and MCU counts, and
+    the counter ``entropy.scan_in_place``); on the CPU the twin decodes
+    ``prepare_scan``'s rows.  Only the (S,) error flags cross to the host;
+    any flag raises :class:`JPEGError` naming the failed segments.  While
+    the recorder is on, the same copy brings back K2's statistics with
+    them, which a span of their own (``entropy.stats``) counts as the
+    :data:`COUNTERS`."""
     if hdr.precision not in (8, 12):
         raise JPEGError(f"device entropy decodes 8- and 12-bit frames, got "
                         f"{hdr.precision}-bit")
     dev = torch.device(device)
+    in_place = dev.type == "cuda"
     with profiling.span("entropy.prepare_scan"):
-        words, nm, block_comp, max_mcus, lay = scan_prep.prepare_scan(
-            hdr, scan)
+        if in_place:
+            seg, n_words, block_comp, max_mcus, lay = \
+                scan_prep.segment_table(hdr, scan)
+        else:
+            words, nm, block_comp, max_mcus, lay = scan_prep.prepare_scan(
+                hdr, scan)
+    n_seg = len(scan.seg_offsets) - 1
     with profiling.span("entropy.enqueue"):
         luts, l1 = device_tables(hdr, scan, dev)
         # K2's statistics are gathered only for the recorder.
         tail = [] if profiling.recording() else None
-        out, err = decode_segments(
-            torch.from_numpy(words).to(dev), torch.from_numpy(nm).to(dev),
-            luts, block_comp=block_comp, n_comps=len(hdr.components),
-            max_mcus=max_mcus, l1=l1, precision=hdr.precision, tail=tail)
+        kw = dict(block_comp=block_comp, n_comps=len(hdr.components),
+                  max_mcus=max_mcus, l1=l1, precision=hdr.precision,
+                  tail=tail)
+        if in_place:
+            profiling.count("entropy.scan_in_place")
+            data = np.asarray(scan.data, np.uint8)
+            out, err = decode_scan_bytes(
+                torch.from_numpy(data).to(dev), torch.from_numpy(seg).to(dev),
+                luts, n_words=n_words, **kw)
+        else:
+            out, err = decode_segments(
+                torch.from_numpy(words), torch.from_numpy(nm), luts, **kw)
     # The host waits here for K2 to finish.
     with profiling.span("entropy.flags"):
         host = (tail[0] if tail else err).cpu()
     if tail:
         with profiling.span("entropy.stats"):
             count_stats(host)
-    bad = np.flatnonzero(host[-len(nm):].numpy())
+    bad = np.flatnonzero(host[-n_seg:].numpy())
     if bad.size:
         raise JPEGError(f"device entropy decode failed in segments "
-                        f"{bad[:8].tolist()} ({bad.size} of {len(nm)})")
+                        f"{bad[:8].tolist()} ({bad.size} of {n_seg})")
     return out.view(-1, 64)[: lay.n_mcus * len(block_comp)]

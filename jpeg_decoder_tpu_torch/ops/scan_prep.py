@@ -8,7 +8,9 @@ RSTn, jpeg.cpp:419-425), so each segment becomes one decoder lane.
 
 A numpy-only copy of ``jpeg_decoder_tpu/ops/scan_prep.py`` (see types.py for
 why the port keeps copies); here it feeds the CUDA entropy kernel
-(``ops/entropy_cuda.py``).
+(``ops/entropy_cuda.py``).  :func:`segment_table` is the port's own: the
+geometry alone, for the kernel's form that reads the scan bytes in place
+(``entropy_cuda.decode_scan_bytes``), so that nothing is packed.
 """
 
 from __future__ import annotations
@@ -63,11 +65,9 @@ def _zero_tail(scan: ScanHeader, data: np.ndarray) -> np.ndarray | None:
     return dp
 
 
-def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
-    """Host prep: per-segment packed words + geometry (NumPy, cheap).
-
-    Returns (words (S, W) uint32, nm (S,) int32 MCUs per segment,
-    block_comp, max_mcus, layout)."""
+def _segments(hdr: FrameHeader, scan: ScanHeader):
+    """(byte offsets (S+1,) int64, MCUs of each segment (S,) int32,
+    block_comp, max_mcus, layout) of an interleaved scan."""
     lay = scan_layout(hdr)
     ri = scan.restart_interval
     n_mcus = lay.n_mcus
@@ -79,17 +79,42 @@ def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
             f"restart-segment count {n_segments} does not match DRI {ri}")
     max_mcus = ri if ri else n_mcus
     off = np.asarray(seg_offsets, np.int64)
-    seg_lens = np.diff(off)
-    seg_words = int(max(1, -(-int(seg_lens.max()) // 4) + 2))
-    data = np.asarray(scan.data, np.uint8)
-    words = _segment_rows(data, off, 4 * seg_words,
-                          _zero_tail(scan, data)).view(">u4").astype(np.uint32)
     nm = np.full((n_segments,), max_mcus, np.int32)
     if ri:
         nm[-1] = n_mcus - ri * (n_segments - 1)
     block_comp = tuple(
         ci for ci, c in enumerate(hdr.components) for _ in range(c.v * c.h))
+    return off, nm, block_comp, max_mcus, lay
+
+
+def row_words(off: np.ndarray) -> int:
+    """Words of each row :func:`prepare_scan` packs: the longest segment's,
+    plus 2, at least 1."""
+    return max(1, -(-int((off[1:] - off[:-1]).max()) // 4) + 2)
+
+
+def prepare_scan(hdr: FrameHeader, scan: ScanHeader):
+    """Host prep: per-segment packed words + geometry (NumPy, cheap).
+
+    Returns (words (S, W) uint32, nm (S,) int32 MCUs per segment,
+    block_comp, max_mcus, layout)."""
+    off, nm, block_comp, max_mcus, lay = _segments(hdr, scan)
+    data = np.asarray(scan.data, np.uint8)
+    words = _segment_rows(data, off, 4 * row_words(off),
+                          _zero_tail(scan, data)).view(">u4").astype(np.uint32)
     return words, nm, block_comp, max_mcus, lay
+
+
+def segment_table(hdr: FrameHeader, scan: ScanHeader):
+    """Host prep of the in-place form: geometry only, ``scan.data`` stays
+    as the parser left it.
+
+    Returns (seg (2S+1,) int64: the S+1 byte offsets of the segments in
+    ``scan.data``, then their S MCU counts; n_words, :func:`row_words`;
+    block_comp, max_mcus, layout)."""
+    off, nm, block_comp, max_mcus, lay = _segments(hdr, scan)
+    seg = np.concatenate((off, nm.astype(np.int64)))
+    return seg, row_words(off), block_comp, max_mcus, lay
 
 
 def luts_for_scan(hdr: FrameHeader, scan: ScanHeader):

@@ -567,3 +567,90 @@ def test_size_limits_refuse_other_precisions():
                                      torch.from_numpy(nm),
                                      torch.from_numpy(luts), **kw,
                                      precision=16)
+
+
+# K2's in-place input (``decode_scan_bytes``: the kernel reads segment s at
+# its byte offset in the scan, zero from the next segment's first byte on):
+# (samplings, quality, restart interval, (h, w), precision, corrupt segment
+# or None).
+IN_PLACE_CASES = [
+    (((2, 2), (1, 1), (1, 1)), 90, 0, (32, 48), 8, None),
+    (((1, 1), (1, 1), (1, 1)), 95, 1, (24, 40), 8, None),
+    (((2, 1), (1, 1), (1, 1)), 85, 7, (33, 70), 8, None),
+    (((1, 1), (1, 1), (1, 1)), 75, 120, (64, 256), 8, None),
+    (((2, 2), (1, 1), (1, 1)), 90, 3, (40, 56), 12, None),
+    (((2, 2), (1, 1), (1, 1)), 90, 1, (32, 48), 8, 2),
+]
+
+
+def _corrupt_segment(blob: bytes, s: int) -> bytes:
+    """Overwrite 16 bytes inside restart segment ``s`` with stuffed 0xFF
+    bytes: 64 one bits, a window no code takes."""
+    sos = blob.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(blob[sos + 2:sos + 4], "big")
+    for _ in range(s):
+        start = blob.index(b"\xff", start)
+        while not 0xD0 <= blob[start + 1] <= 0xD7:
+            start = blob.index(b"\xff", start + 2)
+        start += 2
+    return blob[:start + 4] + b"\xff\x00" * 8 + blob[start + 20:]
+
+
+@pytest.mark.parametrize("case", range(len(IN_PLACE_CASES)))
+def test_in_place_words_decode_as_rows_and_jax(case):
+    """The in-place form's plain reader (``segment_words_torch``) gives
+    ``prepare_scan``'s rows word for word, from the scan at every byte
+    alignment of a buffer that ends where it does; decoded through
+    ``decode_scan_bytes`` on the CPU and the chunked model they give the
+    rows' blocks and flags, and JAX's python reference's blocks (on a
+    corrupt segment, the Pallas kernel's flags and valid rows)."""
+    samp, q, ri, (h, w), prec, bad = IN_PLACE_CASES[case]
+    blob = encode(_rgb(60 + case, h, w), samplings=samp, quality=q,
+                  restart_interval=ri, precision=prec)[0]
+    if bad is not None:
+        blob = _corrupt_segment(blob, bad)
+    hdr = tparser.parse(blob)
+    scan = hdr.scans[0]
+    seg, n_words, block_comp, max_mcus, _ = tprep.segment_table(hdr, scan)
+    words, nm, _, _, _ = tprep.prepare_scan(hdr, scan)
+    n_seg = len(nm)
+    off = seg[:n_seg + 1]
+    assert np.array_equal(seg[n_seg + 1:], nm) and n_words == words.shape[1]
+    if ri == 1:
+        assert set(np.diff(off) % 4) == {0, 1, 2, 3}
+    data = torch.from_numpy(scan.data)
+    in_place = entropy_cuda.segment_words_torch(data, torch.from_numpy(off),
+                                                n_words)
+    assert torch.equal(in_place, torch.from_numpy(words))
+    for shift in (1, 2, 3):
+        moved = torch.cat([torch.full((shift,), 0xFF, dtype=torch.uint8),
+                           data])
+        assert torch.equal(entropy_cuda.segment_words_torch(
+            moved, torch.from_numpy(off + shift), n_words), in_place)
+
+    luts = entropy_cuda.device_tables(hdr, scan, "cpu")[0]
+    kw = dict(block_comp=block_comp, n_comps=len(hdr.components),
+              max_mcus=max_mcus, precision=prec)
+    got, err = entropy_cuda.decode_scan_bytes(data, torch.from_numpy(seg),
+                                              luts, n_words=n_words, **kw)
+    rows, rows_err = entropy_cuda.decode_segments_torch(
+        torch.from_numpy(words), torch.from_numpy(nm), luts, **kw)
+    chunked, chunked_err = entropy_cuda.decode_segments_chunked_torch(
+        in_place, torch.from_numpy(nm), luts, chunk_bits=64, **kw)
+    assert torch.equal(err, rows_err) and torch.equal(chunked_err, rows_err)
+    ok = rows_err == 0
+    assert torch.equal(got[ok], rows[ok]) and torch.equal(chunked[ok],
+                                                          rows[ok])
+    jhdr = jparser.parse(blob)
+    if bad is None:
+        assert not err.any()
+        ref = jref.decode_scan_baseline(jhdr, jhdr.scans[0])
+        np.testing.assert_array_equal(
+            _scan_rows(got.numpy(), nm, kw, len(ref)), ref)
+    else:
+        jwords, jnm, jluts, jkw = _kernel_inputs(blob)
+        (jout, jerr), _ = _both_kernels(jwords, jnm, jluts, jkw)
+        np.testing.assert_array_equal(err.numpy(), jerr)
+        assert err[bad] == 1
+        _assert_valid_rows_equal(got.numpy(), jout, nm, len(block_comp),
+                                 np.flatnonzero(jerr == 0))

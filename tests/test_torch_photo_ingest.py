@@ -39,7 +39,7 @@ SHARED_METRICS = ("serve.service_ms", "serve.parse_ms", "serve.scan_prep_ms",
                   "serve.pixel_device_ms", "serve.request_p95_ms",
                   "serve.pixel_enqueue_ms", "serve.host_offcpu_ms",
                   "serve.call_idle_ms", "serve.cache_misses",
-                  "serve.pixel_fused_share")
+                  "serve.pixel_fused_share", "serve.k2_in_place_share")
 
 
 @pytest.fixture(scope="module", autouse=True)

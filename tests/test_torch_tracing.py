@@ -237,7 +237,8 @@ def test_readers_without_a_recorder(monkeypatch):
     monkeypatch.setattr(stages, "recorded", lambda: None)
     ctx = types.SimpleNamespace(trace=red)
     for name in ("serve.parse_ms", "serve.call_idle_ms",
-                 "serve.cache_misses", "serve.pixel_fused_share"):
+                 "serve.cache_misses", "serve.pixel_fused_share",
+                 "serve.k2_in_place_share"):
         assert harness.reader(name).read(ctx) is None
 
 
@@ -258,4 +259,25 @@ def test_fused_share_on_hand_built_spans(monkeypatch):
     ctx = types.SimpleNamespace(trace=red)
     assert reader.read(ctx) == pytest.approx(200 / 3, rel=1e-12)
     monkeypatch.delattr(decoder, "k6b_route")
+    assert reader.read(types.SimpleNamespace(trace=red)) is None
+
+
+def test_in_place_share_on_hand_built_spans(monkeypatch):
+    """The share of the window's calls with an ``entropy.scan_in_place``
+    increment; a program whose K2 has no in-place form (no
+    ``entropy_cuda.decode_scan_bytes``) reads None."""
+    from jpeg_decoder_tpu_torch.ops import entropy_cuda
+
+    spans, counts, red = _hand_built()
+    counts = counts + [
+        profiling.CountRecord("entropy.scan_in_place", 1, 3_700, 7, 1),
+        profiling.CountRecord("entropy.scan_in_place", 1, 12_100, 8, 2),
+        profiling.CountRecord("entropy.scan_in_place", 1, W1 + 30, 7, 4),
+        profiling.CountRecord("pixel.k6b", 1, 22_600, 7, 3)]
+    monkeypatch.setattr(stages, "recorded", lambda: (spans, counts))
+    monkeypatch.setattr(stages, "_print", lambda line: None)
+    reader = harness.reader("serve.k2_in_place_share")
+    ctx = types.SimpleNamespace(trace=red)
+    assert reader.read(ctx) == pytest.approx(200 / 3, rel=1e-12)
+    monkeypatch.delattr(entropy_cuda, "decode_scan_bytes")
     assert reader.read(types.SimpleNamespace(trace=red)) is None
